@@ -1,0 +1,229 @@
+"""CUDA LSTM layer scans (counterpart of `mobileposer_tpu/ops/lstm_pallas.py`).
+
+Two kernels, one source (`csrc/lstm_scan.cu`):
+
+  * `lstm_layer`   -> `lstm_scan_f32`, ports `lstm_layer_pallas`
+    (unidirectional full-length layer; the velocity module);
+  * `bilstm_layer` -> `bilstm_scan_f32`, ports `bilstm_layer_pallas`
+    (both directions of a bidirectional layer in one launch; joints,
+    poser and footcontact).
+
+Each wrapper checks device, dtype (float32), shapes and contiguity and
+raises on anything else; it never copies an input to make it fit. On a
+CPU tensor it runs the plain PyTorch version beside it (`*_plain`, a
+Python loop of `torch.matmul` plus `_gate_update`); on a CUDA tensor it
+launches the kernel or raises. Every launch adds one to `launches`.
+
+`lstm_forward_cuda` is the multi-layer forward, mirroring
+`lstm_forward_pallas`: input projections for all timesteps as one matmul
+per direction, the backward direction pre-reversed in time and its outputs
+un-reversed after the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mobileposer_tpu_torch.nn.lstm import _lstm_scan
+from mobileposer_tpu_torch.ops import _build
+
+#: launches per kernel since the last `reset_launches()`
+launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """Build (first use) and load the kernels, declaring every entry."""
+    lib = _build.load("lstm_scan.cu")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_scan_f32.argtypes = [P] * 7 + [I] * 3 + [P]
+    lib.lstm_scan_f32.restype = I
+    lib.bilstm_scan_f32.argtypes = [P] * 14 + [I] * 3 + [P]
+    lib.bilstm_scan_f32.restype = I
+    lib.lstm_scan_error_string.argtypes = [I]
+    lib.lstm_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Compile and load the kernels now rather than at first launch."""
+    _lib()
+
+
+def _check_layer(x_proj, w_hh, h0, c0):
+    """Validate one direction's inputs; returns (T, B, H)."""
+    if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
+        raise ValueError(f"x_proj must be [T, B, 4H], got {tuple(x_proj.shape)}")
+    T, B, H4 = x_proj.shape
+    H = H4 // 4
+    want = {"w_hh": (H, H4), "h0": (B, H), "c0": (B, H)}
+    for name, t in (("x_proj", x_proj), ("w_hh", w_hh), ("h0", h0),
+                    ("c0", c0)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x_proj.device:
+            raise ValueError(f"{name} is on {t.device}, x_proj on "
+                             f"{x_proj.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got "
+                             f"{tuple(t.shape)}")
+    if x_proj.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x_proj.device}")
+    if x_proj.device.type == "cuda" and not (
+            T >= 1 and B >= 1 and H % 32 == 0 and 32 <= H <= 256):
+        raise ValueError(f"the CUDA kernel takes T >= 1, B >= 1 and H a "
+                         f"multiple of 32 in [32, 256]; got T={T}, B={B}, "
+                         f"H={H}")
+    return T, B, H
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        msg = _lib().lstm_scan_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: unidirectional layer scan
+# ---------------------------------------------------------------------------
+
+def lstm_layer_plain(x_proj, w_hh, h0, c0):
+    """Plain version of `lstm_layer` (the `_lstm_scan` loop)."""
+    return _lstm_scan(x_proj, w_hh, h0, c0)
+
+
+def lstm_layer(x_proj: torch.Tensor, w_hh: torch.Tensor,
+               h0: torch.Tensor, c0: torch.Tensor):
+    """Full-length unidirectional LSTM layer scan.
+
+    x_proj [T, B, 4H] incl. both biases; w_hh [H, 4H]; h0/c0 [B, H].
+    Returns (ys [T, B, H], (h_T, c_T)).
+    """
+    T, B, H = _check_layer(x_proj, w_hh, h0, c0)
+    if x_proj.device.type == "cpu":
+        return lstm_layer_plain(x_proj, w_hh, h0, c0)
+    lib = _lib()
+    ys = torch.empty((T, B, H), dtype=torch.float32, device=x_proj.device)
+    h_t = torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
+    c_t = torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
+    with torch.cuda.device(x_proj.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.lstm_scan_f32(
+            x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+            ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), T, B, H, stream)
+    _raise_on(err, "lstm_scan_f32")
+    launches["lstm_scan_f32"] += 1
+    return ys, (h_t, c_t)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: bidirectional layer scan
+# ---------------------------------------------------------------------------
+
+def bilstm_layer_plain(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b):
+    """Plain version of `bilstm_layer`: two `_lstm_scan` loops."""
+    ys_f, hc_f = _lstm_scan(x_proj_f, w_hh_f, h0f, c0f)
+    ys_b, hc_b = _lstm_scan(x_proj_b, w_hh_b, h0b, c0b)
+    return ys_f, ys_b, hc_f, hc_b
+
+
+def bilstm_layer(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
+                 w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+                 h0f, c0f, h0b, c0b):
+    """Bidirectional LSTM layer scan, both directions in one launch.
+
+    x_proj_f / x_proj_b: [T, B, 4H] forward / pre-reversed backward input
+    projections. Returns (ys_f [T,B,H], ys_b [T,B,H] (still reversed),
+    (h_f, c_f), (h_b, c_b)).
+    """
+    T, B, H = _check_layer(x_proj_f, w_hh_f, h0f, c0f)
+    if _check_layer(x_proj_b, w_hh_b, h0b, c0b) != (T, B, H):
+        raise ValueError("forward and backward shapes differ")
+    if x_proj_b.device != x_proj_f.device:
+        raise ValueError("forward and backward inputs on different devices")
+    if x_proj_f.device.type == "cpu":
+        return bilstm_layer_plain(x_proj_f, x_proj_b, w_hh_f, w_hh_b,
+                                  h0f, c0f, h0b, c0b)
+    lib = _lib()
+    dev = x_proj_f.device
+    ys_f, ys_b = (torch.empty((T, B, H), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    h_f, c_f, h_b, c_b = (torch.empty((B, H), dtype=torch.float32,
+                                      device=dev) for _ in range(4))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.bilstm_scan_f32(
+            x_proj_f.data_ptr(), x_proj_b.data_ptr(),
+            w_hh_f.data_ptr(), w_hh_b.data_ptr(),
+            h0f.data_ptr(), c0f.data_ptr(), h0b.data_ptr(), c0b.data_ptr(),
+            ys_f.data_ptr(), ys_b.data_ptr(),
+            h_f.data_ptr(), c_f.data_ptr(), h_b.data_ptr(), c_b.data_ptr(),
+            T, B, H, stream)
+    _raise_on(err, "bilstm_scan_f32")
+    launches["bilstm_scan_f32"] += 1
+    return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
+
+
+# ---------------------------------------------------------------------------
+# Multi-layer forward
+# ---------------------------------------------------------------------------
+
+def _project_timesteps(xs: torch.Tensor, p) -> torch.Tensor:
+    """Input projection over all timesteps, both biases summed first and
+    added after the product (lstm_pallas.py:571-578, float path)."""
+    return torch.matmul(xs, p.w_ih) + (p.b_ih + p.b_hh)
+
+
+def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
+                      bidirectional: bool = True, time_major: bool = False):
+    """Multi-layer (bi)LSTM on the layer kernels, full-length sequences.
+
+    Mirrors `lstm_forward_pallas` (lstm_pallas.py:581-644); see
+    `nn.lstm.lstm_forward` for the argument layout.
+    """
+    if time_major:
+        T, B, _ = x.shape
+    else:
+        B, T, _ = x.shape
+    n_dir = 2 if bidirectional else 1
+    H = layers[0]["fwd"].w_hh.shape[0]
+
+    if h0c0 is None:
+        zeros = x.new_zeros((len(layers) * n_dir, B, H))
+        h0_all, c0_all = zeros, zeros
+    else:
+        h0_all, c0_all = (t.contiguous() for t in h0c0)
+
+    xs = x if time_major else x.transpose(0, 1)        # [T, B, D]
+    h_finals, c_finals = [], []
+    for li, layer in enumerate(layers):
+        if bidirectional:
+            pf, pb = layer["fwd"], layer["bwd"]
+            x_proj_f = _project_timesteps(xs, pf).contiguous()
+            x_proj_b = _project_timesteps(xs.flip(0), pb).contiguous()
+            s = li * 2
+            ys_f, ys_b, (hf, cf), (hb, cb) = bilstm_layer(
+                x_proj_f, x_proj_b, pf.w_hh, pb.w_hh,
+                h0_all[s], c0_all[s], h0_all[s + 1], c0_all[s + 1])
+            xs = torch.cat([ys_f, ys_b.flip(0)], dim=-1)
+            h_finals += [hf, hb]
+            c_finals += [cf, cb]
+        else:
+            p = layer["fwd"]
+            x_proj = _project_timesteps(xs, p).contiguous()
+            xs, (h_t, c_t) = lstm_layer(x_proj, p.w_hh,
+                                        h0_all[li], c0_all[li])
+            h_finals.append(h_t)
+            c_finals.append(c_t)
+    y = xs if time_major else xs.transpose(0, 1)
+    return y, (torch.stack(h_finals), torch.stack(c_finals))
