@@ -1,21 +1,28 @@
-"""SMPL body constants (counterpart of `mobileposer_tpu/kinematics/smpl.py`).
+"""SMPL body model (counterpart of `mobileposer_tpu/kinematics/smpl.py`).
 
-The streaming path reads two things from the body: the zero-pose joints
-(foot anchors and floor height) and the kinematic tree (the IK parent
-map). Both stay host-side numpy, as in the JAX package; the network moves
-what it needs to its device once.
+The streaming path reads the zero-pose joints (foot anchors and floor
+height) and the kinematic tree (the IK parent map); the evaluation and the
+dataset also run forward kinematics and linear blend skinning. The body's
+arrays stay host-side numpy, as in the JAX package; each device gets its
+own tensor copy once.
 
 Only the deterministic synthetic body is built here. Loading the official
-SMPL `.pkl` file is a later slice (ROADMAP.md queue A item 9).
+SMPL `.pkl` file, and with it shape parameters and pose blend shapes, is
+a later slice (ROADMAP.md queue A item 12).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from mobileposer_tpu_torch.kinematics import spatial as S
+from mobileposer_tpu_torch.precision import f32_matmuls
+
+_SMPL_ROW = "the official SMPL .pkl loader, ROADMAP.md queue A item 12"
 
 # Standard SMPL kinematic tree (public model constant).
 SMPL_PARENTS: Tuple[int, ...] = (
@@ -96,13 +103,21 @@ def synthetic_smpl_arrays(num_vertices: int = NUM_VERTICES, seed: int = 0) -> di
 
 
 class ParametricModel:
-    """The SMPL body constants the streaming path reads (reference:
-    model.py:16). Holds the rest-pose joints `_J` [24, 3], the vertex
-    template and the canonical parent tuple as host numpy."""
+    """SMPL body model (reference: model.py:16). Holds the rest-pose
+    joints `_J` [24, 3], the vertex template, the skinning weights, the
+    joint regressor, the shape and pose blend-shape bases and the
+    canonical parent tuple as host numpy."""
 
-    def __init__(self, model_data: dict):
-        self._J = np.asarray(model_data["J"], np.float32)
+    def __init__(self, model_data: dict, use_pose_blendshape: bool = False):
+        if use_pose_blendshape:
+            raise NotImplementedError(
+                f"pose blend shapes are not ported ({_SMPL_ROW})")
+        self._J_regressor = np.asarray(model_data["J_regressor"], np.float32)
+        self._skinning_weights = np.asarray(model_data["weights"], np.float32)
+        self._posedirs = np.asarray(model_data["posedirs"], np.float32)
+        self._shapedirs = np.asarray(model_data["shapedirs"], np.float32)
         self._v_template = np.asarray(model_data["v_template"], np.float32)
+        self._J = np.asarray(model_data["J"], np.float32)
         self.parent = S._canon_parent(model_data["parents"])
 
     @classmethod
@@ -110,9 +125,74 @@ class ParametricModel:
                   seed: int = 0) -> "ParametricModel":
         return cls(synthetic_smpl_arrays(num_vertices, seed))
 
+    @classmethod
+    def from_file_or_synthetic(cls, model_file) -> "ParametricModel":
+        """The deterministic synthetic body when `model_file` is absent.
+        The JAX package loads the official file when it exists; the port
+        cannot yet, so it raises rather than score another body."""
+        if model_file is not None and os.path.exists(str(model_file)):
+            raise NotImplementedError(
+                f"{model_file} exists, but loading it is not ported "
+                f"({_SMPL_ROW})")
+        return cls.synthetic()
+
     def get_zero_pose_joint_and_vertex(self):
         """Zero-pose joints/vertices with the root at the origin
         (reference: model.py:77-92, the `shape=None` case)."""
         j = self._J - self._J[:1]
         v = self._v_template - self._J[:1]
         return j, v
+
+    def _device_arrays(self, device: torch.device):
+        """(zero-pose joints [24,3], vertices [V,3], bone vectors [1,24,3],
+        skinning weights [V,24]) as float32 tensors on `device`, built
+        once per device."""
+        cache = self.__dict__.setdefault("_tensors", {})
+        if device not in cache:
+            j, v = (torch.as_tensor(a, device=device)
+                    for a in self.get_zero_pose_joint_and_vertex())
+            cache[device] = (j, v,
+                             S.joint_position_to_bone_vector(j[None],
+                                                             self.parent),
+                             torch.as_tensor(self._skinning_weights,
+                                             device=device))
+        return cache[device]
+
+    @f32_matmuls
+    def forward_kinematics(self, pose: torch.Tensor,
+                           shape: Optional[torch.Tensor] = None,
+                           tran: Optional[torch.Tensor] = None,
+                           calc_mesh: bool = False):
+        """Global rotations, joint positions and, with calc_mesh, the
+        linear-blend-skinned mesh vertices (reference: model.py:208-240),
+        in full float32.
+
+        pose [N, 24, 3, 3] local rotations, tran [N, 3] or None. Returns
+        (pose_global [N,24,3,3], joints [N,24,3]) and, with calc_mesh,
+        vertices [N,V,3].
+        """
+        if shape is not None:
+            raise NotImplementedError(
+                f"shape parameters are not ported ({_SMPL_ROW})")
+        pose = pose.reshape(pose.shape[0], -1, 3, 3)
+        n = pose.shape[0]
+        j, v, bone, W = self._device_arrays(pose.device)
+        pose_global, joint_global = S.forward_kinematics(
+            pose, bone.expand(n, -1, -1), self.parent)
+
+        def add_tran(x):
+            return x if tran is None else x + tran.reshape(-1, 1, 3)
+
+        if not calc_mesh:
+            return pose_global, add_tran(joint_global)
+
+        # LBS with the rotation and translation blended separately, as the
+        # JAX package does (no [N,V,4,4]): the per-joint translation has
+        # the zero-pose joint taken off, p_adj = p_global - R_global @ j
+        # (reference: model.py:234); then R_v = sum_j w[v,j] R_global[n,j]
+        # and t_v = sum_j w[v,j] p_adj[n,j].
+        p_adj = joint_global - (pose_global @ j[..., None])[..., 0]
+        R_v = torch.einsum("vj,njab->nvab", W, pose_global)
+        t_v = torch.einsum("vj,njc->nvc", W, p_adj)
+        vertex_global = (R_v @ v[..., None])[..., 0] + t_v
+        return pose_global, add_tran(joint_global), add_tran(vertex_global)

@@ -4,7 +4,7 @@
 Each module is an RNN block (`nn/lstm.py`). The configs are the
 reference's layer sizes (joints.py:29, poser.py:32, footcontact.py:28,
 velocity.py:29). The training losses arrive with the training slice
-(ROADMAP.md queue A item 13).
+(ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations

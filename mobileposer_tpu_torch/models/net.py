@@ -1,10 +1,14 @@
 """MobilePoserNet, the composite pose + translation estimator, on PyTorch.
 
 Counterpart of `mobileposer_tpu/models/net.py` for the exact streaming
-path (reference `mobileposer/models/net.py:101-219`):
+path and offline inference (reference `mobileposer/models/net.py:101-219`):
 
-  * `forward`                           — chained 4-module pass, with the
-                                          pose assembly at one emit index
+  * `forward`                           — chained 4-module pass, ragged
+                                          batches through `lengths`, with
+                                          the pose assembly at one emit
+                                          index or every frame
+  * `forward_offline`                   — whole-sequence inference with the
+                                          translation fusion
   * `forward_online_batched`            — one streaming step for S streams
   * `forward_online_sequence_batched`   — S streams x N frames, in 'scan'
                                           (per-frame replay) or 'unfolded'
@@ -17,8 +21,9 @@ fusion are plain batched PyTorch. The JAX package's `lax.scan` loops
 become Python loops; the semantics are unchanged, and the parity tests
 hold every output and state field to the JAX package.
 
-Not in this slice: `forward_offline`, `_fuse_velocity`, carry mode,
-ragged batches, bf16 and int8 (see ROADMAP.md queue A).
+Not ported yet: the single-stream `forward_online`, `init_online_state`
+and `forward_online_sequence`, carry mode, bf16 and int8 (see ROADMAP.md
+queue A).
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, module_apply
-from mobileposer_tpu_torch.nn.lstm import (check_float32, check_slice_scope,
-                                           rnn_zero_state)
+from mobileposer_tpu_torch.nn.lstm import (check_backend, check_float32,
+                                           check_lengths, rnn_zero_state)
 
 GRAVITY_VELOCITY = (0.0, C.joint_set.gravity_velocity, 0.0)
 PROB_THRESHOLD = (0.5, 0.9)           # reference: net.py:53
@@ -146,28 +151,34 @@ def forward(params, imu: torch.Tensor, body_model: ParametricModel,
     joints [B, T, 72], vel [B, T, 72], contact_logits [B, T, 2], vel_hc).
     The velocity module's LSTM carry is explicit: `vel_h0c0=None` starts a
     fresh stream (zero carries), or thread the returned carry.
+    lengths: [B] valid frames per row, or None; with lengths every LSTM
+    layer of the four modules runs the masked kernels, and outputs past a
+    row's length are finite but meaningless.
 
     pose_index: when set, the r6d -> IK assembly runs only at that time
     index and pose_local is [B, 24, 3, 3]; the streaming path emits one
     frame per window (reference net.py:181).
     """
-    check_slice_scope(lengths, backend)
+    check_backend(backend)
     check_float32(imu.dtype)
     B, T, _ = imu.shape
+    if lengths is not None:
+        # checked and moved to the device once, not once per module
+        lengths = check_lengths(lengths, B, T, imu.device)
     # the chain runs time-major [T, B, *], the LSTM core's own layout
     imu_tm = imu.transpose(0, 1)
     pred_joints_tm, _ = module_apply("joints", params["joints"], imu_tm,
-                                     time_major=True)
+                                     lengths, time_major=True)
     x132 = torch.cat([pred_joints_tm, imu_tm], dim=-1)
     if vel_h0c0 is None:
         vel_h0c0 = rnn_zero_state(MODULE_CONFIGS["velocity"], B, imu.dtype,
                                   imu.device)
     pred_pose_r6d, _ = module_apply("poser", params["poser"], x132,
-                                    time_major=True)
+                                    lengths, time_major=True)
     contact, _ = module_apply("footcontact", params["footcontact"], x132,
-                              time_major=True)
+                              lengths, time_major=True)
     vel, vel_hc = module_apply("velocity", params["velocity"], x132,
-                               h0c0=vel_h0c0, time_major=True)
+                               lengths, h0c0=vel_h0c0, time_major=True)
     if pose_index is None:
         pose_local = reduced_global_to_full_soa(
             pred_pose_r6d.reshape(T * B, -1), body_model).reshape(T, B, 24, 3, 3)
@@ -177,6 +188,47 @@ def forward(params, imu: torch.Tensor, body_model: ParametricModel,
                                               body_model)
     return (pose_out, pred_joints_tm.transpose(0, 1), vel.transpose(0, 1),
             contact.transpose(0, 1), vel_hc)
+
+
+def _fuse_velocity(joints: torch.Tensor, vel: torch.Tensor,
+                   contact: torch.Tensor, floor_y: float) -> torch.Tensor:
+    """Whole-sequence translation fusion (reference: net.py:129-154) for
+    a batch of sequences at once, the port's form of the JAX package's
+    `jax.vmap` over `_fuse_velocity`.
+
+    joints [N, T, 24, 3], vel [N, T, 72], contact logits [N, T, 2] ->
+    tran [N, T, 3].
+    """
+    N, T = joints.shape[:2]
+    zero = joints.new_zeros((N, 1, 3))
+    lfoot_disp = torch.cat([zero, joints[:, :-1, 10] - joints[:, 1:, 10]], 1)
+    rfoot_disp = torch.cat([zero, joints[:, :-1, 11] - joints[:, 1:, 11]], 1)
+    # argmax takes the first maximum, as jnp.argmax does
+    pick_right = torch.argmax(contact, dim=2).to(joints.dtype)[..., None]
+    contact_vel = R.lerp(lfoot_disp, rfoot_disp, pick_right)
+    # + GRAVITY_VELOCITY, whose x and z are 0: a scalar add, so no
+    # host-to-device copy makes the host wait for the device here
+    contact_vel[..., 1] += GRAVITY_VELOCITY[1]
+
+    root_vel = vel.reshape(N, T, 24, 3)[:, :, 0] / VEL_SCALE_PER_FRAME
+    weight = prob_to_weight(torch.sigmoid(contact.amax(dim=2)))[..., None]
+    velocity = R.lerp(root_vel, contact_vel, weight)
+
+    # Floor-penetration clamp: the reference's frame-serial loop
+    # (net.py:149-153), one step per frame for all N sequences at once.
+    foot_min_y = torch.amin(joints[:, :, 10:12, 1], dim=2)       # [N, T]
+    root_y = joints.new_zeros((N,))
+    v_y = []
+    for t in range(T):
+        current_foot_y = root_y + foot_min_y[:, t]
+        v = velocity[:, t, 1]
+        v = torch.where(current_foot_y + v <= floor_y,
+                        floor_y - current_foot_y, v)
+        root_y = root_y + v
+        v_y.append(v)
+    velocity = torch.cat([velocity[..., :1], torch.stack(v_y, 1)[..., None],
+                          velocity[..., 2:]], dim=-1)
+    return torch.cumsum(velocity, dim=1)
 
 
 class OnlineState(NamedTuple):
@@ -198,7 +250,8 @@ class MobilePoserNet:
     net.py:22).
 
     body_model: the synthetic SMPL body unless given (the official `.pkl`
-    loader is ROADMAP.md queue A item 9). device: the CUDA card unless
+    loader is ROADMAP.md queue A item 12; until then an official file at
+    `C.paths.smpl_file` raises). device: the CUDA card unless
     given; `device="cpu"` runs the plain kernel versions.
     """
 
@@ -207,14 +260,15 @@ class MobilePoserNet:
     #: Below this many streams 'auto' picks the unfolded mode. The value is
     #: the JAX package's, measured on a TPU; it is inherited so both
     #: packages pick the same mode, and has not been measured on the card
-    #: (ROADMAP.md queue A item 8).
+    #: (ROADMAP.md queue A item 11).
     UNFOLD_MAX_STREAMS = 32
 
     def __init__(self, body_model: Optional[ParametricModel] = None,
                  online_sigmoid: bool = True, device=None):
         self.device = resolve_device(device)
         self.body_model = (body_model if body_model is not None
-                           else ParametricModel.synthetic())
+                           else ParametricModel.from_file_or_synthetic(
+                               C.paths.smpl_file))
         j, _ = self.body_model.get_zero_pose_joint_and_vertex()
         self.feet_pos = j[10:12]                     # net.py:48
         self.floor_y = float(j[10:12, 1].min())      # net.py:49
@@ -225,6 +279,25 @@ class MobilePoserNet:
         self.online_sigmoid = online_sigmoid
         self._gravity = torch.tensor(GRAVITY_VELOCITY, dtype=torch.float32,
                                      device=self.device)
+
+    def forward_offline(self, params, imu: torch.Tensor, vel_h0c0=None,
+                        length=None):
+        """imu [T, 60] -> (pose [T,24,3,3], joints [T,24,3], tran [T,3],
+        contact [T,2]) (reference: net.py:121-171).
+
+        `length` marks the valid prefix of a padded sequence; outputs past
+        it are meaningless, to be sliced off. All fusion state flows
+        forward in time, so the valid prefix does not depend on the
+        padding.
+        """
+        lengths = None if length is None else [int(length)]
+        pose, joints, vel, contact, _ = forward(
+            params, imu[None], self.body_model, lengths=lengths,
+            vel_h0c0=vel_h0c0)
+        T = imu.shape[0]
+        joints = joints.reshape(1, T, 24, 3)
+        tran = _fuse_velocity(joints, vel, contact, self.floor_y)
+        return pose[0], joints[0], tran[0], contact[0]
 
     def init_online_state_batched(self, n_streams: int,
                                   dtype: torch.dtype = torch.float32
@@ -328,7 +401,7 @@ class MobilePoserNet:
         h0 per window). Only the velocity module's cross-window carry and
         the fusion run frame by frame.
         """
-        check_slice_scope(None, backend)
+        check_backend(backend)
         if frames.device != self.device:
             raise ValueError(f"frames are on {frames.device}, the net on "
                              f"{self.device}")

@@ -27,7 +27,7 @@ def _loadz_typed(path) -> dict:
     """Flat {key: array} from an archive written by the JAX package's
     `savez_typed`; archives without a `__dtypes__` manifest load as plain
     `np.load` dicts. bfloat16 archives are refused (they need the bf16
-    path: ROADMAP.md queue A item 11)."""
+    path: ROADMAP.md queue A item 14)."""
     # allow_pickle stays False: model archives must never execute pickle
     # payloads on load
     with np.load(path) as z:
@@ -39,7 +39,7 @@ def _loadz_typed(path) -> dict:
             if dt == "bfloat16":
                 raise NotImplementedError(
                     f"{key} is bfloat16; bf16 weights are not ported "
-                    "(ROADMAP.md queue A item 11)")
+                    "(ROADMAP.md queue A item 14)")
             out[key] = z[key]
         return out
 
@@ -71,7 +71,7 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
     if src.dtype == np.int8:
         raise NotImplementedError(
             f"{name} is int8; W8A8 weights are not ported "
-            "(ROADMAP.md queue A item 14)")
+            "(ROADMAP.md queue A item 9)")
     if src.dtype.kind != "f":
         raise ValueError(f"{name}: expected a float array, got {src.dtype}")
     if tuple(src.shape) != tuple(dst.shape):

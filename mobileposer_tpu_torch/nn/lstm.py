@@ -9,9 +9,11 @@ plain version, which the CPU path and the parity tests run.
 Weights keep the JAX layout, input-major for right-multiplication:
 w_ih [D, 4H], w_hh [H, 4H], gate order (i, f, g, o).
 
-Inference only, float32 only, full-length sequences only: `lengths` and
-every `backend` other than 'auto' raise NotImplementedError naming the
-ROADMAP row that adds them.
+Ragged batches take `lengths` [B]: the frames past each row's length are
+masked, as in the JAX package (masked steps hold the carry and emit
+zeros; the backward direction reverses each row by its own length).
+Inference only and float32 only: every `backend` other than 'auto'
+raises NotImplementedError naming the ROADMAP row that adds it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+
+from mobileposer_tpu_torch.device import resolve_device
 
 
 class LSTMConfig(NamedTuple):
@@ -34,21 +38,17 @@ class LSTMConfig(NamedTuple):
 
 
 _BACKEND_ROWS = {
-    "fused": "the fused multicell kernel, ROADMAP.md queue A item 15",
-    "pallas_train": "training, ROADMAP.md queue A item 13",
-    "pallas_train_bf16res": "training, ROADMAP.md queue A item 13",
-    "auto_train": "training, ROADMAP.md queue A item 13",
-    "auto_train_bf16res": "training, ROADMAP.md queue A item 13",
+    "fused": "the fused multicell kernel, ROADMAP.md queue A item 10",
+    "pallas_train": "training, ROADMAP.md queue A item 8",
+    "pallas_train_bf16res": "training, ROADMAP.md queue A item 8",
+    "auto_train": "training, ROADMAP.md queue A item 8",
+    "auto_train_bf16res": "training, ROADMAP.md queue A item 8",
 }
 
 
-def check_slice_scope(lengths=None, backend: str = "auto") -> None:
-    """Reject what this slice of the port does not run yet, naming the
-    ROADMAP row that adds it."""
-    if lengths is not None:
-        raise NotImplementedError(
-            "lengths (ragged batches) needs the masked LSTM kernel: "
-            "ROADMAP.md queue A item 7")
+def check_backend(backend: str = "auto") -> None:
+    """Reject a backend the port does not run yet, naming the ROADMAP row
+    that adds it."""
     if backend != "auto":
         row = _BACKEND_ROWS.get(
             backend, "no row: 'auto' (the CUDA kernels) is the port's "
@@ -61,7 +61,7 @@ def check_float32(dtype: torch.dtype) -> None:
     if dtype != torch.float32:
         raise NotImplementedError(
             f"dtype {dtype} is not ported; the port runs float32 only "
-            "(bf16 streaming: ROADMAP.md queue A item 11)")
+            "(bf16 streaming: ROADMAP.md queue A item 14)")
 
 
 # ---------------------------------------------------------------------------
@@ -78,19 +78,73 @@ def _gate_update(gates: torch.Tensor, c: torch.Tensor):
 
 
 def _lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor,
-               h0: torch.Tensor, c0: torch.Tensor):
-    """Full-length LSTM scan: a Python loop over T of one matmul plus the
-    gate update.
+               h0: torch.Tensor, c0: torch.Tensor,
+               mask: Optional[torch.Tensor] = None):
+    """LSTM scan: a Python loop over T of one matmul plus the gate update.
 
     x_proj [T, B, 4H] (input projection incl. both biases), w_hh [H, 4H],
-    h0/c0 [B, H]. Returns (ys [T, B, H], (h_T, c_T)).
+    h0/c0 [B, H], mask [T, B] 1.0 where the frame is valid, or None for
+    full-length. Returns (ys [T, B, H], (h_T, c_T)).
+    Masked steps hold the carry (so (h_T, c_T) equals the state at each
+    sequence's last valid frame) and emit zeros, blended without a branch
+    as the JAX package does: h <- m*h_new + (1-m)*h.
     """
     h, c = h0, c0
     ys = []
     for t in range(x_proj.shape[0]):
-        h, c = _gate_update(x_proj[t] + h @ w_hh, c)
-        ys.append(h)
+        h_new, c_new = _gate_update(x_proj[t] + h @ w_hh, c)
+        if mask is None:
+            h, c = h_new, c_new
+            ys.append(h)
+            continue
+        m = mask[t][:, None]
+        c = m * c_new + (1 - m) * c
+        ys.append(m * h_new)
+        h = m * h_new + (1 - m) * h
     return torch.stack(ys), (h, c)
+
+
+def _reverse_by_length(x: torch.Tensor, lengths: Optional[torch.Tensor]):
+    """Reverse [T, B, ...] along time per sequence length.
+
+    With lengths, frame t of sequence b maps to frame (length[b]-1-t); the
+    padded tail stays in place. Applying this twice is the identity, so the
+    same function un-reverses the backward scan's outputs.
+    """
+    if lengths is None:
+        return x.flip(0)
+    T = x.shape[0]
+    t_idx = torch.arange(T, device=x.device)[:, None]           # [T, 1]
+    lens = lengths.to(device=x.device, dtype=torch.int64)[None, :]
+    src = torch.where(t_idx < lens, lens - 1 - t_idx, t_idx)   # [T, B]
+    src = src.reshape(src.shape + (1,) * (x.dim() - 2)).expand_as(x)
+    return torch.gather(x, 0, src)
+
+
+def length_mask(lengths: torch.Tensor, T: int,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[T, B] validity mask, 1.0 where t < lengths[b] (nn/lstm.py:329 of
+    the JAX package)."""
+    t_idx = torch.arange(T, device=lengths.device)[:, None]
+    return (t_idx < lengths[None, :]).to(dtype)
+
+
+def check_lengths(lengths, B: int, T: int, device) -> torch.Tensor:
+    """`lengths` as an int64 tensor [B] on `device`.
+
+    Host values (a list, an array, a CPU tensor) must lie in [0, T]. A
+    tensor already on the card is taken as it is: reading its values
+    would wait for the device at every layer.
+    """
+    lengths = torch.as_tensor(lengths)
+    if lengths.dtype.is_floating_point or lengths.shape != (B,):
+        raise ValueError(f"lengths must be integers of shape ({B},), got "
+                         f"{lengths.dtype} {tuple(lengths.shape)}")
+    if lengths.device.type == "cpu" and not bool(
+            ((lengths >= 0) & (lengths <= T)).all()):
+        raise ValueError(f"lengths must lie in [0, {T}], got "
+                         f"{lengths.tolist()}")
+    return lengths.to(device=device, dtype=torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +167,7 @@ class LSTMDirection(nn.Module):
 class RNNBlock(nn.Module):
     """linear1 -> ReLU -> multi-layer (bi)LSTM -> linear2 (reference:
     rnn.py:9-33). Inference only: parameters do not require gradients.
+    Parameters live on `device`: the CUDA card unless given.
 
     Weights are drawn like torch's defaults, U(-1/sqrt(fan), 1/sqrt(fan)),
     from `generator` (a CPU `torch.Generator`) so a seed fixes them; load
@@ -122,6 +177,7 @@ class RNNBlock(nn.Module):
     def __init__(self, cfg: LSTMConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         n_dir = 2 if cfg.bidirectional else 1
         H = cfg.n_hidden
@@ -172,6 +228,9 @@ def lstm_forward(layers, x: torch.Tensor,
 
     layers:  list of {"fwd": LSTMDirection, ["bwd": LSTMDirection]}
     x:       [B, T, D] batch-major input ([T, B, D] when time_major=True)
+    lengths: [B] valid lengths in [0, T], or None (= all T). With lengths
+             every layer, unidirectional ones included, runs the masked
+             kernels (nn/lstm.py:256 of the JAX package).
     h0c0:    optional initial state (h0, c0), each [n_layers*n_dir, B, H]
              stacked in torch order (layer0 fwd, layer0 bwd, layer1 fwd, ...)
 
@@ -179,11 +238,14 @@ def lstm_forward(layers, x: torch.Tensor,
     (h_T, c_T) stacked like h0c0). On CPU tensors every layer runs the
     plain scan; on CUDA tensors, the kernels.
     """
-    check_slice_scope(lengths, backend)
+    check_backend(backend)
     check_float32(x.dtype)
+    if lengths is not None:
+        B, T = (x.shape[1], x.shape[0]) if time_major else x.shape[:2]
+        lengths = check_lengths(lengths, B, T, x.device)
     from mobileposer_tpu_torch.ops.lstm_cuda import lstm_forward_cuda
     return lstm_forward_cuda(layers, x, h0c0, bidirectional=bidirectional,
-                             time_major=time_major)
+                             time_major=time_major, lengths=lengths)
 
 
 def rnn_apply(params: RNNBlock, cfg: LSTMConfig, x: torch.Tensor,
@@ -193,13 +255,13 @@ def rnn_apply(params: RNNBlock, cfg: LSTMConfig, x: torch.Tensor,
               time_major: bool = False):
     """Apply the RNN block (reference: rnn.py:20-33), inference path.
 
-    x: [B, T, n_input] ([T, B, n_input] when time_major). Returns
-    (y [B, T, n_output], (h_T, c_T)).
+    x: [B, T, n_input] ([T, B, n_input] when time_major); lengths: [B]
+    or None. Returns (y [B, T, n_output], (h_T, c_T)).
     """
-    check_slice_scope(lengths, backend)
+    check_backend(backend)
     check_float32(x.dtype)
     hidden = torch.relu(params.linear1(x))
-    y, hc = lstm_forward(params.lstm, hidden, None, h0c0,
+    y, hc = lstm_forward(params.lstm, hidden, lengths, h0c0,
                          bidirectional=cfg.bidirectional,
                          time_major=time_major)
     return params.linear2(y), hc

@@ -1,12 +1,17 @@
 """CUDA LSTM layer scans (counterpart of `mobileposer_tpu/ops/lstm_pallas.py`).
 
-Two kernels, one source (`csrc/lstm_scan.cu`):
+Four kernel entries, one source (`csrc/lstm_scan.cu`):
 
   * `lstm_layer`   -> `lstm_scan_f32`, ports `lstm_layer_pallas`
     (unidirectional full-length layer; the velocity module);
   * `bilstm_layer` -> `bilstm_scan_f32`, ports `bilstm_layer_pallas`
     (both directions of a bidirectional layer in one launch; joints,
-    poser and footcontact).
+    poser and footcontact);
+  * `lstm_layer_masked` -> `lstm_scan_masked_f32` and `bilstm_layer_masked`
+    -> `bilstm_scan_masked_f32` port `lstm_layer_masked_pallas` (a ragged
+    batch with a [T, B] validity mask; one direction, or both directions
+    of a bidirectional layer in one launch sharing the mask). Every layer
+    of a forward with `lengths` runs on them.
 
 Each wrapper checks device, dtype (float32), shapes and contiguity and
 raises on anything else; it never copies an input to make it fit. On a
@@ -15,9 +20,10 @@ Python loop of `torch.matmul` plus `_gate_update`); on a CUDA tensor it
 launches the kernel or raises. Every launch adds one to `launches`.
 
 `lstm_forward_cuda` is the multi-layer forward, mirroring
-`lstm_forward_pallas`: input projections for all timesteps as one matmul
-per direction, the backward direction pre-reversed in time and its outputs
-un-reversed after the kernel.
+`lstm_forward_pallas` (and `nn/lstm.py` `lstm_forward` of the JAX package
+for ragged batches): input projections for all timesteps as one matmul
+per direction, the backward direction pre-reversed in time (per length,
+with `lengths`) and its outputs un-reversed after the kernel.
 """
 
 from __future__ import annotations
@@ -27,11 +33,13 @@ import functools
 
 import torch
 
-from mobileposer_tpu_torch.nn.lstm import _lstm_scan
+from mobileposer_tpu_torch.nn.lstm import (_lstm_scan, _reverse_by_length,
+                                           length_mask)
 from mobileposer_tpu_torch.ops import _build
 
 #: launches per kernel since the last `reset_launches()`
-launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0}
+launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
+            "lstm_scan_masked_f32": 0, "bilstm_scan_masked_f32": 0}
 
 
 def reset_launches() -> None:
@@ -48,6 +56,10 @@ def _lib() -> ctypes.CDLL:
     lib.lstm_scan_f32.restype = I
     lib.bilstm_scan_f32.argtypes = [P] * 14 + [I] * 3 + [P]
     lib.bilstm_scan_f32.restype = I
+    lib.lstm_scan_masked_f32.argtypes = [P] * 8 + [I] * 3 + [P]
+    lib.lstm_scan_masked_f32.restype = I
+    lib.bilstm_scan_masked_f32.argtypes = [P] * 15 + [I] * 3 + [P]
+    lib.bilstm_scan_masked_f32.restype = I
     lib.lstm_scan_error_string.argtypes = [I]
     lib.lstm_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -87,10 +99,48 @@ def _check_layer(x_proj, w_hh, h0, c0):
     return T, B, H
 
 
-def _raise_on(err: int, name: str) -> None:
+def _check_mask(mask, T: int, B: int, device) -> None:
+    """The validity mask: [T, B] float32, contiguous, beside x_proj."""
+    if mask.dtype != torch.float32:
+        raise ValueError(f"mask must be float32, got {mask.dtype}")
+    if tuple(mask.shape) != (T, B):
+        raise ValueError(f"mask must be {(T, B)}, got {tuple(mask.shape)}")
+    if mask.device != device:
+        raise ValueError(f"mask is on {mask.device}, x_proj on {device}")
+    if not mask.is_contiguous():
+        raise ValueError("mask must be contiguous")
+
+
+def _check_bi(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b):
+    """Validate both directions' inputs; returns (T, B, H)."""
+    T, B, H = _check_layer(x_proj_f, w_hh_f, h0f, c0f)
+    if _check_layer(x_proj_b, w_hh_b, h0b, c0b) != (T, B, H):
+        raise ValueError("forward and backward shapes differ")
+    if x_proj_b.device != x_proj_f.device:
+        raise ValueError("forward and backward inputs on different devices")
+    return T, B, H
+
+
+def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
+    """Allocate the outputs, launch C entry `name` on the current stream
+    and count the launch. The entry takes the input pointers, then ys per
+    direction, then (h_T, c_T) per direction, then T, B, H and the stream.
+    Returns ([ys per direction], [h_T, c_T per direction])."""
+    dev = inputs[0].device
+    ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
+          for _ in range(n_dir)]
+    hc = [torch.empty((B, H), dtype=torch.float32, device=dev)
+          for _ in range(2 * n_dir)]
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, name)(*(t.data_ptr() for t in [*inputs, *ys, *hc]),
+                                 T, B, H, stream)
     if err != 0:
-        msg = _lib().lstm_scan_error_string(err).decode()
+        msg = lib.lstm_scan_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    launches[name] += 1
+    return ys, hc
 
 
 # ---------------------------------------------------------------------------
@@ -112,17 +162,8 @@ def lstm_layer(x_proj: torch.Tensor, w_hh: torch.Tensor,
     T, B, H = _check_layer(x_proj, w_hh, h0, c0)
     if x_proj.device.type == "cpu":
         return lstm_layer_plain(x_proj, w_hh, h0, c0)
-    lib = _lib()
-    ys = torch.empty((T, B, H), dtype=torch.float32, device=x_proj.device)
-    h_t = torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
-    c_t = torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
-    with torch.cuda.device(x_proj.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lstm_scan_f32(
-            x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(), c0.data_ptr(),
-            ys.data_ptr(), h_t.data_ptr(), c_t.data_ptr(), T, B, H, stream)
-    _raise_on(err, "lstm_scan_f32")
-    launches["lstm_scan_f32"] += 1
+    (ys,), (h_t, c_t) = _launch("lstm_scan_f32", [x_proj, w_hh, h0, c0],
+                                1, T, B, H)
     return ys, (h_t, c_t)
 
 
@@ -146,31 +187,69 @@ def bilstm_layer(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
     projections. Returns (ys_f [T,B,H], ys_b [T,B,H] (still reversed),
     (h_f, c_f), (h_b, c_b)).
     """
-    T, B, H = _check_layer(x_proj_f, w_hh_f, h0f, c0f)
-    if _check_layer(x_proj_b, w_hh_b, h0b, c0b) != (T, B, H):
-        raise ValueError("forward and backward shapes differ")
-    if x_proj_b.device != x_proj_f.device:
-        raise ValueError("forward and backward inputs on different devices")
+    args = (x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b)
+    T, B, H = _check_bi(*args)
     if x_proj_f.device.type == "cpu":
-        return bilstm_layer_plain(x_proj_f, x_proj_b, w_hh_f, w_hh_b,
-                                  h0f, c0f, h0b, c0b)
-    lib = _lib()
-    dev = x_proj_f.device
-    ys_f, ys_b = (torch.empty((T, B, H), dtype=torch.float32, device=dev)
-                  for _ in range(2))
-    h_f, c_f, h_b, c_b = (torch.empty((B, H), dtype=torch.float32,
-                                      device=dev) for _ in range(4))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bilstm_scan_f32(
-            x_proj_f.data_ptr(), x_proj_b.data_ptr(),
-            w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-            h0f.data_ptr(), c0f.data_ptr(), h0b.data_ptr(), c0b.data_ptr(),
-            ys_f.data_ptr(), ys_b.data_ptr(),
-            h_f.data_ptr(), c_f.data_ptr(), h_b.data_ptr(), c_b.data_ptr(),
-            T, B, H, stream)
-    _raise_on(err, "bilstm_scan_f32")
-    launches["bilstm_scan_f32"] += 1
+        return bilstm_layer_plain(*args)
+    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch("bilstm_scan_f32", args,
+                                                 2, T, B, H)
+    return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: masked layer scans (ragged batches)
+# ---------------------------------------------------------------------------
+
+def lstm_layer_masked_plain(x_proj, w_hh, h0, c0, mask):
+    """Plain version of `lstm_layer_masked` (the masked `_lstm_scan`)."""
+    return _lstm_scan(x_proj, w_hh, h0, c0, mask)
+
+
+def lstm_layer_masked(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                      h0: torch.Tensor, c0: torch.Tensor,
+                      mask: torch.Tensor):
+    """Unidirectional LSTM layer scan over a ragged batch.
+
+    x_proj [T, B, 4H] incl. both biases; w_hh [H, 4H]; h0/c0 [B, H];
+    mask [T, B] 1.0 where the frame is valid. Masked steps hold the carry
+    and emit zeros. Returns (ys [T, B, H], (h_T, c_T)).
+    """
+    T, B, H = _check_layer(x_proj, w_hh, h0, c0)
+    _check_mask(mask, T, B, x_proj.device)
+    if x_proj.device.type == "cpu":
+        return lstm_layer_masked_plain(x_proj, w_hh, h0, c0, mask)
+    (ys,), (h_t, c_t) = _launch("lstm_scan_masked_f32",
+                                [x_proj, w_hh, h0, c0, mask], 1, T, B, H)
+    return ys, (h_t, c_t)
+
+
+def bilstm_layer_masked_plain(x_proj_f, x_proj_b, w_hh_f, w_hh_b,
+                              h0f, c0f, h0b, c0b, mask):
+    """Plain version of `bilstm_layer_masked`: two masked `_lstm_scan`
+    loops sharing the mask."""
+    ys_f, hc_f = _lstm_scan(x_proj_f, w_hh_f, h0f, c0f, mask)
+    ys_b, hc_b = _lstm_scan(x_proj_b, w_hh_b, h0b, c0b, mask)
+    return ys_f, ys_b, hc_f, hc_b
+
+
+def bilstm_layer_masked(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
+                        w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
+                        h0f, c0f, h0b, c0b, mask: torch.Tensor):
+    """Bidirectional LSTM layer scan over a ragged batch, both directions
+    in one launch.
+
+    x_proj_b is the backward input reversed per length
+    (`nn.lstm._reverse_by_length`), so each row's valid frames lead in
+    both directions and one mask [T, B] serves both. Returns
+    (ys_f [T,B,H], ys_b [T,B,H] (still reversed), (h_f, c_f), (h_b, c_b)).
+    """
+    args = (x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b)
+    T, B, H = _check_bi(*args)
+    _check_mask(mask, T, B, x_proj_f.device)
+    if x_proj_f.device.type == "cpu":
+        return bilstm_layer_masked_plain(*args, mask)
+    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
+        "bilstm_scan_masked_f32", [*args, mask], 2, T, B, H)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 
@@ -185,11 +264,17 @@ def _project_timesteps(xs: torch.Tensor, p) -> torch.Tensor:
 
 
 def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
-                      bidirectional: bool = True, time_major: bool = False):
-    """Multi-layer (bi)LSTM on the layer kernels, full-length sequences.
+                      bidirectional: bool = True, time_major: bool = False,
+                      lengths=None):
+    """Multi-layer (bi)LSTM on the layer kernels.
 
-    Mirrors `lstm_forward_pallas` (lstm_pallas.py:581-644); see
-    `nn.lstm.lstm_forward` for the argument layout.
+    Full-length (`lengths=None`) it mirrors `lstm_forward_pallas`
+    (lstm_pallas.py:581-644): the full-length kernels, the backward input
+    flipped in time. With `lengths` (int64 [B] on x's device, checked by
+    `nn.lstm.lstm_forward`) it mirrors the masked route of the JAX
+    `lstm_forward` (nn/lstm.py:326-371): every layer on the masked
+    kernels, the backward input reversed per length and its outputs
+    reversed back. See `nn.lstm.lstm_forward` for the argument layout.
     """
     if time_major:
         T, B, _ = x.shape
@@ -205,24 +290,30 @@ def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
         h0_all, c0_all = (t.contiguous() for t in h0c0)
 
     xs = x if time_major else x.transpose(0, 1)        # [T, B, D]
+    if lengths is None:
+        bi_layer, uni_layer, extra = bilstm_layer, lstm_layer, ()
+    else:
+        bi_layer, uni_layer = bilstm_layer_masked, lstm_layer_masked
+        extra = (length_mask(lengths, T),)
     h_finals, c_finals = [], []
     for li, layer in enumerate(layers):
         if bidirectional:
             pf, pb = layer["fwd"], layer["bwd"]
             x_proj_f = _project_timesteps(xs, pf).contiguous()
-            x_proj_b = _project_timesteps(xs.flip(0), pb).contiguous()
+            x_proj_b = _project_timesteps(_reverse_by_length(xs, lengths),
+                                          pb).contiguous()
             s = li * 2
-            ys_f, ys_b, (hf, cf), (hb, cb) = bilstm_layer(
+            ys_f, ys_b, (hf, cf), (hb, cb) = bi_layer(
                 x_proj_f, x_proj_b, pf.w_hh, pb.w_hh,
-                h0_all[s], c0_all[s], h0_all[s + 1], c0_all[s + 1])
-            xs = torch.cat([ys_f, ys_b.flip(0)], dim=-1)
+                h0_all[s], c0_all[s], h0_all[s + 1], c0_all[s + 1], *extra)
+            xs = torch.cat([ys_f, _reverse_by_length(ys_b, lengths)], dim=-1)
             h_finals += [hf, hb]
             c_finals += [cf, cb]
         else:
             p = layer["fwd"]
             x_proj = _project_timesteps(xs, p).contiguous()
-            xs, (h_t, c_t) = lstm_layer(x_proj, p.w_hh,
-                                        h0_all[li], c0_all[li])
+            xs, (h_t, c_t) = uni_layer(x_proj, p.w_hh,
+                                       h0_all[li], c0_all[li], *extra)
             h_finals.append(h_t)
             c_finals.append(c_t)
     y = xs if time_major else xs.transpose(0, 1)

@@ -39,6 +39,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import chip_smoke\n"
             "import mobileposer_tpu_torch.bench\n"
+            "import mobileposer_tpu_torch.cli.evaluate\n"
             "import mobileposer_tpu_torch.models\n"
             "import mobileposer_tpu_torch.nn.convert\n"
             "import mobileposer_tpu_torch.ops.lstm_cuda\n"
@@ -67,6 +68,29 @@ def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     net = MobilePoserNet(device="cpu")
     st = net.init_online_state_batched(2)
     assert st.vel_h.device.type == "cpu" and st.vel_h.shape == (2, 2, 256)
+
+
+def test_eval_entry_points_need_a_device_when_no_gpu(monkeypatch):
+    """RNNBlock, the evaluator, the dataset and the eval CLI resolve their
+    device like every entry point: the card, or RuntimeError without one
+    unless the caller names a device."""
+    from mobileposer_tpu_torch.cli import evaluate as eval_cli
+    from mobileposer_tpu_torch.data import PoseDataset
+    from mobileposer_tpu_torch.evaluation import FullMotionEvaluator
+    from mobileposer_tpu_torch.models import MODULE_CONFIGS
+    from mobileposer_tpu_torch.nn import RNNBlock
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fixture = ROOT / "tests" / "fixtures" / "demo_checkpoint_f16.npz"
+    cfg = MODULE_CONFIGS["footcontact"]
+    for call in (lambda: RNNBlock(cfg), FullMotionEvaluator,
+                 lambda: PoseDataset(data_files=[]),
+                 lambda: eval_cli.main(["--model", str(fixture)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    block = RNNBlock(cfg, device="cpu")
+    assert block.linear1.weight.device.type == "cpu"
+    assert block.lstm[0]["fwd"].w_hh.device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])

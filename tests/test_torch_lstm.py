@@ -136,15 +136,18 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="shapes differ"):
         lstm_cuda.bilstm_layer(x_proj, x_proj[:-1].contiguous(), w_hh, w_hh,
                                h0, c0, h0, c0)
-    assert lstm_cuda.launches == {"lstm_scan_f32": 0, "bilstm_scan_f32": 0}
+    assert lstm_cuda.launches == {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
+                                  "lstm_scan_masked_f32": 0,
+                                  "bilstm_scan_masked_f32": 0}
 
 
 def test_out_of_slice_options_raise():
     _, _, cfg, block = _block((12, 7, 16), True, seed=9)
     x = torch.zeros(2, 5, 12)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rnn_apply(block, cfg, x, lengths=torch.tensor([5, 3]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         rnn_apply(block, cfg, x, backend="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rnn_apply(block, cfg, x, lengths=torch.tensor([5, 3]),
+                  backend="auto_train")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rnn_apply(block, cfg, x.double())
