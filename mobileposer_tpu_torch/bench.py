@@ -1,5 +1,5 @@
-"""Exact-path streamed IMU frames/s and offline-evaluation frames/s of the
-port on one CUDA device.
+"""Exact-path streamed IMU frames/s, offline-evaluation frames/s and
+training frames/s of the port on one CUDA device.
 
 `run` times `MobilePoserNet.forward_online_sequence_batched` (exact
 45-frame window semantics) on S streams x N frames; `run_offline` times
@@ -20,14 +20,22 @@ package's root `bench.py`:
     benchmarks/flops.py) turns the rate into FLOP/s and a share of the
     card's float32 peak, so an impossible number flags the harness.
 
-`breakdown` and `breakdown_offline` are the traced runs: one call under
-`torch.profiler`, with the device time summed by kernel group and the
-device's busy share of the wall time. The rates come from `run` and
-`run_offline`, with tracing off.
+`run_train` times the concurrent four-module train step
+(`train.make_multi_train_step`: every LSTM layer on the training kernels
+#7 and #8, the four optimizers) on one batch of `TrainHypers.batch_size`
+full-length windows, the same chained way with the losses folded into the
+checksum; its rate is training frames/s, B x T valid frames per step over
+the step time.
+
+`breakdown`, `breakdown_offline` and `breakdown_train` are the traced
+runs: one call under `torch.profiler`, with the device time summed by
+kernel group and the device's busy share of the wall time. The rates come
+from `run`, `run_offline` and `run_train`, with tracing off.
 
 Random weights from a seed (the JAX bench uses random weights too).
 Run:  python -m mobileposer_tpu_torch.bench [--streams 256] [--frames 100]
       python -m mobileposer_tpu_torch.bench --offline
+      python -m mobileposer_tpu_torch.bench --train
 Prints one JSON line.
 """
 
@@ -41,10 +49,17 @@ import time
 import numpy as np
 import torch
 
+from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.evaluation.pose_eval import forward_offline_batched
+from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, init_all_modules
 from mobileposer_tpu_torch.models.net import NUM_TOTAL, MobilePoserNet
+from mobileposer_tpu_torch.ops import lstm_train_cuda
+from mobileposer_tpu_torch.train.trainer import (MODULE_NAMES,
+                                                 init_train_state,
+                                                 make_multi_train_step,
+                                                 to_device)
 
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet, at
 #: the 700 W limit). The port runs float32 with TF32 off, so its matmuls
@@ -225,8 +240,95 @@ def run_offline(batch: int = 64, bucket: int = 512, seed: int = 0,
     }
 
 
+def _train_setup(batch: int, window: int, seed: int, device):
+    """Four fresh train states, the concurrent step, one full-length batch
+    on the card (numpy draws from the seed: IMU, joint, pose and velocity
+    targets, contacts) and the draws' generator."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("the bench times a CUDA device; a CPU run is not "
+                           "a measurement of the port")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init = torch.Generator().manual_seed(seed)
+    states = {n: init_train_state(n, init, C.train_hypers.lr, device)
+              for n in MODULE_NAMES}
+    step = make_multi_train_step(ParametricModel.synthetic())
+    rng = np.random.RandomState(seed)
+    B, W = batch, window
+
+    def f32(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    batch_np = {"imu": f32(B, W, 60, scale=0.3), "joints": f32(B, W, 72),
+                "pose_r6d": f32(B, W, 24, 6), "vels": f32(B, W, 72),
+                "tran": f32(B, W, 3),
+                "contacts": (rng.rand(B, W, 2) > 0.5).astype(np.float32),
+                "lengths": np.full((B,), W, np.int32)}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return device, states, step, to_device(batch_np, device), gen
+
+
+def run_train(batch: int = 256, window: int = 125, seed: int = 0,
+              reps: int = 3, trials: int = 3, device=None) -> dict:
+    """Measure training frames/s of the concurrent four-module step;
+    returns the JSON record. `trials` chained regions of `reps` steps,
+    the states threaded from step to step and every step's four losses
+    folded into the checksum; the record's value is the median rate."""
+    device, states, step, b, gen = _train_setup(batch, window, seed, device)
+
+    def call(st):
+        st, losses = step(st, b, gen)
+        return list(losses.values()), st
+
+    lstm_train_cuda.reset_launches()
+    step(states, b, gen)
+    per_step = dict(lstm_train_cuda.launches)
+    rates, t_single, checksum = _chained_rates(call, states, batch * window,
+                                               reps, trials, device)
+    fps = float(np.median(rates))
+    # forward + backward of every matmul: ~3x the forward FLOPs per frame
+    flops = 3.0 * model_flops_per_frame()
+    return {
+        "metric": "training_frames_per_sec",
+        "value": fps,
+        "unit": "frames/s",
+        "batch": batch,
+        "window": window,
+        "step_ms": 1e3 * batch * window / fps,
+        "reps": reps,
+        "trials": trials,
+        "rate_min": min(rates),
+        "rate_max": max(rates),
+        "seconds_single": t_single,
+        "chained_per_run_ratio": (batch * window / t_single) / fps,
+        "train_kernel_launches_per_step": per_step,
+        "model_flops_per_frame": flops,
+        "model_flops_per_sec": fps * flops,
+        "pct_of_f32_peak": 100.0 * fps * flops / F32_PEAK_FLOPS,
+        "checksum": checksum,
+        "device_kind": torch.cuda.get_device_name(device),
+    }
+
+
+def breakdown_train(batch: int = 256, window: int = 125, seed: int = 0,
+                    device=None) -> dict:
+    """One concurrent train step under `torch.profiler`, reported as
+    `breakdown` reports: #7, #8's scan and #8's dW reduction are groups of
+    their own."""
+    device, states, step, b, gen = _train_setup(batch, window, seed, device)
+    rec = _traced(lambda: step(states, b, gen), device)
+    return {"batch": batch, "window": window, **rec}
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "lstm_train_fwd_kernel" in low:
+        return "#7 lstm_train_fwd (ops/csrc/lstm_train.cu)"
+    if "lstm_train_bwd_kernel" in low:
+        return "#8 lstm_train_bwd scan (ops/csrc/lstm_train.cu)"
+    if "lstm_train_dw_kernel" in low:
+        return "#8 lstm_train_dw reduction (ops/csrc/lstm_train.cu)"
     if "lstm_scan_masked_kernel" in low:
         return "lstm_scan masked (ops/csrc/lstm_scan.cu)"
     if "lstm_scan_kernel" in low:
@@ -308,9 +410,15 @@ def main() -> None:
     ap.add_argument("--offline", action="store_true",
                     help="time one ragged 64 x 512 offline-evaluation "
                          "group instead")
+    ap.add_argument("--train", action="store_true",
+                    help="time the concurrent train step at B=256, T=125 "
+                         "instead")
     args = ap.parse_args()
-    print(json.dumps(run_offline() if args.offline
-                     else run(args.streams, args.frames)))
+    if args.train:
+        print(json.dumps(run_train()))
+    else:
+        print(json.dumps(run_offline() if args.offline
+                         else run(args.streams, args.frames)))
 
 
 if __name__ == "__main__":

@@ -20,12 +20,34 @@ def _env_path(key: str, default: str) -> Path:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainHypers:
+    """Training hyperparameters (reference: config.py:6-13). Training runs
+    float32 end to end."""
+    batch_size: int = 256
+    num_epochs: int = 60
+    lr: float = 1e-3
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
+class FinetuneHypers(TrainHypers):
+    """Finetuning hyperparameters (reference: config.py:16-23)."""
+    batch_size: int = 32
+    num_epochs: int = 15
+    lr: float = 5e-5
+
+
+@dataclasses.dataclass(frozen=True)
 class Paths:
     """Filesystem layout (reference: config.py:26-38), with the JAX
     package's environment overrides: MP_ROOT (read once, when this module
     is imported), MP_SMPL_FILE and MP_PROCESSED (read at each access)."""
     root_dir: Path = dataclasses.field(
         default_factory=lambda: Path(os.environ.get("MP_ROOT", ".")).absolute())
+
+    @property
+    def checkpoint(self) -> Path:
+        return self.root_dir / "checkpoints"
 
     @property
     def smpl_file(self) -> Path:
@@ -89,13 +111,19 @@ class Datasets:
     fps: int = 30
     window_length: int = 125
     dip_test: str = "dip_test.pt"
+    dip_train: str = "dip_train.pt"
     totalcapture: str = "totalcapture.pt"
+    imuposer_train: str = "imuposer_train.pt"
     imuposer_test: str = "imuposer_test.pt"
 
     @property
     def test_datasets(self) -> Dict[str, str]:
         return {"dip": self.dip_test, "totalcapture": self.totalcapture,
                 "imuposer": self.imuposer_test}
+
+    @property
+    def finetune_datasets(self) -> Dict[str, str]:
+        return {"dip": self.dip_train, "imuposer": self.imuposer_train}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +139,8 @@ class JointSet:
         return len(self.reduced)
 
 
+train_hypers = TrainHypers()
+finetune_hypers = FinetuneHypers()
 paths = Paths()
 model_config = ModelConfig()
 amass = Amass()
@@ -119,3 +149,8 @@ joint_set = JointSet()
 
 # Evaluation joint mask for SIP-style errors (reference: evaluate.py:18).
 EVAL_JOINT_MASK: Tuple[int, ...] = (2, 5, 16, 20)
+
+# Virtual-IMU synthesis masks (reference: process.py:18-19): left wrist,
+# right wrist, left thigh, right thigh, head, pelvis.
+VI_MASK: Tuple[int, ...] = (1961, 5424, 876, 4362, 411, 3021)
+JI_MASK: Tuple[int, ...] = (18, 19, 1, 2, 15, 0)

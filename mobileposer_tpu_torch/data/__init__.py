@@ -1,4 +1,5 @@
-"""Evaluation datasets: processed-file loading and combo-masked views."""
+"""Datasets: processed-file loading, the train fold's batches and the
+combo-masked evaluation views."""
 
 from mobileposer_tpu_torch.data.dataset import (  # noqa: F401
     COMBO_MASKS,

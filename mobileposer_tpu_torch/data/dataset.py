@@ -1,19 +1,26 @@
-"""Pose datasets for evaluation (counterpart of
-`mobileposer_tpu/data/dataset.py`), the test fold only.
+"""Windowed, combo-masked pose datasets for training and evaluation
+(counterpart of `mobileposer_tpu/data/dataset.py`).
 
 Behavioral parity target: reference `mobileposer/data.py` (PoseDataset).
 Reads the reference's processed files (`.pt` dicts of per-sequence tensor
 lists: acc/ori/pose/tran[/joint/contact], process.py:113-121, or the JAX
-package's `.npz` layout), runs FK for the ground-truth joints on the
-dataset's device, and serves whole sequences with a device-combo mask
-applied (`EvalSequence`). The training fold and its batching arrive with
-the training slice (ROADMAP.md queue A item 8).
+package's `.npz` layout) and runs FK for the ground-truth joints on the
+dataset's device.
+
+  * fold='train': 125-frame windows x all 12 device combos. A sample is
+    (window, combo); the combo's zero mask is applied when a batch is
+    assembled, so the stored arrays exist once. Batches are fixed-shape
+    [B, W, ...] numpy arrays with explicit `lengths`, assembled by fancy
+    indexing into one zero-padded monolith (`_assemble`), bit for bit as
+    the JAX package assembles them.
+  * fold='test': whole sequences, served with a combo mask by
+    `EvalSequence`.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,8 +29,6 @@ from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
-
-_TRAINING_ROW = "training and its data, ROADMAP.md queue A item 8"
 
 COMBO_NAMES = list(C.COMBOS.keys())
 
@@ -72,27 +77,30 @@ def load_processed_file(path) -> List[Dict[str, np.ndarray]]:
 
 
 class PoseDataset:
-    """Whole test sequences (reference: data.py:18-110, the test fold).
+    """Sequences -> windows x combos (reference: data.py:18-110).
 
-    evaluate names the test set (`C.datasets.test_datasets`); data_files
-    overrides the file list. FK runs on `device`, the CUDA card unless
-    given. The device-combo masks are applied by the views
-    (`EvalSequence`); the training fold's (window, combo) samples arrive
-    with the training slice.
+    fold: 'train' (125-frame windows, all 12 combos) or 'test' (whole
+    sequences). evaluate/finetune select the file set like the reference
+    (_get_data_files, data.py:29-43); data_files overrides the file list.
+    FK runs on `device`, the CUDA card unless given.
     """
 
-    def __init__(self, fold: str = "test", evaluate: Optional[str] = None,
+    def __init__(self, fold: str = "train", evaluate: Optional[str] = None,
                  finetune: Optional[str] = None,
                  body_model: Optional[ParametricModel] = None,
-                 data_files: Optional[Sequence] = None, device=None):
-        if fold != "test" or finetune:
-            raise NotImplementedError(
-                f"fold={fold!r}, finetune={finetune!r}: only the test fold "
-                f"is ported ({_TRAINING_ROW})")
+                 data_files: Optional[Sequence] = None,
+                 combos: Optional[Sequence[str]] = None, device=None):
+        if fold not in ("train", "test"):
+            raise ValueError(f"Unknown data fold: {fold}")
+        self.fold = fold
         self.evaluate = evaluate
+        self.finetune = finetune
         self.device = resolve_device(device)
         self.body_model = body_model or ParametricModel.from_file_or_synthetic(
             C.paths.smpl_file)
+        self.combo_names = list(combos) if combos else COMBO_NAMES
+        self.combo_masks = np.stack(
+            [COMBO_MASKS[COMBO_NAMES.index(name)] for name in self.combo_names])
         if data_files is None:
             data_files = self._default_files()
         self.windows: List[Dict[str, np.ndarray]] = []
@@ -106,8 +114,19 @@ class PoseDataset:
                 self._add_sequence(seq)
 
     def _default_files(self) -> List[Path]:
-        """The test file of `evaluate` (reference: data.py:29-47)."""
-        return [C.paths.eval_dir / C.datasets.test_datasets[self.evaluate]]
+        """File selection (reference: data.py:29-47): every file of the
+        processed folder for training, the finetune set's file, or the
+        test file of `evaluate`."""
+        folder = C.paths.processed_datasets
+        if self.finetune or self.evaluate:
+            folder = C.paths.eval_dir
+        if self.fold == "train":
+            if self.finetune:
+                return [folder / C.datasets.finetune_datasets[self.finetune]]
+            if not folder.exists():
+                return []
+            return [p for p in folder.iterdir() if p.is_file()]
+        return [folder / C.datasets.test_datasets[self.evaluate]]
 
     def _add_sequence(self, seq: Dict[str, np.ndarray]) -> None:
         """Per-sequence processing (reference: data.py:57-92)."""
@@ -146,9 +165,76 @@ class PoseDataset:
                              np.zeros((sl.stop - sl.start, 2), np.float32)),
             })
 
-    def batches(self, batch_size: int, rng, drop_remainder: bool = True):
-        raise NotImplementedError(
-            f"training batches are not ported ({_TRAINING_ROW})")
+    # -- batching (numpy only, as the JAX package batches) -----------------
+    def __len__(self) -> int:
+        return len(self.windows) * len(self.combo_names)
+
+    def get(self, idx: int) -> Dict[str, np.ndarray]:
+        """One (window, combo) sample with the combo mask applied and the
+        IMU features flattened to 60 dims (reference: data.py:69-99)."""
+        w = self.windows[idx // len(self.combo_names)]
+        mask = self.combo_masks[idx % len(self.combo_names)]
+        return dict(w, imu=_mask_and_flatten(w["acc"], w["ori"], mask))
+
+    def batches(self, batch_size: int, rng: np.random.Generator,
+                drop_remainder: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+        """Shuffled fixed-shape batches with explicit lengths."""
+        order = rng.permutation(len(self))
+        W = max(w["acc"].shape[0] for w in self.windows)
+        for b0 in range(0, len(order) - (batch_size - 1 if drop_remainder
+                                         else 0), batch_size):
+            yield self._assemble(order[b0:b0 + batch_size], W)
+
+    def _build_monolith(self, W: int) -> None:
+        """Stack all windows into zero-padded arrays once, so batch
+        assembly is fancy indexing. The per-window dicts are then replaced
+        by views into the monolith rows, which releases the per-sequence
+        arrays they were cut from (`pose_local` is kept only when
+        evaluating; the swap is skipped if W would truncate a window)."""
+        n = len(self.windows)
+        self._mono = {
+            "acc": np.zeros((n, W, 5, 3), np.float32),
+            "ori": np.zeros((n, W, 5, 3, 3), np.float32),
+            "pose_r6d": np.zeros((n, W, 24, 6), np.float32),
+            "joints": np.zeros((n, W, 72), np.float32),
+            "tran": np.zeros((n, W, 3), np.float32),
+            "vels": np.zeros((n, W, 72), np.float32),
+            "contacts": np.zeros((n, W, 2), np.float32),
+        }
+        self._mono_lengths = np.zeros((n,), np.int32)
+        for i, w in enumerate(self.windows):
+            L = min(w["acc"].shape[0], W)
+            self._mono_lengths[i] = L
+            for k in self._mono:
+                self._mono[k][i, :L] = w[k][:L]
+        self._mono_W = W
+        if all(w["acc"].shape[0] <= W for w in self.windows):
+            for i, w in enumerate(self.windows):
+                L = int(self._mono_lengths[i])
+                slim = {k: self._mono[k][i, :L] for k in self._mono}
+                if self.evaluate:
+                    slim["pose_local"] = w["pose_local"]
+                self.windows[i] = slim
+
+    def _assemble(self, idxs, W: int) -> Dict[str, np.ndarray]:
+        """The batch of samples `idxs` padded to W frames: imu [B, W, 60]
+        (combo-masked acc | ori), the targets, and lengths [B] (int32)."""
+        if getattr(self, "_mono_W", None) != W:
+            self._build_monolith(W)
+        idxs = np.asarray(idxs)
+        win = idxs // len(self.combo_names)
+        combo = idxs % len(self.combo_names)
+        mask = self.combo_masks[combo]                       # [B, 5]
+        acc = self._mono["acc"][win] * mask[:, None, :, None]
+        ori = self._mono["ori"][win] * mask[:, None, :, None, None]
+        B = len(idxs)
+        imu = np.concatenate([acc.reshape(B, W, 15),
+                              ori.reshape(B, W, 45)], axis=2)
+        out = {k: self._mono[k][win]
+               for k in ("pose_r6d", "joints", "tran", "vels", "contacts")}
+        out["imu"] = imu
+        out["lengths"] = self._mono_lengths[win]
+        return out
 
 
 def _mask_and_flatten(acc: np.ndarray, ori: np.ndarray,

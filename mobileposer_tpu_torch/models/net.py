@@ -36,10 +36,11 @@ import torch
 from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.kinematics import rotation as R
-from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+from mobileposer_tpu_torch.kinematics.smpl import SMPL_PARENTS, ParametricModel
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, module_apply
 from mobileposer_tpu_torch.nn.lstm import (check_backend, check_float32,
                                            check_lengths, rnn_zero_state)
+from mobileposer_tpu_torch.precision import f32_matmuls
 
 GRAVITY_VELOCITY = (0.0, C.joint_set.gravity_velocity, 0.0)
 PROB_THRESHOLD = (0.5, 0.9)           # reference: net.py:53
@@ -59,6 +60,16 @@ def prob_to_weight(p: torch.Tensor) -> torch.Tensor:
 _GATHER_MAP = np.full(24, len(C.joint_set.reduced), np.int64)
 for _pos, _j in enumerate(C.joint_set.reduced):
     _GATHER_MAP[_j] = _pos
+_REDUCED = np.asarray(C.joint_set.reduced)
+# joint j -> reduced-list position of its nearest reduced ancestor (itself
+# if reduced): each joint's effective global rotation after the
+# IK -> identity-at-ignored -> FK round trip the model performs
+_EFFECTIVE_GATHER_MAP = np.zeros(24, np.int64)
+for _j in range(24):
+    _a = _j
+    while _a not in C.joint_set.reduced:
+        _a = SMPL_PARENTS[_a]
+    _EFFECTIVE_GATHER_MAP[_j] = list(C.joint_set.reduced).index(_a)
 _IGNORED_MASK = np.zeros((24, 1, 1), np.float32)
 _IGNORED_MASK[list(C.joint_set.ignored)] = 1.0
 _ROOT_MASK = np.zeros((24, 1, 1), np.float32)
@@ -141,6 +152,64 @@ def reduced_global_to_full_soa(reduced_r6d: torch.Tensor,
     return local.permute(3, 0, 1, 2)                             # [N,24,3,3]
 
 
+def _position_basis(body_model: ParametricModel):
+    """The linear map from the 16 reduced GLOBAL rotations to the 24 joint
+    positions, cached on the body (net.py:179-207 of the JAX package).
+
+    Every joint position is a sum of rotated bone vectors up its ancestor
+    chain, and after the effective gather only the 16 reduced rotations
+    appear, so p[j, a] = sum_{r,b} W[(j,a),(r,a,b)] * R[r,a,b] + bone[0].
+    Returns (W [72, 144], root_offset [3]) as numpy.
+    """
+    if not hasattr(body_model, "_pos_basis_np"):
+        j0 = np.asarray(body_model._J, np.float32)
+        j0 = j0 - j0[:1]
+        parent = [0 if p < 0 else p for p in body_model.parent]
+        bone = j0 - j0[parent]
+        bone[0] = j0[0]
+        V = np.zeros((24, len(_REDUCED), 3), np.float32)
+        for j in range(24):
+            i = j
+            while i != 0:
+                V[j, _EFFECTIVE_GATHER_MAP[parent[i]]] += bone[i]
+                i = parent[i]
+        W = np.zeros((24, 3, len(_REDUCED), 3, 3), np.float32)
+        for a in range(3):
+            W[:, a, :, a, :] = V
+        body_model._pos_basis_np = (W.reshape(72, len(_REDUCED) * 9),
+                                    bone[0].copy())
+    return body_model._pos_basis_np
+
+
+def _position_basis_tensors(body_model: ParametricModel, device):
+    """`_position_basis` as float32 tensors on `device`, built once per
+    device: (W [72, 144], root offset tiled to [72, 1])."""
+    cache = body_model.__dict__.setdefault("_pos_basis_tensors", {})
+    if device not in cache:
+        W, root = _position_basis(body_model)
+        cache[device] = (torch.as_tensor(W, device=device),
+                         torch.as_tensor(np.tile(root, 24)[:, None],
+                                         device=device))
+    return cache[device]
+
+
+@f32_matmuls
+def joint_positions_from_r6d_soa(reduced_r6d: torch.Tensor,
+                                 body_model: ParametricModel) -> torch.Tensor:
+    """Joint positions [N, 72] straight from reduced r6d [N, 96]
+    (net.py:210-230 of the JAX package): the effective gather, the bone
+    rotations and the tree prefix sum as one [72, 144] @ [144, N] product
+    over the bone basis, with the batch in the minor axis. The product
+    runs in full float32 whatever the TF32 setting, as the JAX code pins
+    float32. The poser loss's position term."""
+    N = reduced_r6d.shape[0]
+    x = reduced_r6d.reshape(N, -1, 6).permute(1, 2, 0)          # [16, 6, N]
+    rot = _r6d_to_rot_soa(x)                                     # [16,3,3,N]
+    W, root = _position_basis_tensors(body_model, reduced_r6d.device)
+    pos = W @ rot.reshape(-1, N) + root                          # [72, N]
+    return pos.transpose(0, 1)                                   # [N, 72]
+
+
 def forward(params, imu: torch.Tensor, body_model: ParametricModel,
             lengths=None, vel_h0c0=None, backend: str = "auto",
             pose_index: Optional[int] = None):
@@ -159,7 +228,7 @@ def forward(params, imu: torch.Tensor, body_model: ParametricModel,
     index and pose_local is [B, 24, 3, 3]; the streaming path emits one
     frame per window (reference net.py:181).
     """
-    check_backend(backend)
+    check_backend(backend, allow_train=False)
     check_float32(imu.dtype)
     B, T, _ = imu.shape
     if lengths is not None:
@@ -401,7 +470,7 @@ class MobilePoserNet:
         h0 per window). Only the velocity module's cross-window carry and
         the fusion run frame by frame.
         """
-        check_backend(backend)
+        check_backend(backend, allow_train=False)
         if frames.device != self.device:
             raise ValueError(f"frames are on {frames.device}, the net on "
                              f"{self.device}")

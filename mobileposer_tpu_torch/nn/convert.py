@@ -1,9 +1,10 @@
-"""Weights from the JAX package into the port's modules.
+"""Weights between the JAX package's `.npz` layout and the port's modules.
 
-Counterpart of `mobileposer_tpu/nn/torch_convert.py` (`load_from_npz`) and
-`mobileposer_tpu/utils/io.py` (`loadz_typed`): an own copy of both that
-reads the same `.npz` archives, `__dtypes__` manifest included, and needs
-neither JAX nor the JAX package.
+Counterpart of `mobileposer_tpu/nn/torch_convert.py` (`load_from_npz`,
+`export_to_npz`) and `mobileposer_tpu/utils/io.py` (`loadz_typed`,
+`savez_typed`): an own copy of each that reads and writes the same `.npz`
+archives, `__dtypes__` manifest included, and needs neither JAX nor the
+JAX package. Either package loads the other's checkpoints.
 
 The JAX pytree layout is kept: LSTM weights are input-major
 (w_ih [D, 4H], w_hh [H, 4H]; `nn/lstm.py:53-63` there), which is also the
@@ -64,6 +65,52 @@ def load_npz(path) -> dict:
         return node
 
     return listify(root)
+
+
+def export_npz(tree: dict, path) -> None:
+    """Flatten a params pytree (nested dicts and lists of arrays) into an
+    `.npz` with the `__dtypes__` manifest, as the JAX package's
+    `export_to_npz` + `savez_typed` write it: keys are '/'-joined paths,
+    list indices as digits."""
+    flat = {}
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{key}/{k}" if key else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{key}/{i}")
+        else:
+            flat[key] = np.asarray(node)
+
+    walk(tree, "")
+    dtypes = {k: str(v.dtype) for k, v in flat.items()}
+    np.savez(path, __dtypes__=json.dumps(dtypes), **flat)
+
+
+def rnn_block_to_jax(block: RNNBlock) -> dict:
+    """One `RNNBlock` -> its JAX-layout numpy pytree ({"linear1",
+    "linear2", "lstm"}; linears as w [in, out]), the inverse of
+    `rnn_block_from_jax`."""
+    def arr(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy().copy()
+
+    return {
+        "linear1": {"w": arr(block.linear1.weight.t()),
+                    "b": arr(block.linear1.bias)},
+        "linear2": {"w": arr(block.linear2.weight.t()),
+                    "b": arr(block.linear2.bias)},
+        "lstm": [{d: {k: arr(getattr(mod, k))
+                      for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
+                  for d, mod in layer.items()} for layer in block.lstm],
+    }
+
+
+def params_to_jax(modules) -> dict:
+    """The port's modules ({name: RNNBlock}) -> the JAX package's params
+    pytree of numpy arrays, the inverse of `params_from_jax`."""
+    return {name: rnn_block_to_jax(block) for name, block in modules.items()}
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:

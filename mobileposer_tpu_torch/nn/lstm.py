@@ -12,8 +12,18 @@ w_ih [D, 4H], w_hh [H, 4H], gate order (i, f, g, o).
 Ragged batches take `lengths` [B]: the frames past each row's length are
 masked, as in the JAX package (masked steps hold the carry and emit
 zeros; the backward direction reverses each row by its own length).
-Inference only and float32 only: every `backend` other than 'auto'
-raises NotImplementedError naming the ROADMAP row that adds it.
+
+Two backends, float32 only:
+
+  * 'auto' (inference): the scan kernels of `ops/lstm_cuda.py`. They
+    write their outputs through ctypes and carry no gradient, so 'auto'
+    refuses to run when autograd would need one;
+  * 'auto_train' (synonym 'pallas_train'): the training kernels of
+    `ops/lstm_train_cuda.py` behind a `torch.autograd.Function`
+    (forward #7, BPTT backward #8), for every layer of every module.
+
+Other backends raise NotImplementedError naming the ROADMAP row that adds
+them.
 """
 
 from __future__ import annotations
@@ -37,22 +47,30 @@ class LSTMConfig(NamedTuple):
     dropout: float = 0.4
 
 
+#: backends that run the training kernels
+TRAIN_BACKENDS = ("auto_train", "pallas_train")
+
 _BACKEND_ROWS = {
     "fused": "the fused multicell kernel, ROADMAP.md queue A item 10",
-    "pallas_train": "training, ROADMAP.md queue A item 8",
-    "pallas_train_bf16res": "training, ROADMAP.md queue A item 8",
-    "auto_train": "training, ROADMAP.md queue A item 8",
-    "auto_train_bf16res": "training, ROADMAP.md queue A item 8",
+    "pallas_train_bf16res": "bf16 training residuals, ROADMAP.md queue A "
+                            "item 20",
+    "auto_train_bf16res": "bf16 training residuals, ROADMAP.md queue A "
+                          "item 20",
 }
 
 
-def check_backend(backend: str = "auto") -> None:
+def check_backend(backend: str = "auto", allow_train: bool = True) -> None:
     """Reject a backend the port does not run yet, naming the ROADMAP row
-    that adds it."""
-    if backend != "auto":
+    that adds it; with allow_train=False (the inference entry points of
+    `models/net.py`) also the training backends."""
+    if backend in TRAIN_BACKENDS and not allow_train:
+        raise NotImplementedError(
+            f"backend={backend!r} runs the training kernels; this inference "
+            "entry point runs backend='auto'")
+    if backend != "auto" and backend not in TRAIN_BACKENDS:
         row = _BACKEND_ROWS.get(
-            backend, "no row: 'auto' (the CUDA kernels) is the port's "
-            "only backend")
+            backend, "no row: the port runs 'auto' (the inference kernels) "
+            "and 'auto_train' (the training kernels)")
         raise NotImplementedError(f"backend={backend!r} is not ported "
                                   f"({row})")
 
@@ -165,9 +183,11 @@ class LSTMDirection(nn.Module):
 
 
 class RNNBlock(nn.Module):
-    """linear1 -> ReLU -> multi-layer (bi)LSTM -> linear2 (reference:
-    rnn.py:9-33). Inference only: parameters do not require gradients.
-    Parameters live on `device`: the CUDA card unless given.
+    """linear1 -> ReLU (-> dropout when training) -> multi-layer (bi)LSTM
+    -> linear2 (reference: rnn.py:9-33). Parameters do not require
+    gradients by default, so the inference paths build no graph; the
+    trainer turns them on for the modules it trains. Parameters live on
+    `device`: the CUDA card unless given.
 
     Weights are drawn like torch's defaults, U(-1/sqrt(fan), 1/sqrt(fan)),
     from `generator` (a CPU `torch.Generator`) so a seed fixes them; load
@@ -209,14 +229,23 @@ class RNNBlock(nn.Module):
                     fill(p, self.cfg.n_hidden)
 
     def forward(self, x: torch.Tensor, lengths=None, h0c0=None,
-                backend: str = "auto", time_major: bool = False):
+                backend: str = "auto", time_major: bool = False,
+                train: bool = False, dropout_keep=None):
         return rnn_apply(self, self.cfg, x, lengths, h0c0, backend=backend,
-                         time_major=time_major)
+                         time_major=time_major, train=train,
+                         dropout_keep=dropout_keep)
 
 
 # ---------------------------------------------------------------------------
 # Multi-layer forward
 # ---------------------------------------------------------------------------
+
+def _needs_grad(layers, x: torch.Tensor) -> bool:
+    """Whether autograd would need a gradient through these layers."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        p.requires_grad for layer in layers for d in layer.values()
+        for p in (d.w_ih, d.w_hh, d.b_ih, d.b_hh)))
+
 
 def lstm_forward(layers, x: torch.Tensor,
                  lengths=None,
@@ -234,35 +263,70 @@ def lstm_forward(layers, x: torch.Tensor,
     h0c0:    optional initial state (h0, c0), each [n_layers*n_dir, B, H]
              stacked in torch order (layer0 fwd, layer0 bwd, layer1 fwd, ...)
 
+    backend: 'auto' (the inference kernels; raises when autograd would
+             need a gradient through them) or 'auto_train' /
+             'pallas_train' (the training kernels, differentiable).
+
     Returns (y [B, T, H*n_dir] (or [T, B, ...] if time_major),
     (h_T, c_T) stacked like h0c0). On CPU tensors every layer runs the
-    plain scan; on CUDA tensors, the kernels.
+    kernels' plain versions; on CUDA tensors, the kernels.
     """
     check_backend(backend)
     check_float32(x.dtype)
     if lengths is not None:
         B, T = (x.shape[1], x.shape[0]) if time_major else x.shape[:2]
         lengths = check_lengths(lengths, B, T, x.device)
+    if backend in TRAIN_BACKENDS:
+        from mobileposer_tpu_torch.ops.lstm_train_cuda import \
+            lstm_forward_train
+        return lstm_forward_train(layers, x, lengths, h0c0,
+                                  bidirectional=bidirectional,
+                                  time_major=time_major)
+    if _needs_grad(layers, x):
+        raise RuntimeError(
+            "backend='auto' runs the inference kernels, which carry no "
+            "gradient; use backend='auto_train' to differentiate, or run "
+            "under torch.no_grad()")
     from mobileposer_tpu_torch.ops.lstm_cuda import lstm_forward_cuda
     return lstm_forward_cuda(layers, x, h0c0, bidirectional=bidirectional,
                              time_major=time_major, lengths=lengths)
+
+
+def draw_dropout_keep(cfg: LSTMConfig, shape, generator: torch.Generator
+                      ) -> torch.Tensor:
+    """The dropout keep mask of one RNN block: True with probability
+    1 - cfg.dropout, drawn from `generator` on its device. `shape` is the
+    hidden activation's, x.shape[:-1] + (cfg.n_hidden,)."""
+    return torch.rand(tuple(shape), generator=generator,
+                      device=generator.device) < (1.0 - cfg.dropout)
 
 
 def rnn_apply(params: RNNBlock, cfg: LSTMConfig, x: torch.Tensor,
               lengths=None,
               h0c0: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               backend: str = "auto",
-              time_major: bool = False):
-    """Apply the RNN block (reference: rnn.py:20-33), inference path.
+              time_major: bool = False, train: bool = False,
+              dropout_keep: Optional[torch.Tensor] = None):
+    """Apply the RNN block (reference: rnn.py:20-33).
 
     x: [B, T, n_input] ([T, B, n_input] when time_major); lengths: [B]
     or None. Returns (y [B, T, n_output], (h_T, c_T)).
+    With train=True, dropout (rate cfg.dropout) follows relu(linear1(x))
+    as in the JAX package, where(keep, hidden / keep_prob, 0), with the
+    keep mask given as `dropout_keep` (see `draw_dropout_keep`): the
+    caller owns the random draw.
     """
     check_backend(backend)
     check_float32(x.dtype)
     hidden = torch.relu(params.linear1(x))
+    if train and cfg.dropout > 0.0:
+        if dropout_keep is None:
+            raise ValueError("train=True requires dropout_keep")
+        keep = 1.0 - cfg.dropout
+        hidden = torch.where(dropout_keep, hidden / keep,
+                             hidden.new_zeros(()))
     y, hc = lstm_forward(params.lstm, hidden, lengths, h0c0,
-                         bidirectional=cfg.bidirectional,
+                         bidirectional=cfg.bidirectional, backend=backend,
                          time_major=time_major)
     return params.linear2(y), hc
 

@@ -226,8 +226,9 @@ def test_dataset_views_match_jax(eval_files, bodies):
         for i in range(len(v)):
             for a, b in zip(v[i], jv[i]):
                 np.testing.assert_allclose(a, np.asarray(b), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoseDataset(fold="train", device="cpu")
+    assert len(PoseDataset(fold="train", data_files=[], device="cpu")) == 0
+    with pytest.raises(ValueError, match="fold"):
+        PoseDataset(fold="valid", data_files=[], device="cpu")
 
 
 @pytest.fixture(scope="module")

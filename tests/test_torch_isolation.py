@@ -40,9 +40,14 @@ def test_importing_the_port_loads_no_jax():
             "import chip_smoke\n"
             "import mobileposer_tpu_torch.bench\n"
             "import mobileposer_tpu_torch.cli.evaluate\n"
+            "import mobileposer_tpu_torch.cli.train\n"
+            "import mobileposer_tpu_torch.cli.combine_weights\n"
+            "import mobileposer_tpu_torch.data.fixtures\n"
             "import mobileposer_tpu_torch.models\n"
             "import mobileposer_tpu_torch.nn.convert\n"
             "import mobileposer_tpu_torch.ops.lstm_cuda\n"
+            "import mobileposer_tpu_torch.ops.lstm_train_cuda\n"
+            "import mobileposer_tpu_torch.train\n"
             f"bad = {sorted(FORBIDDEN)!r}\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in bad))\n")
@@ -91,6 +96,21 @@ def test_eval_entry_points_need_a_device_when_no_gpu(monkeypatch):
     block = RNNBlock(cfg, device="cpu")
     assert block.linear1.weight.device.type == "cpu"
     assert block.lstm[0]["fwd"].w_hh.device.type == "cpu"
+
+
+def test_train_entry_points_need_a_device_when_no_gpu(monkeypatch):
+    """The trainer, the train CLI and the training bench resolve their
+    device like every entry point."""
+    from mobileposer_tpu_torch import bench
+    from mobileposer_tpu_torch.cli import train as train_cli
+    from mobileposer_tpu_torch.train import TrainingManager
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (TrainingManager, lambda: train_cli.main(["--fast-dev-run"]),
+                 bench.run_train):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert TrainingManager(device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])

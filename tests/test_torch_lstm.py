@@ -148,6 +148,6 @@ def test_out_of_slice_options_raise():
         rnn_apply(block, cfg, x, backend="fused")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rnn_apply(block, cfg, x, lengths=torch.tensor([5, 3]),
-                  backend="auto_train")
+                  backend="auto_train_bf16res")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rnn_apply(block, cfg, x.double())
