@@ -9,8 +9,8 @@ then runs these phases, each printing JSON lines:
 
   1. card    — `nvidia-smi` name and power limit, torch and CUDA versions;
                TF32 is turned off for the whole run;
-  2. build   — nvcc time for both sources, built in parallel (set-up,
-               not kernel time), and ptxas usage;
+  2. build   — nvcc time for the three sources, built in parallel
+               (set-up, not kernel time), and ptxas usage;
   3. kernel  — each full-length kernel against its plain PyTorch version
                at the streaming shapes (f32, nonzero h0/c0): max abs
                error, kernel / plain / cuDNN `torch.nn.LSTM` times, the
@@ -28,17 +28,27 @@ then runs these phases, each printing JSON lines:
                training mode (forward, backward) and `torch.matmul` (dW)
                as the yardsticks, exact zeros at masked steps, dW the same
                from run to run;
+  3d. int8 kernels — the W8A8 scans (#4, #5, #6) against their plain
+               versions at the streaming and evaluation shapes: one step
+               from h0, the full shape, exact zeros at masked steps; kernel,
+               plain and float-kernel times and the bound at the int8 rate
+               (no PyTorch call computes a W8A8 scan, so no library time);
   4. slice   — the trained fixture weights through
                `forward_online_sequence_batched` on the card in 'scan'
                and 'unfolded' modes, each continued from its final state,
                held to the same calls on the CPU port; the kernels'
-               launch counters must move by the expected counts;
+               launch counters must move by the expected counts; then the
+               same on the fixture quantized to W8A8 (the int8 counters
+               move by the float path's counts, the float ones not at
+               all);
   4b. eval   — synthetic sequences written as a processed `.pt`, evaluated
                by the port's CLI (`cli.evaluate.main`) with the trained
                fixture: offline alone on the card (the masked counters
                must move by 6 bi + 2 uni per bucket group, the
                full-length ones not at all), then offline + ONLINE +
-               drift on the card and on the CPU, tables compared;
+               drift on the card and on the CPU, tables compared; then all
+               of it again with `--int8`, and the int8 tables held to the
+               float32 ones within the JAX package's accuracy bound;
   4c. train  — synthetic training data written with the port's fixture,
                `cli.train --concurrent --fast-dev-run --combine` on the
                card (two steps at B = 256, one validation batch): finite
@@ -50,7 +60,8 @@ then runs these phases, each printing JSON lines:
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan) and 8 streams (unfolded), then one
                traced call of each: device time by kernel group and the
-               device's busy share;
+               device's busy share; then the same at 256 streams on W8A8
+               params (`bench.run(int8=True)`);
   5b. offline rate — offline-evaluation valid and padded frames/s of one
                64 x 512 ragged group (`bench.run_offline`), then one
                traced call;
@@ -132,6 +143,40 @@ PERF_MD_MS = {"bilstm_scan_f32": 1.307, "lstm_scan_f32": 1.311}
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12     # H100 SXM, int8 tensor cores, dense
+
+# The int8 kernels against their plain versions. One step from h0: both
+# sides quantize the same h0, so the recurrent term is the same exact
+# int32 product dequantized in the same order; the kernel computes the
+# cell with torch's formulas and roundings, so only a difference between
+# its expf/tanhf and torch's would show, at float32 rounding of values
+# in [-1, 1].
+INT8_STEP_TOL = 1e-6
+# Full shape: if the nonlinearities differ in a last bit, an h/scale can
+# land on the other side of a rounding boundary and move one int8 value by
+# one level, which moves that row's gates by max|w| * scale <= (1/16) *
+# (1/127) = 5e-4 at H = 256 and carries on through the row's later steps.
+# Both compute the same roundings (0.0 on an H100 at 700 W); ten flips'
+# worth.
+INT8_KERNEL_TOL = 5e-3
+# The int8 slice on the card against the CPU port: torch's CPU sigmoid and
+# tanh differ from the card's in the last bits, so flips occur (tens per
+# call at S = 8); a few flips' worth after the linears and the r6d
+# normalization, as tests/test_torch_quant.py holds the CPU port to the
+# JAX package.
+INT8_SLICE_TOL = 2e-3
+# The int8 evaluation tables, card against the CPU port: the same flips
+# move a frame's pose and joints by a few 1e-4, so each mean row by a
+# relative 1e-3 at most; the jitter row (6) is a mean of jerks, positions
+# times fps^3 = 27,000, so it is held absolutely (units of 100 m/s^3);
+# drift windows integrate the root velocity over metres of travel.
+INT8_EVAL_RTOL = 1e-3
+INT8_JITTER_ATOL = 2e-2
+INT8_DRIFT_RTOL = 1e-2
+# int8 against float32 on the card: the JAX package's own accuracy bound
+# for the exact path (tests/test_quant.py:391-393), on rows 0 (SIP, deg),
+# 3 (positional, cm) and 6 (jitter).
+INT8_DELTA_BOUND = {0: 0.5, 3: 0.5, 6: 0.2}
 
 # file:line of each TPU kernel (the `pallas_call` site's function)
 TPU_KERNELS = [
@@ -144,11 +189,13 @@ TPU_KERNELS = [
     ("lstm_layer_masked_pallas", "mobileposer_tpu/ops/lstm_pallas.py:163",
      "lstm_scan_masked_f32"),
     ("lstm_layer_pallas_int8", "mobileposer_tpu/ops/lstm_pallas.py:434",
-     None),
+     "lstm_scan_int8"),
     ("lstm_layer_masked_pallas_int8",
-     "mobileposer_tpu/ops/lstm_pallas.py:354", None),
+     "mobileposer_tpu/ops/lstm_pallas.py:354", "bilstm_scan_masked_int8"),
+    ("lstm_layer_masked_pallas_int8",
+     "mobileposer_tpu/ops/lstm_pallas.py:354", "lstm_scan_masked_int8"),
     ("bilstm_layer_pallas_int8", "mobileposer_tpu/ops/lstm_pallas.py:523",
-     None),
+     "bilstm_scan_int8"),
     ("_fwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:90",
      "lstm_train_fwd_f32"),
     ("_bwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:202",
@@ -362,6 +409,158 @@ def phase_masked_kernels(torch, lstm_cuda):
     return results
 
 
+def int8_layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None):
+    """Least time (ms) the card needs for one int8 layer scan: each input
+    read once (x_proj, state and mask float32, w_hh int8, its scale
+    float32), each output written once, the recurrent products at the
+    int8 tensor-core rate; with `valid_steps`, only the valid steps'
+    products and x_proj rows. Returns (bound_ms, bound_by, ops, bytes)."""
+    steps = T * B if valid_steps is None else valid_steps
+    ops = n_dir * steps * 2.0 * H * 4 * H
+    nbytes = n_dir * (4.0 * (steps * 4 * H    # x_proj
+                             + 4 * H          # w_scale
+                             + 2 * B * H      # h0, c0
+                             + T * B * H      # ys
+                             + 2 * B * H)     # h_T, c_T
+                      + H * 4 * H)            # w_hh, int8
+    if valid_steps is not None:
+        nbytes += 4.0 * T * B                 # mask, shared by the directions
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT8_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def phase_int8_kernels(torch, lstm_cuda):
+    """Kernels #4, #5 and #6 against their plain versions, at the
+    streaming shapes (T = 45: B = 256 the scan mode at 256 streams, B = 200
+    the unfolded chunk of 25 windows x 8 streams, B = 8 its velocity
+    layers) and the evaluation shapes (T = 512, B = 64; T = 1024, B = 37)
+    with a seeded ragged mask holding an empty row and a full row. Weights
+    drawn like torch's init and quantized per column; h0 in (-1, 1) as a
+    hidden state is. Three checks: one step from h0 (both sides quantize
+    the same h0, so the recurrent term is the same exact product: the
+    outputs within INT8_STEP_TOL), the full shape (INT8_KERNEL_TOL, with
+    the mean error and the share of elements beyond 1e-5), and exact zeros
+    at masked steps. The float kernel is timed at the same shape on the
+    dequantized weights."""
+    import numpy as np
+    from mobileposer_tpu_torch.ops.quant import quantize_weight_int8
+    L = lstm_cuda
+    fns = {"bilstm_scan_int8": (L.bilstm_layer_int8, L.bilstm_layer_int8_plain,
+                                L.bilstm_layer),
+           "lstm_scan_int8": (L.lstm_layer_int8, L.lstm_layer_int8_plain,
+                              L.lstm_layer),
+           "bilstm_scan_masked_int8": (L.bilstm_layer_masked_int8,
+                                       L.bilstm_layer_masked_int8_plain,
+                                       L.bilstm_layer_masked),
+           "lstm_scan_masked_int8": (L.lstm_layer_masked_int8,
+                                     L.lstm_layer_masked_int8_plain,
+                                     L.lstm_layer_masked)}
+    cases = [("bilstm_scan_int8", 256, 256, 45),
+             ("bilstm_scan_int8", 64, 256, 45),
+             ("lstm_scan_int8", 256, 256, 45),
+             ("bilstm_scan_int8", 256, 200, 45),
+             ("bilstm_scan_int8", 64, 200, 45),
+             ("lstm_scan_int8", 256, 8, 45),
+             ("bilstm_scan_masked_int8", 256, 64, 512),
+             ("bilstm_scan_masked_int8", 64, 64, 512),
+             ("lstm_scan_masked_int8", 256, 64, 512),
+             ("bilstm_scan_masked_int8", 256, 37, 1024)]
+    results, failures = [], []
+    for name, H, B, T in cases:
+        kern, plain, kern_f32 = fns[name]
+        n_dir = 2 if name.startswith("bi") else 1
+        masked = "masked" in name
+        rng = np.random.RandomState(H + B + T + 1)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+        bound = 1.0 / math.sqrt(H)
+        dirs = []
+        for _ in range(n_dir):
+            w_q, w_s = quantize_weight_int8(rng.uniform(-bound, bound,
+                                                        (H, 4 * H)))
+            dirs.append({"x": t(rng.randn(T, B, 4 * H)),
+                         "w": torch.from_numpy(w_q).cuda(), "s": t(w_s),
+                         "w_f32": t(w_q.astype(np.float32) * w_s),
+                         "h0": t(np.tanh(rng.randn(B, H))),
+                         "c0": t(rng.randn(B, H) * 0.5)})
+        lengths = rng.randint(1, T, size=B)
+        lengths[0], lengths[1] = 0, T
+        mask = (torch.arange(T)[:, None] < torch.from_numpy(lengths)[None, :]
+                ).float().cuda()
+
+        def args(steps, f32=False):
+            """The kernel's (or the float kernel's) arguments over the
+            first `steps` steps."""
+            xs = [d["x"][:steps].contiguous() for d in dirs]
+            ws = [d["w_f32" if f32 else "w"] for d in dirs]
+            scales = [] if f32 else [d["s"] for d in dirs]
+            state = [v for d in dirs for v in (d["h0"], d["c0"])]
+            m = [mask[:steps].contiguous()] if masked else []
+            return (*xs, *ws, *scales, *state, *m)
+
+        def flat(out):
+            return [x for o in out
+                    for x in (o if isinstance(o, tuple) else (o,))]
+
+        def compare(a):
+            got = flat(kern(*a))
+            torch.cuda.synchronize()
+            want = flat(plain(*a))
+            diff = torch.cat([(g - w).abs().flatten()
+                              for g, w in zip(got, want)])
+            return got, float(diff.max()), float(diff.mean()), float(
+                (diff > 1e-5).float().mean())
+
+        _, step_err, _, _ = compare(args(1))
+        full = args(T)
+        got, err, mean_err, beyond = compare(full)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        masked_nonzero = (sum(int((y[mask == 0] != 0).sum())
+                              for y in got[:n_dir]) if masked else 0)
+        n = 5 if masked else 20
+        with torch.no_grad():
+            kernel_ms = time_ms(lambda: kern(*full), n)
+            f32_args = args(T, f32=True)
+            float_ms = time_ms(lambda: kern_f32(*f32_args), n)
+            plain_ms = time_ms(lambda: plain(*full), 1 if masked else 3,
+                               warmup=1)
+        bound_ms, bound_by, ops, nbytes = int8_layer_bound(
+            n_dir, T, B, H, int(lengths.sum()) if masked else None)
+        rec = {"phase": "int8_kernel", "name": name, "T": T, "B": B, "H": H,
+               "step_max_abs_err": step_err, "step_tol": INT8_STEP_TOL,
+               "max_abs_err": err, "tol": INT8_KERNEL_TOL,
+               "mean_abs_err": mean_err, "share_beyond_1e-5": beyond,
+               "masked_steps_nonzero": masked_nonzero,
+               "kernel_ms": kernel_ms, "float_kernel_ms": float_ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               "library": "none: no single PyTorch call computes a W8A8 "
+                          "LSTM scan",
+               "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+        if masked:
+            rec["lengths_min_max_sum"] = [int(lengths.min()),
+                                          int(lengths.max()),
+                                          int(lengths.sum())]
+        emit(rec)
+        results.append(rec)
+        tag = f"{name} H={H} B={B} T={T}"
+        if not finite:
+            failures.append(f"{tag}: non-finite output")
+        if step_err > INT8_STEP_TOL:
+            failures.append(f"{tag}: one step err {step_err} > "
+                            f"{INT8_STEP_TOL}")
+        if err > INT8_KERNEL_TOL:
+            failures.append(f"{tag}: max abs err {err} > {INT8_KERNEL_TOL}")
+        if masked_nonzero:
+            failures.append(f"{tag}: {masked_nonzero} masked outputs not 0")
+    require(not failures, "; ".join(failures))
+    return results
+
+
 def train_bounds(T: int, B: int, H: int, valid_steps: int):
     """Least time (ms) the card needs for kernel #7, for kernel #8 with its
     dW reduction, and for the dW reduction alone, on one layer-direction:
@@ -548,28 +747,33 @@ def write_eval_sequences(torch, path: Path) -> None:
     torch.save(data, path)
 
 
-def phase_eval(torch, lstm_cuda):
-    """The evaluation entry point on the card, held to the CPU port.
-    Returns (the offline pass's launch counts, the online pass's)."""
+def phase_eval(torch, lstm_cuda, int8: bool = False):
+    """The evaluation entry point on the card (with `--int8`: on W8A8
+    params), held to the CPU port. Returns (the offline pass's launch
+    counts, the online pass's, the card's result dict)."""
     import numpy as np
     from mobileposer_tpu_torch.cli import evaluate as eval_cli
     from mobileposer_tpu_torch.evaluation.pose_eval import _BUCKET, _groups
 
+    suffix = "int8" if int8 else "f32"
     n_groups = len(_groups(EVAL_LENGTHS, _BUCKET, 64))
     with tempfile.TemporaryDirectory() as tmp:
         write_eval_sequences(torch, Path(tmp) / "synthetic.pt")
         os.environ["MP_PROCESSED"] = tmp
         argv = ["--model", str(FIXTURE), "--dataset", "synthetic"]
+        if int8:
+            argv.append("--int8")
 
         # offline alone: the main-path run the masked counters are read on
         lstm_cuda.reset_launches()
         eval_cli.main(argv)
         torch.cuda.synchronize()
         offline = dict(lstm_cuda.launches)
-        expect = {"bilstm_scan_f32": 0, "lstm_scan_f32": 0,
-                  "bilstm_scan_masked_f32": 6 * n_groups,
-                  "lstm_scan_masked_f32": 2 * n_groups}
-        emit({"phase": "eval_offline_launches", "lengths": EVAL_LENGTHS,
+        expect = dict.fromkeys(lstm_cuda.launches, 0)
+        expect[f"bilstm_scan_masked_{suffix}"] = 6 * n_groups
+        expect[f"lstm_scan_masked_{suffix}"] = 2 * n_groups
+        emit({"phase": "eval_offline_launches", "int8": int8,
+              "lengths": EVAL_LENGTHS,
               "bucket_groups": n_groups, "launches": offline,
               "expected_launches": expect})
         require(offline == expect,
@@ -594,37 +798,46 @@ def phase_eval(torch, lstm_cuda):
     frames = [max(EVAL_LENGTHS[i] + 5 for i in chunk)
               for _, chunk in _groups([n + 5 for n in EVAL_LENGTHS],
                                       _BUCKET, 64)]
-    expect_online = {"bilstm_scan_f32": sum(6 * -(-n // 25) for n in frames),
-                     "lstm_scan_f32": sum(2 * n for n in frames),
-                     "bilstm_scan_masked_f32": 0, "lstm_scan_masked_f32": 0}
+    expect_online = dict.fromkeys(lstm_cuda.launches, 0)
+    expect_online[f"bilstm_scan_{suffix}"] = sum(6 * -(-n // 25)
+                                                 for n in frames)
+    expect_online[f"lstm_scan_{suffix}"] = sum(2 * n for n in frames)
+    # the tolerance of each table entry: rtol + atol, or for int8 the
+    # jitter row's absolute bound (see INT8_EVAL_RTOL)
+    rtol = INT8_EVAL_RTOL if int8 else EVAL_RTOL
+    drift_rtol = INT8_DRIFT_RTOL if int8 else EVAL_RTOL
     errs = {}
     for k in ("offline", "online"):
         require(card[k].shape == (8, 2) and bool(np.isfinite(card[k]).all()),
                 f"{k} table on the card: shape {card[k].shape} or non-finite")
-        errs[k] = float(np.max(np.abs(card[k] - cpu[k])
-                               / (EVAL_ATOL + EVAL_RTOL * np.abs(cpu[k]))))
+        tol = EVAL_ATOL + rtol * np.abs(cpu[k])
+        if int8:
+            tol[6] = INT8_JITTER_ATOL
+        errs[k] = float(np.max(np.abs(card[k] - cpu[k]) / tol))
     require(card["tran_errors"].keys() == cpu["tran_errors"].keys(),
             f"drift windows {sorted(card['tran_errors'])} vs "
             f"{sorted(cpu['tran_errors'])}")
     errs["tran_errors"] = max(
         [abs(card["tran_errors"][w] - cpu["tran_errors"][w])
-         / (EVAL_ATOL + EVAL_RTOL * abs(cpu["tran_errors"][w]))
+         / (EVAL_ATOL + drift_rtol * abs(cpu["tran_errors"][w]))
          for w in cpu["tran_errors"]], default=0.0)
-    emit({"phase": "eval", "lengths": EVAL_LENGTHS,
+    emit({"phase": "eval", "int8": int8, "lengths": EVAL_LENGTHS,
           "card": {"offline": card["offline"].tolist(),
                    "online": card["online"].tolist(),
                    "tran_errors": card["tran_errors"]},
           "cpu_tran_errors": cpu["tran_errors"],
-          "worst_err_over_tol": errs, "rtol": EVAL_RTOL, "atol": EVAL_ATOL,
+          "worst_err_over_tol": errs, "rtol": rtol, "atol": EVAL_ATOL,
+          "drift_rtol": drift_rtol,
+          "jitter_atol": INT8_JITTER_ATOL if int8 else None,
           "card_seconds": card_s, "cpu_seconds": cpu_s,
           "online_launches": online, "expected_online_launches": expect_online,
           "online_frames_per_group": frames})
     require(online == expect_online,
             f"online evaluation launches {online}, expected {expect_online}")
     for k, e in errs.items():
-        require(e <= 1.0, f"eval {k}: card vs CPU beyond rtol {EVAL_RTOL} "
-                          f"+ atol {EVAL_ATOL} (worst ratio {e})")
-    return offline, online
+        require(e <= 1.0, f"eval {k} int8={int8}: card vs CPU beyond its "
+                          f"tolerance (worst ratio {e})")
+    return offline, online, card
 
 
 def phase_train(torch, lstm_cuda, train_cuda):
@@ -716,9 +929,8 @@ def phase_train(torch, lstm_cuda, train_cuda):
                     "lstm_train_dw_f32": n_layer_dirs * steps}
     # one validation batch on the inference route: the masked kernels,
     # 6 bidirectional layers and 2 velocity layers
-    expect_infer = {"bilstm_scan_f32": 0, "lstm_scan_f32": 0,
-                    "bilstm_scan_masked_f32": 6,
-                    "lstm_scan_masked_f32": 2}
+    expect_infer = dict.fromkeys(lstm_cuda.launches, 0)
+    expect_infer.update(bilstm_scan_masked_f32=6, lstm_scan_masked_f32=2)
     losses_ok = all(math.isfinite(r["train_loss"])
                     and math.isfinite(r["val_loss"]) for r in records)
     emit({"phase": "train", "sequences": list(TRAIN_SEQUENCES),
@@ -752,16 +964,22 @@ def phase_train(torch, lstm_cuda, train_cuda):
     return train_launches
 
 
-def phase_slice(torch, lstm_cuda):
-    """The trained weights through the streaming entry point on the card,
-    against the CPU port; returns the launch counts of the whole phase."""
+def phase_slice(torch, lstm_cuda, int8: bool = False):
+    """The trained weights (W8A8-quantized with `int8`, from the same
+    float32 weights on each device) through the streaming entry point on
+    the card, against the CPU port; returns the launch counts of the
+    whole phase."""
     import numpy as np
     from mobileposer_tpu_torch.models import MobilePoserNet
     from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+    from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 
     tree = load_npz(FIXTURE)
     nets = {d: MobilePoserNet(device=d) for d in ("cuda", "cpu")}
     params = {d: params_from_jax(tree, device=d) for d in ("cuda", "cpu")}
+    if int8:
+        params = {d: quantize_params_int8(p) for d, p in params.items()}
+    suffix, tol = ("int8", INT8_SLICE_TOL) if int8 else ("f32", SLICE_TOL)
     rng = np.random.RandomState(1)
     S = 8
     lstm_cuda.reset_launches()
@@ -778,8 +996,9 @@ def phase_slice(torch, lstm_cuda):
             torch.cuda.synchronize()
             moved = {k: lstm_cuda.launches[k] - before[k] for k in before}
             n_windows = N if mode == "scan" else -(-N // chunk)
-            expect = {"bilstm_scan_f32": 6 * n_windows, "lstm_scan_f32": 2 * N,
-                      "bilstm_scan_masked_f32": 0, "lstm_scan_masked_f32": 0}
+            expect = dict.fromkeys(lstm_cuda.launches, 0)
+            expect[f"bilstm_scan_{suffix}"] = 6 * n_windows
+            expect[f"lstm_scan_{suffix}"] = 2 * N
 
             names = ["pose", "joints", "root", "contact"]
             errs = {}
@@ -795,17 +1014,18 @@ def phase_slice(torch, lstm_cuda):
             pose = outs["cuda"][0]
             ortho = float((pose @ pose.transpose(-1, -2)
                            - torch.eye(3, device=pose.device)).abs().max())
-            emit({"phase": "slice", "mode": mode, "call": call, "S": S,
+            emit({"phase": "slice", "int8": int8, "mode": mode,
+                  "call": call, "S": S,
                   "N": N, "chunk": chunk if mode == "unfolded" else None,
-                  "max_abs_err": errs, "tol": SLICE_TOL,
+                  "max_abs_err": errs, "tol": tol,
                   "pose_orthonormal_err": ortho, "launches": moved,
                   "expected_launches": expect})
             require(moved == expect,
                     f"{mode} {call}: launches {moved}, expected {expect}")
             worst = max(errs.values())
-            require(worst <= SLICE_TOL,
-                    f"{mode} {call}: card vs CPU max abs err {worst} > "
-                    f"{SLICE_TOL}")
+            require(worst <= tol,
+                    f"{mode} {call} int8={int8}: card vs CPU max abs err "
+                    f"{worst} > {tol}")
             require(ortho <= 1e-4, f"{mode} {call}: pose not orthonormal "
                                    f"({ortho})")
     return dict(lstm_cuda.launches)
@@ -841,17 +1061,17 @@ def main() -> int:
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
-    # 2. build (set-up time, not kernel time): one nvcc per source, both
+    # 2. build (set-up time, not kernel time): one nvcc per source, all
     # started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(_build.build, src)
-                    for src in ("lstm_scan.cu", "lstm_train.cu")]:
+    sources = ("lstm_scan.cu", "lstm_scan_int8.cu", "lstm_train.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        for fut in [pool.submit(_build.build, src) for src in sources]:
             fut.result()
     lstm_cuda.build()
     train_cuda.build()
     ptxas = {}
-    for src in ("lstm_scan.cu", "lstm_train.cu"):
+    for src in sources:
         log = _build.library_path(src).with_suffix(".log")
         ptxas[src] = [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln]
@@ -864,17 +1084,42 @@ def main() -> int:
     kernel_recs += phase_masked_kernels(torch, lstm_cuda)
     # 3c. the training kernels against their plain versions
     train_recs = phase_train_kernels(torch, train_cuda)
+    # 3d. the int8 kernels against their plain versions
+    kernel_recs += phase_int8_kernels(torch, lstm_cuda)
 
-    # 4. the streaming slice on the card (its main-path run: the
-    # full-length counters are read on it)
+    # 4. the streaming slice on the card, float32 then int8 (their
+    # main-path runs: the full-length counters are read on them)
     stream_launches = phase_slice(torch, lstm_cuda)
-    # 4b. the evaluation entry point (its offline run: the masked ones)
-    offline_launches, online_launches = phase_eval(torch, lstm_cuda)
+    stream_int8_launches = phase_slice(torch, lstm_cuda, int8=True)
+    # 4b. the evaluation entry point, float32 then --int8 (their offline
+    # runs: the masked counters)
+    offline_launches, online_launches, card_f32 = phase_eval(torch,
+                                                             lstm_cuda)
+    offline_int8_launches, online_int8_launches, card_int8 = phase_eval(
+        torch, lstm_cuda, int8=True)
+    # int8 against float32 on the card, within the JAX package's bound
+    deltas = {k: {row: float(card_int8[k][row, 0] - card_f32[k][row, 0])
+                  for row in INT8_DELTA_BOUND} for k in ("offline", "online")}
+    emit({"phase": "eval_int8_vs_f32", "deltas": deltas,
+          "bounds": INT8_DELTA_BOUND,
+          "rows": {0: "SIP Error (deg)", 3: "Positional Error (cm)",
+                   6: "Jitter Error (100m/s^3)"}})
+    for k, d in deltas.items():
+        for row, v in d.items():
+            require(abs(v) < INT8_DELTA_BOUND[row],
+                    f"{k} int8 - float32 row {row}: {v} beyond "
+                    f"{INT8_DELTA_BOUND[row]}")
     # 4c. the training entry point (its run: the training counters)
     train_launches = phase_train(torch, lstm_cuda, train_cuda)
     main_launches = {
-        **{k: n for k, n in stream_launches.items() if "masked" not in k},
-        **{k: n for k, n in offline_launches.items() if "masked" in k},
+        **{k: n for k, n in stream_launches.items() if k.endswith("f32")
+           and "masked" not in k},
+        **{k: n for k, n in offline_launches.items() if k.endswith("f32")
+           and "masked" in k},
+        **{k: n for k, n in stream_int8_launches.items()
+           if k.endswith("int8") and "masked" not in k},
+        **{k: n for k, n in offline_int8_launches.items()
+           if k.endswith("int8") and "masked" in k},
         **train_launches}
     for name, n in main_launches.items():
         require(n > 0, f"{name} was never launched on its main path")
@@ -889,6 +1134,16 @@ def main() -> int:
         emit({"phase": "breakdown", **trace})
         require(trace["device_busy_seconds"] > 0,
                 "the traced call shows no device time")
+    # the same on W8A8 params at 256 streams (the JAX bench's exact_int8)
+    rec = bench.run(n_streams=256, n_frames=100, mode="scan", int8=True)
+    emit({"phase": "rate", **rec})
+    require(rec["pct_of_f32_peak"] < 100.0,
+            "implied FLOP/s above the card's peak: the harness is wrong")
+    trace = bench.breakdown(n_streams=256, n_frames=100, mode="scan",
+                            int8=True)
+    emit({"phase": "breakdown", **trace})
+    require(any("int8" in g for g in trace["groups"]),
+            "the traced int8 call shows no int8 kernel")
 
     # 5b. offline-evaluation frames/s of one 64 x 512 ragged group
     rec = bench.run_offline(batch=64, bucket=512)
@@ -916,7 +1171,8 @@ def main() -> int:
 
     # 6. kernels line: each kernel's main-path shape (streaming: T=45,
     # H=256, B=256; evaluation: T=512, H=256, B=64; training: T=125,
-    # H=256, B=256)
+    # H=256, B=256); the int8 kernels have no library yardstick and carry
+    # the float kernel's time at the same shape
     ported = []
     for tpu_name, replaces, name in TPU_KERNELS:
         if name is None:
@@ -926,10 +1182,14 @@ def main() -> int:
                 else (125, 256) if "train" in name else (45, 256))
         main = next(r for r in recs
                     if (r["T"], r["B"], r["H"]) == (T, B, 256))
-        source = ("lstm_train.cu" if "train" in name else "lstm_scan.cu")
+        source = ("lstm_train.cu" if "train" in name
+                  else "lstm_scan_int8.cu" if "int8" in name
+                  else "lstm_scan.cu")
         errs = [max(r["max_abs_err"].values())
                 if isinstance(r["max_abs_err"], dict) else r["max_abs_err"]
                 for r in recs]
+        extra = ({"float_kernel_ms": main["float_kernel_ms"]}
+                 if "int8" in name else {})
         ported.append({
             "name": name, "route": "cuda",
             "source": f"mobileposer_tpu_torch/ops/csrc/{source}",
@@ -937,10 +1197,11 @@ def main() -> int:
             "max_abs_err": max(errs),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
+            "library_ms": main["library_ms"], **extra,
             "shape": {"T": T, "B": B, "H": 256}})
     emit({"kernels": ported,
           "online_eval_launches": online_launches,
+          "online_eval_int8_launches": online_int8_launches,
           "not_ported": [{"name": n, "replaces": r, "status": "to port"}
                          for n, r, p in TPU_KERNELS if p is None]})
 

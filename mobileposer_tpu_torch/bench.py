@@ -20,6 +20,12 @@ package's root `bench.py`:
     benchmarks/flops.py) turns the rate into FLOP/s and a share of the
     card's float32 peak, so an impossible number flags the harness.
 
+`run(..., int8=True)` times the same streaming call on W8A8-quantized
+params (`ops.quant.quantize_params_int8`: int8 input projections and the
+int8 kernels #4 and #6), the counterpart of the JAX bench's `exact_int8`
+leg. The JAX bench quantizes bf16 params; the port has no bf16, so it
+quantizes the float32 params, and the record says so.
+
 `run_train` times the concurrent four-module train step
 (`train.make_multi_train_step`: every LSTM layer on the training kernels
 #7 and #8, the four optimizers) on one batch of `TrainHypers.batch_size`
@@ -34,6 +40,7 @@ from `run`, `run_offline` and `run_train`, with tracing off.
 
 Random weights from a seed (the JAX bench uses random weights too).
 Run:  python -m mobileposer_tpu_torch.bench [--streams 256] [--frames 100]
+      python -m mobileposer_tpu_torch.bench --int8 [--streams 256]
       python -m mobileposer_tpu_torch.bench --offline
       python -m mobileposer_tpu_torch.bench --train
 Prints one JSON line.
@@ -56,6 +63,7 @@ from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, init_all_modules
 from mobileposer_tpu_torch.models.net import NUM_TOTAL, MobilePoserNet
 from mobileposer_tpu_torch.ops import lstm_train_cuda
+from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 from mobileposer_tpu_torch.train.trainer import (MODULE_NAMES,
                                                  init_train_state,
                                                  make_multi_train_step,
@@ -102,9 +110,13 @@ def _net(seed: int, device):
     return device, net, params
 
 
-def _setup(n_streams: int, n_frames: int, mode: str, seed: int, device):
-    """Net, random weights, fresh state and frames on the CUDA device."""
+def _setup(n_streams: int, n_frames: int, mode: str, seed: int, device,
+           int8: bool = False):
+    """Net, random weights (W8A8-quantized with `int8`), fresh state and
+    frames on the CUDA device."""
     device, net, params = _net(seed, device)
+    if int8:
+        params = quantize_params_int8(params)
     state0 = net.init_online_state_batched(n_streams)
     rng = np.random.RandomState(seed)
     frames = torch.from_numpy(
@@ -148,13 +160,15 @@ def _chained_rates(call, state0, per_call: int, reps: int, trials: int,
 
 
 def run(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
-        reps: int = 3, trials: int = 5, seed: int = 0, device=None) -> dict:
+        reps: int = 3, trials: int = 5, seed: int = 0, device=None,
+        int8: bool = False) -> dict:
     """Measure exact-path streamed frames/s; returns the JSON record.
 
     `trials` chained regions of `reps` calls each are timed; the record's
-    value is their median rate, with the lowest and highest beside it."""
+    value is their median rate, with the lowest and highest beside it.
+    `int8` runs on W8A8-quantized params."""
     device, net, params, state0, frames, mode = _setup(
-        n_streams, n_frames, mode, seed, device)
+        n_streams, n_frames, mode, seed, device, int8)
     per_call = n_streams * n_frames
     rates, t_single, checksum = _chained_rates(
         lambda st: net.forward_online_sequence_batched(params, st, frames,
@@ -164,9 +178,16 @@ def run(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
     # one emitted streaming frame re-runs the full window through all four
     # modules (reference semantics, net.py:174-178)
     flops = NUM_TOTAL * model_flops_per_frame()
+    int8_fields = {"int8": int8}
+    if int8:
+        int8_fields["int8_quantized_from"] = (
+            "float32 params (the JAX bench's exact_int8 leg quantizes its "
+            "bf16 params; the port has no bf16)")
     return {
-        "metric": "exact_streamed_frames_per_sec",
+        "metric": ("exact_int8_streamed_frames_per_sec" if int8
+                   else "exact_streamed_frames_per_sec"),
         "value": fps,
+        **int8_fields,
         "unit": "frames/s",
         "streams": n_streams,
         "frames": n_frames,
@@ -329,6 +350,10 @@ def _kernel_group(name: str) -> str:
         return "#8 lstm_train_bwd scan (ops/csrc/lstm_train.cu)"
     if "lstm_train_dw_kernel" in low:
         return "#8 lstm_train_dw reduction (ops/csrc/lstm_train.cu)"
+    if "lstm_scan_masked_int8_kernel" in low:
+        return "lstm_scan int8 masked (ops/csrc/lstm_scan_int8.cu)"
+    if "lstm_scan_int8_kernel" in low:
+        return "lstm_scan int8 (ops/csrc/lstm_scan_int8.cu)"
     if "lstm_scan_masked_kernel" in low:
         return "lstm_scan masked (ops/csrc/lstm_scan.cu)"
     if "lstm_scan_kernel" in low:
@@ -341,16 +366,18 @@ def _kernel_group(name: str) -> str:
 
 
 def breakdown(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
-              seed: int = 0, device=None) -> dict:
+              seed: int = 0, device=None, int8: bool = False) -> dict:
     """One streaming call under `torch.profiler`: device time by kernel
     group, the device's busy share of the call's wall time (profiler on),
     the longest kernels by name, and the host operations with the most
-    self time (what keeps the host from running ahead of the device)."""
+    self time (what keeps the host from running ahead of the device).
+    `int8` traces the call on W8A8-quantized params."""
     device, net, params, state0, frames, mode = _setup(
-        n_streams, n_frames, mode, seed, device)
+        n_streams, n_frames, mode, seed, device, int8)
     rec = _traced(lambda: net.forward_online_sequence_batched(
         params, state0, frames, mode=mode), device)
-    return {"streams": n_streams, "frames": n_frames, "mode": mode, **rec}
+    return {"streams": n_streams, "frames": n_frames, "mode": mode,
+            "int8": int8, **rec}
 
 
 def breakdown_offline(batch: int = 64, bucket: int = 512, seed: int = 0,
@@ -413,12 +440,15 @@ def main() -> None:
     ap.add_argument("--train", action="store_true",
                     help="time the concurrent train step at B=256, T=125 "
                          "instead")
+    ap.add_argument("--int8", action="store_true",
+                    help="stream on W8A8-quantized params")
     args = ap.parse_args()
     if args.train:
         print(json.dumps(run_train()))
     else:
         print(json.dumps(run_offline() if args.offline
-                         else run(args.streams, args.frames)))
+                         else run(args.streams, args.frames,
+                                  int8=args.int8)))
 
 
 if __name__ == "__main__":

@@ -3,13 +3,16 @@
 
     python -m mobileposer_tpu_torch.cli.evaluate --model weights.npz \\
         --dataset {dip,totalcapture,imuposer,synthetic} [--combo lw_rp] \\
-        [--online] [--tran] [--device cpu]
+        [--online] [--tran] [--int8] [--device cpu]
 
 Weights are the JAX package's `.npz` archives. Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
-versions). `--bf16`, `--int8`, `--online-mode carry` and
-`--data-parallel` are accepted as the JAX CLI accepts them and raise
-NotImplementedError naming the ROADMAP row that adds them.
+versions). `--int8` quantizes the LSTM matmuls to W8A8 after loading, as
+the JAX CLI does (`ops.quant.quantize_params_int8`; every LSTM layer on
+the int8 kernels #4 to #6). `--bf16`, `--online-mode carry` (with or
+without `--int8`) and `--data-parallel` are accepted as the JAX CLI
+accepts them and raise NotImplementedError naming the ROADMAP row that
+adds them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from mobileposer_tpu_torch.evaluation import evaluate_pose
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
 from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 
 
 def _env_flag(name: str) -> bool:
@@ -67,13 +71,20 @@ def main(argv=None) -> dict:
                         help="'carry' is not ported (ROADMAP.md queue A "
                              "item 13)")
     parser.add_argument("--int8", action="store_true",
-                        help="not ported (ROADMAP.md queue A item 9)")
+                        help="evaluate on W8A8-quantized LSTM matmuls "
+                             "(ops/quant.py): scores what an int8 "
+                             "deployment would serve")
     args = parser.parse_args(argv)
 
-    if args.int8:
+    if args.int8 and args.bf16:
         raise NotImplementedError(
-            "--int8 (W8A8 LSTM kernels #4-#6) is not ported (ROADMAP.md "
-            "queue A item 9)")
+            "--int8 --bf16 (int8 on bf16 params) is not ported (bf16, "
+            "ROADMAP.md queue A item 14)")
+    if args.int8 and args.online_mode == "carry":
+        raise NotImplementedError(
+            "--int8 --online-mode carry needs the int8 cell step "
+            "lstm_cell_step_int8, which is not ported (carry mode, "
+            "ROADMAP.md queue A item 13)")
     if args.data_parallel:
         raise NotImplementedError(
             "--data-parallel is not ported (ROADMAP.md queue A item 16)")
@@ -85,6 +96,8 @@ def main(argv=None) -> dict:
     net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
         C.paths.smpl_file), device=args.device)
     params = params_from_jax(load_npz(args.model), device=net.device)
+    if args.int8:
+        params = quantize_params_int8(params)
     if args.dataset == "synthetic":
         fixture = C.paths.processed_datasets / "synthetic.pt"
         if not fixture.exists():

@@ -21,8 +21,13 @@ fusion are plain batched PyTorch. The JAX package's `lax.scan` loops
 become Python loops; the semantics are unchanged, and the parity tests
 hold every output and state field to the JAX package.
 
+W8A8 int8 params (`ops.quant.quantize_params_int8`, or a quantized tree
+through `nn.convert.params_from_jax`) flow through every entry point
+unchanged: the dtype of each LSTM layer's w_ih sends it to the int8
+projections and the int8 kernels #4 to #6.
+
 Not ported yet: the single-stream `forward_online`, `init_online_state`
-and `forward_online_sequence`, carry mode, bf16 and int8 (see ROADMAP.md
+and `forward_online_sequence`, carry mode and bf16 (see ROADMAP.md
 queue A).
 """
 

@@ -21,7 +21,14 @@ from torch import nn
 
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS
-from mobileposer_tpu_torch.nn.lstm import LSTMConfig, RNNBlock, check_float32
+from mobileposer_tpu_torch.nn.lstm import (LSTMConfig, LSTMDirectionInt8,
+                                           RNNBlock, check_float32)
+from mobileposer_tpu_torch.ops.quant import is_quantized
+
+# the keys of one direction of one layer: float, and W8A8
+# (`ops.quant.quantize_lstm_direction`)
+_FLOAT_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
+_INT8_KEYS = ("w_ih", "w_ih_scale", "w_hh", "w_hh_scale", "b")
 
 
 def _loadz_typed(path) -> dict:
@@ -91,8 +98,8 @@ def export_npz(tree: dict, path) -> None:
 
 def rnn_block_to_jax(block: RNNBlock) -> dict:
     """One `RNNBlock` -> its JAX-layout numpy pytree ({"linear1",
-    "linear2", "lstm"}; linears as w [in, out]), the inverse of
-    `rnn_block_from_jax`."""
+    "linear2", "lstm"}; linears as w [in, out]; W8A8 directions in the
+    quantized layout), the inverse of `rnn_block_from_jax`."""
     def arr(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy().copy()
 
@@ -102,7 +109,8 @@ def rnn_block_to_jax(block: RNNBlock) -> dict:
         "linear2": {"w": arr(block.linear2.weight.t()),
                     "b": arr(block.linear2.bias)},
         "lstm": [{d: {k: arr(getattr(mod, k))
-                      for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
+                      for k in (_INT8_KEYS if is_quantized(mod)
+                                else _FLOAT_KEYS)}
                   for d, mod in layer.items()} for layer in block.lstm],
     }
 
@@ -117,8 +125,9 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
     src = np.asarray(src)
     if src.dtype == np.int8:
         raise NotImplementedError(
-            f"{name} is int8; W8A8 weights are not ported "
-            "(ROADMAP.md queue A item 9)")
+            f"{name} is int8 in a float direction (keys {_FLOAT_KEYS}); a "
+            f"W8A8 direction has the keys {_INT8_KEYS} "
+            "(ops.quant.quantize_lstm_direction)")
     if src.dtype.kind != "f":
         raise ValueError(f"{name}: expected a float array, got {src.dtype}")
     if tuple(src.shape) != tuple(dst.shape):
@@ -129,7 +138,8 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
 
 def rnn_block_from_jax(tree: dict, cfg: LSTMConfig, device) -> RNNBlock:
     """One RNN block's numpy pytree ({"linear1", "linear2", "lstm"}) ->
-    an `RNNBlock` on `device`, every array carried over as float32."""
+    an `RNNBlock` on `device`, every float array carried over as float32,
+    W8A8 directions as `LSTMDirectionInt8`."""
     # a private generator: the placeholder draws leave the global RNG alone
     block = RNNBlock(cfg, device=device, generator=torch.Generator())
     for lin in ("linear1", "linear2"):
@@ -143,10 +153,23 @@ def rnn_block_from_jax(tree: dict, cfg: LSTMConfig, device) -> RNNBlock:
         if set(dirs) != set(layer.keys()):
             raise ValueError(f"lstm/{li}: expected directions "
                              f"{sorted(layer.keys())}, got {sorted(dirs)}")
-        for dname, mod in layer.items():
-            for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
-                _copy(getattr(mod, k), dirs[dname][k],
-                      f"lstm/{li}/{dname}/{k}")
+        for dname, mod in list(layer.items()):
+            where = f"lstm/{li}/{dname}"
+            if set(dirs[dname]) == set(_INT8_KEYS):
+                try:
+                    layer[dname] = LSTMDirectionInt8(
+                        **{k: dirs[dname][k] for k in _INT8_KEYS},
+                        device=device)
+                except ValueError as e:
+                    raise ValueError(f"{where}/{e}") from None
+                if layer[dname].w_ih.shape != mod.w_ih.shape:
+                    raise ValueError(
+                        f"{where}/w_ih: expected shape "
+                        f"{tuple(mod.w_ih.shape)}, got "
+                        f"{tuple(layer[dname].w_ih.shape)}")
+                continue
+            for k in _FLOAT_KEYS:
+                _copy(getattr(mod, k), dirs[dname][k], f"{where}/{k}")
     return block
 
 
@@ -155,7 +178,10 @@ def params_from_jax(tree: dict, device=None,
     """The JAX package's params pytree (numpy leaves, e.g. from `load_npz`
     or `init_all_modules` there) -> the port's four modules on `device`
     (the CUDA card unless given). Float16/32/64 leaves are cast to
-    float32, the only dtype the port runs."""
+    float32, the only float dtype the port runs. A direction in the W8A8
+    layout of the JAX package's `quantize_params_int8` (int8 w_ih/w_hh,
+    float32 scales, pre-summed b) becomes an `LSTMDirectionInt8` with its
+    arrays as they are."""
     check_float32(dtype)
     device = resolve_device(device)
     return nn.ModuleDict({name: rnn_block_from_jax(tree[name], cfg, device)

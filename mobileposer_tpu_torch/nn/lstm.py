@@ -13,7 +13,12 @@ Ragged batches take `lengths` [B]: the frames past each row's length are
 masked, as in the JAX package (masked steps hold the carry and emit
 zeros; the backward direction reverses each row by its own length).
 
-Two backends, float32 only:
+W8A8 int8 directions (`LSTMDirectionInt8`, made by
+`ops.quant.quantize_params_int8` or loaded by `nn.convert`) run the same
+routes with int8 input projections and the int8 scan kernels; the dtype of
+w_ih selects them. Activations and carries stay float32.
+
+Two backends, float32 activations only:
 
   * 'auto' (inference): the scan kernels of `ops/lstm_cuda.py`. They
     write their outputs through ctypes and carry no gradient, so 'auto'
@@ -31,10 +36,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from mobileposer_tpu_torch.device import resolve_device
+from mobileposer_tpu_torch.ops.quant import int8_recurrent_gates, is_quantized
 
 
 class LSTMConfig(NamedTuple):
@@ -97,12 +104,15 @@ def _gate_update(gates: torch.Tensor, c: torch.Tensor):
 
 def _lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor,
                h0: torch.Tensor, c0: torch.Tensor,
-               mask: Optional[torch.Tensor] = None):
+               mask: Optional[torch.Tensor] = None,
+               w_hh_scale: Optional[torch.Tensor] = None):
     """LSTM scan: a Python loop over T of one matmul plus the gate update.
 
-    x_proj [T, B, 4H] (input projection incl. both biases), w_hh [H, 4H],
-    h0/c0 [B, H], mask [T, B] 1.0 where the frame is valid, or None for
-    full-length. Returns (ys [T, B, H], (h_T, c_T)).
+    x_proj [T, B, 4H] (input projection incl. both biases), w_hh [H, 4H]
+    (float32, or int8 with `w_hh_scale` [4H], its per-column scale: then
+    the recurrent term is `ops.quant.int8_recurrent_gates`, h re-quantized
+    per row every step), h0/c0 [B, H], mask [T, B] 1.0 where the frame is
+    valid, or None for full-length. Returns (ys [T, B, H], (h_T, c_T)).
     Masked steps hold the carry (so (h_T, c_T) equals the state at each
     sequence's last valid frame) and emit zeros, blended without a branch
     as the JAX package does: h <- m*h_new + (1-m)*h.
@@ -110,7 +120,9 @@ def _lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor,
     h, c = h0, c0
     ys = []
     for t in range(x_proj.shape[0]):
-        h_new, c_new = _gate_update(x_proj[t] + h @ w_hh, c)
+        rec = (h @ w_hh if w_hh_scale is None
+               else int8_recurrent_gates(h, w_hh, w_hh_scale))
+        h_new, c_new = _gate_update(x_proj[t] + rec, c)
         if mask is None:
             h, c = h_new, c_new
             ys.append(h)
@@ -182,6 +194,36 @@ class LSTMDirection(nn.Module):
         self.b_hh = nn.Parameter(torch.empty(H4, device=device))
 
 
+class LSTMDirectionInt8(nn.Module):
+    """One W8A8-quantized direction of one LSTM layer, the layout of
+    `ops.quant.quantize_lstm_direction`: w_ih int8 [n_in, 4H], w_ih_scale
+    f32 [4H], w_hh int8 [H, 4H], w_hh_scale f32 [4H] (per-column scales)
+    and b f32 [4H] = b_ih + b_hh. They are buffers, not parameters: no
+    gradient can be asked of them. Built from arrays (numpy or tensors)."""
+
+    _DTYPES = {"w_ih": torch.int8, "w_ih_scale": torch.float32,
+               "w_hh": torch.int8, "w_hh_scale": torch.float32,
+               "b": torch.float32}
+
+    def __init__(self, w_ih, w_ih_scale, w_hh, w_hh_scale, b, device=None):
+        super().__init__()
+        arrays = dict(w_ih=w_ih, w_ih_scale=w_ih_scale, w_hh=w_hh,
+                      w_hh_scale=w_hh_scale, b=b)
+        H4 = np.shape(w_hh)[-1]
+        want = {"w_ih": (np.shape(w_ih)[0], H4), "w_hh": (H4 // 4, H4),
+                "w_ih_scale": (H4,), "w_hh_scale": (H4,), "b": (H4,)}
+        for name, arr in arrays.items():
+            t = (arr.detach().clone() if isinstance(arr, torch.Tensor)
+                 else torch.from_numpy(np.array(arr)))
+            if t.dtype != self._DTYPES[name]:
+                raise ValueError(f"{name}: expected {self._DTYPES[name]}, "
+                                 f"got {t.dtype}")
+            if tuple(t.shape) != want[name]:
+                raise ValueError(f"{name}: expected shape {want[name]}, got "
+                                 f"{tuple(t.shape)}")
+            self.register_buffer(name, t.to(device))
+
+
 class RNNBlock(nn.Module):
     """linear1 -> ReLU (-> dropout when training) -> multi-layer (bi)LSTM
     -> linear2 (reference: rnn.py:9-33). Parameters do not require
@@ -243,8 +285,16 @@ class RNNBlock(nn.Module):
 def _needs_grad(layers, x: torch.Tensor) -> bool:
     """Whether autograd would need a gradient through these layers."""
     return torch.is_grad_enabled() and (x.requires_grad or any(
-        p.requires_grad for layer in layers for d in layer.values()
-        for p in (d.w_ih, d.w_hh, d.b_ih, d.b_hh)))
+        p.requires_grad for layer in layers for p in layer.parameters()))
+
+
+_INT8_TRAIN_ERROR = ("int8-quantized params are inference-only (rounding "
+                     "has no gradient); use float params for training")
+
+
+def _quantized(layers) -> bool:
+    """Whether a layer stack holds W8A8 directions."""
+    return any(is_quantized(d) for layer in layers for d in layer.values())
 
 
 def lstm_forward(layers, x: torch.Tensor,
@@ -256,7 +306,8 @@ def lstm_forward(layers, x: torch.Tensor,
     """Multi-layer (bi)LSTM over the CUDA layer kernels.
 
     layers:  list of {"fwd": LSTMDirection, ["bwd": LSTMDirection]}
-    x:       [B, T, D] batch-major input ([T, B, D] when time_major=True)
+             (or `LSTMDirectionInt8`s: the int8 kernels, inference only)
+    x:     [B, T, D] batch-major input ([T, B, D] when time_major=True)
     lengths: [B] valid lengths in [0, T], or None (= all T). With lengths
              every layer, unidirectional ones included, runs the masked
              kernels (nn/lstm.py:256 of the JAX package).
@@ -277,6 +328,8 @@ def lstm_forward(layers, x: torch.Tensor,
         B, T = (x.shape[1], x.shape[0]) if time_major else x.shape[:2]
         lengths = check_lengths(lengths, B, T, x.device)
     if backend in TRAIN_BACKENDS:
+        if _quantized(layers):
+            raise ValueError(_INT8_TRAIN_ERROR + " backends")
         from mobileposer_tpu_torch.ops.lstm_train_cuda import \
             lstm_forward_train
         return lstm_forward_train(layers, x, lengths, h0c0,
@@ -318,6 +371,9 @@ def rnn_apply(params: RNNBlock, cfg: LSTMConfig, x: torch.Tensor,
     """
     check_backend(backend)
     check_float32(x.dtype)
+    if train and _quantized(params.lstm):
+        # caught here whatever the backend, before any work is done
+        raise ValueError(_INT8_TRAIN_ERROR)
     hidden = torch.relu(params.linear1(x))
     if train and cfg.dropout > 0.0:
         if dropout_keep is None:

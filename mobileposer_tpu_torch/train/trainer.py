@@ -41,8 +41,8 @@ from mobileposer_tpu_torch.models import modules as M
 from mobileposer_tpu_torch.nn.convert import (export_npz, load_npz,
                                               rnn_block_from_jax,
                                               rnn_block_to_jax)
-from mobileposer_tpu_torch.nn.lstm import (TRAIN_BACKENDS, RNNBlock,
-                                           check_backend)
+from mobileposer_tpu_torch.nn.lstm import (TRAIN_BACKENDS, LSTMDirectionInt8,
+                                           RNNBlock, check_backend)
 from mobileposer_tpu_torch.utils.metrics import (JSONLSink, MultiSink,
                                                  make_sinks)
 
@@ -67,7 +67,12 @@ def make_optimizer(module_name: str, lr: float,
     """AdamW for joints (reference: joints.py:114), Adam for the rest, at
     optax's defaults: betas (0.9, 0.999), eps 1e-8, and for AdamW a weight
     decay of 1e-4 (optax's default; torch's is 1e-2). One parameter group,
-    so AdamW decays every parameter, biases included, as optax does."""
+    so AdamW decays every parameter, biases included, as optax does.
+    Refuses W8A8-quantized modules, whose int8 weights no optimizer can
+    update."""
+    if any(isinstance(m, LSTMDirectionInt8) for m in params.modules()):
+        raise ValueError("int8-quantized params are inference-only "
+                         "(rounding has no gradient); train float params")
     kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if module_name == "joints":
         return torch.optim.AdamW(params.parameters(), weight_decay=1e-4,

@@ -298,7 +298,7 @@ def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
     for name in pose_eval.METRIC_NAMES:
         assert name in out
     assert res["offline"].shape == (8, 2) and "translation drift" in out
-    for flags in (["--int8"], ["--bf16"], ["--data-parallel"],
+    for flags in (["--int8", "--bf16"], ["--bf16"], ["--data-parallel"],
                   ["--online", "--online-mode", "carry"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",

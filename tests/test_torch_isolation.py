@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
             "import mobileposer_tpu_torch.nn.convert\n"
             "import mobileposer_tpu_torch.ops.lstm_cuda\n"
             "import mobileposer_tpu_torch.ops.lstm_train_cuda\n"
+            "import mobileposer_tpu_torch.ops.quant\n"
             "import mobileposer_tpu_torch.train\n"
             f"bad = {sorted(FORBIDDEN)!r}\n"
             "print(sorted(m for m in sys.modules "
@@ -65,11 +66,13 @@ def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fixture = ROOT / "tests" / "fixtures" / "demo_checkpoint_f16.npz"
     for call in (MobilePoserNet, init_all_modules,
-                 lambda: params_from_jax(load_npz(fixture)), bench.run):
+                 lambda: params_from_jax(load_npz(fixture)), bench.run,
+                 lambda: bench.run(int8=True)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
-    with pytest.raises(RuntimeError, match="CUDA device"):
-        bench.run(device="cpu")
+    for int8 in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            bench.run(device="cpu", int8=int8)
     net = MobilePoserNet(device="cpu")
     st = net.init_online_state_batched(2)
     assert st.vel_h.device.type == "cpu" and st.vel_h.shape == (2, 2, 256)
@@ -90,12 +93,18 @@ def test_eval_entry_points_need_a_device_when_no_gpu(monkeypatch):
     cfg = MODULE_CONFIGS["footcontact"]
     for call in (lambda: RNNBlock(cfg), FullMotionEvaluator,
                  lambda: PoseDataset(data_files=[]),
-                 lambda: eval_cli.main(["--model", str(fixture)])):
+                 lambda: eval_cli.main(["--model", str(fixture)]),
+                 lambda: eval_cli.main(["--model", str(fixture), "--int8"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     block = RNNBlock(cfg, device="cpu")
     assert block.linear1.weight.device.type == "cpu"
     assert block.lstm[0]["fwd"].w_hh.device.type == "cpu"
+    # quantizing keeps the modules where they are
+    from mobileposer_tpu_torch.ops.quant import quantize_params_int8
+    qblock = quantize_params_int8(block)
+    assert qblock.lstm[0]["fwd"].w_hh.device.type == "cpu"
+    assert qblock.lstm[0]["fwd"].w_hh.dtype == torch.int8
 
 
 def test_train_entry_points_need_a_device_when_no_gpu(monkeypatch):

@@ -136,9 +136,7 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="shapes differ"):
         lstm_cuda.bilstm_layer(x_proj, x_proj[:-1].contiguous(), w_hh, w_hh,
                                h0, c0, h0, c0)
-    assert lstm_cuda.launches == {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
-                                  "lstm_scan_masked_f32": 0,
-                                  "bilstm_scan_masked_f32": 0}
+    assert set(lstm_cuda.launches.values()) == {0}
 
 
 def test_out_of_slice_options_raise():
