@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's streaming, evaluation and training paths
-on one CUDA card.
+"""Drive the PyTorch/CUDA port's streaming, evaluation, training and fused
+single-window paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,7 +9,7 @@ then runs these phases, each printing JSON lines:
 
   1. card    — `nvidia-smi` name and power limit, torch and CUDA versions;
                TF32 is turned off for the whole run;
-  2. build   — nvcc time for the three sources, built in parallel
+  2. build   — nvcc time for the four sources, built in parallel
                (set-up, not kernel time), and ptxas usage;
   3. kernel  — each full-length kernel against its plain PyTorch version
                at the streaming shapes (f32, nonzero h0/c0): max abs
@@ -33,6 +33,14 @@ then runs these phases, each printing JSON lines:
                from h0, the full shape, exact zeros at masked steps; kernel,
                plain and float-kernel times and the bound at the int8 rate
                (no PyTorch call computes a W8A8 scan, so no library time);
+  3e. multicell — the multicell scan (#9) against its plain version at
+               T = 45, B = 256 and 8, the trio's five cells H = (256, 256,
+               64, 64, 256), nonzero h0/c0, and threaded through chunks of
+               4 steps; kernel, plain and per-module times (the layer
+               kernels on the same five cells, the yardstick: no PyTorch
+               call computes cells of different H, so no library time;
+               three cuDNN `torch.nn.LSTM` calls printed beside it) and the
+               bound summed over the cells;
   4. slice   — the trained fixture weights through
                `forward_online_sequence_batched` on the card in 'scan'
                and 'unfolded' modes, each continued from its final state,
@@ -57,6 +65,13 @@ then runs these phases, each printing JSON lines:
                weights through `cli.evaluate`; one concurrent step on the
                card against the CPU port from identical params, batch and
                draws;
+  4d. fused  — the trained fixture through `forward(backend='fused')` on
+               the card at B = 8 and 256 windows of T = 45, held to the CPU
+               port and to `forward(backend='auto')` on the card; exactly 2
+               multicell and 2 bidirectional launches per forward, none
+               of the unidirectional kernel; with `lengths`, the masked
+               kernels (6 bi + 2 uni) and no multicell launch; int8 params
+               raise ValueError;
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan) and 8 streams (unfolded), then one
                traced call of each: device time by kernel group and the
@@ -67,8 +82,11 @@ then runs these phases, each printing JSON lines:
                traced call;
   5c. train rate — training frames/s of the concurrent step at B = 256,
                T = 125 (`bench.run_train`), then one traced step;
-  6. kernels — one line with every ported kernel's numbers, and the TPU
-               kernels not yet ported.
+  5d. forward rate — single-window forwards/s at B = 256, T = 45
+               (`bench.run_forward`), 'fused' and 'auto' in turns (fused,
+               auto, auto, fused), then one traced call of each;
+  6. kernels — one line with every ported kernel's numbers; no TPU
+               kernel is left to port.
 
 Any failure raises and exits non-zero before the last line, which is
 `{"ok": true, "device": {...}}` only when every phase passed. The script
@@ -178,7 +196,8 @@ INT8_DRIFT_RTOL = 1e-2
 # 3 (positional, cm) and 6 (jitter).
 INT8_DELTA_BOUND = {0: 0.5, 3: 0.5, 6: 0.2}
 
-# file:line of each TPU kernel (the `pallas_call` site's function)
+# file:line of each TPU kernel (the `pallas_call` site's function) and the
+# port's kernel for it; every one is ported
 TPU_KERNELS = [
     ("bilstm_layer_pallas", "mobileposer_tpu/ops/lstm_pallas.py:264",
      "bilstm_scan_f32"),
@@ -203,7 +222,7 @@ TPU_KERNELS = [
     ("_bwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:202",
      "lstm_train_dw_f32"),
     ("multicell_lstm_pallas", "mobileposer_tpu/ops/multicell_pallas.py:83",
-     None),
+     "multicell_scan_f32"),
 ]
 
 
@@ -721,6 +740,245 @@ def phase_train_kernels(torch, train_cuda):
     return results
 
 
+def multicell_bound(T: int, B: int, hidden_sizes):
+    """Least time (ms) the card needs for one multicell scan: the cells'
+    operations and bytes, each counted as `layer_bound` counts one
+    direction, summed over the cells. Returns (bound_ms, bound_by, flops,
+    bytes)."""
+    parts = [layer_bound(1, T, B, H) for H in hidden_sizes]
+    flops, nbytes = sum(p[2] for p in parts), sum(p[3] for p in parts)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def phase_multicell(torch, multicell_cuda, lstm_cuda):
+    """Kernel #9 against its plain version at the fused path's shapes:
+    T = 45, the trio's five cells (`models.fused._ROW_H`), B = 256 windows
+    and B = 8; at B = 8 also threaded through chunks of 4 steps. The
+    yardstick is the per-module layer kernels on the same five cells (a
+    bidirectional launch at H = 256, one at H = 64, a unidirectional one
+    at H = 256), timed in turns with the multicell kernel; they should
+    give the same numbers, and the difference is printed."""
+    import numpy as np
+    from mobileposer_tpu_torch.models.fused import _ROW_H
+    T, hs = 45, _ROW_H
+    offs = [sum(4 * h for h in hs[:i]) for i in range(len(hs))]
+    results, failures = [], []
+    for B in (256, 8):
+        rng = np.random.RandomState(B + 9)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+
+        x = t(rng.randn(T, B, 4 * sum(hs)))
+        ws = [t(rng.uniform(-1 / math.sqrt(H), 1 / math.sqrt(H), (H, 4 * H)))
+              for H in hs]
+        h0s = [t(np.tanh(rng.randn(B, H))) for H in hs]
+        c0s = [t(rng.randn(B, H) * 0.5) for H in hs]
+        args = (x, ws, h0s, c0s, hs)
+
+        def flat(out):
+            return [v for part in out for v in part]
+
+        def max_err(got, want):
+            return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+        got = flat(multicell_cuda.multicell_lstm(*args))
+        torch.cuda.synchronize()
+        want = flat(multicell_cuda.multicell_lstm_plain(*args))
+        err = max_err(got, want)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+
+        chunk_err = None
+        if B == 8:
+            h, c, chunks = h0s, c0s, []
+            for t0 in range(0, T, 4):
+                ys, h, c = multicell_cuda.multicell_lstm(
+                    x[t0:t0 + 4].contiguous(), ws, h, c, hs)
+                chunks.append(ys)
+            chunked = ([torch.cat([ys[i] for ys in chunks])
+                        for i in range(len(hs))] + list(h) + list(c))
+            torch.cuda.synchronize()
+            chunk_err = max_err(chunked, want)
+
+        xs = [x[..., o:o + 4 * H].contiguous() for o, H in zip(offs, hs)]
+
+        def per_module():
+            pf = lstm_cuda.bilstm_layer(xs[0], xs[1], ws[0], ws[1], h0s[0],
+                                        c0s[0], h0s[1], c0s[1])
+            ff = lstm_cuda.bilstm_layer(xs[2], xs[3], ws[2], ws[3], h0s[2],
+                                        c0s[2], h0s[3], c0s[3])
+            ys_v, hc_v = lstm_cuda.lstm_layer(xs[4], ws[4], h0s[4], c0s[4])
+            return ([pf[0], pf[1], ff[0], ff[1], ys_v]
+                    + [pf[2][0], pf[3][0], ff[2][0], ff[3][0], hc_v[0]]
+                    + [pf[2][1], pf[3][1], ff[2][1], ff[3][1], hc_v[1]])
+
+        per_module_diff = max_err(per_module(), got)
+
+        # three cuDNN calls on the same cells' widths (input width H, so
+        # each also does its input projection): printed, not a yardstick
+        nets = [torch.nn.LSTM(H, H, num_layers=1, bidirectional=bi).cuda()
+                for H, bi in ((256, True), (64, True), (256, False))]
+        lib_in = [(t(rng.randn(T, B, net.hidden_size)),
+                   (t(rng.randn(n, B, net.hidden_size) * 0.5),
+                    t(rng.randn(n, B, net.hidden_size) * 0.5)))
+                  for net, n in zip(nets, (2, 2, 1))]
+
+        def cudnn():
+            for net, (xi, hc) in zip(nets, lib_in):
+                net(xi, hc)
+
+        with torch.no_grad():
+            # the multicell kernel and its yardstick in turns
+            times = {"multicell": [], "per_module": []}
+            for which in ("multicell", "per_module", "per_module",
+                          "multicell"):
+                fn = ((lambda: multicell_cuda.multicell_lstm(*args))
+                      if which == "multicell" else per_module)
+                times[which].append(time_ms(fn, 10))
+            cudnn_ms = time_ms(cudnn, 10)
+            plain_ms = time_ms(
+                lambda: multicell_cuda.multicell_lstm_plain(*args), 3,
+                warmup=1)
+        kernel_ms = sum(times["multicell"]) / 2
+        per_module_ms = sum(times["per_module"]) / 2
+        bound_ms, bound_by, flops, nbytes = multicell_bound(T, B, hs)
+        rec = {"phase": "multicell_kernel", "name": "multicell_scan_f32",
+               "T": T, "B": B, "H": list(hs), "max_abs_err": err,
+               "chunked_max_abs_err": chunk_err,
+               "per_module_max_abs_diff": per_module_diff, "tol": KERNEL_TOL,
+               "kernel_ms": kernel_ms, "kernel_ms_turns": times["multicell"],
+               "per_module_kernels_ms": per_module_ms,
+               "per_module_ms_turns": times["per_module"],
+               "per_module": "bilstm_scan_f32 H=256 + bilstm_scan_f32 H=64 "
+                             "+ lstm_scan_f32 H=256, one launch each",
+               "plain_ms": plain_ms, "library_ms": None,
+               "library": "none: no single PyTorch call computes five LSTM "
+                          "cells of different H",
+               "cudnn_three_calls_ms": cudnn_ms,
+               "cudnn": "torch.nn.LSTM bi H=256 + bi H=64 + uni H=256 "
+                        "(cuDNN, TF32 off; each includes its input "
+                        "projection)",
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+        emit(rec)
+        results.append(rec)
+        tag = f"multicell_scan_f32 B={B}"
+        if not finite:
+            failures.append(f"{tag}: non-finite output")
+        for what, e in (("max abs err", err), ("chunked err", chunk_err),
+                        ("per-module diff", per_module_diff)):
+            if e is not None and e > KERNEL_TOL:
+                failures.append(f"{tag}: {what} {e} > {KERNEL_TOL}")
+    require(not failures, "; ".join(failures))
+    return results
+
+
+def phase_fused(torch, lstm_cuda, multicell_cuda):
+    """The trained fixture through `forward(backend='fused')` on the card,
+    B windows of T = 45 frames with a nonzero velocity carry, held to the
+    CPU port and to `forward(backend='auto')` on the card; then the
+    `lengths` route and int8 params. Returns the launch counts of the
+    full-length fused forwards (the main-path run of kernel #9)."""
+    import numpy as np
+    from mobileposer_tpu_torch.models import MobilePoserNet, forward
+    from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+    from mobileposer_tpu_torch.ops.quant import quantize_params_int8
+
+    tree = load_npz(FIXTURE)
+    params = {d: params_from_jax(tree, device=d) for d in ("cuda", "cpu")}
+    body = MobilePoserNet(device="cuda").body_model
+    rng = np.random.RandomState(2)
+    T = 45
+
+    def counts():
+        return {**lstm_cuda.launches, **multicell_cuda.launches}
+
+    def inputs(B, d):
+        return (torch.from_numpy(imu[:B]).to(d),
+                tuple(torch.from_numpy(a[:, :B]).to(d) for a in hc))
+
+    imu = (rng.randn(256, T, 60) * 0.1).astype(np.float32)
+    hc = (np.tanh(rng.randn(2, 256, 256)).astype(np.float32),
+          (rng.randn(2, 256, 256) * 0.5).astype(np.float32))
+    names = ("pose", "joints", "vel", "contact", "vel_h", "vel_c")
+    lstm_cuda.reset_launches()
+    multicell_cuda.reset_launches()
+    for B in (8, 256):
+        x, carry = inputs(B, "cuda")
+        before = counts()
+        card = forward(params["cuda"], x, body, vel_h0c0=carry,
+                       backend="fused")
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in counts().items()}
+        expect = dict.fromkeys(moved, 0)
+        expect.update(multicell_scan_f32=2, bilstm_scan_f32=2)
+        auto = forward(params["cuda"], x, body, vel_h0c0=carry,
+                       backend="auto")
+        x_cpu, carry_cpu = inputs(B, "cpu")
+        cpu = forward(params["cpu"], x_cpu, body, vel_h0c0=carry_cpu,
+                      backend="fused")
+        card, auto, cpu = ([*o[:4], *o[4]] for o in (card, auto, cpu))
+        errs, auto_errs = {}, {}
+        for nm, g, a, c in zip(names, card, auto, cpu):
+            require(tuple(g.shape) == tuple(c.shape),
+                    f"fused B={B} {nm}: shape {tuple(g.shape)} vs "
+                    f"{tuple(c.shape)}")
+            require(bool(torch.isfinite(g).all()),
+                    f"fused B={B} {nm}: non-finite")
+            errs[nm] = float((g.cpu() - c).abs().max())
+            auto_errs[nm] = float((g - a).abs().max())
+        pose = card[0]
+        ortho = float((pose @ pose.transpose(-1, -2)
+                       - torch.eye(3, device=pose.device)).abs().max())
+        emit({"phase": "fused", "B": B, "T": T,
+              "max_abs_err_vs_cpu": errs,
+              "max_abs_err_vs_auto_on_card": auto_errs, "tol": SLICE_TOL,
+              "pose_orthonormal_err": ortho, "launches": moved,
+              "expected_launches": expect})
+        require(moved == expect,
+                f"fused B={B}: launches {moved}, expected {expect}")
+        require(max(errs.values()) <= SLICE_TOL,
+                f"fused B={B}: card vs CPU max abs err {errs}")
+        require(max(auto_errs.values()) <= SLICE_TOL,
+                f"fused B={B}: 'fused' vs 'auto' max abs err {auto_errs}")
+        require(ortho <= 1e-4, f"fused B={B}: pose not orthonormal "
+                               f"({ortho})")
+    main_run = counts()
+
+    # with lengths: the per-module masked path, as 'auto' runs it
+    x, carry = inputs(8, "cuda")
+    lengths = torch.tensor([45, 44, 30, 17, 45, 1, 9, 38])
+    before = counts()
+    fused_len = forward(params["cuda"], x, body, lengths=lengths,
+                        vel_h0c0=carry, backend="fused")
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in counts().items()}
+    expect = dict.fromkeys(moved, 0)
+    expect.update(bilstm_scan_masked_f32=6, lstm_scan_masked_f32=2)
+    auto_len = forward(params["cuda"], x, body, lengths=lengths,
+                       vel_h0c0=carry, backend="auto")
+    len_err = max(float((g - a).abs().max()) for g, a in
+                  zip([*fused_len[:4], *fused_len[4]],
+                      [*auto_len[:4], *auto_len[4]]))
+    try:
+        forward(quantize_params_int8(params["cuda"]), x, body,
+                vel_h0c0=carry, backend="fused")
+        int8_error = None
+    except ValueError as e:
+        int8_error = str(e)
+    emit({"phase": "fused_lengths_int8", "lengths": lengths.tolist(),
+          "launches": moved, "expected_launches": expect,
+          "max_abs_diff_vs_auto": len_err, "int8_value_error": int8_error})
+    require(moved == expect,
+            f"fused with lengths: launches {moved}, expected {expect}")
+    require(len_err == 0.0, f"fused with lengths differs from 'auto' by "
+                            f"{len_err}")
+    require(int8_error is not None, "fused on int8 params did not raise")
+    return main_run
+
+
 def write_eval_sequences(torch, path: Path) -> None:
     """Synthetic sequences in the processed `.pt` schema (reference
     process.py:113-121): smooth local poses from cumulative random twists,
@@ -1043,7 +1301,7 @@ def main() -> int:
             == ROOT, "mobileposer_tpu_torch was not imported from this "
                      "checkout")
     from mobileposer_tpu_torch import bench
-    from mobileposer_tpu_torch.ops import _build, lstm_cuda
+    from mobileposer_tpu_torch.ops import _build, lstm_cuda, multicell_cuda
     from mobileposer_tpu_torch.ops import lstm_train_cuda as train_cuda
 
     # 1. card
@@ -1064,12 +1322,14 @@ def main() -> int:
     # 2. build (set-up time, not kernel time): one nvcc per source, all
     # started together
     t0 = time.perf_counter()
-    sources = ("lstm_scan.cu", "lstm_scan_int8.cu", "lstm_train.cu")
+    sources = ("lstm_scan.cu", "lstm_scan_int8.cu", "lstm_train.cu",
+               "multicell_scan.cu")
     with ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.build, src) for src in sources]:
             fut.result()
     lstm_cuda.build()
     train_cuda.build()
+    multicell_cuda.build()
     ptxas = {}
     for src in sources:
         log = _build.library_path(src).with_suffix(".log")
@@ -1086,9 +1346,12 @@ def main() -> int:
     train_recs = phase_train_kernels(torch, train_cuda)
     # 3d. the int8 kernels against their plain versions
     kernel_recs += phase_int8_kernels(torch, lstm_cuda)
+    # 3e. the multicell kernel against its plain version
+    kernel_recs += phase_multicell(torch, multicell_cuda, lstm_cuda)
 
     # 4. the streaming slice on the card, float32 then int8 (their
     # main-path runs: the full-length counters are read on them)
+    multicell_cuda.reset_launches()
     stream_launches = phase_slice(torch, lstm_cuda)
     stream_int8_launches = phase_slice(torch, lstm_cuda, int8=True)
     # 4b. the evaluation entry point, float32 then --int8 (their offline
@@ -1111,6 +1374,12 @@ def main() -> int:
                     f"{INT8_DELTA_BOUND[row]}")
     # 4c. the training entry point (its run: the training counters)
     train_launches = phase_train(torch, lstm_cuda, train_cuda)
+    # the multicell kernel is `forward(backend='fused')`'s alone
+    require(multicell_cuda.launches["multicell_scan_f32"] == 0,
+            "the streaming, evaluation or training path launched the "
+            "multicell kernel")
+    # 4d. the fused single-window forward (its run: the multicell counter)
+    fused_launches = phase_fused(torch, lstm_cuda, multicell_cuda)
     main_launches = {
         **{k: n for k, n in stream_launches.items() if k.endswith("f32")
            and "masked" not in k},
@@ -1120,7 +1389,8 @@ def main() -> int:
            if k.endswith("int8") and "masked" not in k},
         **{k: n for k, n in offline_int8_launches.items()
            if k.endswith("int8") and "masked" in k},
-        **train_launches}
+        **train_launches,
+        "multicell_scan_f32": fused_launches["multicell_scan_f32"]}
     for name, n in main_launches.items():
         require(n > 0, f"{name} was never launched on its main path")
 
@@ -1169,27 +1439,48 @@ def main() -> int:
     require(trace["device_busy_seconds"] > 0,
             "the traced train step shows no device time")
 
+    # 5d. single-window forwards/s at B=256, T=45, 'fused' and 'auto' in
+    # turns, then one traced call of each
+    for backend in ("fused", "auto", "auto", "fused"):
+        rec = bench.run_forward(batch=256, window=45, backend=backend)
+        emit({"phase": "forward_rate", **rec})
+        require(rec["pct_of_f32_peak"] < 100.0,
+                "implied FLOP/s above the card's peak: the harness is wrong")
+    for backend in ("fused", "auto"):
+        trace = bench.breakdown_forward(batch=256, window=45,
+                                        backend=backend)
+        emit({"phase": "forward_breakdown", **trace})
+        require(trace["device_busy_seconds"] > 0,
+                "the traced forward shows no device time")
+        has_multicell = any("#9" in g for g in trace["groups"])
+        require(has_multicell == (backend == "fused"),
+                f"the traced {backend!r} forward: multicell group "
+                f"{sorted(trace['groups'])}")
+
     # 6. kernels line: each kernel's main-path shape (streaming: T=45,
     # H=256, B=256; evaluation: T=512, H=256, B=64; training: T=125,
-    # H=256, B=256); the int8 kernels have no library yardstick and carry
-    # the float kernel's time at the same shape
+    # H=256, B=256; fused: T=45, B=256, the trio's five cells); the int8
+    # kernels have no library yardstick and carry the float kernel's time
+    # at the same shape, the multicell kernel the per-module kernels' time
     ported = []
     for tpu_name, replaces, name in TPU_KERNELS:
-        if name is None:
-            continue
         recs = [r for r in kernel_recs + train_recs if r["name"] == name]
+        multicell = name == "multicell_scan_f32"
         T, B = ((512, 64) if "masked" in name
                 else (125, 256) if "train" in name else (45, 256))
-        main = next(r for r in recs
-                    if (r["T"], r["B"], r["H"]) == (T, B, 256))
+        main = next(r for r in recs if (r["T"], r["B"]) == (T, B)
+                    and (multicell or r["H"] == 256))
         source = ("lstm_train.cu" if "train" in name
                   else "lstm_scan_int8.cu" if "int8" in name
+                  else "multicell_scan.cu" if multicell
                   else "lstm_scan.cu")
         errs = [max(r["max_abs_err"].values())
                 if isinstance(r["max_abs_err"], dict) else r["max_abs_err"]
                 for r in recs]
         extra = ({"float_kernel_ms": main["float_kernel_ms"]}
-                 if "int8" in name else {})
+                 if "int8" in name else
+                 {"per_module_kernels_ms": main["per_module_kernels_ms"]}
+                 if multicell else {})
         ported.append({
             "name": name, "route": "cuda",
             "source": f"mobileposer_tpu_torch/ops/csrc/{source}",
@@ -1198,12 +1489,11 @@ def main() -> int:
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], **extra,
-            "shape": {"T": T, "B": B, "H": 256}})
+            "shape": {"T": T, "B": B, "H": main["H"]}})
     emit({"kernels": ported,
           "online_eval_launches": online_launches,
           "online_eval_int8_launches": online_int8_launches,
-          "not_ported": [{"name": n, "replaces": r, "status": "to port"}
-                         for n, r, p in TPU_KERNELS if p is None]})
+          "not_ported": []})
 
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

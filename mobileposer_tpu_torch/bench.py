@@ -1,5 +1,6 @@
-"""Exact-path streamed IMU frames/s, offline-evaluation frames/s and
-training frames/s of the port on one CUDA device.
+"""Exact-path streamed IMU frames/s, offline-evaluation frames/s,
+training frames/s and single-window forwards/s of the port on one CUDA
+device.
 
 `run` times `MobilePoserNet.forward_online_sequence_batched` (exact
 45-frame window semantics) on S streams x N frames; `run_offline` times
@@ -33,10 +34,17 @@ full-length windows, the same chained way with the losses folded into the
 checksum; its rate is training frames/s, B x T valid frames per step over
 the step time.
 
-`breakdown`, `breakdown_offline` and `breakdown_train` are the traced
-runs: one call under `torch.profiler`, with the device time summed by
-kernel group and the device's busy share of the wall time. The rates come
-from `run`, `run_offline` and `run_train`, with tracing off.
+`run_forward` times one single-window `models.net.forward` (B windows of
+T frames, pose at every frame, the velocity carry threaded from call to
+call) with `backend='fused'` (the trio on the multicell kernel) or
+'auto' (every module on the layer kernels), in windows/s and ms per
+forward, the same chained way with all four outputs in the checksum.
+
+`breakdown`, `breakdown_offline`, `breakdown_train` and
+`breakdown_forward` are the traced runs: one call under
+`torch.profiler`, with the device time summed by kernel group and the
+device's busy share of the wall time. The rates come from `run`,
+`run_offline`, `run_train` and `run_forward`, with tracing off.
 
 Random weights from a seed (the JAX bench uses random weights too).
 Run:  python -m mobileposer_tpu_torch.bench [--streams 256] [--frames 100]
@@ -61,7 +69,8 @@ from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.evaluation.pose_eval import forward_offline_batched
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, init_all_modules
-from mobileposer_tpu_torch.models.net import NUM_TOTAL, MobilePoserNet
+from mobileposer_tpu_torch.models.net import (NUM_TOTAL, MobilePoserNet,
+                                              forward)
 from mobileposer_tpu_torch.ops import lstm_train_cuda
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 from mobileposer_tpu_torch.train.trainer import (MODULE_NAMES,
@@ -342,8 +351,77 @@ def breakdown_train(batch: int = 256, window: int = 125, seed: int = 0,
     return {"batch": batch, "window": window, **rec}
 
 
+def _forward_setup(batch: int, window: int, seed: int, device):
+    """Net, random weights, one batch of windows [batch, window, 60] and a
+    fresh velocity carry on the card."""
+    device, net, params = _net(seed, device)
+    rng = np.random.RandomState(seed)
+    imu = torch.from_numpy(
+        rng.randn(batch, window, 60).astype(np.float32) * 0.1).to(device)
+    cfg = MODULE_CONFIGS["velocity"]
+    carry = tuple(torch.zeros((cfg.n_layers, batch, cfg.n_hidden),
+                              device=device) for _ in range(2))
+    return device, net, params, imu, carry
+
+
+def run_forward(batch: int = 256, window: int = 45, backend: str = "fused",
+                seed: int = 0, reps: int = 3, trials: int = 5,
+                device=None) -> dict:
+    """Measure single-window forwards/s of `models.net.forward` (one
+    window per row, pose_index=None, every output in the checksum, the
+    velocity carry threaded); returns the JSON record. Same chained timing
+    as `run`; the record's value is the median rate in windows/s."""
+    device, net, params, imu, carry = _forward_setup(batch, window, seed,
+                                                     device)
+
+    def call(vel_hc):
+        pose, joints, vel, contact, vel_hc = forward(
+            params, imu, net.body_model, vel_h0c0=vel_hc, backend=backend)
+        return (pose, joints, vel, contact), vel_hc
+
+    rates, t_single, checksum = _chained_rates(call, carry, batch, reps,
+                                               trials, device)
+    wps = float(np.median(rates))
+    # every frame of every window goes once through the four modules
+    flops = window * model_flops_per_frame()
+    return {
+        "metric": "single_window_forwards_per_sec",
+        "value": wps,
+        "unit": "windows/s",
+        "backend": backend,
+        "batch": batch,
+        "window": window,
+        "ms_per_forward": 1e3 * batch / wps,
+        "reps": reps,
+        "trials": trials,
+        "rate_min": min(rates),
+        "rate_max": max(rates),
+        "seconds_single": t_single,
+        "chained_per_run_ratio": (batch / t_single) / wps,
+        "model_flops_per_window": flops,
+        "model_flops_per_sec": wps * flops,
+        "pct_of_f32_peak": 100.0 * wps * flops / F32_PEAK_FLOPS,
+        "checksum": checksum,
+        "device_kind": torch.cuda.get_device_name(device),
+    }
+
+
+def breakdown_forward(batch: int = 256, window: int = 45,
+                      backend: str = "fused", seed: int = 0,
+                      device=None) -> dict:
+    """One `run_forward` call under `torch.profiler`, reported as
+    `breakdown` reports; the multicell kernel is a group of its own."""
+    device, net, params, imu, carry = _forward_setup(batch, window, seed,
+                                                     device)
+    rec = _traced(lambda: forward(params, imu, net.body_model,
+                                  vel_h0c0=carry, backend=backend), device)
+    return {"batch": batch, "window": window, "backend": backend, **rec}
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "multicell_scan_kernel" in low:
+        return "#9 multicell_scan (ops/csrc/multicell_scan.cu)"
     if "lstm_train_fwd_kernel" in low:
         return "#7 lstm_train_fwd (ops/csrc/lstm_train.cu)"
     if "lstm_train_bwd_kernel" in low:

@@ -26,6 +26,10 @@ through `nn.convert.params_from_jax`) flow through every entry point
 unchanged: the dtype of each LSTM layer's w_ih sends it to the int8
 projections and the int8 kernels #4 to #6.
 
+`forward(backend='fused')` runs the poser / footcontact / velocity trio
+of a single full-length window on the multicell kernel
+(`models/fused.py`); every other entry point computes 'fused' as 'auto'.
+
 Not ported yet: the single-stream `forward_online`, `init_online_state`
 and `forward_online_sequence`, carry mode and bf16 (see ROADMAP.md
 queue A).
@@ -42,6 +46,7 @@ from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.kinematics.smpl import SMPL_PARENTS, ParametricModel
+from mobileposer_tpu_torch.models.fused import trio_apply
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, module_apply
 from mobileposer_tpu_torch.nn.lstm import (check_backend, check_float32,
                                            check_lengths, rnn_zero_state)
@@ -232,6 +237,13 @@ def forward(params, imu: torch.Tensor, body_model: ParametricModel,
     pose_index: when set, the r6d -> IK assembly runs only at that time
     index and pose_local is [B, 24, 3, 3]; the streaming path emits one
     frame per window (reference net.py:181).
+
+    backend: 'auto' runs every module on the layer kernels. 'fused'
+    without `lengths` runs joints as 'auto' does, then the poser /
+    footcontact / velocity trio as two multicell launches
+    (`models/fused.py` `trio_apply`, which raises ValueError on int8
+    params); with `lengths` it runs the per-module masked path as 'auto'
+    does (net.py:269-288 of the JAX package).
     """
     check_backend(backend, allow_train=False)
     check_float32(imu.dtype)
@@ -247,12 +259,17 @@ def forward(params, imu: torch.Tensor, body_model: ParametricModel,
     if vel_h0c0 is None:
         vel_h0c0 = rnn_zero_state(MODULE_CONFIGS["velocity"], B, imu.dtype,
                                   imu.device)
-    pred_pose_r6d, _ = module_apply("poser", params["poser"], x132,
-                                    lengths, time_major=True)
-    contact, _ = module_apply("footcontact", params["footcontact"], x132,
-                              lengths, time_major=True)
-    vel, vel_hc = module_apply("velocity", params["velocity"], x132,
-                               lengths, h0c0=vel_h0c0, time_major=True)
+    if backend == "fused" and lengths is None:
+        # the trio's five cells per layer-row in one multicell launch
+        pred_pose_r6d, contact, vel, vel_hc = trio_apply(params, x132,
+                                                         vel_h0c0)
+    else:
+        pred_pose_r6d, _ = module_apply("poser", params["poser"], x132,
+                                        lengths, time_major=True)
+        contact, _ = module_apply("footcontact", params["footcontact"],
+                                  x132, lengths, time_major=True)
+        vel, vel_hc = module_apply("velocity", params["velocity"], x132,
+                                   lengths, h0c0=vel_h0c0, time_major=True)
     if pose_index is None:
         pose_local = reduced_global_to_full_soa(
             pred_pose_r6d.reshape(T * B, -1), body_model).reshape(T, B, 24, 3, 3)
@@ -474,6 +491,9 @@ class MobilePoserNet:
         one batch of chunk*S windows (their windows are independent: fresh
         h0 per window). Only the velocity module's cross-window carry and
         the fusion run frame by frame.
+
+        backend: 'auto' or 'fused'; both run the same layer kernels here,
+        as in the JAX package (the multicell kernel is `forward`'s alone).
         """
         check_backend(backend, allow_train=False)
         if frames.device != self.device:

@@ -18,11 +18,15 @@ W8A8 int8 directions (`LSTMDirectionInt8`, made by
 routes with int8 input projections and the int8 scan kernels; the dtype of
 w_ih selects them. Activations and carries stay float32.
 
-Two backends, float32 activations only:
+Backends, float32 activations only:
 
   * 'auto' (inference): the scan kernels of `ops/lstm_cuda.py`. They
     write their outputs through ctypes and carry no gradient, so 'auto'
     refuses to run when autograd would need one;
+  * 'fused' (inference): in `models/net.py` `forward` without `lengths`,
+    the poser / footcontact / velocity trio runs on the multicell kernel
+    (`models/fused.py`); everywhere else, here included, it computes and
+    launches exactly what 'auto' does, as in the JAX package;
   * 'auto_train' (synonym 'pallas_train'): the training kernels of
     `ops/lstm_train_cuda.py` behind a `torch.autograd.Function`
     (forward #7, BPTT backward #8), for every layer of every module.
@@ -54,11 +58,12 @@ class LSTMConfig(NamedTuple):
     dropout: float = 0.4
 
 
+#: backends that run the inference kernels
+INFERENCE_BACKENDS = ("auto", "fused")
 #: backends that run the training kernels
 TRAIN_BACKENDS = ("auto_train", "pallas_train")
 
 _BACKEND_ROWS = {
-    "fused": "the fused multicell kernel, ROADMAP.md queue A item 10",
     "pallas_train_bf16res": "bf16 training residuals, ROADMAP.md queue A "
                             "item 20",
     "auto_train_bf16res": "bf16 training residuals, ROADMAP.md queue A "
@@ -73,11 +78,11 @@ def check_backend(backend: str = "auto", allow_train: bool = True) -> None:
     if backend in TRAIN_BACKENDS and not allow_train:
         raise NotImplementedError(
             f"backend={backend!r} runs the training kernels; this inference "
-            "entry point runs backend='auto'")
-    if backend != "auto" and backend not in TRAIN_BACKENDS:
+            "entry point runs backend='auto' or 'fused'")
+    if backend not in INFERENCE_BACKENDS + TRAIN_BACKENDS:
         row = _BACKEND_ROWS.get(
-            backend, "no row: the port runs 'auto' (the inference kernels) "
-            "and 'auto_train' (the training kernels)")
+            backend, "no row: the port runs 'auto' and 'fused' (the "
+            "inference kernels) and 'auto_train' (the training kernels)")
         raise NotImplementedError(f"backend={backend!r} is not ported "
                                   f"({row})")
 
@@ -314,9 +319,10 @@ def lstm_forward(layers, x: torch.Tensor,
     h0c0:    optional initial state (h0, c0), each [n_layers*n_dir, B, H]
              stacked in torch order (layer0 fwd, layer0 bwd, layer1 fwd, ...)
 
-    backend: 'auto' (the inference kernels; raises when autograd would
-             need a gradient through them) or 'auto_train' /
-             'pallas_train' (the training kernels, differentiable).
+    backend: 'auto' or 'fused' (the inference kernels, the same for
+             both here; raises when autograd would need a gradient
+             through them) or 'auto_train' / 'pallas_train' (the
+             training kernels, differentiable).
 
     Returns (y [B, T, H*n_dir] (or [T, B, ...] if time_major),
     (h_T, c_T) stacked like h0c0). On CPU tensors every layer runs the

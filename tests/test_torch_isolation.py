@@ -47,6 +47,8 @@ def test_importing_the_port_loads_no_jax():
             "import mobileposer_tpu_torch.nn.convert\n"
             "import mobileposer_tpu_torch.ops.lstm_cuda\n"
             "import mobileposer_tpu_torch.ops.lstm_train_cuda\n"
+            "import mobileposer_tpu_torch.ops.multicell_cuda\n"
+            "import mobileposer_tpu_torch.models.fused\n"
             "import mobileposer_tpu_torch.ops.quant\n"
             "import mobileposer_tpu_torch.train\n"
             f"bad = {sorted(FORBIDDEN)!r}\n"
@@ -67,12 +69,15 @@ def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     fixture = ROOT / "tests" / "fixtures" / "demo_checkpoint_f16.npz"
     for call in (MobilePoserNet, init_all_modules,
                  lambda: params_from_jax(load_npz(fixture)), bench.run,
-                 lambda: bench.run(int8=True)):
+                 lambda: bench.run(int8=True),
+                 lambda: bench.run_forward(backend="fused")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     for int8 in (False, True):
         with pytest.raises(RuntimeError, match="CUDA device"):
             bench.run(device="cpu", int8=int8)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        bench.run_forward(device="cpu", backend="fused")
     net = MobilePoserNet(device="cpu")
     st = net.init_online_state_batched(2)
     assert st.vel_h.device.type == "cpu" and st.vel_h.shape == (2, 2, 256)

@@ -142,8 +142,10 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
 def test_out_of_slice_options_raise():
     _, _, cfg, block = _block((12, 7, 16), True, seed=9)
     x = torch.zeros(2, 5, 12)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rnn_apply(block, cfg, x, backend="fused")
+    # 'fused' is in the slice: outside `forward` it computes what 'auto' does
+    y_fused, _ = rnn_apply(block, cfg, x + 0.1, backend="fused")
+    y_auto, _ = rnn_apply(block, cfg, x + 0.1, backend="auto")
+    torch.testing.assert_close(y_fused, y_auto, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rnn_apply(block, cfg, x, lengths=torch.tensor([5, 3]),
                   backend="auto_train_bf16res")

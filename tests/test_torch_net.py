@@ -190,6 +190,6 @@ def test_auto_mode_and_bad_options(nets, weights):
         net.forward_online_sequence_batched(params, st, frames, mode="x")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         net.forward_online_sequence_batched(params, st, frames,
-                                            backend="fused")
+                                            backend="auto_train_bf16res")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         net.init_online_state_batched(2, dtype=torch.bfloat16)
