@@ -23,11 +23,14 @@ then runs these phases, each printing JSON lines:
                check that every masked step emitted exactly zero;
   3c. train kernels — the training forward (#7), the BPTT backward (#8)
                and its dW reduction against their plain versions at
-               T = 125, B = 256 (H = 256 and 64) and B = 37, a seeded
-               ragged mask: the same numbers, cuDNN `torch.nn.LSTM` in
-               training mode (forward, backward) and `torch.matmul` (dW)
-               as the yardsticks, exact zeros at masked steps, dW the same
-               from run to run;
+               T = 125, B = 256 (H = 256 and 64) and B = 37 (H = 256 and
+               160), a seeded ragged mask: the same numbers, #8's scan
+               alone, cuDNN `torch.nn.LSTM` in training mode (forward,
+               backward) and `torch.matmul` (dW) as the yardsticks, exact
+               zeros at masked steps, dW the same from run to run; each
+               shape's cluster geometry (clusters the card holds, CTAs
+               per cluster, rows, shared memory per CTA) and the ptxas
+               report of `lstm_train.cu`;
   3d. int8 kernels — the W8A8 scans (#4, #5, #6) against their plain
                versions at the streaming and evaluation shapes: one step
                from h0, the full shape, exact zeros at masked steps; kernel,
@@ -582,11 +585,12 @@ def phase_int8_kernels(torch, lstm_cuda):
 
 def train_bounds(T: int, B: int, H: int, valid_steps: int):
     """Least time (ms) the card needs for kernel #7, for kernel #8 with its
-    dW reduction, and for the dW reduction alone, on one layer-direction:
-    each input read once, each output written once, the products of this
-    run's valid steps at the float32 rate (masked steps need no product,
-    but every residual and gradient row is written). Returns {"fwd",
-    "bwd", "dw"}, each (bound_ms, bound_by, flops, bytes)."""
+    dW reduction, for the dW reduction alone and for #8's scan alone, on
+    one layer-direction: each input read once, each output written once,
+    the products of this run's valid steps at the float32 rate (masked
+    steps need no product, but every residual and gradient row is
+    written). Returns {"fwd", "bwd", "dw", "scan"}, each (bound_ms,
+    bound_by, flops, bytes)."""
     H4 = 4 * H
     seq, hc = T * B * H, B * H
     fwd_flops = 2.0 * valid_steps * H * H4
@@ -594,13 +598,15 @@ def train_bounds(T: int, B: int, H: int, valid_steps: int):
                   + seq * 3 + T * B * H4 + 2 * hc)            # ys/h/c seqs, acts, h_T c_T
     bwd_flops = 2 * fwd_flops                                  # dh recurrence + dW
     bwd_floats = (seq + 2 * hc + T * B * H4 + 3 * seq          # dy, dh_T dc_T, acts, c/h_prev/c_prev
-                  + H * H4 + T * B                             # w_hh^T, mask
+                  + H * H4 + T * B                             # w_hh, mask
                   + T * B * H4 + H * H4 + 2 * hc)              # dx_proj, dw_hh, dh0 dc0
     dw_floats = seq + T * B * H4 + H * H4                      # h_prev, dgates, dw_hh
+    scan_floats = bwd_floats - seq - H * H4                    # no h_prev, no dw_hh
     out = {}
     for name, flops, floats in (("fwd", fwd_flops, fwd_floats),
                                 ("bwd", bwd_flops, bwd_floats),
-                                ("dw", fwd_flops, dw_floats)):
+                                ("dw", fwd_flops, dw_floats),
+                                ("scan", fwd_flops, scan_floats)):
         t_bytes = 4.0 * floats / HBM_BYTES_PER_S
         t_ops = flops / F32_FLOPS_PER_S
         out[name] = (1e3 * max(t_bytes, t_ops),
@@ -609,18 +615,27 @@ def train_bounds(T: int, B: int, H: int, valid_steps: int):
     return out
 
 
-def phase_train_kernels(torch, train_cuda):
+def phase_train_kernels(torch, train_cuda, ptxas):
     """Kernels #7 and #8 (with the dW kernel) against their plain versions
     at the training shape, T = 125 and B = 256 (a batch of `TrainHypers`),
-    at H = 256 and 64, plus a ragged batch edge (B = 37). Nonzero h0/c0,
-    random dy/dh_T/dc_T, and a seeded ragged mask with an empty row, a
-    full row and rows in between. The plain backward gets the same
-    residuals as the kernel (the kernel's forward outputs)."""
+    at H = 256 and 64, plus a ragged batch edge (B = 37) at H = 256 and at
+    H = 160 (a cluster of five CTAs). Nonzero h0/c0, random dy/dh_T/dc_T,
+    and a seeded ragged mask with an empty row, a full row and rows in
+    between. The plain backward gets the same residuals as the kernel (the
+    kernel's forward outputs). `ptxas` is the build log's report of
+    `lstm_train.cu`."""
     import numpy as np
     results = []
     failures = []
-    for H, B in ((256, 256), (64, 256), (256, 37)):
+    for H, B in ((256, 256), (64, 256), (256, 37), (160, 37)):
         T = 125
+        geo = train_cuda.train_geometry(B, H, torch.device("cuda", 0))
+        emit({"phase": "train_geometry", "T": T, "B": B, "H": H,
+              "max_active_clusters": train_cuda.max_active_clusters(H, 0),
+              "clusters": math.ceil(B / geo.rows),
+              "ctas_per_cluster": geo.cluster, "rows_per_cluster": geo.rows,
+              "smem_per_cta": {"fwd": geo.fwd_smem, "bwd": geo.bwd_smem},
+              "ptxas": ptxas})
         rng = np.random.RandomState(7 + H + B)
 
         def t(*shape, scale=1.0):
@@ -689,6 +704,8 @@ def phase_train_kernels(torch, train_cuda):
             h_prev.reshape(-1, H).t(), dx.reshape(-1, 4 * H)), 10)
         fwd_ms = time_ms(lambda: train_cuda.lstm_train_fwd(*fwd_args), 10)
         bwd_ms = time_ms(lambda: train_cuda.lstm_train_bwd(*bwd_args), 10)
+        scan_args = (dy, dh_t, dc_t, acts, cseq, c_prev, w_hh, mask)
+        scan_ms = time_ms(lambda: train_cuda._bwd_scan(*scan_args), 10)
         fwd_plain_ms = time_ms(
             lambda: train_cuda.lstm_train_fwd_plain(*fwd_args), 1, warmup=1)
         bwd_plain_ms = time_ms(
@@ -701,6 +718,8 @@ def phase_train_kernels(torch, train_cuda):
                 ("lstm_train_bwd_f32", bwd_err, bwd_ms, bwd_plain_ms,
                  lib_bwd_ms, LIB_TRAIN + "backward (autograd.grad)",
                  {"includes": "the scan, the dW kernel, the slab sum",
+                  "scan_ms": scan_ms, "scan_bound_ms": bounds["scan"][0],
+                  "scan_bound_by": bounds["scan"][1],
                   "dw_hh_max_abs": dw_scale, "dw_hh_rel_err": dw_rel,
                   "tol": TRAIN_TOL, "dw_rel_tol": DW_REL_TOL,
                   "dw_repeatable": dw_repeatable}),
@@ -1343,7 +1362,8 @@ def main() -> int:
     # 3b. each masked kernel against its plain version
     kernel_recs += phase_masked_kernels(torch, lstm_cuda)
     # 3c. the training kernels against their plain versions
-    train_recs = phase_train_kernels(torch, train_cuda)
+    train_recs = phase_train_kernels(torch, train_cuda,
+                                     ptxas["lstm_train.cu"])
     # 3d. the int8 kernels against their plain versions
     kernel_recs += phase_int8_kernels(torch, lstm_cuda)
     # 3e. the multicell kernel against its plain version

@@ -1,0 +1,100 @@
+"""Time cells C1 to C6 (PERF.md section 4) of two checkouts in turns on one
+card, so that a change is compared with its parent under the same clocks.
+
+    python -m mobileposer_tpu_torch.bench_turns --other DIR [--out FILE]
+
+DIR is another checkout of this repository (for example the parent
+commit unpacked with `git archive` into a git-ignored directory). The
+turns run other, this, this, other; each turn is one process that imports
+`mobileposer_tpu_torch.bench` from its own tree, builds that tree's
+kernels and runs every cell once. Prints one JSON line per cell and turn,
+then one line of medians per cell and tree with the change's relative
+difference; with --out, writes the lines to FILE as well. Needs a CUDA
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# each cell: (name, bench function, keyword arguments); the rate each
+# reports is its "value"
+CELLS = [
+    ("C1", "run", {"n_streams": 256, "n_frames": 100}),
+    ("C2", "run", {"n_streams": 8, "n_frames": 100}),
+    ("C3", "run_offline", {"batch": 64, "bucket": 512}),
+    ("C4", "run_train", {"batch": 256, "window": 125}),
+    ("C5", "run", {"n_streams": 256, "n_frames": 100, "mode": "scan",
+                   "int8": True}),
+    ("C6f", "run_forward", {"batch": 256, "window": 45, "backend": "fused"}),
+    ("C6a", "run_forward", {"batch": 256, "window": 45, "backend": "auto"}),
+]
+
+# run inside the tree under test: its own package, TF32 off as in
+# chip_smoke.py
+_TURN = """
+import json, sys
+sys.path.insert(0, {tree!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from mobileposer_tpu_torch import bench
+for name, fn, kw in {cells!r}:
+    rec = getattr(bench, fn)(**kw)
+    print(json.dumps({{"cell": name, "value": rec["value"],
+                      "unit": rec.get("unit"), "rate_min": rec.get("rate_min"),
+                      "rate_max": rec.get("rate_max")}}), flush=True)
+"""
+
+
+def run_turn(tree: Path) -> dict:
+    """One process in `tree` running every cell; {cell: record}."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TURN.format(tree=str(tree), cells=CELLS)],
+        cwd=tree, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"bench_turns: {tree} failed:\n{proc.stderr}")
+    recs = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith('{"cell"')]
+    return {r["cell"]: r for r in recs}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True, type=Path,
+                    help="the checkout to compare with (e.g. the parent)")
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_turns: no CUDA device; the cells run on the "
+                         "card")
+    trees = {"other": args.other.resolve(), "this": ROOT}
+    lines = []
+    values = {t: {c[0]: [] for c in CELLS} for t in trees}
+    for turn, tree in enumerate(("other", "this", "this", "other")):
+        for cell, rec in run_turn(trees[tree]).items():
+            values[tree][cell].append(rec["value"])
+            lines.append({"turn": turn, "tree": tree, **rec})
+            print(json.dumps(lines[-1]), flush=True)
+    for cell, _, _ in CELLS:
+        med = {t: statistics.median(values[t][cell]) for t in trees}
+        lines.append({"cell": cell, "median_other": med["other"],
+                      "median_this": med["this"],
+                      "this_vs_other": med["this"] / med["other"] - 1.0,
+                      "values": {t: values[t][cell] for t in trees}})
+        print(json.dumps(lines[-1]), flush=True)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("".join(json.dumps(x) + "\n" for x in lines))
+
+
+if __name__ == "__main__":
+    main()

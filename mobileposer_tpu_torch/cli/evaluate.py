@@ -9,10 +9,12 @@ Weights are the JAX package's `.npz` archives. Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
 versions). `--int8` quantizes the LSTM matmuls to W8A8 after loading, as
 the JAX CLI does (`ops.quant.quantize_params_int8`; every LSTM layer on
-the int8 kernels #4 to #6). `--bf16`, `--online-mode carry` (with or
-without `--int8`) and `--data-parallel` are accepted as the JAX CLI
-accepts them and raise NotImplementedError naming the ROADMAP row that
-adds them.
+the int8 kernels #4 to #6). `--data-parallel` evaluates on the one device
+when one is visible (the card, or `--device cpu`), as the JAX CLI does
+with one device. `--bf16`, `--online-mode carry` (with or without
+`--int8`) and `--data-parallel` over more than one CUDA device are
+accepted as the JAX CLI accepts them and raise NotImplementedError naming
+the ROADMAP row that adds them.
 """
 
 from __future__ import annotations
@@ -21,8 +23,11 @@ import argparse
 import os
 from pathlib import Path
 
+import torch
+
 from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.data import EvalSequence, PoseDataset
+from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.evaluation import evaluate_pose
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
@@ -63,7 +68,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported (ROADMAP.md queue A item 16)")
+                        help="evaluates on the one device; over more "
+                             "than one CUDA device not ported (ROADMAP.md "
+                             "queue A item 16)")
     parser.add_argument("--bf16", action="store_true",
                         help="not ported (ROADMAP.md queue A item 14)")
     parser.add_argument("--online-mode", default="exact",
@@ -85,16 +92,20 @@ def main(argv=None) -> dict:
             "--int8 --online-mode carry needs the int8 cell step "
             "lstm_cell_step_int8, which is not ported (carry mode, "
             "ROADMAP.md queue A item 13)")
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported (ROADMAP.md queue A item 16)")
     if Path(args.model).suffix != ".npz":
         raise NotImplementedError(
             f"{args.model}: only the JAX package's .npz archives load; a "
             "torch checkpoint loader is not ported (ROADMAP.md queue A "
             "item 17)")
+    device = resolve_device(args.device)
+    # the JAX CLI builds a mesh only over more than one device
+    if (args.data_parallel and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "--data-parallel over more than one CUDA device is not ported "
+            "(ROADMAP.md queue A item 16)")
     net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
-        C.paths.smpl_file), device=args.device)
+        C.paths.smpl_file), device=device)
     params = params_from_jax(load_npz(args.model), device=net.device)
     if args.int8:
         params = quantize_params_int8(params)

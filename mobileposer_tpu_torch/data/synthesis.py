@@ -5,7 +5,7 @@ The whole-sequence math of the reference's per-frame loops
 (`_syn_acc`, process.py:23-35; `_foot_ground_probs`, process.py:38-46) as
 batched tensor ops on the port's FK and skinning, on any device. What the
 synthetic training data needs is carried; the raw-dataset alignment and
-cleanup helpers arrive with `data/process.py` (ROADMAP.md queue A item 8).
+cleanup helpers arrive with `data/process.py` (ROADMAP.md queue A item 23).
 """
 
 from __future__ import annotations

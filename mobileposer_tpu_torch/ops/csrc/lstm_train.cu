@@ -31,21 +31,45 @@
 //   dh <- (1-m)*dh + dgates @ w_hh^T;  dc <- (1-m)*dc + dcp
 // then (dh0, dc0) = (dh, dc), and dw_hh = sum_t h_prev[t]^T @ dgates[t].
 //
-// Design. As in lstm_scan.cu, the TPU's sequential time grid becomes a
-// loop inside the block: a block owns kRows batch rows for all T steps,
-// thread j owns hidden unit j and its four gate columns j, H+j, 2H+j,
-// 3H+j, so the cell update and its derivative need no exchange.
-//   * forward: h in shared memory, c in registers; w_hh read column-wise
-//     (coalesced across j) from L2 every step; the blend is rounded as
-//     written (__fmul_rn/__fadd_rn, no FMA) so ys is exactly zero at a
-//     masked step and the carry rounds as the TPU kernel's does.
-//   * backward: dh and dc in registers; each step the block writes its
-//     dgates [kRows, 4H] to shared memory (32 KB at H = 256), then thread
-//     j computes dh[:, j] = dgates @ w_hh^T[:, j] reading the [4H, H]
-//     transpose column-wise, again coalesced across j.
-//   * dW: the [H, 4H] sum over T*B rows fits neither a block's shared
-//     memory nor its registers (1 MiB at H = 256), and blocks cannot share
-//     an accumulator, so a second kernel computes it as a tiled
+// Design. The TPU kernels keep w_hh (and the backward's w_hh^T) in VMEM
+// for the whole time grid; here w_hh stays in the shared memory of a
+// thread-block cluster for all T steps. A cluster of n = H / 32 CTAs owns
+// R batch rows (R in {1, 2, 4, 8, 12, 16, 18, 20, 24, 32}, chosen by the
+// wrapper so that ceil(B / R) clusters run in one wave: an H100 holds 15
+// clusters of 8 such CTAs, so B = 256 at H = 256 takes R = 18); CTA c
+// owns the hidden units [32c, 32c + 32) and their 128 gate columns
+// g*H + 32c + u, and loads the slice w_hh[:, those columns] (H x 128
+// floats, 128 KiB at H = 256) into its shared memory once per launch.
+// Both kernels read that same slice, so the backward needs no transpose
+// of w_hh.
+//   * forward step: the CTA's 512 threads compute its 128 gate columns
+//     for the R rows, x_proj + h_{t-1} @ w_slice, the k sum split four
+//     ways (two ways above R = 16, where the rows split in two) and summed
+//     in shared memory in a fixed order; then one thread per (row, unit)
+//     does the cell update, writes ys, acts, hseq and cseq (128-byte runs
+//     per warp) and pushes its h to the double-buffered h of EVERY CTA
+//     of the cluster through distributed shared memory; one cluster
+//     barrier per step. The blend is rounded as written (__fmul_rn /
+//     __fadd_rn, no FMA) so ys is exactly zero at a masked step and the
+//     carry rounds as the TPU kernel's does.
+//   * backward step: one thread per (row, unit) computes its dgates (to
+//     dx_proj and to shared memory), then the CTA computes the PARTIAL
+//     dh = dgates_slice @ w_slice^T over its 128 columns for all H
+//     inputs and reduce-scatters it: each piece goes to slot [c] of its
+//     owner's double-buffered shared memory, and after the cluster
+//     barrier the owner sums the n slots in the fixed order c = 0..n-1,
+//     so dh0 (and dW) are the same from run to run. dgates are never
+//     gathered whole (that would move 4x the bytes).
+//   * Residual loads (x_proj and the mask forward; acts, c, dy and the
+//     mask backward) for step t+1 are issued before step t's products, so
+//     their latency hides behind them.
+//   * w_slice is stored [k][128] with its float4 groups XOR-swizzled by
+//     k % 8: the forward's warps read one k across 32 columns and the
+//     backward's one float4 of columns across 32 consecutive k, and both
+//     hit 32 distinct banks.
+//   * dW: the [H, 4H] sum over T*B rows does not fit a CTA beside the
+//     slice of w_hh (256 KiB at H = 256), and CTAs cannot share an
+//     accumulator, so a second kernel computes it as a tiled
 //     shared-memory product with float32 accumulation: each block owns a
 //     64 x 64 tile of dw_hh for one contiguous slab of rows, and writes
 //     its partial tile to slab s of a [S, H, 4H] output. No atomics: the
@@ -61,17 +85,21 @@
 //   * backward + dW, H = 256: 2 x 16.8 GFLOP (0.50 ms) against ~393 MB
 //     (0.117 ms): FLOPs. At H = 64: 2.1 GFLOP (0.031 ms) against ~98 MB
 //     (0.029 ms): FLOPs.
-// The scans are per-step latency bound like the inference kernels (every
-// block re-reads w_hh from L2 each step, and only ceil(B/kRows) blocks
-// run), so they reach a few percent of that bound; a cluster-split w_hh
-// and tensor-core products are later work.
+// A scan is a chain of T dependent steps: a step costs its CTA's share of
+// the products (R x H x 128 FMAs, read from shared memory) plus one
+// cluster barrier, and the FMAs run on the CUDA cores in float32; TF32 or
+// bf16 tensor cores are later work.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 8;        // batch rows per block
-constexpr int kMaxHidden = 256; // one thread per hidden unit
+constexpr int kThreads = 512;      // 16 warps per CTA
+constexpr int kUnits = 32;         // hidden units per CTA
+constexpr int kCols = 4 * kUnits;  // gate columns per CTA
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -83,11 +111,66 @@ __device__ __forceinline__ float blend(float m, float a, float b) {
   return __fadd_rn(__fmul_rn(m, a), __fmul_rn(__fsub_rn(1.0f, m), b));
 }
 
+// Offset of (k, col) in a CTA's slice [H][kCols]: float4 groups swizzled
+// by k % 8 (see the design note).
+__device__ __forceinline__ int swizzle(int k, int col) {
+  return k * kCols + ((((col >> 2) ^ (k & 7)) << 2) | (col & 3));
+}
+
+// CTA `cta`'s slice of w_hh [H, 4H]: columns g*H + 32*cta + u.
+__device__ __forceinline__ void load_w_slice(const float* __restrict__ w_hh,
+                                             float* w_s, int H, int cta) {
+  const int n = H * kCols;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int k = idx / kCols, col = idx % kCols;
+    w_s[swizzle(k, col)] = __ldg(w_hh + static_cast<size_t>(k) * 4 * H
+                                 + (col / kUnits) * H + cta * kUnits
+                                 + col % kUnits);
+  }
+}
+
+// The rows of R that one backward product item covers: R / c for the
+// fewest chunks c that divide R into at most 10 rows (acc registers).
+constexpr int rows_per_item(int R) {
+  int c = 1;
+  while (R / c > 10 || R % c != 0) ++c;
+  return R / c;
+}
+
+// How a CTA of R rows splits its work. Products: thread (col, ks, rs)
+// sums k in its quarter (half above R = 16) for the rows of rs. Cells:
+// item tid + p*kThreads is (row, unit) = (item / 32, item % 32).
+template <int R>
+struct Shape {
+  static constexpr int kSplitK = R > 16 ? 2 : 4;
+  static constexpr int kSplitR = 4 / kSplitK;
+  static constexpr int kRowsPerThread = R / kSplitR;
+  static constexpr int kCellsPerThread = (R * kUnits + kThreads - 1) / kThreads;
+  static constexpr int kRowsPerItem = rows_per_item(R);  // backward products
+  static_assert(kCols * kSplitK * kSplitR == kThreads, "thread split");
+  static_assert(R % kSplitR == 0, "rows split");
+};
+
+template <int R>
+constexpr size_t fwd_smem_bytes(int H) {
+  // w slice, h double-buffered [2][R][H], partial gates [kSplitK][R][kCols]
+  return sizeof(float) * (static_cast<size_t>(H) * kCols + 2 * R * H
+                          + Shape<R>::kSplitK * R * kCols);
+}
+
+template <int R>
+constexpr size_t bwd_smem_bytes(int H) {
+  // w slice, dgates [R][kCols], partial dh double-buffered [2][n][R][32]
+  return sizeof(float) * (static_cast<size_t>(H) * kCols + R * kCols
+                          + 2 * R * H);
+}
+
 // ---------------------------------------------------------------------------
 // #7 forward
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMaxHidden)
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_train_fwd_kernel(const float* __restrict__ x_proj,
                       const float* __restrict__ w_hh,
                       const float* __restrict__ h0,
@@ -97,92 +180,162 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
                       float* __restrict__ hseq, float* __restrict__ cseq,
                       float* __restrict__ h_t, float* __restrict__ c_t,
                       int T, int B, int H) {
-  extern __shared__ float4 smem[];
-  float* h_s = reinterpret_cast<float*>(smem);  // [kRows][H]
-  const int j = threadIdx.x;
-  const int b0 = blockIdx.x * kRows;
+  using S = Shape<R>;
+  constexpr int RT = S::kRowsPerThread;
+  constexpr int CPT = S::kCellsPerThread;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = H / kUnits;
+  const int cta = static_cast<int>(cluster.block_rank());
+  const int b0 = (blockIdx.x / n_cta) * R;
+  const int unit0 = cta * kUnits;
   const size_t H4 = 4 * static_cast<size_t>(H);
+  const int tid = threadIdx.x;
 
-  float c[kRows];
+  extern __shared__ float4 smem[];
+  float* w_s = reinterpret_cast<float*>(smem);   // [H][kCols], swizzled
+  float* h_s = w_s + H * kCols;                  // [2][R][H]
+  float* red = h_s + 2 * R * H;                  // [kSplitK][R][kCols]
+
+  // products: gate column col, k in [k_begin, k_begin + kspan), rows
+  // [r_begin, r_begin + RT)
+  const int col = tid % kCols;
+  const int ks = (tid / kCols) % S::kSplitK;
+  const int r_begin = (tid / kCols) / S::kSplitK * RT;
+  const int kspan = H / S::kSplitK;
+  const int k_begin = ks * kspan;
+  const size_t gcol = (col / kUnits) * H + unit0 + col % kUnits;
+  int w_off[8];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    const bool ok = b < B;
-    h_s[r * H + j] = ok ? h0[static_cast<size_t>(b) * H + j] : 0.0f;
-    c[r] = ok ? c0[static_cast<size_t>(b) * H + j] : 0.0f;
+  for (int kk = 0; kk < 8; ++kk)
+    w_off[kk] = (((col >> 2) ^ kk) << 2) | (col & 3);
+
+  load_w_slice(w_hh, w_s, H, cta);
+  for (int idx = tid; idx < R * H; idx += kThreads) {
+    const int b = b0 + idx / H;
+    h_s[idx] = b < B ? h0[static_cast<size_t>(b) * H + idx % H] : 0.0f;
   }
-  __syncthreads();
+  float c[CPT], m_next[CPT];
+#pragma unroll
+  for (int p = 0; p < CPT; ++p) {
+    const int item = tid + p * kThreads;
+    const int b = b0 + item / kUnits;
+    const bool ok = item < R * kUnits && b < B;
+    c[p] = ok ? c0[static_cast<size_t>(b) * H + unit0 + item % kUnits] : 0.0f;
+    m_next[p] = ok ? __ldg(mask + b) : 0.0f;
+  }
+  // x_proj of step 0, read by the ks == 0 threads (they start the sum)
+  float xp[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int b = b0 + r_begin + i;
+    xp[i] = (ks == 0 && b < B) ? __ldg(x_proj + b * H4 + gcol) : 0.0f;
+  }
+  cluster.sync();  // every CTA started, w_s and h_s[0] loaded
 
+  int cur = 0;
   for (int t = 0; t < T; ++t) {
-    const size_t row0 = static_cast<size_t>(t) * B;
-    const float* xt = x_proj + row0 * H4;
-    float acc[kRows][4];
+    float acc[RT], m[CPT];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int b = b0 + r;
+    for (int i = 0; i < RT; ++i) acc[i] = xp[i];
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        acc[r][g] = b < B ? xt[static_cast<size_t>(b) * H4 + g * H + j]
-                          : 0.0f;
-    }
-
-    // gates += h_{t-1} @ w_hh, four k at a time (one float4 of h per row)
-    for (int k = 0; k < H; k += 4) {
-      float w[4][4];
+    for (int p = 0; p < CPT; ++p) m[p] = m_next[p];
+    if (t + 1 < T) {  // step t+1's residuals, in flight during the products
+      const size_t row0 = static_cast<size_t>(t + 1) * B;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int i = 0; i < RT; ++i) {
+        const int b = b0 + r_begin + i;
+        xp[i] = (ks == 0 && b < B) ? __ldg(x_proj + (row0 + b) * H4 + gcol)
+                                   : 0.0f;
+      }
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          w[kk][g] = __ldg(w_hh + (k + kk) * H4 + g * H + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 h = *reinterpret_cast<const float4*>(h_s + r * H + k);
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          acc[r][g] = fmaf(h.x, w[0][g], acc[r][g]);
-          acc[r][g] = fmaf(h.y, w[1][g], acc[r][g]);
-          acc[r][g] = fmaf(h.z, w[2][g], acc[r][g]);
-          acc[r][g] = fmaf(h.w, w[3][g], acc[r][g]);
-        }
+      for (int p = 0; p < CPT; ++p) {
+        const int item = tid + p * kThreads;
+        const int b = b0 + item / kUnits;
+        m_next[p] = (item < R * kUnits && b < B) ? __ldg(mask + row0 + b)
+                                                 : 0.0f;
       }
     }
-    __syncthreads();  // every thread has read h_{t-1}
 
+    // partial gates += h_{t-1}[rows] @ w_slice[k range, col], eight k at
+    // a time (k_begin is a multiple of 8, so k % 8 == kk)
+    const float* hb = h_s + cur * R * H + r_begin * H;
+    for (int k = k_begin; k < k_begin + kspan; k += 8) {
+      float w[8];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int b = b0 + r;
-      const float i = sigmoid(acc[r][0]);
-      const float f = sigmoid(acc[r][1]);
-      const float g = tanhf(acc[r][2]);
-      const float o = sigmoid(acc[r][3]);
-      const float c_new = f * c[r] + i * g;
+      for (int kk = 0; kk < 8; ++kk) w[kk] = w_s[(k + kk) * kCols + w_off[kk]];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(hb + i * H + k);
+        const float4 e = *reinterpret_cast<const float4*>(hb + i * H + k + 4);
+        acc[i] = fmaf(a.x, w[0], acc[i]);
+        acc[i] = fmaf(a.y, w[1], acc[i]);
+        acc[i] = fmaf(a.z, w[2], acc[i]);
+        acc[i] = fmaf(a.w, w[3], acc[i]);
+        acc[i] = fmaf(e.x, w[4], acc[i]);
+        acc[i] = fmaf(e.y, w[5], acc[i]);
+        acc[i] = fmaf(e.z, w[6], acc[i]);
+        acc[i] = fmaf(e.w, w[7], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      red[(ks * R + r_begin + i) * kCols + col] = acc[i];
+    __syncthreads();  // every partial sum is in shared memory
+
+    const float* h_cur = h_s + cur * R * H;
+    float* h_next = h_s + (cur ^ 1) * R * H;
+    const size_t row0 = static_cast<size_t>(t) * B;
+#pragma unroll
+    for (int p = 0; p < CPT; ++p) {
+      const int item = tid + p * kThreads;
+      if (item >= R * kUnits) continue;
+      const int r = item / kUnits, u = item % kUnits, b = b0 + r;
+      float gate[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float s = red[r * kCols + g * kUnits + u];
+#pragma unroll
+        for (int q = 1; q < S::kSplitK; ++q)
+          s += red[(q * R + r) * kCols + g * kUnits + u];
+        gate[g] = s;
+      }
+      const float i = sigmoid(gate[0]);
+      const float f = sigmoid(gate[1]);
+      const float g = tanhf(gate[2]);
+      const float o = sigmoid(gate[3]);
+      const float c_new = f * c[p] + i * g;
       const float h_new = o * tanhf(c_new);
-      const float m = b < B ? __ldg(mask + row0 + b) : 0.0f;
-      c[r] = blend(m, c_new, c[r]);
-      // thread j alone reads and writes h_s[r][j] between the barriers
-      const float h_keep = blend(m, h_new, h_s[r * H + j]);
-      h_s[r * H + j] = h_keep;
+      c[p] = blend(m[p], c_new, c[p]);
+      const float h_keep = blend(m[p], h_new, h_cur[r * H + unit0 + u]);
       if (b < B) {
         const size_t row = row0 + b;
-        float* a = acts + row * H4;
-        a[j] = i;
-        a[H + j] = f;
-        a[2 * H + j] = g;
-        a[3 * H + j] = o;
-        ys[row * H + j] = __fmul_rn(m, h_new);
-        hseq[row * H + j] = h_keep;
-        cseq[row * H + j] = c[r];
+        float* a = acts + row * H4 + unit0 + u;
+        a[0] = i;
+        a[H] = f;
+        a[2 * H] = g;
+        a[3 * H] = o;
+        ys[row * H + unit0 + u] = __fmul_rn(m[p], h_new);
+        hseq[row * H + unit0 + u] = h_keep;
+        cseq[row * H + unit0 + u] = c[p];
       }
+      // the new h of this unit, into the next h buffer of every CTA
+      for (int q = 0; q < n_cta; ++q)
+        cluster.map_shared_rank(h_next, q)[r * H + unit0 + u] = h_keep;
     }
-    __syncthreads();  // h_t is complete before step t+1 reads it
+    // h_t is complete everywhere, and nobody reads h_{t-1} or the partial
+    // sums any more
+    cluster.sync();
+    cur ^= 1;
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    if (b < B) {
-      h_t[static_cast<size_t>(b) * H + j] = h_s[r * H + j];
-      c_t[static_cast<size_t>(b) * H + j] = c[r];
+  for (int p = 0; p < CPT; ++p) {
+    const int item = tid + p * kThreads;
+    const int r = item / kUnits, u = item % kUnits, b = b0 + r;
+    if (item < R * kUnits && b < B) {
+      h_t[static_cast<size_t>(b) * H + unit0 + u] =
+          h_s[cur * R * H + r * H + unit0 + u];
+      c_t[static_cast<size_t>(b) * H + unit0 + u] = c[p];
     }
   }
 }
@@ -191,109 +344,172 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
 // #8 backward scan
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kMaxHidden)
+// One (row, unit)'s residuals of one step: i, f, g, o, c_new, c_prev, dy, m.
+struct Residuals {
+  float a[4], c_new, c_prev, dy, m;
+};
+
+__device__ __forceinline__ void load_residuals(
+    Residuals& v, const float* __restrict__ acts,
+    const float* __restrict__ c_new_seq, const float* __restrict__ c_prev_seq,
+    const float* __restrict__ dy, const float* __restrict__ mask, size_t row,
+    int H, int unit) {
+  const float* a = acts + row * 4 * H + unit;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) v.a[g] = __ldg(a + g * H);
+  v.c_new = __ldg(c_new_seq + row * H + unit);
+  v.c_prev = __ldg(c_prev_seq + row * H + unit);
+  v.dy = __ldg(dy + row * H + unit);
+  v.m = __ldg(mask + row);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_train_bwd_kernel(const float* __restrict__ dy,
                       const float* __restrict__ dh_T,
                       const float* __restrict__ dc_T,
                       const float* __restrict__ acts,
                       const float* __restrict__ c_new_seq,
                       const float* __restrict__ c_prev_seq,
-                      const float* __restrict__ w_hh_t,   // [4H, H]
+                      const float* __restrict__ w_hh,
                       const float* __restrict__ mask,
                       float* __restrict__ dx_proj,
                       float* __restrict__ dh0, float* __restrict__ dc0,
                       int T, int B, int H) {
+  using S = Shape<R>;
+  constexpr int CPT = S::kCellsPerThread;
+  constexpr int RB = S::kRowsPerItem;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = H / kUnits;
+  const int cta = static_cast<int>(cluster.block_rank());
+  const int b0 = (blockIdx.x / n_cta) * R;
+  const int unit0 = cta * kUnits;
+  const size_t H4 = 4 * static_cast<size_t>(H);
+  const int tid = threadIdx.x;
+
   extern __shared__ float4 smem[];
-  float* dg_s = reinterpret_cast<float*>(smem);  // [kRows][4H]
-  const int j = threadIdx.x;
-  const int b0 = blockIdx.x * kRows;
-  const int H4 = 4 * H;
+  float* w_s = reinterpret_cast<float*>(smem);   // [H][kCols], swizzled
+  float* dg_s = w_s + H * kCols;                 // [R][kCols]
+  float* red = dg_s + R * kCols;                 // [2][n_cta][R][kUnits]
 
-  float dh[kRows], dc[kRows];
+  load_w_slice(w_hh, w_s, H, cta);
+  float dh[CPT], dc[CPT];
+  Residuals v[CPT];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    const bool ok = b < B;
-    dh[r] = ok ? dh_T[static_cast<size_t>(b) * H + j] : 0.0f;
-    dc[r] = ok ? dc_T[static_cast<size_t>(b) * H + j] : 0.0f;
+  for (int p = 0; p < CPT; ++p) {
+    const int item = tid + p * kThreads;
+    const int b = b0 + item / kUnits, unit = unit0 + item % kUnits;
+    const bool ok = item < R * kUnits && b < B;
+    dh[p] = ok ? dh_T[static_cast<size_t>(b) * H + unit] : 0.0f;
+    dc[p] = ok ? dc_T[static_cast<size_t>(b) * H + unit] : 0.0f;
+    if (ok)
+      load_residuals(v[p], acts, c_new_seq, c_prev_seq, dy, mask,
+                     static_cast<size_t>(T - 1) * B + b, H, unit);
   }
+  cluster.sync();  // every CTA started, w_s loaded
 
+  int par = 0;
   for (int t = T - 1; t >= 0; --t) {
     const size_t row0 = static_cast<size_t>(t) * B;
-    float keep[kRows], dcp[kRows];
+    float keep[CPT], dcp[CPT];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int b = b0 + r;
-      float* dgr = dg_s + r * H4;
+    for (int p = 0; p < CPT; ++p) {
+      const int item = tid + p * kThreads;
+      keep[p] = 1.0f;
+      dcp[p] = 0.0f;
+      if (item >= R * kUnits) continue;
+      const int r = item / kUnits, u = item % kUnits, b = b0 + r;
+      float* dgr = dg_s + r * kCols + u;
       if (b >= B) {
-        keep[r] = 1.0f;
-        dcp[r] = 0.0f;
-        dgr[j] = dgr[H + j] = dgr[2 * H + j] = dgr[3 * H + j] = 0.0f;
+        dgr[0] = dgr[kUnits] = dgr[2 * kUnits] = dgr[3 * kUnits] = 0.0f;
         continue;
       }
-      const size_t row = row0 + b;
-      const float m = __ldg(mask + row);
-      const float* a = acts + row * H4;
-      const float i = a[j], f = a[H + j], g = a[2 * H + j], o = a[3 * H + j];
-      const float tc = tanhf(c_new_seq[row * H + j]);
-      const float c_prev = c_prev_seq[row * H + j];
-      const float dh_new = m * (dh[r] + dy[row * H + j]);
-      const float dc_new = m * dc[r];
+      const float m = v[p].m;
+      const float i = v[p].a[0], f = v[p].a[1], g = v[p].a[2], o = v[p].a[3];
+      const float tc = tanhf(v[p].c_new);
+      const float dh_new = m * (dh[p] + v[p].dy);
+      const float dc_new = m * dc[p];
       const float d_o = dh_new * tc;
       const float dc_cur = dc_new + dh_new * o * (1.0f - tc * tc);
       const float di = dc_cur * g;
       const float dg = dc_cur * i;
-      const float df = dc_cur * c_prev;
-      dcp[r] = dc_cur * f;
-      keep[r] = 1.0f - m;
+      const float df = dc_cur * v[p].c_prev;
+      dcp[p] = dc_cur * f;
+      keep[p] = 1.0f - m;
       const float gi = di * i * (1.0f - i);
       const float gf = df * f * (1.0f - f);
       const float gg = dg * (1.0f - g * g);
       const float go = d_o * o * (1.0f - o);
-      float* dx = dx_proj + row * H4;
-      dx[j] = gi;
-      dx[H + j] = gf;
-      dx[2 * H + j] = gg;
-      dx[3 * H + j] = go;
-      dgr[j] = gi;
-      dgr[H + j] = gf;
-      dgr[2 * H + j] = gg;
-      dgr[3 * H + j] = go;
+      float* dx = dx_proj + (row0 + b) * H4 + unit0 + u;
+      dx[0] = gi;
+      dx[H] = gf;
+      dx[2 * H] = gg;
+      dx[3 * H] = go;
+      dgr[0] = gi;
+      dgr[kUnits] = gf;
+      dgr[2 * kUnits] = gg;
+      dgr[3 * kUnits] = go;
+      if (t > 0)  // step t-1's residuals, in flight during the products
+        load_residuals(v[p], acts, c_new_seq, c_prev_seq, dy, mask,
+                       row0 - B + b, H, unit0 + u);
     }
     __syncthreads();  // every row's dgates are in shared memory
 
-    // rec[r] = dgates[r] @ w_hh^T[:, j], four k at a time
-    float rec[kRows];
+    // partial dh[r][k] = dgates[r] @ w_slice[k]^T over this CTA's columns,
+    // for every input k; item (rows of rc, k), k fastest so that a warp
+    // shares its rows and reads 32 consecutive k
+    float* red_cur = red + par * R * H;
+    const int n_items = H * (R / RB);
+    for (int item = tid; item < n_items; item += kThreads) {
+      const int k = item % H, rc = item / H;
+      const float* wrow = w_s + k * kCols;
+      const float* dgr = dg_s + rc * RB * kCols;
+      const int k7 = k & 7;
+      float acc[RB];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) rec[r] = 0.0f;
-    for (int k = 0; k < H4; k += 4) {
-      float w[4];
+      for (int rr = 0; rr < RB; ++rr) acc[rr] = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < kCols / 4; ++j) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(wrow + ((j ^ k7) << 2));
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        w[kk] = __ldg(w_hh_t + static_cast<size_t>(k + kk) * H + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 d = *reinterpret_cast<const float4*>(dg_s + r * H4 + k);
-        rec[r] = fmaf(d.x, w[0], rec[r]);
-        rec[r] = fmaf(d.y, w[1], rec[r]);
-        rec[r] = fmaf(d.z, w[2], rec[r]);
-        rec[r] = fmaf(d.w, w[3], rec[r]);
+        for (int rr = 0; rr < RB; ++rr) {
+          const float4 d =
+              *reinterpret_cast<const float4*>(dgr + rr * kCols + 4 * j);
+          acc[rr] = fmaf(d.x, w.x, acc[rr]);
+          acc[rr] = fmaf(d.y, w.y, acc[rr]);
+          acc[rr] = fmaf(d.z, w.z, acc[rr]);
+          acc[rr] = fmaf(d.w, w.w, acc[rr]);
+        }
       }
-    }
+      // reduce-scatter: slot [cta] of the owner of input k
+      float* dst = cluster.map_shared_rank(red_cur, k / kUnits);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      dh[r] = keep[r] * dh[r] + rec[r];
-      dc[r] = keep[r] * dc[r] + dcp[r];
+      for (int rr = 0; rr < RB; ++rr)
+        dst[(cta * R + rc * RB + rr) * kUnits + k % kUnits] = acc[rr];
     }
-    __syncthreads();  // every thread has read dgates before they change
+    cluster.sync();  // every CTA's partials have arrived
+
+#pragma unroll
+    for (int p = 0; p < CPT; ++p) {
+      const int item = tid + p * kThreads;
+      if (item >= R * kUnits) continue;
+      const int r = item / kUnits, u = item % kUnits;
+      float rec = red_cur[r * kUnits + u];
+      for (int q = 1; q < n_cta; ++q) rec += red_cur[(q * R + r) * kUnits + u];
+      dh[p] = keep[p] * dh[p] + rec;
+      dc[p] = keep[p] * dc[p] + dcp[p];
+    }
+    par ^= 1;
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    if (b < B) {
-      dh0[static_cast<size_t>(b) * H + j] = dh[r];
-      dc0[static_cast<size_t>(b) * H + j] = dc[r];
+  for (int p = 0; p < CPT; ++p) {
+    const int item = tid + p * kThreads;
+    const int b = b0 + item / kUnits, unit = unit0 + item % kUnits;
+    if (item < R * kUnits && b < B) {
+      dh0[static_cast<size_t>(b) * H + unit] = dh[p];
+      dc0[static_cast<size_t>(b) * H + unit] = dc[p];
     }
   }
 }
@@ -368,37 +584,146 @@ lstm_train_dw_kernel(const float* __restrict__ h_prev,   // [N, H]
   }
 }
 
+// Launch `kernel` as clusters of H / 32 CTAs over ceil(B / R) batch tiles
+// with `smem` bytes of dynamic shared memory; returns the launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), size_t smem, int B,
+                            int H, int R, cudaStream_t stream,
+                            Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned n = static_cast<unsigned>(H / kUnits);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n * static_cast<unsigned>((B + R - 1) / R));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Clusters of H / 32 CTAs of `kernel` that fit on the card at once.
+template <typename... Params>
+cudaError_t max_clusters(void (*kernel)(Params...), size_t smem, int H,
+                         int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned n = static_cast<unsigned>(H / kUnits);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+template <int R>
+cudaError_t fwd_rows(const float* x_proj, const float* w_hh, const float* h0,
+                     const float* c0, const float* mask, float* ys,
+                     float* acts, float* hseq, float* cseq, float* h_t,
+                     float* c_t, int T, int B, int H, cudaStream_t stream) {
+  return launch_clusters(lstm_train_fwd_kernel<R>, fwd_smem_bytes<R>(H), B, H,
+                         R, stream, x_proj, w_hh, h0, c0, mask, ys, acts,
+                         hseq, cseq, h_t, c_t, T, B, H);
+}
+
+template <int R>
+cudaError_t bwd_rows(const float* dy, const float* dh_T, const float* dc_T,
+                     const float* acts, const float* c_new_seq,
+                     const float* c_prev_seq, const float* w_hh,
+                     const float* mask, float* dx_proj, float* dh0,
+                     float* dc0, int T, int B, int H, cudaStream_t stream) {
+  return launch_clusters(lstm_train_bwd_kernel<R>, bwd_smem_bytes<R>(H), B, H,
+                         R, stream, dy, dh_T, dc_T, acts, c_new_seq,
+                         c_prev_seq, w_hh, mask, dx_proj, dh0, dc0, T, B, H);
+}
+
+template <int R>
+cudaError_t max_clusters_rows(int H, int* out) {
+  int fwd = 0, bwd = 0;
+  cudaError_t err = max_clusters(lstm_train_fwd_kernel<R>,
+                                 fwd_smem_bytes<R>(H), H, &fwd);
+  if (err != cudaSuccess) return err;
+  err = max_clusters(lstm_train_bwd_kernel<R>, bwd_smem_bytes<R>(H), H, &bwd);
+  *out = fwd < bwd ? fwd : bwd;
+  return err;
+}
+
 }  // namespace
+
+// Dispatch on the rows per cluster (lstm_train_cuda._ROWS); anything
+// else is refused with cudaErrorInvalidValue.
+#define LSTM_TRAIN_ROWS(R, CALL)                                   \
+  switch (R) {                                                     \
+    case 1: return static_cast<int>(CALL(1));                      \
+    case 2: return static_cast<int>(CALL(2));                      \
+    case 4: return static_cast<int>(CALL(4));                      \
+    case 8: return static_cast<int>(CALL(8));                      \
+    case 12: return static_cast<int>(CALL(12));                    \
+    case 16: return static_cast<int>(CALL(16));                    \
+    case 18: return static_cast<int>(CALL(18));                    \
+    case 20: return static_cast<int>(CALL(20));                    \
+    case 24: return static_cast<int>(CALL(24));                    \
+    case 32: return static_cast<int>(CALL(32));                    \
+    default: return static_cast<int>(cudaErrorInvalidValue);       \
+  }
 
 extern "C" {
 
 // The caller guarantees: float32, contiguous, T >= 1, B >= 1, H a multiple
-// of 32 in [32, 256], all pointers on the current device.
+// of 32 in [32, 256], all pointers on the current device. `rows` is the
+// batch rows per cluster (the wrapper's `_train_geometry`).
 
 int lstm_train_fwd_f32(const float* x_proj, const float* w_hh,
                        const float* h0, const float* c0, const float* mask,
                        float* ys, float* acts, float* hseq, float* cseq,
-                       float* h_t, float* c_t, int T, int B, int H,
+                       float* h_t, float* c_t, int T, int B, int H, int rows,
                        void* stream) {
-  const dim3 grid((B + kRows - 1) / kRows);
-  const size_t smem = sizeof(float) * kRows * H;
-  lstm_train_fwd_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
-      x_proj, w_hh, h0, c0, mask, ys, acts, hseq, cseq, h_t, c_t, T, B, H);
-  return static_cast<int>(cudaGetLastError());
+#define FWD(R)                                                       \
+  fwd_rows<R>(x_proj, w_hh, h0, c0, mask, ys, acts, hseq, cseq, h_t, \
+              c_t, T, B, H, static_cast<cudaStream_t>(stream))
+  LSTM_TRAIN_ROWS(rows, FWD)
+#undef FWD
 }
 
-// w_hh_t is the [4H, H] transpose of w_hh.
+// w_hh is [H, 4H], the forward's layout.
 int lstm_train_bwd_f32(const float* dy, const float* dh_T, const float* dc_T,
                        const float* acts, const float* c_new_seq,
-                       const float* c_prev_seq, const float* w_hh_t,
+                       const float* c_prev_seq, const float* w_hh,
                        const float* mask, float* dx_proj, float* dh0,
-                       float* dc0, int T, int B, int H, void* stream) {
-  const dim3 grid((B + kRows - 1) / kRows);
-  const size_t smem = sizeof(float) * kRows * 4 * H;   // <= 32 KB
-  lstm_train_bwd_kernel<<<grid, H, smem, static_cast<cudaStream_t>(stream)>>>(
-      dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq, w_hh_t, mask, dx_proj,
-      dh0, dc0, T, B, H);
-  return static_cast<int>(cudaGetLastError());
+                       float* dc0, int T, int B, int H, int rows,
+                       void* stream) {
+#define BWD(R)                                                           \
+  bwd_rows<R>(dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq, w_hh, mask,   \
+              dx_proj, dh0, dc0, T, B, H, static_cast<cudaStream_t>(stream))
+  LSTM_TRAIN_ROWS(rows, BWD)
+#undef BWD
+}
+
+// The clusters of #7 and of #8's scan at (H, rows) that the current device
+// holds at once (the fewer of the two), into *out.
+int lstm_train_max_clusters(int H, int rows, int* out) {
+#define MAXC(R) max_clusters_rows<R>(H, out)
+  LSTM_TRAIN_ROWS(rows, MAXC)
+#undef MAXC
 }
 
 // h_prev [N, H], dgates [N, 4H] with N = T*B; slabs [n_slabs, H, 4H],

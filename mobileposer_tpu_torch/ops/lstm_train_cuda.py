@@ -11,6 +11,10 @@ Three kernel entries, one source (`csrc/lstm_train.cu`):
     the T*B rows as a second launch (partial slabs, summed here in a fixed
     order, as `_bwd_call` sums its per-tile slabs).
 
+The two scans run as thread-block clusters of H / 32 CTAs that hold w_hh
+in shared memory for all T steps; `_train_geometry` picks the batch rows
+per cluster from the clusters the card holds at once.
+
 Each wrapper checks device, dtype (float32), shapes and contiguity and
 raises on anything else. On a CPU tensor it runs the plain PyTorch version
 beside it (`*_plain`, a Python loop that copies the Pallas kernel body
@@ -28,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +51,64 @@ _DW_TILE = 64
 _DW_TARGET_BLOCKS = 264
 _DW_MIN_ROWS = 256
 
+# the scans' geometry (csrc/lstm_train.cu): hidden units per CTA, the batch
+# rows per cluster the kernels are built for, and a CTA's shared-memory
+# limit on Hopper (bytes)
+_UNITS = 32
+_ROWS = (1, 2, 4, 8, 12, 16, 18, 20, 24, 32)
+_SMEM_LIMIT = 232_448
+
+
+class TrainGeometry(NamedTuple):
+    """How the scans of one layer-direction are launched."""
+    cluster: int    # CTAs per cluster: H / 32
+    rows: int       # batch rows per cluster
+    fwd_smem: int   # dynamic shared memory per CTA of #7, bytes
+    bwd_smem: int   # the same for #8's scan
+
+
+def _train_geometry(B: int, H: int, max_clusters: int) -> TrainGeometry:
+    """The fewest batch rows per cluster (a step's work per CTA) with
+    which all ceil(B / rows) clusters are resident at once, given that
+    the card holds `max_clusters`; the most rows when none is. Shared
+    memory per CTA as `lstm_train.cu` lays it out: the w_hh slice
+    [H, 128]; forward h double-buffered [2, rows, H] and the k-split
+    partial gates [split, rows, 128]; backward dgates [rows, 128] and the
+    partial dh double-buffered [2, rows, H]."""
+    rows = next((r for r in _ROWS if math.ceil(B / r) <= max_clusters),
+                _ROWS[-1])
+    split_k = 2 if rows > 16 else 4
+    w_slice = H * 4 * _UNITS
+    fwd = 4 * (w_slice + 2 * rows * H + split_k * rows * 4 * _UNITS)
+    bwd = 4 * (w_slice + rows * 4 * _UNITS + 2 * rows * H)
+    return TrainGeometry(H // _UNITS, rows, fwd, bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(H: int, device_index: int) -> int:
+    """Clusters of both scans at H that the card holds at once
+    (`cudaOccupancyMaxActiveClusters`, the fewer of #7's and #8's), taken
+    at the most rows, whose shared memory is the largest, so that a
+    smaller tile fits as well."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _lib().lstm_train_max_clusters(H, _ROWS[-1], ctypes.byref(out))
+    if err != 0:
+        msg = _lib().lstm_train_error_string(err).decode()
+        raise RuntimeError(f"lstm_train_max_clusters failed: CUDA error "
+                           f"{err} ({msg})")
+    if out.value < 1:
+        raise RuntimeError(f"no cluster of {H // _UNITS} CTAs fits on "
+                           f"device {device_index}")
+    return out.value
+
+
+def train_geometry(B: int, H: int, device: torch.device) -> TrainGeometry:
+    """`_train_geometry` on the card that holds `device`."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _train_geometry(B, H, max_active_clusters(H, index))
+
 
 def reset_launches() -> None:
     for name in launches:
@@ -57,10 +120,12 @@ def _lib() -> ctypes.CDLL:
     """Build (first use) and load the kernels, declaring every entry."""
     lib = _build.load("lstm_train.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_train_fwd_f32.argtypes = [P] * 11 + [I] * 3 + [P]
+    lib.lstm_train_fwd_f32.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.lstm_train_fwd_f32.restype = I
-    lib.lstm_train_bwd_f32.argtypes = [P] * 11 + [I] * 3 + [P]
+    lib.lstm_train_bwd_f32.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.lstm_train_bwd_f32.restype = I
+    lib.lstm_train_max_clusters.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.lstm_train_max_clusters.restype = I
     lib.lstm_train_dw_f32.argtypes = [P] * 3 + [I] * 4 + [P]
     lib.lstm_train_dw_f32.restype = I
     lib.lstm_train_error_string.argtypes = [I]
@@ -149,7 +214,7 @@ def lstm_train_fwd(x_proj: torch.Tensor, w_hh: torch.Tensor,
     hc = [torch.empty((B, H), dtype=torch.float32, device=x_proj.device)
           for _ in range(2)]
     _call("lstm_train_fwd_f32", x_proj, w_hh, h0, c0, mask, *seq, *hc,
-          T, B, H)
+          T, B, H, train_geometry(B, H, x_proj.device).rows)
     return (*seq, *hc)
 
 
@@ -208,6 +273,21 @@ def _dw_slabs(n_rows: int, H: int):
     return math.ceil(n_rows / rows), rows
 
 
+def _bwd_scan(dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq, w_hh, mask):
+    """Launch #8's scan on checked inputs: (dx_proj, dh0, dc0). The kernel
+    reads w_hh [H, 4H] as the forward does (each CTA its column slice):
+    no transpose."""
+    T, B, H = dy.shape
+    dev = dy.device
+    dx = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    _call("lstm_train_bwd_f32", dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq,
+          w_hh, mask, dx, dh0, dc0, T, B, H,
+          train_geometry(B, H, dev).rows)
+    return dx, dh0, dc0
+
+
 def lstm_train_bwd(dy: torch.Tensor, dh_T: torch.Tensor, dc_T: torch.Tensor,
                    acts: torch.Tensor, c_new_seq: torch.Tensor,
                    h_prev_seq: torch.Tensor, c_prev_seq: torch.Tensor,
@@ -240,14 +320,8 @@ def lstm_train_bwd(dy: torch.Tensor, dh_T: torch.Tensor, dc_T: torch.Tensor,
         raise ValueError(f"the CUDA kernel takes T >= 1, B >= 1 and H a "
                          f"multiple of 32 in [32, 256]; got T={T}, B={B}, "
                          f"H={H} on {dev}")
-    # the kernel reads w_hh^T [4H, H] column-wise, as `_bwd_call` passes
-    # swapaxes(w_hh)
-    w_t = w_hh.t().contiguous()
-    dx = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    dc0 = torch.empty((B, H), dtype=torch.float32, device=dev)
-    _call("lstm_train_bwd_f32", dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq,
-          w_t, mask, dx, dh0, dc0, T, B, H)
+    dx, dh0, dc0 = _bwd_scan(dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq,
+                             w_hh, mask)
     n_slabs, rows = _dw_slabs(T * B, H)
     slabs = torch.empty((n_slabs, H, 4 * H), dtype=torch.float32, device=dev)
     _call("lstm_train_dw_f32", h_prev_seq, dx, slabs, T * B, H, n_slabs,

@@ -1,0 +1,134 @@
+// A CPU stand-in for the parts of the CUDA runtime and of cooperative
+// groups that ops/csrc/lstm_train.cu uses, so that g++ can build the
+// kernels and tests/test_torch_cuda_emulation.py can run them: every CUDA
+// thread is an OS thread, __syncthreads and cluster.sync are
+// std::barriers, a block's dynamic shared memory is a heap buffer
+// (poisoned with NaN), map_shared_rank maps an address into another
+// block's buffer, and a cluster launch runs its clusters one after
+// another. The test rewrites `extern __shared__ float4 smem[];` into
+// `float4* smem = emu_smem();` and a `<<<grid, threads, 0, stream>>>`
+// launch into `emu_launch(grid, threads, kernel, ...)`.
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+#include <thread>
+#include <vector>
+#include <memory>
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+struct alignas(16) float4 { float x, y, z, w; };
+inline thread_local dim3 threadIdx, blockIdx;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+inline float __ldg(const float* p) { return *p; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+template <class T> T min(T a, T b) { return a < b ? a : b; }
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emu"; }
+template <class F> cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int v) {
+  return v <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
+}
+template <class F> cudaError_t cudaOccupancyMaxActiveClusters(int* out, F*, const cudaLaunchConfig_t* cfg) {
+  *out = 132 / cfg->attrs[0].val.clusterDim.x;
+  return cudaSuccess;
+}
+
+struct EmuCluster {
+  std::unique_ptr<std::barrier<>> cbar;
+  std::vector<std::unique_ptr<std::barrier<>>> bbar;
+  std::vector<std::vector<float4>> smem;
+};
+inline thread_local EmuCluster* emu_cluster = nullptr;
+inline thread_local unsigned emu_rank = 0;
+inline void __syncthreads() { emu_cluster->bbar[emu_rank]->arrive_and_wait(); }
+inline float4* emu_smem() { return emu_cluster->smem[emu_rank].data(); }
+
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return emu_rank; }
+  void sync() const { emu_cluster->cbar->arrive_and_wait(); }
+  template <class T> T* map_shared_rank(T* addr, unsigned rank) const {
+    char* base = reinterpret_cast<char*>(emu_cluster->smem[emu_rank].data());
+    char* other = reinterpret_cast<char*>(emu_cluster->smem.at(rank).data());
+    std::ptrdiff_t off = reinterpret_cast<char*>(addr) - base;
+    if (off < 0 || static_cast<size_t>(off) >= emu_cluster->smem[rank].size() * 16) std::abort();
+    return reinterpret_cast<T*>(other + off);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
+
+template <class F, class... Args>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, F* kernel, Args&&... args) {
+  const unsigned n = cfg->attrs[0].val.clusterDim.x;
+  const unsigned nt = cfg->blockDim.x;
+  if (cfg->gridDim.x % n) return cudaErrorInvalidValue;
+  for (unsigned cl = 0; cl < cfg->gridDim.x / n; ++cl) {
+    EmuCluster c;
+    c.cbar = std::make_unique<std::barrier<>>(n * nt);
+    for (unsigned r = 0; r < n; ++r) {
+      c.bbar.push_back(std::make_unique<std::barrier<>>(nt));
+      // poison shared memory with NaN so reads of unwritten words show
+      std::vector<float4> s(cfg->dynamicSmemBytes / 16 + 1);
+      std::memset(s.data(), 0xff, s.size() * 16);
+      c.smem.push_back(std::move(s));
+    }
+    std::vector<std::thread> th;
+    for (unsigned r = 0; r < n; ++r)
+      for (unsigned t = 0; t < nt; ++t)
+        th.emplace_back([&, r, t] {
+          emu_cluster = &c; emu_rank = r;
+          threadIdx = dim3(t); blockIdx = dim3(cl * n + r);
+          kernel(args...);
+        });
+    for (auto& x : th) x.join();
+  }
+  return cudaSuccess;
+}
+
+// a plain <<<grid, threads>>> launch: blocks one after another
+template <class F, class... Args>
+void emu_launch(dim3 grid, unsigned nt, F* kernel, Args... args) {
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        EmuCluster c;
+        c.bbar.push_back(std::make_unique<std::barrier<>>(nt));
+        std::vector<std::thread> th;
+        for (unsigned t = 0; t < nt; ++t)
+          th.emplace_back([&, t] {
+            emu_cluster = &c; emu_rank = 0;
+            threadIdx = dim3(t); blockIdx = dim3(x, y, z);
+            kernel(args...);
+          });
+        for (auto& q : th) q.join();
+      }
+}

@@ -298,10 +298,34 @@ def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
     for name in pose_eval.METRIC_NAMES:
         assert name in out
     assert res["offline"].shape == (8, 2) and "translation drift" in out
-    for flags in (["--int8", "--bf16"], ["--bf16"], ["--data-parallel"],
+    for flags in (["--int8", "--bf16"], ["--bf16"],
                   ["--online", "--online-mode", "carry"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",
                            "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eval_cli.main(["--model", "model.pth", "--device", "cpu"])
+
+
+def test_cli_evaluate_data_parallel_on_one_device(eval_files, bodies,
+                                                  monkeypatch, capsys,
+                                                  small_bucket):
+    """`--data-parallel` with one device evaluates as the JAX CLI does
+    there (no mesh): the same tables as the run without it. Over more
+    than one CUDA device it still raises."""
+    monkeypatch.setenv("MP_PROCESSED", str(eval_files[0].parent))
+    shutil.copy(eval_files[0], eval_files[0].parent / "synthetic.pt")
+    monkeypatch.setattr(ParametricModel, "from_file_or_synthetic",
+                        classmethod(lambda cls, f: bodies[1]))
+    args = ["--model", _FIXTURE, "--dataset", "synthetic", "--device", "cpu"]
+    tables = []
+    for extra in ([], ["--data-parallel"]):
+        res = eval_cli.main(args + extra)
+        tables.append(capsys.readouterr().out)
+        assert res["offline"].shape == (8, 2)
+    assert tables[0] == tables[1] and "SIP Error" in tables[0]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(eval_cli, "resolve_device",
+                        lambda d: torch.device("cuda", 0))
+    with pytest.raises(NotImplementedError, match="queue A item 16"):
+        eval_cli.main(args[:4] + ["--data-parallel"])

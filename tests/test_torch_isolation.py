@@ -39,6 +39,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import chip_smoke\n"
             "import mobileposer_tpu_torch.bench\n"
+            "import mobileposer_tpu_torch.bench_turns\n"
             "import mobileposer_tpu_torch.cli.evaluate\n"
             "import mobileposer_tpu_torch.cli.train\n"
             "import mobileposer_tpu_torch.cli.combine_weights\n"
@@ -81,6 +82,15 @@ def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     net = MobilePoserNet(device="cpu")
     st = net.init_online_state_batched(2)
     assert st.vel_h.device.type == "cpu" and st.vel_h.shape == (2, 2, 256)
+
+
+def test_bench_turns_needs_a_card(monkeypatch, tmp_path):
+    """The two-tree cell timing refuses to run without a card; it never
+    measures on the CPU."""
+    from mobileposer_tpu_torch import bench_turns
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench_turns.main(["--other", str(tmp_path)])
 
 
 def test_eval_entry_points_need_a_device_when_no_gpu(monkeypatch):

@@ -7,6 +7,8 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances are stated at each assert.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -267,3 +269,51 @@ def test_training_wrappers_check_their_inputs():
     assert train_cuda._dw_slabs(125 * 256, 256) == (5, 6400)
     assert train_cuda._dw_slabs(125 * 256, 64) == (66, 485)
     assert train_cuda._dw_slabs(100, 256) == (1, 100)
+
+
+@pytest.mark.parametrize("H", range(32, 257, 32))
+def test_train_geometry_fits_the_card(H):
+    """The scans' cluster geometry for every H the kernels take: one CTA
+    per 32 hidden units, shared memory within a Hopper CTA's 232,448
+    bytes, and all ceil(B / rows) clusters resident at once wherever the
+    most rows allow it (the fewest rows that do); else the most rows."""
+    for B in (1, 8, 37, 256, 300):
+        for max_clusters in (1, 4, 14, 16, 66):
+            geo = train_cuda._train_geometry(B, H, max_clusters)
+            assert geo.cluster * 32 == H and geo.cluster <= 8
+            assert geo.rows >= 1 and geo.rows in train_cuda._ROWS
+            assert 0 < geo.fwd_smem <= 232_448
+            assert 0 < geo.bwd_smem <= 232_448
+            if math.ceil(B / train_cuda._ROWS[-1]) <= max_clusters:
+                assert math.ceil(B / geo.rows) <= max_clusters
+                smaller = [r for r in train_cuda._ROWS if r < geo.rows]
+                assert all(math.ceil(B / r) > max_clusters for r in smaller)
+            else:
+                assert geo.rows == train_cuda._ROWS[-1]
+    # the training shape at H = 256 on 16 clusters of 8: 16 rows each; on
+    # the 15 an H100 holds, 18 rows; on 11, 24
+    assert train_cuda._train_geometry(256, 256, 16).rows == 16
+    assert train_cuda._train_geometry(256, 256, 15).rows == 18
+    assert train_cuda._train_geometry(256, 256, 11).rows == 24
+
+
+def test_backward_scan_takes_w_hh_as_the_forward_does(monkeypatch):
+    """#8's scan gets w_hh [H, 4H] itself, the tensor the forward got (no
+    transpose and no copy), and the rows of the geometry."""
+    x_proj, w_hh, h0, c0, mask = map(torch.from_numpy, _layer_inputs(7))
+    _, acts, hseq, cseq, _, _ = train_cuda.lstm_train_fwd(x_proj, w_hh, h0,
+                                                          c0, mask)
+    calls = []
+    monkeypatch.setattr(train_cuda, "_call",
+                        lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(
+        train_cuda, "train_geometry",
+        lambda b, h, dev: train_cuda._train_geometry(b, h, 16))
+    dy = torch.zeros(T, B, H)
+    dx, dh0, dc0 = train_cuda._bwd_scan(dy, h0, c0, acts, cseq, cseq, w_hh,
+                                        mask)
+    (name, args), = calls
+    assert name == "lstm_train_bwd_f32"
+    assert args[6] is w_hh
+    assert args[-4:] == (T, B, H, train_cuda._train_geometry(B, H, 16).rows)
+    assert (dx.shape, dh0.shape, dc0.shape) == ((T, B, 4 * H), (B, H), (B, H))
