@@ -12,10 +12,14 @@ then runs these phases, each printing JSON lines:
   2. build   — nvcc time for the four sources, built in parallel
                (set-up, not kernel time), and ptxas usage;
   3. kernel  — each full-length kernel against its plain PyTorch version
-               at the streaming shapes (f32, nonzero h0/c0): max abs
+               at the streaming shapes (f32, nonzero h0/c0), and at B = 1
+               and B = 37 with H = 160 (a cluster of five CTAs): max abs
                error, kernel / plain / cuDNN `torch.nn.LSTM` times, the
                card's bound for the same work, and the kernel time PERF.md
-               recorded for the same shape;
+               recorded for the same shape (the one-block kernel of
+               slice 1); each shape's cluster geometry (rows per cluster,
+               clusters, the clusters the card holds, shared memory per
+               CTA) and the ptxas report of its instantiation;
   3b. masked — each masked kernel against its plain version at the
                evaluation shapes (T = 512 and 1024, a seeded ragged mask
                with an empty row and a full row): the same numbers, with
@@ -159,7 +163,8 @@ STEP_GRAD_RTOL = 1e-4
 # 560 frames takes a 1024 bucket of its own.
 EVAL_LENGTHS = (300, 420, 560)
 # The full-length kernels' times at T=45, H=256, B=256 recorded in
-# PERF.md section 6, printed beside this run's.
+# PERF.md section 6 for slice 1's one-block kernel, printed beside this
+# run's.
 PERF_MD_MS = {"bilstm_scan_f32": 1.307, "lstm_scan_f32": 1.311}
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
@@ -276,19 +281,50 @@ def layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None):
             "operations" if t_ops >= t_bytes else "bytes", flops, 4 * floats)
 
 
+def ptxas_by_function(source: str, needle: str):
+    """The ptxas report (registers, stack, spills) of each function of
+    `source`'s build whose mangled name holds `needle`: {name: [lines]}."""
+    from mobileposer_tpu_torch.ops import _build
+    log = _build.library_path(source).with_suffix(".log").read_text()
+    out, fn = {}, None
+    for ln in log.splitlines():
+        for key in ("Compiling entry function '", "Function properties for "):
+            if key in ln:
+                fn = ln.split(key, 1)[1].split("'", 1)[0].strip()
+        if fn and needle in fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.strip())
+    return out
+
+
 def phase_kernels(torch, lstm_cuda):
     """Each kernel vs its plain version at the streaming path's shapes:
     B=256 is the scan mode at 256 streams, B=200 the unfolded mode's
-    chunk of 25 windows x 8 streams, B=8 its velocity layers."""
+    chunk of 25 windows x 8 streams, B=8 its velocity layers (and ONLINE
+    evaluation's under 32 streams); then B=1 and an odd B=37 at H=160,
+    a cluster of five CTAs."""
     import numpy as np
     T = 45
     cases = [("bilstm_scan_f32", 256, 256), ("bilstm_scan_f32", 64, 256),
              ("lstm_scan_f32", 256, 256), ("bilstm_scan_f32", 256, 200),
-             ("bilstm_scan_f32", 64, 200), ("lstm_scan_f32", 256, 8)]
+             ("bilstm_scan_f32", 64, 200), ("lstm_scan_f32", 256, 8),
+             ("lstm_scan_f32", 160, 1), ("bilstm_scan_f32", 160, 37)]
     results = []
     for name, H, B in cases:
         bi = name == "bilstm_scan_f32"
         n_dir = 2 if bi else 1
+        geo = lstm_cuda.scan_geometry(n_dir, B, H, torch.device("cuda", 0))
+        held = lstm_cuda.max_active_clusters(H, geo.rows, 0)
+        emit({"phase": "scan_geometry", "name": name, "T": T, "B": B,
+              "H": H, "rows_per_cluster": geo.rows,
+              "rows_per_lane": geo.lane_rows,
+              "cols_per_lane": geo.lane_cols, "clusters": geo.clusters,
+              "ctas_per_cluster": geo.cluster,
+              "max_active_clusters": held,
+              "waves": math.ceil(geo.clusters / held),
+              "smem_per_cta": geo.smem,
+              "ptxas": ptxas_by_function(
+                  "lstm_scan.cu",
+                  f"lstm_scan_kernelILi{geo.lane_rows}ELi{geo.lane_cols}E")})
         rng = np.random.RandomState(H + B)
 
         def t(*shape, scale=1.0):
@@ -327,6 +363,7 @@ def phase_kernels(torch, lstm_cuda):
             plain_ms = time_ms(lambda: plain(*args), 3, warmup=1)
         bound_ms, bound_by, flops, nbytes = layer_bound(n_dir, T, B, H)
         rec = {"phase": "kernel", "name": name, "T": T, "B": B, "H": H,
+               "rows_per_cluster": geo.rows, "clusters": geo.clusters,
                "max_abs_err": err, "tol": KERNEL_TOL, "kernel_ms": kernel_ms,
                "perf_md_ms": PERF_MD_MS.get(name) if (H, B) == (256, 256)
                else None,

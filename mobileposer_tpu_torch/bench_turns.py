@@ -2,6 +2,7 @@
 card, so that a change is compared with its parent under the same clocks.
 
     python -m mobileposer_tpu_torch.bench_turns --other DIR [--out FILE]
+    python -m mobileposer_tpu_torch.bench_turns --other DIR --kernels
 
 DIR is another checkout of this repository (for example the parent
 commit unpacked with `git archive` into a git-ignored directory). The
@@ -9,8 +10,11 @@ turns run other, this, this, other; each turn is one process that imports
 `mobileposer_tpu_torch.bench` from its own tree, builds that tree's
 kernels and runs every cell once. Prints one JSON line per cell and turn,
 then one line of medians per cell and tree with the change's relative
-difference; with --out, writes the lines to FILE as well. Needs a CUDA
-card.
+difference; with --out, writes the lines to FILE as well. With
+--kernels each turn runs its tree's `chip_smoke.phase_kernels` instead
+(the full-length layer scans against their plain versions at the
+streaming shapes), and a cell is one kernel at one shape: its time in ms,
+with cuDNN's in the same turn. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import json
 import statistics
 import subprocess
 import sys
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -53,12 +58,32 @@ for name, fn, kw in {cells!r}:
                       "rate_max": rec.get("rate_max")}}), flush=True)
 """
 
+# the same for the layer-scan kernels (--kernels): phase 3 of the tree's
+# chip_smoke.py
+_KERNEL_TURN = """
+import json, sys
+sys.path.insert(0, {tree!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke
+from mobileposer_tpu_torch.ops import lstm_cuda
+lstm_cuda.build()
+for rec in chip_smoke.phase_kernels(torch, lstm_cuda):
+    cell = f"{{rec['name']}} B={{rec['B']}} H={{rec['H']}}"
+    print(json.dumps({{"cell": cell, "value": rec["kernel_ms"], "unit": "ms",
+                      "library_ms": rec["library_ms"],
+                      "bound_ms": rec["bound_ms"]}}), flush=True)
+"""
 
-def run_turn(tree: Path) -> dict:
-    """One process in `tree` running every cell; {cell: record}."""
-    proc = subprocess.run(
-        [sys.executable, "-c", _TURN.format(tree=str(tree), cells=CELLS)],
-        cwd=tree, capture_output=True, text=True)
+
+def run_turn(tree: Path, kernels: bool = False) -> dict:
+    """One process in `tree` running every cell (or, with `kernels`, every
+    kernel shape); {cell: record}."""
+    script = (_KERNEL_TURN.format(tree=str(tree)) if kernels
+              else _TURN.format(tree=str(tree), cells=CELLS))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tree,
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"bench_turns: {tree} failed:\n{proc.stderr}")
     recs = [json.loads(ln) for ln in proc.stdout.splitlines()
@@ -71,6 +96,8 @@ def main(argv=None) -> None:
     ap.add_argument("--other", required=True, type=Path,
                     help="the checkout to compare with (e.g. the parent)")
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the layer-scan kernels instead of the cells")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -78,17 +105,22 @@ def main(argv=None) -> None:
                          "card")
     trees = {"other": args.other.resolve(), "this": ROOT}
     lines = []
-    values = {t: {c[0]: [] for c in CELLS} for t in trees}
+    values = {t: defaultdict(list) for t in trees}
+    cells = {}   # every cell either tree ran, in order of first appearance
     for turn, tree in enumerate(("other", "this", "this", "other")):
-        for cell, rec in run_turn(trees[tree]).items():
+        for cell, rec in run_turn(trees[tree], args.kernels).items():
             values[tree][cell].append(rec["value"])
+            cells[cell] = None
             lines.append({"turn": turn, "tree": tree, **rec})
             print(json.dumps(lines[-1]), flush=True)
-    for cell, _, _ in CELLS:
-        med = {t: statistics.median(values[t][cell]) for t in trees}
+    for cell in cells:
+        med = {t: statistics.median(values[t][cell]) if values[t][cell]
+               else None for t in trees}
         lines.append({"cell": cell, "median_other": med["other"],
                       "median_this": med["this"],
-                      "this_vs_other": med["this"] / med["other"] - 1.0,
+                      "this_vs_other": (med["this"] / med["other"] - 1.0
+                                        if None not in med.values()
+                                        else None),
                       "values": {t: values[t][cell] for t in trees}})
         print(json.dumps(lines[-1]), flush=True)
     if args.out is not None:

@@ -3,9 +3,10 @@
 Each source has a plain `extern "C"` interface and includes no PyTorch
 header, so one nvcc call takes seconds. The shared library lands in
 `ops/build/` (listed in .gitignore) under a name that carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Pointers and the stream cross as
-`ctypes.c_void_p`; each C entry returns `cudaGetLastError()`.
+the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Pointers
+and the stream cross as `ctypes.c_void_p`; each C entry returns
+`cudaGetLastError()`.
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library built from `csrc/<source>` lives."""
     src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

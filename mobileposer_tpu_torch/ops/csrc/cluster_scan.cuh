@@ -1,0 +1,106 @@
+// What the thread-block-cluster LSTM scans for Hopper (sm_90a) share:
+// lstm_scan.cu (bilstm_scan_f32, lstm_scan_f32) and lstm_train.cu
+// (lstm_train_fwd_f32, lstm_train_bwd_f32). A cluster of n = H / 32 CTAs
+// of kThreads threads owns a tile of batch rows; CTA c owns the hidden
+// units [32c, 32c + 32) and their 128 gate columns g*H + 32c + u, and holds
+// the slice w_hh[:, those columns] in its shared memory for all T steps.
+// Each source's design note says how its kernels use that slice.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 512;      // 16 warps per CTA
+constexpr int kUnits = 32;         // hidden units per CTA
+constexpr int kCols = 4 * kUnits;  // gate columns per CTA
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// m*a + (1-m)*b rounded as written (no fused multiply-add), as the TPU
+// kernel and the plain version compute it.
+__device__ __forceinline__ float blend(float m, float a, float b) {
+  return __fadd_rn(__fmul_rn(m, a), __fmul_rn(__fsub_rn(1.0f, m), b));
+}
+
+// Offset of (k, col) in a CTA's slice [H][kCols]: float4 groups swizzled
+// by k % 8, so that a warp reading one k across 32 columns and a warp
+// reading one float4 of columns across 32 consecutive k both hit 32
+// distinct banks.
+__device__ __forceinline__ int swizzle(int k, int col) {
+  return k * kCols + ((((col >> 2) ^ (k & 7)) << 2) | (col & 3));
+}
+
+// CTA `cta`'s slice of w_hh [H, 4H]: columns g*H + 32*cta + u.
+__device__ __forceinline__ void load_w_slice(const float* __restrict__ w_hh,
+                                             float* w_s, int H, int cta) {
+  const int n = H * kCols;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int k = idx / kCols, col = idx % kCols;
+    w_s[swizzle(k, col)] = __ldg(w_hh + static_cast<size_t>(k) * 4 * H
+                                 + (col / kUnits) * H + cta * kUnits
+                                 + col % kUnits);
+  }
+}
+
+// Launch `kernel` as clusters of H / 32 CTAs over ceil(B / R) batch tiles
+// (grid x) and `n_dir` directions (grid y) with `smem` bytes of dynamic
+// shared memory; returns the launch's error.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), size_t smem, int B,
+                            int H, int R, int n_dir, cudaStream_t stream,
+                            Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned n = static_cast<unsigned>(H / kUnits);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n * static_cast<unsigned>((B + R - 1) / R),
+                     static_cast<unsigned>(n_dir));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Clusters of H / 32 CTAs of `kernel` with `smem` bytes each that fit on
+// the card at once.
+template <typename... Params>
+cudaError_t max_clusters(void (*kernel)(Params...), size_t smem, int H,
+                         int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned n = static_cast<unsigned>(H / kUnits);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+}  // namespace

@@ -90,44 +90,9 @@
 // cluster barrier, and the FMAs run on the CUDA cores in float32; TF32 or
 // bf16 tensor cores are later work.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
+#include "cluster_scan.cuh"
 
 namespace {
-
-constexpr int kThreads = 512;      // 16 warps per CTA
-constexpr int kUnits = 32;         // hidden units per CTA
-constexpr int kCols = 4 * kUnits;  // gate columns per CTA
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// m*a + (1-m)*b rounded as written (no fused multiply-add), as the TPU
-// kernel and the plain version compute it.
-__device__ __forceinline__ float blend(float m, float a, float b) {
-  return __fadd_rn(__fmul_rn(m, a), __fmul_rn(__fsub_rn(1.0f, m), b));
-}
-
-// Offset of (k, col) in a CTA's slice [H][kCols]: float4 groups swizzled
-// by k % 8 (see the design note).
-__device__ __forceinline__ int swizzle(int k, int col) {
-  return k * kCols + ((((col >> 2) ^ (k & 7)) << 2) | (col & 3));
-}
-
-// CTA `cta`'s slice of w_hh [H, 4H]: columns g*H + 32*cta + u.
-__device__ __forceinline__ void load_w_slice(const float* __restrict__ w_hh,
-                                             float* w_s, int H, int cta) {
-  const int n = H * kCols;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int k = idx / kCols, col = idx % kCols;
-    w_s[swizzle(k, col)] = __ldg(w_hh + static_cast<size_t>(k) * 4 * H
-                                 + (col / kUnits) * H + cta * kUnits
-                                 + col % kUnits);
-  }
-}
 
 // The rows of R that one backward product item covers: R / c for the
 // fewest chunks c that divide R into at most 10 rows (acc registers).
@@ -584,64 +549,13 @@ lstm_train_dw_kernel(const float* __restrict__ h_prev,   // [N, H]
   }
 }
 
-// Launch `kernel` as clusters of H / 32 CTAs over ceil(B / R) batch tiles
-// with `smem` bytes of dynamic shared memory; returns the launch's error.
-template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), size_t smem, int B,
-                            int H, int R, cudaStream_t stream,
-                            Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned n = static_cast<unsigned>(H / kUnits);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n * static_cast<unsigned>((B + R - 1) / R));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// Clusters of H / 32 CTAs of `kernel` that fit on the card at once.
-template <typename... Params>
-cudaError_t max_clusters(void (*kernel)(Params...), size_t smem, int H,
-                         int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned n = static_cast<unsigned>(H / kUnits);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
-}
-
 template <int R>
 cudaError_t fwd_rows(const float* x_proj, const float* w_hh, const float* h0,
                      const float* c0, const float* mask, float* ys,
                      float* acts, float* hseq, float* cseq, float* h_t,
                      float* c_t, int T, int B, int H, cudaStream_t stream) {
   return launch_clusters(lstm_train_fwd_kernel<R>, fwd_smem_bytes<R>(H), B, H,
-                         R, stream, x_proj, w_hh, h0, c0, mask, ys, acts,
+                         R, 1, stream, x_proj, w_hh, h0, c0, mask, ys, acts,
                          hseq, cseq, h_t, c_t, T, B, H);
 }
 
@@ -652,7 +566,7 @@ cudaError_t bwd_rows(const float* dy, const float* dh_T, const float* dc_T,
                      const float* mask, float* dx_proj, float* dh0,
                      float* dc0, int T, int B, int H, cudaStream_t stream) {
   return launch_clusters(lstm_train_bwd_kernel<R>, bwd_smem_bytes<R>(H), B, H,
-                         R, stream, dy, dh_T, dc_T, acts, c_new_seq,
+                         R, 1, stream, dy, dh_T, dc_T, acts, c_new_seq,
                          c_prev_seq, w_hh, mask, dx_proj, dh0, dc0, T, B, H);
 }
 

@@ -22,11 +22,13 @@
 // cells are independent blocks that run at the same time on different
 // SMs: the grid is (batch tiles of kRows rows) x (cells), blockIdx.y
 // picking a cell descriptor (its H, feature offset, pointers). The time
-// loop runs inside the block, as in lstm_scan.cu: h in shared memory, c in
-// registers, thread j owning gate columns j, H+j, 2H+j, 3H+j of its kRows
-// rows, and the same order of summation (x_proj first, then k ascending,
-// four k per float4 of h), so each cell computes bit for bit what the
-// per-module kernels (lstm_scan_f32, bilstm_scan_f32) compute for it.
+// loop runs inside the block: h in shared memory, c in registers, thread j
+// owning gate columns j, H+j, 2H+j, 3H+j of its kRows rows. The order of
+// summation is the per-module kernels' (lstm_scan_f32, bilstm_scan_f32 in
+// lstm_scan.cu, whose layout differs): x_proj first, then k ascending, one
+// fmaf each; and nvcc compiles this cell update to the rounding those
+// kernels write out (f*c rounded, then fmaf(i, g, .)), so each cell
+// computes bit for bit what they compute for it.
 //
 // Mixed widths: the block has max_i H_i threads. In a narrower cell's
 // block the threads past its H shadow its last unit: they load and
@@ -57,10 +59,10 @@
 // slowest cell alone, if L2 keeps up (measured on an H100: ~1.07x the
 // slowest cell's layer kernel at B=256). The k loop keeps one float4 row
 // of w_hh loads in flight per thread; unrolling it twice measured ~17%
-// faster a step, with a small stack spill, and is left for a redesign of
-// all the scan kernels together, so that the fused and per-module paths
-// keep one loop. Splitting w_hh across a thread-block cluster, TF32/bf16
-// tensor cores through wgmma and TMA loads of x_proj are later work.
+// faster a step, with a small stack spill; any such change must keep the
+// order above. Holding w_hh in the shared memory of a thread-block cluster,
+// as the per-module kernels now do, TF32/bf16 tensor cores through wgmma
+// and TMA loads of x_proj are later work.
 
 #include <cuda_runtime.h>
 

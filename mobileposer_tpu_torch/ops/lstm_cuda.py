@@ -24,6 +24,11 @@ int32 products; `ops/quant.py`):
     `bilstm_layer_masked_int8` -> `bilstm_scan_masked_int8` port
     `lstm_layer_masked_pallas_int8`.
 
+The two full-length float scans (`lstm_scan_f32`, `bilstm_scan_f32`) run
+as thread-block clusters of H / 32 CTAs
+that hold w_hh in shared memory for all T steps; `scan_geometry` picks the
+batch rows per cluster from the clusters the card holds at once.
+
 Each wrapper checks device, dtypes (float32; int8 w_hh and float32
 scales for the int8 entries), shapes and contiguity and raises on
 anything else; it never copies an input to make it fit (the int8 wrappers
@@ -47,6 +52,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -63,7 +70,7 @@ launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
             "lstm_scan_masked_int8": 0, "bilstm_scan_masked_int8": 0}
 
 #: {source: {entry: number of pointer arguments}}; every entry then takes
-#: T, B, H and the stream
+#: T, B, H (and rows, for `_ROWS_ENTRIES`) and the stream
 _ENTRIES = {
     "lstm_scan.cu": {"lstm_scan_f32": 7, "bilstm_scan_f32": 14,
                      "lstm_scan_masked_f32": 8, "bilstm_scan_masked_f32": 15},
@@ -71,6 +78,79 @@ _ENTRIES = {
                           "lstm_scan_masked_int8": 9,
                           "bilstm_scan_masked_int8": 17},
 }
+#: the cluster scans, which also take the batch rows per cluster
+_ROWS_ENTRIES = ("lstm_scan_f32", "bilstm_scan_f32")
+
+# the cluster scans' geometry (csrc/cluster_scan.cuh, csrc/lstm_scan.cu):
+# hidden units per CTA, gate columns per CTA, the most batch rows per
+# cluster of the layer scans (4 row groups of at most 10), and a CTA's
+# shared-memory limit on Hopper (bytes)
+_UNITS = 32
+_COLS = 4 * _UNITS
+_MAX_ROWS = 40
+_SMEM_LIMIT = 232_448
+
+
+class ScanGeometry(NamedTuple):
+    """How one full-length scan is launched."""
+    cluster: int    # CTAs per cluster: H / 32
+    rows: int       # batch rows per cluster
+    clusters: int   # n_dir * ceil(B / rows)
+    smem: int       # dynamic shared memory per CTA, bytes
+    lane_rows: int  # rows per product lane (the kernel's RT): ceil(rows / 4)
+    lane_cols: int  # gate columns per product lane (its C): 1 or 4
+
+
+def scan_smem(H: int, rows: int) -> int:
+    """Shared memory per CTA as `lstm_scan.cu` lays it out: the w_hh slice
+    [H, 128], h double-buffered [2, rows, H], the gates [rows, 128]."""
+    return 4 * (H * _COLS + 2 * rows * H + rows * _COLS)
+
+
+def _scan_geometry(n_dir: int, B: int, H: int,
+                   max_clusters: Callable[[int], int]) -> ScanGeometry:
+    """The fewest batch rows per cluster with which all
+    n_dir * ceil(B / rows) clusters are resident at once, where
+    `max_clusters(rows)` is the clusters the card holds at that rows'
+    shared memory; the most rows that fit when none is (the clusters then
+    run in waves)."""
+    fits = [r for r in range(1, _MAX_ROWS + 1)
+            if scan_smem(H, r) <= _SMEM_LIMIT]
+    rows = next((r for r in fits
+                 if n_dir * math.ceil(B / r) <= max_clusters(r)), fits[-1])
+    return ScanGeometry(H // _UNITS, rows, n_dir * math.ceil(B / rows),
+                        scan_smem(H, rows), math.ceil(rows / 4),
+                        1 if rows <= 2 else 4)
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(H: int, rows: int, device_index: int) -> int:
+    """Clusters of the full-length scan at (H, rows) that the card holds
+    at once (`cudaOccupancyMaxActiveClusters`)."""
+    lib = _lib("lstm_scan.cu")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.lstm_scan_max_clusters(H, rows, ctypes.byref(out))
+    if err != 0:
+        msg = lib.lstm_scan_error_string(err).decode()
+        raise RuntimeError(f"lstm_scan_max_clusters failed: CUDA error "
+                           f"{err} ({msg})")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_geometry_on(n_dir: int, B: int, H: int,
+                      device_index: int) -> ScanGeometry:
+    return _scan_geometry(
+        n_dir, B, H, lambda rows: max_active_clusters(H, rows, device_index))
+
+
+def scan_geometry(n_dir: int, B: int, H: int,
+                  device: torch.device) -> ScanGeometry:
+    """`_scan_geometry` on the card that holds `device`."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return _scan_geometry_on(n_dir, B, H, index)
 
 
 def reset_launches() -> None:
@@ -85,8 +165,12 @@ def _lib(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     P, I = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr in _ENTRIES[source].items():
-        getattr(lib, name).argtypes = [P] * n_ptr + [I] * 3 + [P]
+        n_int = 4 if name in _ROWS_ENTRIES else 3
+        getattr(lib, name).argtypes = [P] * n_ptr + [I] * n_int + [P]
         getattr(lib, name).restype = I
+    if source == "lstm_scan.cu":
+        lib.lstm_scan_max_clusters.argtypes = [I, I, ctypes.POINTER(I)]
+        lib.lstm_scan_max_clusters.restype = I
     lib.lstm_scan_error_string.argtypes = [I]
     lib.lstm_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -159,9 +243,13 @@ def _check_bi(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b,
 def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
     """Allocate the outputs, launch C entry `name` on the current stream
     and count the launch. The entry takes the input pointers, then ys per
-    direction, then (h_T, c_T) per direction, then T, B, H and the stream.
+    direction, then (h_T, c_T) per direction, then T, B, H (then the rows
+    per cluster of `scan_geometry`, for `_ROWS_ENTRIES`) and the stream.
     Returns ([ys per direction], [h_T, c_T per direction])."""
     dev = inputs[0].device
+    ints = (T, B, H)
+    if name in _ROWS_ENTRIES:
+        ints += (scan_geometry(n_dir, B, H, dev).rows,)
     ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
           for _ in range(n_dir)]
     hc = [torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -171,7 +259,7 @@ def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(*(t.data_ptr() for t in [*inputs, *ys, *hc]),
-                                 T, B, H, stream)
+                                 *ints, stream)
     if err != 0:
         msg = lib.lstm_scan_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

@@ -38,7 +38,8 @@ import torch
 
 from mobileposer_tpu_torch.nn.lstm import _reverse_by_length, length_mask
 from mobileposer_tpu_torch.ops import _build
-from mobileposer_tpu_torch.ops.lstm_cuda import (_check_layer, _check_mask,
+from mobileposer_tpu_torch.ops.lstm_cuda import (_UNITS, _check_layer,
+                                                 _check_mask,
                                                  _project_timesteps)
 
 #: launches per kernel since the last `reset_launches()`
@@ -51,12 +52,8 @@ _DW_TILE = 64
 _DW_TARGET_BLOCKS = 264
 _DW_MIN_ROWS = 256
 
-# the scans' geometry (csrc/lstm_train.cu): hidden units per CTA, the batch
-# rows per cluster the kernels are built for, and a CTA's shared-memory
-# limit on Hopper (bytes)
-_UNITS = 32
+# the batch rows per cluster the scans are built for (csrc/lstm_train.cu)
 _ROWS = (1, 2, 4, 8, 12, 16, 18, 20, 24, 32)
-_SMEM_LIMIT = 232_448
 
 
 class TrainGeometry(NamedTuple):

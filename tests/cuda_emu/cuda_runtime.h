@@ -1,13 +1,13 @@
 // A CPU stand-in for the parts of the CUDA runtime and of cooperative
-// groups that ops/csrc/lstm_train.cu uses, so that g++ can build the
+// groups that the sources in ops/csrc/ use, so that g++ can build the
 // kernels and tests/test_torch_cuda_emulation.py can run them: every CUDA
 // thread is an OS thread, __syncthreads and cluster.sync are
 // std::barriers, a block's dynamic shared memory is a heap buffer
 // (poisoned with NaN), map_shared_rank maps an address into another
 // block's buffer, and a cluster launch runs its clusters one after
 // another. The test rewrites `extern __shared__ float4 smem[];` into
-// `float4* smem = emu_smem();` and a `<<<grid, threads, 0, stream>>>`
-// launch into `emu_launch(grid, threads, kernel, ...)`.
+// `float4* smem = emu_smem();` and a `<<<grid, threads, smem, stream>>>`
+// launch into `emu_launch(grid, threads, smem, kernel, ...)`.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -27,9 +27,12 @@ inline thread_local dim3 threadIdx, blockIdx;
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 inline float __ldg(const float* p) { return *p; }
+inline float4 __ldg(const float4* p) { return *p; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
@@ -86,42 +89,49 @@ struct cluster_group {
 inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups
 
+// Dynamic shared memory of one block, poisoned with NaN so that reads of
+// unwritten words show.
+inline std::vector<float4> emu_block_smem(size_t bytes) {
+  std::vector<float4> s(bytes / 16 + 1);
+  std::memset(s.data(), 0xff, s.size() * 16);
+  return s;
+}
+
 template <class F, class... Args>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, F* kernel, Args&&... args) {
   const unsigned n = cfg->attrs[0].val.clusterDim.x;
   const unsigned nt = cfg->blockDim.x;
   if (cfg->gridDim.x % n) return cudaErrorInvalidValue;
-  for (unsigned cl = 0; cl < cfg->gridDim.x / n; ++cl) {
-    EmuCluster c;
-    c.cbar = std::make_unique<std::barrier<>>(n * nt);
-    for (unsigned r = 0; r < n; ++r) {
-      c.bbar.push_back(std::make_unique<std::barrier<>>(nt));
-      // poison shared memory with NaN so reads of unwritten words show
-      std::vector<float4> s(cfg->dynamicSmemBytes / 16 + 1);
-      std::memset(s.data(), 0xff, s.size() * 16);
-      c.smem.push_back(std::move(s));
+  for (unsigned y = 0; y < cfg->gridDim.y; ++y)
+    for (unsigned cl = 0; cl < cfg->gridDim.x / n; ++cl) {
+      EmuCluster c;
+      c.cbar = std::make_unique<std::barrier<>>(n * nt);
+      for (unsigned r = 0; r < n; ++r) {
+        c.bbar.push_back(std::make_unique<std::barrier<>>(nt));
+        c.smem.push_back(emu_block_smem(cfg->dynamicSmemBytes));
+      }
+      std::vector<std::thread> th;
+      for (unsigned r = 0; r < n; ++r)
+        for (unsigned t = 0; t < nt; ++t)
+          th.emplace_back([&, r, t] {
+            emu_cluster = &c; emu_rank = r;
+            threadIdx = dim3(t); blockIdx = dim3(cl * n + r, y);
+            kernel(args...);
+          });
+      for (auto& x : th) x.join();
     }
-    std::vector<std::thread> th;
-    for (unsigned r = 0; r < n; ++r)
-      for (unsigned t = 0; t < nt; ++t)
-        th.emplace_back([&, r, t] {
-          emu_cluster = &c; emu_rank = r;
-          threadIdx = dim3(t); blockIdx = dim3(cl * n + r);
-          kernel(args...);
-        });
-    for (auto& x : th) x.join();
-  }
   return cudaSuccess;
 }
 
-// a plain <<<grid, threads>>> launch: blocks one after another
+// a plain <<<grid, threads, smem>>> launch: blocks one after another
 template <class F, class... Args>
-void emu_launch(dim3 grid, unsigned nt, F* kernel, Args... args) {
+void emu_launch(dim3 grid, unsigned nt, size_t smem, F* kernel, Args... args) {
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         EmuCluster c;
         c.bbar.push_back(std::make_unique<std::barrier<>>(nt));
+        c.smem.push_back(emu_block_smem(smem));
         std::vector<std::thread> th;
         for (unsigned t = 0; t < nt; ++t)
           th.emplace_back([&, t] {

@@ -1,16 +1,19 @@
-"""The training kernels' CUDA source (`ops/csrc/lstm_train.cu`) built with
-g++ against a CPU stand-in for the CUDA runtime (`tests/cuda_emu/`) and
-run on the CPU: every CUDA thread an OS thread, the block and cluster
-barriers real barriers, distributed shared memory mapped between the
-blocks' buffers. This checks the kernels' indexing, their thread-block
-cluster exchange and their barriers (not the card's memory model, nor
-what nvcc accepts) against the plain versions, at small shapes that
-cover every rows-per-cluster template, partial batch tiles, clusters of
-one to eight CTAs and a ragged mask with an empty and a full row.
+"""The cluster kernels' CUDA sources (`ops/csrc/lstm_train.cu`, the
+training scans; `ops/csrc/lstm_scan.cu`, the full-length layer scans)
+built with g++ against a CPU stand-in for the CUDA runtime
+(`tests/cuda_emu/`) and run on the CPU: every CUDA thread an OS thread,
+the block and cluster barriers real barriers, distributed shared memory
+mapped between the blocks' buffers. This checks the kernels' indexing,
+their thread-block cluster exchange and their barriers (not the card's
+memory model, nor what nvcc accepts) against the plain versions, at
+small shapes that cover every rows-per-cluster template, partial batch
+tiles, clusters of one to eight CTAs and, for training, a ragged mask
+with an empty and a full row. `ops/csrc/multicell_scan.cu` is built the
+same way, to hold the layer scans to it bit for bit.
 
 The stand-in does not contract a*b + c into FMAs as nvcc does, so values
 differ from the plain versions by float32 rounding over a few steps: 1e-5
-(the chip check's TRAIN_TOL).
+(the chip check's TRAIN_TOL and KERNEL_TOL).
 """
 
 import ctypes
@@ -24,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from mobileposer_tpu_torch.ops import _build
+from mobileposer_tpu_torch.models.fused import _ROW_H
+from mobileposer_tpu_torch.ops import _build, lstm_cuda
 from mobileposer_tpu_torch.ops import lstm_train_cuda as train_cuda
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
@@ -39,27 +43,39 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
-    """lstm_train.cu built for the CPU stand-in, its entries declared."""
+def _emu_build(tmp_path_factory, source: str, edits=()) -> ctypes.CDLL:
+    """`csrc/<source>` built for the CPU stand-in: its dynamic shared
+    memory and its `<<<...>>>` launches rewritten for the stand-in, then
+    each (old, new) of `edits` applied."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the CPU stand-in")
-    src = (_build.CSRC_DIR / "lstm_train.cu").read_text()
+    src = (_build.CSRC_DIR / source).read_text()
+    for old, new in edits:
+        assert old in src, old
+        src = src.replace(old, new)
     src = src.replace("extern __shared__ float4 smem[];",
                       "float4* smem = emu_smem();")
-    src = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(",
-                 r"emu_launch(\2, \3, \1, ", src)
+    src = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\(",
+                 r"emu_launch(\2, \3, \4, \1, ", src, flags=re.S)
     d = tmp_path_factory.mktemp("cuda_emu")
-    (d / "lstm_train_emu.cpp").write_text(src)
-    out = d / "liblstm_train_emu.so"
+    stem = Path(source).stem
+    (d / f"{stem}_emu.cpp").write_text(src)
+    out = d / f"lib{stem}_emu.so"
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-I", str(EMU_DIR), "-include", "cuda_runtime.h", "-o", str(out),
-         str(d / "lstm_train_emu.cpp"), "-lpthread"],
+         "-I", str(EMU_DIR), "-I", str(_build.CSRC_DIR), "-include",
+         "cuda_runtime.h", "-o", str(out), str(d / f"{stem}_emu.cpp"),
+         "-lpthread"],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory):
+    """lstm_train.cu built for the CPU stand-in, its entries declared."""
+    lib = _emu_build(tmp_path_factory, "lstm_train.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.lstm_train_fwd_f32.argtypes = [P] * 11 + [I] * 4 + [P]
     lib.lstm_train_bwd_f32.argtypes = [P] * 11 + [I] * 4 + [P]
@@ -137,3 +153,173 @@ def test_unsupported_rows_are_refused(emu_lib):
                                           None) != 0
         assert emu_lib.lstm_train_bwd_f32(*([None] * 11), 2, 2, 64, rows,
                                           None) != 0
+
+
+@pytest.fixture(scope="module")
+def scan_lib(tmp_path_factory):
+    """lstm_scan.cu built for the CPU stand-in, its entries declared."""
+    lib = _emu_build(tmp_path_factory, "lstm_scan.cu")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_scan_f32.argtypes = [P] * 7 + [I] * 4 + [P]
+    lib.bilstm_scan_f32.argtypes = [P] * 14 + [I] * 4 + [P]
+    lib.lstm_scan_max_clusters.argtypes = [I, I, ctypes.POINTER(I)]
+    return lib
+
+
+# nvcc contracts multicell_scan.cu's `f * c[r] + i * g` into
+# fmaf(i, g, f * c[r]) on the H100 (the layer scans, which write that form
+# out, match it bit for bit there: chip_smoke.py phase 3e); g++ with
+# -ffp-contract=off would not fuse it at all, so the stand-in builds it
+# with the card's rounding written out
+MULTICELL_CARD_ROUNDING = ("c[r] = f * c[r] + i * g;",
+                           "c[r] = fmaf(i, g, __fmul_rn(f, c[r]));")
+
+
+@pytest.fixture(scope="module")
+def multicell_lib(tmp_path_factory):
+    """multicell_scan.cu built for the CPU stand-in, with the card's
+    rounding of its cell update."""
+    lib = _emu_build(tmp_path_factory, "multicell_scan.cu",
+                     [MULTICELL_CARD_ROUNDING])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.multicell_scan_f32.argtypes = [P] * 8 + [I] * 3 + [P]
+    return lib
+
+
+def _scan_inputs(rng, T, B, H, n_dir):
+    """Seeded inputs of one layer scan: per direction (x_proj, w_hh, h0,
+    c0), w_hh drawn as torch.nn.LSTM draws it."""
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32))
+
+    bound = 1.0 / math.sqrt(H)
+    return [(t(T, B, 4 * H),
+             torch.from_numpy(rng.uniform(-bound, bound, (H, 4 * H)).astype(
+                 np.float32)),
+             t(B, H, scale=0.5), t(B, H, scale=0.5)) for _ in range(n_dir)]
+
+
+def _emu_scan(lib, dirs, rows):
+    """One full-length scan on the stand-in, both directions in one
+    launch when `dirs` holds two; returns [ys, h_T, c_T] per direction."""
+    T, B, H4 = dirs[0][0].shape
+    H = H4 // 4
+    ys = [torch.full((T, B, H), float("nan")) for _ in dirs]
+    hc = [torch.full((B, H), float("nan")) for _ in range(2 * len(dirs))]
+    if len(dirs) == 1:
+        (x, w, h0, c0), = dirs
+        _call(lib.lstm_scan_f32, x, w, h0, c0, *ys, *hc, T, B, H, rows)
+    else:
+        (xf, wf, h0f, c0f), (xb, wb, h0b, c0b) = dirs
+        _call(lib.bilstm_scan_f32, xf, xb, wf, wb, h0f, c0f, h0b, c0b, *ys,
+              *hc, T, B, H, rows)
+    return [[ys[i], hc[2 * i], hc[2 * i + 1]] for i in range(len(dirs))]
+
+
+# every rows-per-thread template (rows 1 to 39: RT = ceil(rows / 4) from 1
+# to 10), clusters of one to eight CTAs (H = 32 .. 256, H = 160 among them),
+# B = 1 and partial batch tiles (B % rows != 0), both entries
+@pytest.mark.parametrize("n_dir,T,B,H,rows", [
+    (1, 3, 1, 32, 1), (2, 3, 11, 64, 6), (1, 3, 20, 96, 9),
+    (2, 3, 13, 128, 13), (1, 3, 30, 160, 17), (2, 2, 22, 192, 22),
+    (1, 3, 37, 160, 25), (2, 2, 29, 224, 29), (1, 3, 50, 64, 34),
+    (2, 2, 39, 256, 39), (2, 2, 1, 256, 1), (2, 3, 37, 160, 3)])
+def test_layer_scans_match_plain_versions(scan_lib, n_dir, T, B, H, rows):
+    rng = np.random.RandomState(n_dir + T + B + H + rows)
+    dirs = _scan_inputs(rng, T, B, H, n_dir)
+    got = _emu_scan(scan_lib, dirs, rows)
+    for d, (x, w, h0, c0), g in zip(("fwd", "bwd"), dirs, got):
+        ys, (h_t, c_t) = lstm_cuda.lstm_layer_plain(x, w, h0, c0)
+        for name, a, b in zip(("ys", "h_T", "c_T"), g, (ys, h_t, c_t)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL,
+                                       err_msg=f"{d} {name}")
+
+
+# a card holding 15 clusters gives B = 5 one row per cluster (one column
+# per lane); one holding 2 gives 3 and 5 rows (four columns per lane)
+@pytest.mark.parametrize("max_clusters", [15, 2])
+def test_layer_scans_equal_multicell_bit_for_bit(scan_lib, multicell_lib,
+                                                 max_clusters):
+    """The multicell kernel and the per-module layer scans sum each gate in
+    one order (x_proj, then k ascending) and round the cell update alike,
+    so on the trio's five cells they give the same bits:
+    `forward(backend='fused')` equals 'auto'."""
+    T, B, hs = 3, 5, _ROW_H
+    rng = np.random.RandomState(9)
+    cells = [_scan_inputs(rng, T, B, H, 1)[0] for H in hs]
+    x = torch.cat([c[0] for c in cells], dim=-1).contiguous()
+    outs = [[torch.full((T, B, H), float("nan")) for H in hs],
+            [torch.full((B, H), float("nan")) for H in hs],
+            [torch.full((B, H), float("nan")) for H in hs]]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+    hidden = (ctypes.c_int * len(hs))(*hs)
+    assert multicell_lib.multicell_scan_f32(
+        x.data_ptr(), ptrs([c[1] for c in cells]), ptrs([c[2] for c in cells]),
+        ptrs([c[3] for c in cells]), *(ptrs(o) for o in outs), hidden,
+        len(hs), T, B, None) == 0
+    # the per-module launches of the trio: poser bi (H = 256), footcontact
+    # bi (H = 64), velocity uni (H = 256), each at the rows it would take
+    per_module = []
+    for pair in ((0, 1), (2, 3), (4,)):
+        dirs = [cells[i] for i in pair]
+        geo = lstm_cuda._scan_geometry(len(dirs), B, dirs[0][1].shape[0],
+                                       lambda rows: max_clusters)
+        per_module += _emu_scan(scan_lib, dirs, geo.rows)
+    for i, got in enumerate(per_module):
+        for name, a, b in zip(("ys", "h_T", "c_T"), got,
+                              (outs[0][i], outs[1][i], outs[2][i])):
+            assert torch.equal(a, b), f"cell {i} {name}"
+
+
+def test_layer_scan_rows_outside_templates_are_refused(scan_lib):
+    """rows outside [1, 40] return an error and launch nothing; the
+    occupancy query takes the same rows."""
+    for rows in (0, -1, 41, 64):
+        assert scan_lib.lstm_scan_f32(*([None] * 7), 2, 2, 64, rows,
+                                      None) != 0
+        assert scan_lib.bilstm_scan_f32(*([None] * 14), 2, 2, 64, rows,
+                                        None) != 0
+        out = ctypes.c_int(-1)
+        assert scan_lib.lstm_scan_max_clusters(64, rows,
+                                               ctypes.byref(out)) != 0
+    out = ctypes.c_int(0)
+    assert scan_lib.lstm_scan_max_clusters(160, 39, ctypes.byref(out)) == 0
+    assert out.value == 132 // 5   # the stand-in's card
+
+
+@pytest.mark.parametrize("n_dir,B,H,max_clusters,rows,clusters", [
+    # the main path's shapes on a card that holds 15 clusters of 8 and 66
+    # of 2: bi B = 256 in one wave of 14 (R = 32 would need 16, two waves)
+    (2, 256, 256, 15, 37, 14), (1, 256, 256, 15, 18, 15),
+    (2, 200, 256, 15, 29, 14), (1, 8, 256, 15, 1, 8),
+    (2, 256, 64, 66, 8, 64), (2, 200, 64, 66, 7, 58),
+    (1, 1, 160, 26, 1, 1), (2, 37, 160, 26, 3, 26),
+    # more clusters than ever fit: the most rows whose shared memory fits
+    # (39 at H = 256), in waves
+    (2, 4096, 256, 15, 39, 212), (1, 4096, 64, 66, 40, 103)])
+def test_scan_geometry(n_dir, B, H, max_clusters, rows, clusters):
+    geo = lstm_cuda._scan_geometry(n_dir, B, H, lambda r: max_clusters)
+    assert (geo.rows, geo.clusters, geo.cluster) == (rows, clusters, H // 32)
+    assert geo.lane_rows == math.ceil(rows / 4)
+    assert geo.lane_cols == (1 if rows <= 2 else 4)
+    assert geo.smem == lstm_cuda.scan_smem(H, rows)
+    assert geo.smem <= lstm_cuda._SMEM_LIMIT
+
+
+def test_scan_geometry_reads_residency_at_each_rows():
+    """Residency is taken at each rows' own shared memory: a card whose
+    cluster count falls as the tile grows gets the first rows that fits."""
+    seen = []
+
+    def max_clusters(rows):
+        seen.append(rows)
+        return 20 if rows < 20 else 14
+
+    geo = lstm_cuda._scan_geometry(2, 256, 256, max_clusters)
+    assert geo.rows == 37 and seen == list(range(1, 38))
+    assert lstm_cuda.scan_smem(256, 39) <= lstm_cuda._SMEM_LIMIT
+    assert lstm_cuda.scan_smem(256, 40) > lstm_cuda._SMEM_LIMIT
