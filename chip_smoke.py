@@ -22,19 +22,23 @@ then runs these phases, each printing JSON lines:
                CTA) and the ptxas report of its instantiation;
   3b. masked — each masked kernel against its plain version at the
                evaluation shapes (T = 512 and 1024, a seeded ragged mask
-               with an empty row and a full row): the same numbers, with
-               cuDNN on `pack_padded_sequence` as the yardstick, and a
-               check that every masked step emitted exactly zero;
+               with an empty row and a full row; every frame valid, with
+               the difference to the full-length kernel; lengths sorted
+               so that every cluster ends early): the same numbers, with
+               cuDNN on `pack_padded_sequence` as the yardstick, a check
+               that every masked step emitted exactly zero, each shape's
+               cluster geometry and the ptxas report of its instantiation;
   3c. train kernels — the training forward (#7), the BPTT backward (#8)
                and its dW reduction against their plain versions at
                T = 125, B = 256 (H = 256 and 64) and B = 37 (H = 256 and
                160), a seeded ragged mask: the same numbers, #8's scan
                alone, cuDNN `torch.nn.LSTM` in training mode (forward,
                backward) and `torch.matmul` (dW) as the yardsticks, exact
-               zeros at masked steps, dW the same from run to run; each
-               shape's cluster geometry (clusters the card holds, CTAs
-               per cluster, rows, shared memory per CTA) and the ptxas
-               report of `lstm_train.cu`;
+               zeros at masked steps, dW the same from run to run (its
+               tile, slabs, ptxas line and TFLOP/s over all T*B rows
+               beside torch.matmul's); each shape's cluster geometry
+               (clusters the card holds, CTAs per cluster, rows, shared
+               memory per CTA) and the ptxas report of `lstm_train.cu`;
   3d. int8 kernels — the W8A8 scans (#4, #5, #6) against their plain
                versions at the streaming and evaluation shapes: one step
                from h0, the full shape, exact zeros at masked steps; kernel,
@@ -384,17 +388,38 @@ def phase_masked_kernels(torch, lstm_cuda):
     """Each masked kernel vs its plain version at the evaluation shapes:
     B=64 is `evaluate_pose`'s group size, T=512 its bucket; B=37, T=1024
     a ragged batch edge and the next bucket. Lengths are drawn from a
-    seed, with an empty row and a full row."""
+    seed, with an empty row and a full row ('ragged'). Two more cases:
+    'all ones', every frame valid, where the masked kernel must give the
+    full-length kernel's outputs (its difference to them is printed), and
+    'sorted', lengths in [T/4, 0.7 T] sorted so that each cluster's rows
+    end together and every cluster ends before T. Each shape prints its
+    cluster geometry and the ptxas report of its masked instantiation."""
     import numpy as np
     from torch.nn.utils.rnn import pack_padded_sequence
-    cases = [("bilstm_scan_masked_f32", 256, 64, 512),
-             ("bilstm_scan_masked_f32", 64, 64, 512),
-             ("lstm_scan_masked_f32", 256, 64, 512),
-             ("bilstm_scan_masked_f32", 256, 37, 1024)]
+    cases = [("bilstm_scan_masked_f32", 256, 64, 512, "ragged"),
+             ("bilstm_scan_masked_f32", 64, 64, 512, "ragged"),
+             ("lstm_scan_masked_f32", 256, 64, 512, "ragged"),
+             ("bilstm_scan_masked_f32", 256, 37, 1024, "ragged"),
+             ("bilstm_scan_masked_f32", 256, 64, 512, "all ones"),
+             ("bilstm_scan_masked_f32", 256, 37, 1024, "sorted")]
     results = []
-    for name, H, B, T in cases:
+    for name, H, B, T, case in cases:
         bi = name == "bilstm_scan_masked_f32"
         n_dir = 2 if bi else 1
+        geo = lstm_cuda.scan_geometry(n_dir, B, H, torch.device("cuda", 0),
+                                      masked=True)
+        held = lstm_cuda.max_active_clusters(H, geo.rows, 0, masked=True)
+        emit({"phase": "masked_scan_geometry", "name": name, "T": T, "B": B,
+              "H": H, "case": case, "rows_per_cluster": geo.rows,
+              "rows_per_lane": geo.lane_rows,
+              "cols_per_lane": geo.lane_cols, "clusters": geo.clusters,
+              "ctas_per_cluster": geo.cluster,
+              "max_active_clusters": held,
+              "waves": math.ceil(geo.clusters / held),
+              "smem_per_cta": geo.smem,
+              "ptxas": ptxas_by_function(
+                  "lstm_scan.cu", f"lstm_scan_masked_kernelILi{geo.lane_rows}"
+                                  f"ELi{geo.lane_cols}E")})
         rng = np.random.RandomState(H + B + T)
 
         def t(*shape, scale=1.0):
@@ -407,19 +432,30 @@ def phase_masked_kernels(torch, lstm_cuda):
                                   .astype(np.float32)).cuda(),
                  t(B, H, scale=0.5), t(B, H, scale=0.5))
                 for _ in range(n_dir)]
-        lengths = rng.randint(1, T, size=B)
-        lengths[0], lengths[1] = 0, T
+        if case == "ragged":
+            lengths = rng.randint(1, T, size=B)
+            lengths[0], lengths[1] = 0, T
+        elif case == "all ones":
+            lengths = np.full(B, T)
+        else:
+            lengths = np.sort(rng.randint(T // 4, int(0.7 * T) + 1,
+                                          size=B))[::-1].copy()
         mask = (torch.arange(T)[:, None] < torch.from_numpy(lengths)[None, :]
                 ).float().cuda()
+        # the steps each cluster runs: its rows' longest length
+        tile_steps = [int(lengths[b:b + geo.rows].max())
+                      for b in range(0, B, geo.rows)]
         if bi:
             (xf, wf, h0f, c0f), (xb, wb, h0b, c0b) = dirs
             args = (xf, xb, wf, wb, h0f, c0f, h0b, c0b, mask)
             kern = lstm_cuda.bilstm_layer_masked
             plain = lstm_cuda.bilstm_layer_masked_plain
+            full = lstm_cuda.bilstm_layer
         else:
             args = dirs[0] + (mask,)
             kern = lstm_cuda.lstm_layer_masked
             plain = lstm_cuda.lstm_layer_masked_plain
+            full = lstm_cuda.lstm_layer
 
         def flat(out):
             return [x for o in out for x in (o if isinstance(o, tuple) else (o,))]
@@ -431,6 +467,12 @@ def phase_masked_kernels(torch, lstm_cuda):
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         ys = got[:n_dir]
         masked_nonzero = sum(int((y[mask == 0] != 0).sum()) for y in ys)
+        extra = {}
+        if case == "all ones":
+            # the same inputs through the full-length kernel
+            ref = flat(full(*args[:-1]))
+            extra["masked_vs_full_length_max_abs_diff"] = max(
+                float((g - w).abs().max()) for g, w in zip(got, ref))
 
         # cuDNN yardstick: one layer on the packed batch (lengths >= 1:
         # packing takes no empty row, so the empty row runs one step)
@@ -441,7 +483,7 @@ def phase_masked_kernels(torch, lstm_cuda):
         hc_lib = (t(n_dir, B, H, scale=0.5), t(n_dir, B, H, scale=0.5))
         with torch.no_grad():
             library_ms = time_ms(lambda: lstm(packed, hc_lib), 5)
-            kernel_ms = time_ms(lambda: kern(*args), 5)
+            kernel_ms = time_ms(lambda: kern(*args), 10)
             plain_ms = time_ms(lambda: plain(*args), 1, warmup=1)
         bound_ms, bound_by, flops, nbytes = layer_bound(
             n_dir, T, B, H, valid_steps=int(lengths.sum()))
@@ -449,21 +491,26 @@ def phase_masked_kernels(torch, lstm_cuda):
                "H": H, "lengths_min_max_sum": [int(lengths.min()),
                                                int(lengths.max()),
                                                int(lengths.sum())],
+               "rows_per_cluster": geo.rows, "clusters": geo.clusters,
+               "cluster_steps_max_mean": [max(tile_steps),
+                                          sum(tile_steps) / len(tile_steps)],
                "max_abs_err": err, "tol": KERNEL_TOL,
-               "masked_steps_nonzero": masked_nonzero,
-               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
+               "masked_steps_nonzero": masked_nonzero, **extra,
+               "kernel_ms": kernel_ms,
+               "us_per_step": 1e3 * kernel_ms / max(max(tile_steps), 1),
+               "plain_ms": plain_ms, "library_ms": library_ms,
                "library": "torch.nn.LSTM 1 layer on pack_padded_sequence "
                           "(cuDNN, TF32 off; includes its input projection)",
                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
                "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+        if case != "ragged":
+            rec["case"] = case
         emit(rec)
-        require(finite, f"{name} H={H} B={B} T={T}: non-finite output")
+        tag = f"{name} H={H} B={B} T={T} {case}"
+        require(finite, f"{tag}: non-finite output")
         require(masked_nonzero == 0,
-                f"{name} H={H} B={B} T={T}: {masked_nonzero} masked outputs "
-                "are not zero")
-        require(err <= KERNEL_TOL,
-                f"{name} H={H} B={B} T={T}: max abs err {err} > {KERNEL_TOL}")
+                f"{tag}: {masked_nonzero} masked outputs are not zero")
+        require(err <= KERNEL_TOL, f"{tag}: max abs err {err} > {KERNEL_TOL}")
         results.append(rec)
     return results
 
@@ -626,8 +673,9 @@ def train_bounds(T: int, B: int, H: int, valid_steps: int):
     one layer-direction: each input read once, each output written once,
     the products of this run's valid steps at the float32 rate (masked
     steps need no product, but every residual and gradient row is
-    written). Returns {"fwd", "bwd", "dw", "scan"}, each (bound_ms,
-    bound_by, flops, bytes)."""
+    written). "dw_all_rows" is the dW reduction over all T*B rows, which
+    the kernel and torch.matmul both compute. Returns {"fwd", "bwd", "dw",
+    "dw_all_rows", "scan"}, each (bound_ms, bound_by, flops, bytes)."""
     H4 = 4 * H
     seq, hc = T * B * H, B * H
     fwd_flops = 2.0 * valid_steps * H * H4
@@ -643,6 +691,8 @@ def train_bounds(T: int, B: int, H: int, valid_steps: int):
     for name, flops, floats in (("fwd", fwd_flops, fwd_floats),
                                 ("bwd", bwd_flops, bwd_floats),
                                 ("dw", fwd_flops, dw_floats),
+                                ("dw_all_rows", 2.0 * T * B * H * H4,
+                                 dw_floats),
                                 ("scan", fwd_flops, scan_floats)):
         t_bytes = 4.0 * floats / HBM_BYTES_PER_S
         t_ops = flops / F32_FLOPS_PER_S
@@ -718,6 +768,7 @@ def phase_train_kernels(torch, train_cuda, ptxas):
 
         # the dW reduction alone (its share of #8)
         n_slabs, rows = train_cuda._dw_slabs(T * B, H)
+        dw_tile = [train_cuda._dw_tile_rows(H), train_cuda._DW_TILE_N]
         slabs = torch.empty((n_slabs, H, 4 * H), device="cuda")
         dx = gb[0]
         dw_ms = time_ms(lambda: train_cuda._call(
@@ -765,8 +816,18 @@ def phase_train_kernels(torch, train_cuda, ptxas):
                  "torch.matmul(h_prev^T, dgates) over the T*B rows "
                  "(cuBLAS, TF32 off)",
                  {"dw_hh_rel_err": dw_rel, "dw_rel_tol": DW_REL_TOL,
-                  "slabs": [n_slabs, rows],
-                  "note": "its time excludes the slab sum"})):
+                  "tile": dw_tile, "slabs": [n_slabs, rows],
+                  "ptxas": ptxas_by_function(
+                      "lstm_train.cu",
+                      f"lstm_train_dw_kernelILi{dw_tile[0] // 64}E"),
+                  "tflops_all_rows": 2.0 * T * B * H * 4 * H / dw_ms / 1e9,
+                  "library_tflops_all_rows":
+                      2.0 * T * B * H * 4 * H / dw_lib_ms / 1e9,
+                  "bound_all_rows_ms": bounds["dw_all_rows"][0],
+                  "bound_all_rows_by": bounds["dw_all_rows"][1],
+                  "note": "its time excludes the slab sum; the kernel and "
+                          "torch.matmul both take all T*B rows, the bound "
+                          "only the valid ones (bound_all_rows_ms: all)"})):
             b_ms, b_by, flops, nbytes = bounds[name.split("_")[2]]
             rec = {"phase": "train_kernel", "name": name, "T": T, "B": B,
                    "H": H, "lengths_min_max_sum": [int(lengths.min()),

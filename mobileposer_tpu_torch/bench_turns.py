@@ -2,7 +2,7 @@
 card, so that a change is compared with its parent under the same clocks.
 
     python -m mobileposer_tpu_torch.bench_turns --other DIR [--out FILE]
-    python -m mobileposer_tpu_torch.bench_turns --other DIR --kernels
+    python -m mobileposer_tpu_torch.bench_turns --other DIR --kernels [LIST]
 
 DIR is another checkout of this repository (for example the parent
 commit unpacked with `git archive` into a git-ignored directory). The
@@ -10,11 +10,14 @@ turns run other, this, this, other; each turn is one process that imports
 `mobileposer_tpu_torch.bench` from its own tree, builds that tree's
 kernels and runs every cell once. Prints one JSON line per cell and turn,
 then one line of medians per cell and tree with the change's relative
-difference; with --out, writes the lines to FILE as well. With
---kernels each turn runs its tree's `chip_smoke.phase_kernels` instead
-(the full-length layer scans against their plain versions at the
-streaming shapes), and a cell is one kernel at one shape: its time in ms,
-with cuDNN's in the same turn. Needs a CUDA card.
+difference; with --out, writes the lines to FILE as well. With --kernels
+each turn runs kernel phases of its tree's `chip_smoke.py` instead, LIST
+a comma-separated choice of `full` (phase 3, the full-length layer scans
+at the streaming shapes; the default), `masked` (phase 3b, the masked
+scans at the evaluation shapes) and `train` (phase 3c, the training
+kernels and the dW reduction), and a cell is one kernel at one shape: its
+time in ms, with the yardstick's (cuDNN, or torch.matmul for dW) in the
+same turn. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ for name, fn, kw in {cells!r}:
                       "rate_max": rec.get("rate_max")}}), flush=True)
 """
 
-# the same for the layer-scan kernels (--kernels): phase 3 of the tree's
-# chip_smoke.py
+# the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked')
+# and 3c ('train') of the tree's chip_smoke.py
+KERNEL_PHASES = ("full", "masked", "train")
 _KERNEL_TURN = """
 import json, sys
 sys.path.insert(0, {tree!r})
@@ -67,21 +71,36 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 import chip_smoke
-from mobileposer_tpu_torch.ops import lstm_cuda
-lstm_cuda.build()
-for rec in chip_smoke.phase_kernels(torch, lstm_cuda):
-    cell = f"{{rec['name']}} B={{rec['B']}} H={{rec['H']}}"
+from mobileposer_tpu_torch.ops import _build, lstm_cuda
+from mobileposer_tpu_torch.ops import lstm_train_cuda as train_cuda
+recs = []
+for phase in {phases!r}:
+    if phase == "train":
+        train_cuda.build()
+        log = _build.library_path("lstm_train.cu").with_suffix(".log")
+        ptxas = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        recs += chip_smoke.phase_train_kernels(torch, train_cuda, ptxas)
+    else:
+        lstm_cuda.build()
+        fn = (chip_smoke.phase_kernels if phase == "full"
+              else chip_smoke.phase_masked_kernels)
+        recs += fn(torch, lstm_cuda)
+for rec in recs:
+    cell = f"{{rec['name']}} T={{rec['T']}} B={{rec['B']}} H={{rec['H']}}"
+    if "case" in rec:
+        cell += " " + rec["case"]
     print(json.dumps({{"cell": cell, "value": rec["kernel_ms"], "unit": "ms",
                       "library_ms": rec["library_ms"],
                       "bound_ms": rec["bound_ms"]}}), flush=True)
 """
 
 
-def run_turn(tree: Path, kernels: bool = False) -> dict:
+def run_turn(tree: Path, kernels=()) -> dict:
     """One process in `tree` running every cell (or, with `kernels`, every
-    kernel shape); {cell: record}."""
-    script = (_KERNEL_TURN.format(tree=str(tree)) if kernels
-              else _TURN.format(tree=str(tree), cells=CELLS))
+    shape of those kernel phases); {cell: record}."""
+    script = (_KERNEL_TURN.format(tree=str(tree), phases=tuple(kernels))
+              if kernels else _TURN.format(tree=str(tree), cells=CELLS))
     proc = subprocess.run([sys.executable, "-c", script], cwd=tree,
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -96,9 +115,15 @@ def main(argv=None) -> None:
     ap.add_argument("--other", required=True, type=Path,
                     help="the checkout to compare with (e.g. the parent)")
     ap.add_argument("--out", type=Path, default=None)
-    ap.add_argument("--kernels", action="store_true",
-                    help="time the layer-scan kernels instead of the cells")
+    ap.add_argument("--kernels", nargs="?", const="full", default="",
+                    help="time these kernel phases instead of the cells: "
+                         "a comma-separated choice of "
+                         + ", ".join(KERNEL_PHASES) + " (default full)")
     args = ap.parse_args(argv)
+    kernels = [k for k in args.kernels.split(",") if k]
+    if set(kernels) - set(KERNEL_PHASES):
+        ap.error(f"--kernels takes {', '.join(KERNEL_PHASES)}; got "
+                 f"{args.kernels}")
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("bench_turns: no CUDA device; the cells run on the "
@@ -108,7 +133,7 @@ def main(argv=None) -> None:
     values = {t: defaultdict(list) for t in trees}
     cells = {}   # every cell either tree ran, in order of first appearance
     for turn, tree in enumerate(("other", "this", "this", "other")):
-        for cell, rec in run_turn(trees[tree], args.kernels).items():
+        for cell, rec in run_turn(trees[tree], kernels).items():
             values[tree][cell].append(rec["value"])
             cells[cell] = None
             lines.append({"turn": turn, "tree": tree, **rec})

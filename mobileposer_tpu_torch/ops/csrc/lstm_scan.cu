@@ -74,14 +74,28 @@
 // column a lane is ~1.6x faster: the step is a chain of latencies, which
 // four warps per row shorten.
 //
-// Masked design (one block per batch tile, to become a variant of the
-// cluster body). A block owns kRows batch rows for all T steps, keeping
-// their h in shared memory and c in registers.
-// Thread j owns hidden unit j and computes the four gate columns j, H+j,
-// 2H+j, 3H+j for its rows, in the order of the full-length kernel, so the
-// cell update needs no exchange; neighbouring threads read neighbouring
-// columns of w_hh, so its loads coalesce. Ragged batch edges are masked.
-// The blend follows the cell update.
+// Masked variant (lstm_scan_masked_kernel): the same body, the same
+// geometry (rows per cluster from the wrapper, residency queried for the
+// masked instantiation) and the same summation order, plus:
+//   * at the start, the cluster finds t_end, one past the last step at
+//     which any of its R rows has m != 0 (each CTA scans the tile's mask
+//     columns from the last step down and the CTA takes the largest hit;
+//     every CTA reads the same columns, so all agree on the number of
+//     steps and on the cluster barriers). Steps from t_end on leave every
+//     row's carry as it is and only write zeros to ys, so a tile whose
+//     rows all end early stops there. For finite inputs that is exact:
+//     at m = 0 the blend keeps h and c, and ys is +-0. It assumes no
+//     prefix shape of the mask. One difference from running every step:
+//     a NaN or an infinity in x_proj at a step from t_end on no longer
+//     reaches h and c through 0 * NaN (before t_end it still does, as in
+//     the TPU kernel);
+//   * each cell item reads its row's m for step t+1 beside x_proj, before
+//     step t's products, and after the cell update blends, rounded as
+//     written (cluster_scan.cuh `blend`): c <- blend(m, c_new, c),
+//     h <- blend(m, h_new, h), ys[t] = __fmul_rn(m, h_new). The blended h
+//     is what goes to every CTA. With every m = 1, blend(1, a, b) = a and
+//     1 * h = h, so the masked entries give the full-length entries'
+//     outputs bit for bit.
 //
 // What bounds it on this card (worked out from the shapes, not measured):
 // the recurrent product is 2*B*H*4H FLOPs per step and direction, against
@@ -94,18 +108,16 @@
 //     against ~338 MB (0.10 ms); the unidirectional velocity layer half
 //     that (0.26 ms); footcontact at H = 64 ~2.15 GFLOP (0.032 ms)
 //     against ~84 MB (0.025 ms). FLOPs bound all three.
-// The full-length scan is a chain of T dependent steps (see "Why four
-// columns a lane" above). The masked kernel re-reads w_hh (1 MiB at
-// H = 256) from L2 every step in every block, so its step costs ~29 us at
-// any batch; it becomes a variant of the cluster body next. TF32/bf16
-// tensor cores through wgmma and TMA loads of x_proj are later work.
+// The scan is a chain of T dependent steps (see "Why four columns a lane"
+// above), so at evaluation's B = 64 a cluster holds few rows (10 at
+// H = 256, bidirectional) and a step is mostly latency and the cluster
+// barrier. TF32/bf16 tensor cores through wgmma and TMA loads of x_proj
+// are later work.
 
 #include "cluster_scan.cuh"
 
 namespace {
 
-constexpr int kRows = 8;        // batch rows per block (masked kernel)
-constexpr int kMaxHidden = 256; // one thread per hidden unit (masked kernel)
 constexpr int kGroups = 4;                 // row groups of the products
 constexpr int kMaxRowsPerLane = 10;        // RT templates 1 .. 10
 constexpr int kMaxRows = kGroups * kMaxRowsPerLane;
@@ -148,12 +160,39 @@ __device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
     *p = v[0];
 }
 
-template <int RT, int C>
-__global__ void __launch_bounds__(kThreads, 1)
-lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
+// One past the last step at which a row of the tile [b0, b0 + R) has a
+// nonzero mask; the same in every CTA of the cluster. `slot` is one int
+// of shared memory, free until the function returns.
+__device__ __forceinline__ int tile_end(const float* __restrict__ mask,
+                                        int T, int B, int b0, int R,
+                                        int* slot) {
+  const int tid = threadIdx.x;
+  if (tid == 0) *slot = 0;
+  __syncthreads();
+  // item idx is (step, row) = (idx / R, idx % R); from the last step
+  // down, so a thread's first hit is its latest
+  for (int idx = T * R - 1 - tid; idx >= 0; idx -= kThreads) {
+    const int b = b0 + idx % R;
+    if (b < B && __ldg(mask + static_cast<size_t>(idx / R) * B + b) != 0.0f) {
+      atomicMax(slot, idx / R + 1);
+      break;
+    }
+  }
+  __syncthreads();
+  const int t_end = *slot;
+  __syncthreads();  // every thread has read the slot
+  return t_end;
+}
+
+// The scan of one direction (see the design notes above); with kMasked,
+// the masked variant over mask [T, B]. `d` by value: a reference to the
+// kernel's parameters would put both directions' in local memory.
+template <int RT, int C, bool kMasked>
+__device__ __forceinline__ void scan_body(const Dir d,
+                                          const float* __restrict__ mask,
+                                          int T, int B, int H, int R) {
   constexpr int CPT = (kGroups * RT * kUnits + kThreads - 1) / kThreads;
   constexpr int kWarpsPerGroup = 4 / C;  // warps covering the 128 columns
-  const Dir d = blockIdx.y == 0 ? d0 : d1;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = H / kUnits;
   const int cta = static_cast<int>(cluster.block_rank());
@@ -176,9 +215,15 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
   const int r_begin = grp * RT;
   const int rows = grp < kGroups ? min(RT, R - r_begin) : 0;
 
+  // the steps this cluster runs: all T, or (masked) up to the tile's last
+  // valid step; the gate buffer serves as the reduction's slot
+  int t_end = T;
+  if constexpr (kMasked)
+    t_end = tile_end(mask, T, B, b0, R, reinterpret_cast<int*>(gates));
+
   // cells: item tid + p*kThreads is (row, unit) = (item / 32, item % 32);
-  // it also fetches that (row, unit)'s four x_proj columns of the next
-  // step into the gate buffer
+  // it also fetches that (row, unit)'s four x_proj columns (and, masked,
+  // its mask value) of the next step
   load_w_slice(d.w_hh, w_s, H, cta);
   for (int idx = tid; idx < R * H; idx += kThreads) {
     const int b = b0 + idx / H;
@@ -186,6 +231,7 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
   }
   float c[CPT];
   float xn[CPT][4] = {};  // x_proj of the next step, per item and gate
+  float m[CPT] = {}, mn[CPT] = {};  // mask of this step and of the next
 #pragma unroll
   for (int p = 0; p < CPT; ++p) {
     const int item = tid + p * kThreads;
@@ -198,12 +244,13 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
         gates[r * kCols + g * kUnits + u] =
             ok ? __ldg(d.x_proj + b * H4 + g * H + unit0 + u) : 0.0f;
     }
+    if constexpr (kMasked) m[p] = ok && t_end > 0 ? __ldg(mask + b) : 0.0f;
   }
   cluster.sync();  // every CTA started; w_s, h_s[0], x_proj[0] loaded
 
   int cur = 0;
-  for (int t = 0; t < T; ++t) {
-    if (t + 1 < T) {  // step t+1's x_proj, in flight during the products
+  for (int t = 0; t < t_end; ++t) {
+    if (t + 1 < t_end) {  // step t+1's x_proj, in flight during the products
       const size_t row0 = static_cast<size_t>(t + 1) * B;
 #pragma unroll
       for (int p = 0; p < CPT; ++p) {
@@ -214,6 +261,7 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
         for (int g = 0; g < 4; ++g)
           xn[p][g] = ok ? __ldg(d.x_proj + (row0 + b) * H4 + g * H + unit0 + u)
                         : 0.0f;
+        if constexpr (kMasked) mn[p] = ok ? __ldg(mask + row0 + b) : 0.0f;
       }
     }
     if (rows > 0) {
@@ -227,7 +275,7 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
         load_cols<C>(gates + ro[i] * kCols + col0, acc[i]);
       }
       const float* hb = h_s + cur * R * H;
-      for (int k = 0; k < H; k += 4) {
+      auto k_group = [&](int k) {
         float w[4][C];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -243,6 +291,15 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
             for (int j = 0; j < C; ++j)
               acc[i][j] = fmaf(hk[kk], w[kk][j], acc[i][j]);
         }
+      };
+      if constexpr (RT == 3) {
+        // nvcc leaves this loop rolled at three rows a lane; unrolled four
+        // times, a step of the masked bi layer at B = 64 (R = 10) takes
+        // ~23% less on an H100, with the same bits
+#pragma unroll 4
+        for (int k = 0; k < H; k += 4) k_group(k);
+      } else {
+        for (int k = 0; k < H; k += 4) k_group(k);
       }
 #pragma unroll
       for (int i = 0; i < RT; ++i)
@@ -265,9 +322,18 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
       // f*c + i*g with the rounding nvcc gives it in multicell_scan.cu
       // (f*c rounded, then one FMA), written out: left to the compiler it
       // contracts the other product in some instantiations of this kernel
-      c[p] = fmaf(i, g, __fmul_rn(f, c[p]));
-      const float h = o * tanhf(c[p]);
-      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = h;
+      const float c_new = fmaf(i, g, __fmul_rn(f, c[p]));
+      const float h_new = o * tanhf(c_new);
+      float h = h_new, y = h_new;
+      if constexpr (kMasked) {
+        c[p] = blend(m[p], c_new, c[p]);
+        h = blend(m[p], h_new, h_s[cur * R * H + r * H + unit0 + u]);
+        y = __fmul_rn(m[p], h_new);  // exactly zero at a masked step
+        m[p] = mn[p];
+      } else {
+        c[p] = c_new;
+      }
+      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = y;
       // the new h of this unit, into the next h buffer of every CTA
       for (int q = 0; q < n_cta; ++q)
         cluster.map_shared_rank(h_next, q)[r * H + unit0 + u] = h;
@@ -289,8 +355,24 @@ lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
       d.h_t[static_cast<size_t>(b) * H + unit0 + u] =
           h_s[cur * R * H + r * H + unit0 + u];
       d.c_t[static_cast<size_t>(b) * H + unit0 + u] = c[p];
+      if constexpr (kMasked)  // the steps past the tile's last valid one
+        for (int t = t_end; t < T; ++t)
+          d.ys[(static_cast<size_t>(t) * B + b) * H + unit0 + u] = 0.0f;
     }
   }
+}
+
+template <int RT, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
+  scan_body<RT, C, false>(blockIdx.y == 0 ? d0 : d1, nullptr, T, B, H, R);
+}
+
+template <int RT, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_scan_masked_kernel(Dir d0, Dir d1, const float* __restrict__ mask,
+                        int T, int B, int H, int R) {
+  scan_body<RT, C, true>(blockIdx.y == 0 ? d0 : d1, mask, T, B, H, R);
 }
 
 template <int RT, int C>
@@ -301,109 +383,29 @@ cudaError_t scan_rows(const Dir& d0, const Dir& d1, int n_dir, int T, int B,
 }
 
 template <int RT, int C>
+cudaError_t masked_rows(const Dir& d0, const Dir& d1, const float* mask,
+                        int n_dir, int T, int B, int H, int R,
+                        cudaStream_t stream) {
+  return launch_clusters(lstm_scan_masked_kernel<RT, C>,
+                         scan_smem_bytes(H, R), B, H, R, n_dir, stream, d0,
+                         d1, mask, T, B, H, R);
+}
+
+template <int RT, int C>
 cudaError_t max_clusters_rows(int H, int R, int* out) {
   return max_clusters(lstm_scan_kernel<RT, C>, scan_smem_bytes(H, R), H,
                       out);
 }
 
-// The masked scan (#3): see the masked design note above.
-__global__ void __launch_bounds__(kMaxHidden)
-lstm_scan_masked_kernel(Dir d0, Dir d1, const float* __restrict__ mask,
-                        int T, int B, int H) {
-  const Dir d = blockIdx.y == 0 ? d0 : d1;
-  extern __shared__ float4 smem[];
-  float* h_s = reinterpret_cast<float*>(smem);  // [kRows][H]
-  const int j = threadIdx.x;
-  const int b0 = blockIdx.x * kRows;
-  const size_t H4 = 4 * static_cast<size_t>(H);
-
-  float c[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    const bool ok = b < B;
-    h_s[r * H + j] = ok ? d.h0[static_cast<size_t>(b) * H + j] : 0.0f;
-    c[r] = ok ? d.c0[static_cast<size_t>(b) * H + j] : 0.0f;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const float* xt = d.x_proj + static_cast<size_t>(t) * B * H4;
-    float acc[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int b = b0 + r;
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        acc[r][g] = b < B ? xt[static_cast<size_t>(b) * H4 + g * H + j]
-                          : 0.0f;
-    }
-
-    // gates += h_{t-1} @ w_hh, four k at a time (one float4 of h per row)
-    for (int k = 0; k < H; k += 4) {
-      float w[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          w[kk][g] = __ldg(d.w_hh + (k + kk) * H4 + g * H + j);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 h = *reinterpret_cast<const float4*>(h_s + r * H + k);
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          acc[r][g] = fmaf(h.x, w[0][g], acc[r][g]);
-          acc[r][g] = fmaf(h.y, w[1][g], acc[r][g]);
-          acc[r][g] = fmaf(h.z, w[2][g], acc[r][g]);
-          acc[r][g] = fmaf(h.w, w[3][g], acc[r][g]);
-        }
-      }
-    }
-    __syncthreads();  // every thread has read h_{t-1}
-
-    float* yt = d.ys + static_cast<size_t>(t) * B * H;
-    const float* mt = mask + static_cast<size_t>(t) * B;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float i = sigmoid(acc[r][0]);
-      const float f = sigmoid(acc[r][1]);
-      const float g = tanhf(acc[r][2]);
-      const float o = sigmoid(acc[r][3]);
-      const float c_new = f * c[r] + i * g;
-      const float h_new = o * tanhf(c_new);
-      const int b = b0 + r;
-      const float m = b < B ? __ldg(mt + b) : 0.0f;
-      c[r] = blend(m, c_new, c[r]);
-      // thread j alone reads and writes h_s[r][j] between the barriers
-      h_s[r * H + j] = blend(m, h_new, h_s[r * H + j]);
-      if (b < B) yt[static_cast<size_t>(b) * H + j] = __fmul_rn(m, h_new);
-    }
-    __syncthreads();  // h_t is complete before step t+1 reads it
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    if (b < B) {
-      d.h_t[static_cast<size_t>(b) * H + j] = h_s[r * H + j];
-      d.c_t[static_cast<size_t>(b) * H + j] = c[r];
-    }
-  }
-}
-
-int launch_masked(const Dir& d0, const Dir& d1, const float* mask, int n_dir,
-                  int T, int B, int H, void* stream) {
-  const dim3 grid((B + kRows - 1) / kRows, n_dir);
-  const size_t smem = sizeof(float) * kRows * H;
-  lstm_scan_masked_kernel<<<grid, H, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      d0, d1, mask, T, B, H);
-  return static_cast<int>(cudaGetLastError());
+template <int RT, int C>
+cudaError_t masked_max_clusters_rows(int H, int R, int* out) {
+  return max_clusters(lstm_scan_masked_kernel<RT, C>, scan_smem_bytes(H, R),
+                      H, out);
 }
 
 }  // namespace
 
-// Dispatch a full-length scan of `rows` rows per cluster on its rows per
+// Dispatch a scan of `rows` rows per cluster on its rows per
 // lane RT = ceil(rows / 4) and columns per lane C: one column at two rows
 // or fewer, where a step is a chain of latencies and four warps per row
 // shorten it; else four, so that each h read feeds four FMAs. Rows
@@ -430,8 +432,8 @@ extern "C" {
 
 // The caller guarantees: float32, contiguous, T >= 1, B >= 1,
 // H a multiple of 32 in [32, 256], all pointers on the current device;
-// for the masked entries, mask is [T, B]. `rows` is the full-length
-// entries' batch rows per cluster (the wrapper's `scan_geometry`).
+// for the masked entries, mask is [T, B]. `rows` is the batch rows per
+// cluster (the wrapper's `scan_geometry`).
 int lstm_scan_f32(const float* x_proj, const float* w_hh, const float* h0,
                   const float* c0, float* ys, float* h_t, float* c_t,
                   int T, int B, int H, int rows, void* stream) {
@@ -465,12 +467,24 @@ int lstm_scan_max_clusters(int H, int rows, int* out) {
 #undef MAXC
 }
 
+// The clusters of the masked scan at (H, rows) that the current device
+// holds at once, into *out.
+int lstm_scan_masked_max_clusters(int H, int rows, int* out) {
+#define MAXC(RT, C) masked_max_clusters_rows<RT, C>(H, rows, out)
+  LSTM_SCAN_ROWS(rows, MAXC)
+#undef MAXC
+}
+
 int lstm_scan_masked_f32(const float* x_proj, const float* w_hh,
                          const float* h0, const float* c0, const float* mask,
                          float* ys, float* h_t, float* c_t,
-                         int T, int B, int H, void* stream) {
+                         int T, int B, int H, int rows, void* stream) {
   const Dir d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
-  return launch_masked(d, d, mask, 1, T, B, H, stream);
+#define SCAN(RT, C)                                                \
+  masked_rows<RT, C>(d, d, mask, 1, T, B, H, rows,                 \
+                     static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
 }
 
 int bilstm_scan_masked_f32(const float* x_proj_f, const float* x_proj_b,
@@ -480,10 +494,14 @@ int bilstm_scan_masked_f32(const float* x_proj_f, const float* x_proj_b,
                            const float* mask,
                            float* ys_f, float* ys_b,
                            float* h_f, float* c_f, float* h_b, float* c_b,
-                           int T, int B, int H, void* stream) {
+                           int T, int B, int H, int rows, void* stream) {
   const Dir f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
   const Dir b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
-  return launch_masked(f, b, mask, 2, T, B, H, stream);
+#define SCAN(RT, C)                                                \
+  masked_rows<RT, C>(f, b, mask, 2, T, B, H, rows,                 \
+                     static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
 }
 
 const char* lstm_scan_error_string(int code) {

@@ -69,12 +69,27 @@
 //     hit 32 distinct banks.
 //   * dW: the [H, 4H] sum over T*B rows does not fit a CTA beside the
 //     slice of w_hh (256 KiB at H = 256), and CTAs cannot share an
-//     accumulator, so a second kernel computes it as a tiled
-//     shared-memory product with float32 accumulation: each block owns a
-//     64 x 64 tile of dw_hh for one contiguous slab of rows, and writes
-//     its partial tile to slab s of a [S, H, 4H] output. No atomics: the
-//     wrapper sums the slabs in a fixed order, as the TPU sums its
-//     per-batch-tile slabs, so the result is the same from run to run.
+//     accumulator, so a second kernel computes it as a float32 product on
+//     the CUDA cores (TF32 would not hold dW to 1e-5 of its largest
+//     entry). Both operands, h_prev [N, H] and dgates [N, 4H], are
+//     row-major with the summed index N = T*B outermost, so a stage of
+//     kDwK rows of either is a contiguous block that goes to shared memory
+//     as it is. A block of 256 threads owns a 128 x 128 tile of dw_hh (64
+//     x 128 where H = 64 or 160 would leave half a 128-row tile idle) for
+//     one contiguous slab of rows; each thread owns 8 x 8 outputs (4 x 8 in
+//     the 64-row tile) as 4 x 4 sub-tiles 64 rows and 64 columns apart, so
+//     that its shared-memory reads are float4s that no two lanes of a
+//     quarter warp take from one bank. The stages come through a ring of
+//     kDwStages buffers filled by cp.async (16-byte copies, the tail past
+//     the slab zero-filled through the copy's source size), with one
+//     __syncthreads per stage; at most 128 registers a thread, so two
+//     blocks share an SM. Split-K for fill: at H = 256 dw_hh has only 16
+//     tiles, so the wrapper splits N into slabs (a function of the shapes
+//     only) until tiles x slabs fill the card's two blocks per SM, and
+//     each block writes its partial tile to slab s of a [S, H, 4H] output.
+//     No atomics: the wrapper sums the slabs in a fixed order, as the TPU
+//     sums its per-batch-tile slabs, and each thread sums its rows in
+//     ascending order, so the result is the same from run to run.
 //
 // What bounds it on this card (worked out from the shapes, not measured),
 // at the training shape T = 125, B = 256, per layer-direction, against
@@ -91,6 +106,7 @@
 // bf16 tensor cores are later work.
 
 #include "cluster_scan.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -483,70 +499,148 @@ lstm_train_bwd_kernel(const float* __restrict__ dy,
 // #8 dW reduction: slabs[s] = h_prev[rows of s]^T @ dgates[rows of s]
 // ---------------------------------------------------------------------------
 
-constexpr int kTileM = 64;   // rows of dw_hh (hidden inputs) per block
-constexpr int kTileN = 64;   // columns of dw_hh (gate columns) per block
-constexpr int kTileK = 16;   // T*B rows per shared-memory stage
+constexpr int kDwThreads = 256;
+constexpr int kDwTileN = 128;  // gate columns of dw_hh per block
+constexpr int kDwK = 16;       // rows of h_prev and dgates per stage
+constexpr int kDwStages = 3;   // stages in the cp.async ring
 
-// 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns the 4 x 4
-// outputs at rows 4*ty.., columns 4*tx.. of the block's tile.
-__global__ void __launch_bounds__(256)
+// A block's tile is MI x 64 rows of dw_hh (hidden inputs) by kDwTileN
+// gate columns; its ring of stages in shared memory.
+template <int MI>
+constexpr size_t dw_smem_bytes() {
+  return sizeof(float) * kDwStages * kDwK * (64 * MI + kDwTileN);
+}
+
+// Start the copies of one stage into ring buffer `buf`: rows k0 .. k0 +
+// kDwK - 1 of the block's columns, zeros for rows from k_end on and for
+// columns past H.
+template <int MI>
+__device__ __forceinline__ void dw_load_stage(
+    const float* __restrict__ h_prev, const float* __restrict__ dgates,
+    float* a_s, float* b_s, int k0, int k_end, int m0, int n0, int H,
+    int buf) {
+  constexpr int BM = 64 * MI;
+  float* a = a_s + buf * kDwK * BM;
+  float* b = b_s + buf * kDwK * kDwTileN;
+  static_assert(kDwK * BM / 4 % kDwThreads == 0, "whole float4s a thread");
+  static_assert(kDwK * kDwTileN / 4 % kDwThreads == 0, "whole float4s");
+#pragma unroll
+  for (int j = 0; j < kDwK * BM / 4 / kDwThreads; ++j) {
+    const int i = threadIdx.x + j * kDwThreads;
+    const int kk = i / (BM / 4), c = 4 * (i % (BM / 4));
+    const int k = k0 + kk, m = m0 + c;
+    const bool ok = k < k_end && m < H;  // H % 4 == 0: a float4 is all in
+    cp_async16(a + kk * BM + c,
+               ok ? h_prev + static_cast<size_t>(k) * H + m : h_prev, ok);
+  }
+#pragma unroll
+  for (int j = 0; j < kDwK * kDwTileN / 4 / kDwThreads; ++j) {
+    const int i = threadIdx.x + j * kDwThreads;
+    const int kk = i / (kDwTileN / 4), c = 4 * (i % (kDwTileN / 4));
+    const int k = k0 + kk;
+    const bool ok = k < k_end;  // 4H is a multiple of kDwTileN
+    cp_async16(b + kk * kDwTileN + c,
+               ok ? dgates + static_cast<size_t>(k) * 4 * H + n0 + c : dgates,
+               ok);
+  }
+}
+
+// Thread (ty, tx) = (tid / 16, tid % 16) owns the outputs at rows
+// mi*64 + 4*ty + p and columns ni*64 + 4*tx + q of the block's tile
+// (mi < MI, ni < 2, p, q < 4).
+template <int MI>
+__global__ void __launch_bounds__(kDwThreads, 2)
 lstm_train_dw_kernel(const float* __restrict__ h_prev,   // [N, H]
                      const float* __restrict__ dgates,   // [N, 4H]
                      float* __restrict__ slabs,          // [S, H, 4H]
                      int N, int H, int rows_per_slab) {
-  __shared__ __align__(16) float a_s[kTileK][kTileM];
-  __shared__ __align__(16) float b_s[kTileK][kTileN];
+  constexpr int BM = 64 * MI;
+  extern __shared__ float4 smem[];
+  float* a_s = reinterpret_cast<float*>(smem);       // [stages][kDwK][BM]
+  float* b_s = a_s + kDwStages * kDwK * BM;          // [stages][kDwK][128]
   const int H4 = 4 * H;
-  const int m0 = blockIdx.y * kTileM;
-  const int n0 = blockIdx.x * kTileN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kDwTileN;
   const int s = blockIdx.z;
   const int k_begin = s * rows_per_slab;
   const int k_end = min(N, k_begin + rows_per_slab);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  // loader: each thread moves 4 consecutive floats of one row per operand
-  const int lk = tid / 16, lc = (tid % 16) * 4;
+  const int n_stages = (k_end - k_begin + kDwK - 1) / kDwK;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  float acc[4][4] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
-    const int k = k0 + lk;
-    const bool k_ok = k < k_end;
+  float acc[4 * MI][8] = {};
+  // fill the ring; every iteration commits one group (empty ones too), so
+  // that waiting for all but the kDwStages - 2 newest finds stage st done
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int m = m0 + lc + q;
-      const int n = n0 + lc + q;
-      a_s[lk][lc + q] = (k_ok && m < H)
-          ? h_prev[static_cast<size_t>(k) * H + m] : 0.0f;
-      b_s[lk][lc + q] = (k_ok && n < H4)
-          ? dgates[static_cast<size_t>(k) * H4 + n] : 0.0f;
-    }
+  for (int st = 0; st < kDwStages - 1; ++st) {
+    if (st < n_stages)
+      dw_load_stage<MI>(h_prev, dgates, a_s, b_s, k_begin + st * kDwK, k_end,
+                        m0, n0, H, st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<kDwStages - 2>();
+    // stage st is in shared memory for every thread, and every thread is
+    // done with stage st - 1, whose buffer the next copies overwrite
     __syncthreads();
+    const int next = st + kDwStages - 1;
+    if (next < n_stages)
+      dw_load_stage<MI>(h_prev, dgates, a_s, b_s, k_begin + next * kDwK,
+                        k_end, m0, n0, H, next % kDwStages);
+    cp_async_commit();
+
+    const float* a = a_s + (st % kDwStages) * kDwK * BM;
+    const float* b = b_s + (st % kDwStages) * kDwK * kDwTileN;
 #pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&a_s[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&b_s[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kk = 0; kk < kDwK; ++kk) {
+      float av[4 * MI], bv[8];
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+      for (int mi = 0; mi < MI; ++mi) {
+        const float4 q = *reinterpret_cast<const float4*>(
+            a + kk * BM + mi * 64 + 4 * ty);
+        av[4 * mi] = q.x;
+        av[4 * mi + 1] = q.y;
+        av[4 * mi + 2] = q.z;
+        av[4 * mi + 3] = q.w;
+      }
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
+      for (int ni = 0; ni < 2; ++ni) {
+        const float4 q = *reinterpret_cast<const float4*>(
+            b + kk * kDwTileN + ni * 64 + 4 * tx);
+        bv[4 * ni] = q.x;
+        bv[4 * ni + 1] = q.y;
+        bv[4 * ni + 2] = q.z;
+        bv[4 * ni + 3] = q.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
   }
 
   float* out = slabs + static_cast<size_t>(s) * H * H4;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int m = m0 + ty * 4 + p;
+  for (int i = 0; i < 4 * MI; ++i) {
+    const int m = m0 + (i / 4) * 64 + 4 * ty + i % 4;
     if (m >= H) continue;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n < H4) out[static_cast<size_t>(m) * H4 + n] = acc[p][q];
-    }
+    for (int ni = 0; ni < 2; ++ni)
+      *reinterpret_cast<float4*>(out + static_cast<size_t>(m) * H4 + n0
+                                 + ni * 64 + 4 * tx) =
+          make_float4(acc[i][4 * ni], acc[i][4 * ni + 1], acc[i][4 * ni + 2],
+                      acc[i][4 * ni + 3]);
   }
+}
+
+template <int MI>
+cudaError_t dw_tiles(const float* h_prev, const float* dgates, float* slabs,
+                     int N, int H, int n_slabs, int rows_per_slab,
+                     cudaStream_t stream) {
+  const dim3 grid(4 * H / kDwTileN, (H + 64 * MI - 1) / (64 * MI), n_slabs);
+  const size_t smem = dw_smem_bytes<MI>();  // <= 48 KiB: no opt-in
+  auto* kernel = lstm_train_dw_kernel<MI>;
+  kernel<<<grid, kDwThreads, smem, stream>>>(h_prev, dgates, slabs, N, H,
+                                             rows_per_slab);
+  return cudaGetLastError();
 }
 
 template <int R>
@@ -641,15 +735,19 @@ int lstm_train_max_clusters(int H, int rows, int* out) {
 }
 
 // h_prev [N, H], dgates [N, 4H] with N = T*B; slabs [n_slabs, H, 4H],
-// slab s summing rows [s*rows_per_slab, (s+1)*rows_per_slab).
+// slab s summing rows [s*rows_per_slab, (s+1)*rows_per_slab). Tiles of
+// 64 rows of dw_hh where H % 128 is in (0, 64] (H = 64, 160: fewer rows
+// idle), else of 128 (lstm_train_cuda._dw_tile_rows).
 int lstm_train_dw_f32(const float* h_prev, const float* dgates, float* slabs,
                       int N, int H, int n_slabs, int rows_per_slab,
                       void* stream) {
-  const dim3 grid((4 * H + kTileN - 1) / kTileN, (H + kTileM - 1) / kTileM,
-                  n_slabs);
-  lstm_train_dw_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      h_prev, dgates, slabs, N, H, rows_per_slab);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rem = H % 128;
+  if (rem != 0 && rem <= 64)
+    return static_cast<int>(dw_tiles<1>(h_prev, dgates, slabs, N, H,
+                                         n_slabs, rows_per_slab, st));
+  return static_cast<int>(dw_tiles<2>(h_prev, dgates, slabs, N, H, n_slabs,
+                                      rows_per_slab, st));
 }
 
 const char* lstm_train_error_string(int code) {

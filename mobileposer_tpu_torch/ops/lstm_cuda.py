@@ -24,10 +24,10 @@ int32 products; `ops/quant.py`):
     `bilstm_layer_masked_int8` -> `bilstm_scan_masked_int8` port
     `lstm_layer_masked_pallas_int8`.
 
-The two full-length float scans (`lstm_scan_f32`, `bilstm_scan_f32`) run
-as thread-block clusters of H / 32 CTAs
-that hold w_hh in shared memory for all T steps; `scan_geometry` picks the
-batch rows per cluster from the clusters the card holds at once.
+The four float scans run as thread-block clusters of H / 32 CTAs that
+hold w_hh in shared memory for all T steps, the masked ones as the masked
+variant of the full-length body; `scan_geometry` picks the batch rows per
+cluster from the clusters the card holds at once.
 
 Each wrapper checks device, dtypes (float32; int8 w_hh and float32
 scales for the int8 entries), shapes and contiguity and raises on
@@ -79,7 +79,8 @@ _ENTRIES = {
                           "bilstm_scan_masked_int8": 17},
 }
 #: the cluster scans, which also take the batch rows per cluster
-_ROWS_ENTRIES = ("lstm_scan_f32", "bilstm_scan_f32")
+_ROWS_ENTRIES = ("lstm_scan_f32", "bilstm_scan_f32", "lstm_scan_masked_f32",
+                 "bilstm_scan_masked_f32")
 
 # the cluster scans' geometry (csrc/cluster_scan.cuh, csrc/lstm_scan.cu):
 # hidden units per CTA, gate columns per CTA, the most batch rows per
@@ -92,7 +93,7 @@ _SMEM_LIMIT = 232_448
 
 
 class ScanGeometry(NamedTuple):
-    """How one full-length scan is launched."""
+    """How one float layer scan is launched."""
     cluster: int    # CTAs per cluster: H / 32
     rows: int       # batch rows per cluster
     clusters: int   # n_dir * ceil(B / rows)
@@ -124,33 +125,38 @@ def _scan_geometry(n_dir: int, B: int, H: int,
 
 
 @functools.lru_cache(maxsize=None)
-def max_active_clusters(H: int, rows: int, device_index: int) -> int:
-    """Clusters of the full-length scan at (H, rows) that the card holds
-    at once (`cudaOccupancyMaxActiveClusters`)."""
+def max_active_clusters(H: int, rows: int, device_index: int,
+                        masked: bool = False) -> int:
+    """Clusters of the full-length (or, with `masked`, the masked) scan at
+    (H, rows) that the card holds at once
+    (`cudaOccupancyMaxActiveClusters`)."""
     lib = _lib("lstm_scan.cu")
+    name = ("lstm_scan_masked_max_clusters" if masked
+            else "lstm_scan_max_clusters")
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = lib.lstm_scan_max_clusters(H, rows, ctypes.byref(out))
+        err = getattr(lib, name)(H, rows, ctypes.byref(out))
     if err != 0:
         msg = lib.lstm_scan_error_string(err).decode()
-        raise RuntimeError(f"lstm_scan_max_clusters failed: CUDA error "
-                           f"{err} ({msg})")
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
     return out.value
 
 
 @functools.lru_cache(maxsize=None)
-def _scan_geometry_on(n_dir: int, B: int, H: int,
-                      device_index: int) -> ScanGeometry:
+def _scan_geometry_on(n_dir: int, B: int, H: int, device_index: int,
+                      masked: bool) -> ScanGeometry:
     return _scan_geometry(
-        n_dir, B, H, lambda rows: max_active_clusters(H, rows, device_index))
+        n_dir, B, H,
+        lambda rows: max_active_clusters(H, rows, device_index, masked))
 
 
-def scan_geometry(n_dir: int, B: int, H: int,
-                  device: torch.device) -> ScanGeometry:
-    """`_scan_geometry` on the card that holds `device`."""
+def scan_geometry(n_dir: int, B: int, H: int, device: torch.device,
+                  masked: bool = False) -> ScanGeometry:
+    """`_scan_geometry` on the card that holds `device`, for the
+    full-length scans or (`masked`) the masked ones."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    return _scan_geometry_on(n_dir, B, H, index)
+    return _scan_geometry_on(n_dir, B, H, index, masked)
 
 
 def reset_launches() -> None:
@@ -169,8 +175,10 @@ def _lib(source: str) -> ctypes.CDLL:
         getattr(lib, name).argtypes = [P] * n_ptr + [I] * n_int + [P]
         getattr(lib, name).restype = I
     if source == "lstm_scan.cu":
-        lib.lstm_scan_max_clusters.argtypes = [I, I, ctypes.POINTER(I)]
-        lib.lstm_scan_max_clusters.restype = I
+        for name in ("lstm_scan_max_clusters",
+                     "lstm_scan_masked_max_clusters"):
+            getattr(lib, name).argtypes = [I, I, ctypes.POINTER(I)]
+            getattr(lib, name).restype = I
     lib.lstm_scan_error_string.argtypes = [I]
     lib.lstm_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -249,7 +257,7 @@ def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
     dev = inputs[0].device
     ints = (T, B, H)
     if name in _ROWS_ENTRIES:
-        ints += (scan_geometry(n_dir, B, H, dev).rows,)
+        ints += (scan_geometry(n_dir, B, H, dev, "masked" in name).rows,)
     ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
           for _ in range(n_dir)]
     hc = [torch.empty((B, H), dtype=torch.float32, device=dev)

@@ -46,9 +46,12 @@ from mobileposer_tpu_torch.ops.lstm_cuda import (_UNITS, _check_layer,
 launches = {"lstm_train_fwd_f32": 0, "lstm_train_bwd_f32": 0,
             "lstm_train_dw_f32": 0}
 
-# dw kernel tile (csrc/lstm_train.cu kTileM x kTileN) and the number of
-# blocks it aims for: two per SM of an H100
-_DW_TILE = 64
+# the dW kernel (csrc/lstm_train.cu): gate columns per block tile
+# (kDwTileN), the blocks it aims for (two per SM of an H100's 132: its
+# 256 threads take at most 128 registers each), and the fewest rows a slab
+# sums (16 stages of kDwK rows, so that filling and draining the copy ring
+# stays a small share)
+_DW_TILE_N = 128
 _DW_TARGET_BLOCKS = 264
 _DW_MIN_ROWS = 256
 
@@ -258,14 +261,21 @@ def lstm_train_bwd_plain(dy, dh_T, dc_T, acts, c_new_seq, h_prev_seq,
     return dx, lstm_train_dw_plain(h_prev_seq, dx), dh, dc
 
 
+def _dw_tile_rows(H: int) -> int:
+    """Rows of dw_hh per block tile of the dW kernel: 64 where H % 128 is
+    in (0, 64] (H = 64, 160: a 128-row tile would leave more rows idle),
+    else 128 (`lstm_train_dw_f32`)."""
+    return 64 if 0 < H % 128 <= 64 else 128
+
+
 def _dw_slabs(n_rows: int, H: int):
-    """(number of slabs, rows per slab) of the dw reduction: enough slabs
-    that the tiles of dw_hh times the slabs fill the card, none shorter
-    than _DW_MIN_ROWS rows. A function of the shapes only, so the slab
-    sum runs in the same order every time."""
-    tiles = math.ceil(H / _DW_TILE) * math.ceil(4 * H / _DW_TILE)
-    n = max(1, min(math.ceil(_DW_TARGET_BLOCKS / tiles),
-                   n_rows // _DW_MIN_ROWS))
+    """(number of slabs, rows per slab) of the dW reduction: the most
+    slabs with which the tiles of dw_hh times the slabs fit in one wave of
+    _DW_TARGET_BLOCKS blocks, none shorter than _DW_MIN_ROWS rows. A
+    function of the shapes only, so the slab sum runs in the same order
+    every time."""
+    tiles = math.ceil(H / _dw_tile_rows(H)) * (4 * H // _DW_TILE_N)
+    n = max(1, min(_DW_TARGET_BLOCKS // tiles, n_rows // _DW_MIN_ROWS))
     rows = math.ceil(n_rows / n)
     return math.ceil(n_rows / rows), rows
 

@@ -30,7 +30,8 @@ import torch
 
 from mobileposer_tpu_torch.ops import _build, lstm_cuda
 
-_K_LOOP = "      for (int k = 0; k < H; k += 4) {\n"
+_K_LOOP = ("      } else {\n"
+           "        for (int k = 0; k < H; k += 4) k_group(k);\n")
 _PRODUCTS = "    if (rows > 0) {\n      // gates = x_proj"
 _PUSH = ("      for (int q = 0; q < n_cta; ++q)\n        cluster."
          "map_shared_rank(h_next, q)[r * H + unit0 + u] = h;\n")
@@ -43,8 +44,10 @@ VARIANTS = {
                 [(", 4));", ", 1));", 10)]),
     "four_col": ("four gate columns per lane also at rows <= 2",
                  [("CALL(1, 1)", "CALL(1, 4)", 1)]),
-    "unroll2": ("the k loop unrolled twice",
-                [(_K_LOOP, "#pragma unroll 2\n" + _K_LOOP, 1)]),
+    "unroll2": ("the k loop unrolled twice (at rows per lane other than 3)",
+                [(_K_LOOP, _K_LOOP.replace("        for",
+                                           "#pragma unroll 2\n        for"),
+                  1)]),
     "no_products": ("the products left out (wrong values)",
                     [(_PRODUCTS, _PRODUCTS.replace("rows > 0", "T < 0"), 1)]),
     "no_remote": ("h pushed to the CTA's own buffer only (wrong values)",

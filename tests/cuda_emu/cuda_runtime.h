@@ -4,11 +4,14 @@
 // thread is an OS thread, __syncthreads and cluster.sync are
 // std::barriers, a block's dynamic shared memory is a heap buffer
 // (poisoned with NaN), map_shared_rank maps an address into another
-// block's buffer, and a cluster launch runs its clusters one after
-// another. The test rewrites `extern __shared__ float4 smem[];` into
-// `float4* smem = emu_smem();` and a `<<<grid, threads, smem, stream>>>`
-// launch into `emu_launch(grid, threads, smem, kernel, ...)`.
+// block's buffer, a cluster launch runs its clusters one after another,
+// and atomicMax is a compare-and-swap loop. The test rewrites
+// `extern __shared__ float4 smem[];` into `float4* smem = emu_smem();`
+// and a `<<<grid, threads, smem, stream>>>` launch into
+// `emu_launch(grid, threads, smem, kernel, ...)`. cp_async.cuh beside this
+// file stands in for the one in ops/csrc/.
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -28,8 +31,6 @@ inline thread_local dim3 threadIdx, blockIdx;
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __grid_constant__
-#define __shared__ static
-#define __align__(n) __attribute__((aligned(n)))
 inline float __ldg(const float* p) { return *p; }
 inline float4 __ldg(const float4* p) { return *p; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
@@ -37,6 +38,12 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 template <class T> T min(T a, T b) { return a < b ? a : b; }
+inline int atomicMax(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int old = a.load();
+  while (old < v && !a.compare_exchange_weak(old, v)) {}
+  return old;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -1,15 +1,16 @@
 """The cluster kernels' CUDA sources (`ops/csrc/lstm_train.cu`, the
-training scans; `ops/csrc/lstm_scan.cu`, the full-length layer scans)
-built with g++ against a CPU stand-in for the CUDA runtime
-(`tests/cuda_emu/`) and run on the CPU: every CUDA thread an OS thread,
-the block and cluster barriers real barriers, distributed shared memory
-mapped between the blocks' buffers. This checks the kernels' indexing,
-their thread-block cluster exchange and their barriers (not the card's
-memory model, nor what nvcc accepts) against the plain versions, at
-small shapes that cover every rows-per-cluster template, partial batch
-tiles, clusters of one to eight CTAs and, for training, a ragged mask
-with an empty and a full row. `ops/csrc/multicell_scan.cu` is built the
-same way, to hold the layer scans to it bit for bit.
+training scans and the dW reduction; `ops/csrc/lstm_scan.cu`, the
+full-length and masked layer scans) built with g++ against a CPU stand-in
+for the CUDA runtime (`tests/cuda_emu/`) and run on the CPU: every CUDA
+thread an OS thread, the block and cluster barriers real barriers,
+distributed shared memory mapped between the blocks' buffers, cp.async a
+plain copy. This checks the kernels' indexing, their thread-block cluster
+exchange and their barriers (not the card's memory model, nor what nvcc
+accepts) against the plain versions, at small shapes that cover every
+rows-per-cluster template, partial batch tiles, clusters of one to eight
+CTAs and, for training and the masked scans, a ragged mask with an empty
+and a full row. `ops/csrc/multicell_scan.cu` is built the same way, to
+hold the layer scans to it bit for bit.
 
 The stand-in does not contract a*b + c into FMAs as nvcc does, so values
 differ from the plain versions by float32 rounding over a few steps: 1e-5
@@ -162,7 +163,10 @@ def scan_lib(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.lstm_scan_f32.argtypes = [P] * 7 + [I] * 4 + [P]
     lib.bilstm_scan_f32.argtypes = [P] * 14 + [I] * 4 + [P]
+    lib.lstm_scan_masked_f32.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.bilstm_scan_masked_f32.argtypes = [P] * 15 + [I] * 4 + [P]
     lib.lstm_scan_max_clusters.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.lstm_scan_masked_max_clusters.argtypes = [I, I, ctypes.POINTER(I)]
     return lib
 
 
@@ -200,20 +204,24 @@ def _scan_inputs(rng, T, B, H, n_dir):
              t(B, H, scale=0.5), t(B, H, scale=0.5)) for _ in range(n_dir)]
 
 
-def _emu_scan(lib, dirs, rows):
-    """One full-length scan on the stand-in, both directions in one
-    launch when `dirs` holds two; returns [ys, h_T, c_T] per direction."""
+def _emu_scan(lib, dirs, rows, mask=None):
+    """One full-length scan (with `mask`, a masked one) on the stand-in,
+    both directions in one launch when `dirs` holds two; returns [ys, h_T,
+    c_T] per direction."""
     T, B, H4 = dirs[0][0].shape
     H = H4 // 4
     ys = [torch.full((T, B, H), float("nan")) for _ in dirs]
     hc = [torch.full((B, H), float("nan")) for _ in range(2 * len(dirs))]
+    m = () if mask is None else (mask,)
+    kind = "f32" if mask is None else "masked_f32"
     if len(dirs) == 1:
         (x, w, h0, c0), = dirs
-        _call(lib.lstm_scan_f32, x, w, h0, c0, *ys, *hc, T, B, H, rows)
+        _call(getattr(lib, f"lstm_scan_{kind}"), x, w, h0, c0, *m, *ys, *hc,
+              T, B, H, rows)
     else:
         (xf, wf, h0f, c0f), (xb, wb, h0b, c0b) = dirs
-        _call(lib.bilstm_scan_f32, xf, xb, wf, wb, h0f, c0f, h0b, c0b, *ys,
-              *hc, T, B, H, rows)
+        _call(getattr(lib, f"bilstm_scan_{kind}"), xf, xb, wf, wb, h0f, c0f,
+              h0b, c0b, *m, *ys, *hc, T, B, H, rows)
     return [[ys[i], hc[2 * i], hc[2 * i + 1]] for i in range(len(dirs))]
 
 
@@ -323,3 +331,154 @@ def test_scan_geometry_reads_residency_at_each_rows():
     assert geo.rows == 37 and seen == list(range(1, 38))
     assert lstm_cuda.scan_smem(256, 39) <= lstm_cuda._SMEM_LIMIT
     assert lstm_cuda.scan_smem(256, 40) > lstm_cuda._SMEM_LIMIT
+
+
+def _ragged_mask(rng, T, B, rows):
+    """A [T, B] mask of seeded lengths: row 0 empty, row 1 (if any) full,
+    the rows of the last batch tile (when rows 0 and 1 are not in it) all
+    ending before T - 1, and one valid frame of row 2 (or of the last row)
+    at 0.5."""
+    lengths = rng.randint(1, T + 1, size=B)
+    last = (math.ceil(B / rows) - 1) * rows
+    if last >= 2:
+        lengths[last:] = np.minimum(lengths[last:], T - 2)
+    lengths[0] = 0
+    if B > 1:
+        lengths[1] = T
+    mask = (np.arange(T)[:, None] < lengths[None, :]).astype(np.float32)
+    frac = 2 if B > 2 else B - 1
+    if lengths[frac] > 0:
+        mask[0, frac] = 0.5
+    return torch.from_numpy(mask), lengths
+
+
+# every rows-per-lane template (rows 1 to 40: RT = ceil(rows / 4) from 1 to
+# 10, one column a lane at rows <= 2), clusters of one to eight CTAs
+# (H = 32 .. 256, H = 160 among them), B = 1 (an empty row: no step at all)
+# and partial batch tiles (B % rows != 0), both entries
+@pytest.mark.parametrize("n_dir,T,B,H,rows", [
+    (1, 3, 1, 32, 1), (2, 4, 7, 64, 2), (1, 4, 11, 96, 4),
+    (2, 4, 13, 128, 6), (1, 4, 23, 160, 11), (2, 3, 30, 192, 14),
+    (1, 4, 37, 160, 18), (2, 3, 50, 224, 23), (1, 3, 60, 64, 27),
+    (2, 3, 40, 256, 31), (1, 3, 70, 96, 35), (2, 3, 45, 128, 40)])
+def test_masked_scans_match_plain_versions(scan_lib, n_dir, T, B, H, rows):
+    """The masked entries against the masked plain scan: exact zeros at
+    masked steps, the state held through them, a fractional mask blending,
+    and the tiles whose rows all end early stopping there."""
+    rng = np.random.RandomState(100 + n_dir + T + B + H + rows)
+    dirs = _scan_inputs(rng, T, B, H, n_dir)
+    mask, _ = _ragged_mask(rng, T, B, rows)
+    got = _emu_scan(scan_lib, dirs, rows, mask)
+    for d, (x, w, h0, c0), g in zip(("fwd", "bwd"), dirs, got):
+        ys, (h_t, c_t) = lstm_cuda.lstm_layer_masked_plain(x, w, h0, c0,
+                                                           mask)
+        for name, a, b in zip(("ys", "h_T", "c_T"), g, (ys, h_t, c_t)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL,
+                                       err_msg=f"{d} {name}")
+        assert bool((g[0][mask == 0] == 0).all()), f"{d}: masked ys not 0"
+
+
+@pytest.mark.parametrize("n_dir,T,B,H,rows", [
+    (2, 3, 5, 64, 1), (1, 3, 9, 160, 5), (2, 2, 21, 256, 21)])
+def test_masked_scans_equal_full_length_under_all_ones(scan_lib, n_dir, T,
+                                                       B, H, rows):
+    """With every m = 1 the blend keeps the new state and ys = 1 * h, so
+    the masked entries give the full-length entries' bits."""
+    rng = np.random.RandomState(200 + n_dir + B + H)
+    dirs = _scan_inputs(rng, T, B, H, n_dir)
+    full = _emu_scan(scan_lib, dirs, rows)
+    masked = _emu_scan(scan_lib, dirs, rows, torch.ones(T, B))
+    for d, f, m in zip(("fwd", "bwd"), full, masked):
+        for name, a, b in zip(("ys", "h_T", "c_T"), m, f):
+            assert torch.equal(a, b), f"{d} {name}"
+
+
+def test_masked_scan_rows_outside_templates_are_refused(scan_lib):
+    """The masked entries take the full-length entries' rows, and their
+    occupancy query the same."""
+    for rows in (0, -1, 41, 64):
+        assert scan_lib.lstm_scan_masked_f32(*([None] * 8), 2, 2, 64, rows,
+                                             None) != 0
+        assert scan_lib.bilstm_scan_masked_f32(*([None] * 15), 2, 2, 64,
+                                               rows, None) != 0
+        out = ctypes.c_int(-1)
+        assert scan_lib.lstm_scan_masked_max_clusters(
+            64, rows, ctypes.byref(out)) != 0
+    out = ctypes.c_int(0)
+    assert scan_lib.lstm_scan_masked_max_clusters(256, 10,
+                                                  ctypes.byref(out)) == 0
+    assert out.value == 132 // 8   # the stand-in's card
+
+
+@pytest.mark.parametrize("n_dir,B,H,max_clusters,rows,clusters", [
+    # the evaluation shapes on a card that holds 15 clusters of 8 and 66
+    # of 2: bi B = 64 at H = 256 in 14 clusters of 10 (9 rows would need
+    # 16), the velocity layer in 13 of 5, footcontact in 64 of 2, the
+    # 1024-frame bucket's B = 37 in 14 of 6
+    (2, 64, 256, 15, 10, 14), (1, 64, 256, 15, 5, 13),
+    (2, 64, 64, 66, 2, 64), (2, 37, 256, 15, 6, 14)])
+def test_masked_scan_geometry(n_dir, B, H, max_clusters, rows, clusters):
+    geo = lstm_cuda._scan_geometry(n_dir, B, H, lambda r: max_clusters)
+    assert (geo.rows, geo.clusters) == (rows, clusters)
+    assert geo.lane_cols == (1 if rows <= 2 else 4)
+
+
+def test_masked_scan_geometry_asks_the_masked_kernel(monkeypatch):
+    """The masked entries' rows come from the residency of the masked
+    instantiation, the full-length ones' from their own."""
+    asked = []
+
+    def fake(H, rows, device_index, masked=False):
+        asked.append(masked)
+        return 15 if masked else 1
+
+    monkeypatch.setattr(lstm_cuda, "max_active_clusters", fake)
+    lstm_cuda._scan_geometry_on.cache_clear()
+    try:
+        dev = torch.device("cuda", 0)
+        assert lstm_cuda.scan_geometry(2, 64, 256, dev, masked=True).rows == 10
+        assert set(asked) == {True}
+        asked.clear()
+        assert lstm_cuda.scan_geometry(2, 64, 256, dev).rows == 39
+        assert set(asked) == {False}
+    finally:
+        lstm_cuda._scan_geometry_on.cache_clear()
+
+
+# H = 32 and 64 (64-row tiles), 160 (three 64-row tiles, the last half
+# idle), 256 (two 128-row tiles); N never a multiple of the 16-row stage;
+# one slab, and many (the last one short)
+@pytest.mark.parametrize("N,H,n_slabs", [
+    (37, 32, 1), (100, 64, 5), (45, 160, 3), (21, 256, 1), (70, 256, 4)])
+def test_dw_kernel_matches_plain_version(emu_lib, N, H, n_slabs):
+    """The dW reduction's slabs, summed in order, against the plain
+    version, and the same bits from a second run."""
+    rng = np.random.RandomState(N + H)
+    h_prev = torch.from_numpy(rng.randn(N, H).astype(np.float32))
+    dgates = torch.from_numpy(rng.randn(N, 4 * H).astype(np.float32))
+    per_slab = math.ceil(N / n_slabs)
+    runs = []
+    for _ in range(2):
+        slabs = torch.full((math.ceil(N / per_slab), H, 4 * H), float("nan"))
+        _call(emu_lib.lstm_train_dw_f32, h_prev, dgates, slabs, N, H,
+              slabs.shape[0], per_slab)
+        runs.append(slabs)
+    want = train_cuda.lstm_train_dw_plain(h_prev[:, None], dgates[:, None])
+    np.testing.assert_allclose(runs[0].sum(0).numpy(), want.numpy(),
+                               atol=TOL * float(want.abs().max()))
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("n_rows,H,want", [
+    # the training shape: 16 tiles x 16 slabs of 2,000 rows at H = 256 and
+    # 2 tiles x 125 slabs of 256 rows at H = 64, one wave of 264 blocks
+    (125 * 256, 256, (16, 2000)), (125 * 256, 64, (125, 256)),
+    # B = 37: 15 tiles of 64 rows at H = 160; a short N takes one slab
+    (125 * 37, 160, (17, 273)), (100, 256, (1, 100))])
+def test_dw_slabs(n_rows, H, want):
+    n_slabs, rows = train_cuda._dw_slabs(n_rows, H)
+    assert (n_slabs, rows) == want
+    assert (n_slabs - 1) * rows < n_rows <= n_slabs * rows
+    tiles = (math.ceil(H / train_cuda._dw_tile_rows(H))
+             * 4 * H // train_cuda._DW_TILE_N)
+    assert n_slabs == 1 or tiles * n_slabs <= train_cuda._DW_TARGET_BLOCKS

@@ -266,8 +266,8 @@ def test_training_wrappers_check_their_inputs():
                                    "lstm_train_bwd_f32": 0,
                                    "lstm_train_dw_f32": 0}
     # the dW reduction's slabs depend on the shapes only
-    assert train_cuda._dw_slabs(125 * 256, 256) == (5, 6400)
-    assert train_cuda._dw_slabs(125 * 256, 64) == (66, 485)
+    assert train_cuda._dw_slabs(125 * 256, 256) == (16, 2000)
+    assert train_cuda._dw_slabs(125 * 256, 64) == (125, 256)
     assert train_cuda._dw_slabs(100, 256) == (1, 100)
 
 
