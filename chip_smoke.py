@@ -44,6 +44,11 @@ then runs these phases, each printing JSON lines:
                from h0, the full shape, exact zeros at masked steps; kernel,
                plain and float-kernel times and the bound at the int8 rate
                (no PyTorch call computes a W8A8 scan, so no library time);
+               for the full-length cluster scans (#4, #6) each shape's
+               cluster geometry, the ptxas report of its instantiation (no
+               stack, no spill), the difference to the masked entry under
+               an all-ones mask (exactly 0.0) and the kernel time PERF.md
+               recorded for slice 4's one-block kernel;
   3e. multicell — the multicell scan (#9) against its plain version at
                T = 45, B = 256 and 8, the trio's five cells H = (256, 256,
                64, 64, 256), nonzero h0/c0, and threaded through chunks of
@@ -170,6 +175,14 @@ EVAL_LENGTHS = (300, 420, 560)
 # PERF.md section 6 for slice 1's one-block kernel, printed beside this
 # run's.
 PERF_MD_MS = {"bilstm_scan_f32": 1.307, "lstm_scan_f32": 1.311}
+# The int8 full-length kernels' times by (name, H, B) at T=45 recorded in
+# PERF.md for slice 4's one-block kernel, printed beside this run's.
+PERF_MD_INT8_MS = {("bilstm_scan_int8", 256, 256): 1.135,
+                   ("bilstm_scan_int8", 64, 256): 0.327,
+                   ("bilstm_scan_int8", 256, 200): 1.126,
+                   ("bilstm_scan_int8", 64, 200): 0.320,
+                   ("lstm_scan_int8", 256, 256): 1.127,
+                   ("lstm_scan_int8", 256, 8): 0.929}
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -537,6 +550,15 @@ def int8_layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None):
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
 
 
+def no_stack_no_spill(report) -> bool:
+    """Whether every function of a `ptxas_by_function` report has no
+    stack frame and no spills."""
+    lines = [ln for fn in report.values() for ln in fn if "spill" in ln]
+    return bool(lines) and all(
+        ln.startswith("0 bytes stack frame") and "0 bytes spill stores" in ln
+        and "0 bytes spill loads" in ln for ln in lines)
+
+
 def phase_int8_kernels(torch, lstm_cuda):
     """Kernels #4, #5 and #6 against their plain versions, at the
     streaming shapes (T = 45: B = 256 the scan mode at 256 streams, B = 200
@@ -549,7 +571,12 @@ def phase_int8_kernels(torch, lstm_cuda):
     outputs within INT8_STEP_TOL), the full shape (INT8_KERNEL_TOL, with
     the mean error and the share of elements beyond 1e-5), and exact zeros
     at masked steps. The float kernel is timed at the same shape on the
-    dequantized weights."""
+    dequantized weights. For the full-length cluster scans (#4, #6) each
+    shape prints its cluster geometry and the ptxas report of its
+    instantiation, which must show no stack and no spill, and the masked
+    entry runs the same inputs under an all-ones mask: it computes the
+    same exact sums with the same roundings, so the difference must be
+    exactly 0.0."""
     import numpy as np
     from mobileposer_tpu_torch.ops.quant import quantize_weight_int8
     L = lstm_cuda
@@ -578,6 +605,21 @@ def phase_int8_kernels(torch, lstm_cuda):
         kern, plain, kern_f32 = fns[name]
         n_dir = 2 if name.startswith("bi") else 1
         masked = "masked" in name
+        spill_free = True
+        if not masked:
+            geo = lstm_cuda.scan_geometry(n_dir, B, H,
+                                          torch.device("cuda", 0), int8=True)
+            held = lstm_cuda.max_active_clusters(H, geo.rows, 0, int8=True)
+            ptxas = ptxas_by_function(
+                "lstm_scan_int8.cu", f"lstm_scan_int8_kernelILi{geo.m_tiles}E")
+            spill_free = no_stack_no_spill(ptxas)
+            emit({"phase": "int8_scan_geometry", "name": name, "T": T,
+                  "B": B, "H": H, "rows_per_cluster": geo.rows,
+                  "m_tiles": geo.m_tiles, "clusters": geo.clusters,
+                  "ctas_per_cluster": geo.cluster,
+                  "max_active_clusters": held,
+                  "waves": math.ceil(geo.clusters / held),
+                  "smem_per_cta": geo.smem, "ptxas": ptxas})
         rng = np.random.RandomState(H + B + T + 1)
 
         def t(a):
@@ -627,6 +669,16 @@ def phase_int8_kernels(torch, lstm_cuda):
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         masked_nonzero = (sum(int((y[mask == 0] != 0).sum())
                               for y in got[:n_dir]) if masked else 0)
+        extra = {}
+        if not masked:
+            # the same inputs through the masked entry, every frame valid
+            ones = torch.ones(T, B, device="cuda")
+            masked_kern = fns[name.replace("scan_int8", "scan_masked_int8")][0]
+            ref = flat(masked_kern(*full, ones))
+            extra = {"masked_vs_full_length_max_abs_diff": max(
+                         float((g - w).abs().max()) for g, w in zip(got, ref)),
+                     "rows_per_cluster": geo.rows,
+                     "perf_md_ms": PERF_MD_INT8_MS.get((name, H, B))}
         n = 5 if masked else 20
         with torch.no_grad():
             kernel_ms = time_ms(lambda: kern(*full), n)
@@ -646,7 +698,8 @@ def phase_int8_kernels(torch, lstm_cuda):
                "library": "none: no single PyTorch call computes a W8A8 "
                           "LSTM scan",
                "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
-               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms,
+               **extra}
         if masked:
             rec["lengths_min_max_sum"] = [int(lengths.min()),
                                           int(lengths.max()),
@@ -654,6 +707,13 @@ def phase_int8_kernels(torch, lstm_cuda):
         emit(rec)
         results.append(rec)
         tag = f"{name} H={H} B={B} T={T}"
+        if not spill_free:
+            failures.append(f"{tag}: the cluster kernel's ptxas report shows "
+                            "a stack frame or spills")
+        diff = extra.get("masked_vs_full_length_max_abs_diff", 0.0)
+        if diff != 0.0:
+            failures.append(f"{tag}: differs from the masked entry under an "
+                            f"all-ones mask by {diff}")
         if not finite:
             failures.append(f"{tag}: non-finite output")
         if step_err > INT8_STEP_TOL:

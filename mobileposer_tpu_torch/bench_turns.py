@@ -14,10 +14,12 @@ difference; with --out, writes the lines to FILE as well. With --kernels
 each turn runs kernel phases of its tree's `chip_smoke.py` instead, LIST
 a comma-separated choice of `full` (phase 3, the full-length layer scans
 at the streaming shapes; the default), `masked` (phase 3b, the masked
-scans at the evaluation shapes) and `train` (phase 3c, the training
-kernels and the dW reduction), and a cell is one kernel at one shape: its
-time in ms, with the yardstick's (cuDNN, or torch.matmul for dW) in the
-same turn. Needs a CUDA card.
+scans at the evaluation shapes), `train` (phase 3c, the training kernels
+and the dW reduction) and `int8` (phase 3d, the W8A8 scans at the
+streaming and evaluation shapes), and a cell is one kernel at one shape:
+its time in ms, with the yardstick's (cuDNN, or torch.matmul for dW; for
+an int8 kernel, which has none, the float kernel's at the same shape) in
+the same turn. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -61,9 +63,9 @@ for name, fn, kw in {cells!r}:
                       "rate_max": rec.get("rate_max")}}), flush=True)
 """
 
-# the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked')
-# and 3c ('train') of the tree's chip_smoke.py
-KERNEL_PHASES = ("full", "masked", "train")
+# the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked'),
+# 3c ('train') and 3d ('int8') of the tree's chip_smoke.py
+KERNEL_PHASES = ("full", "masked", "train", "int8")
 _KERNEL_TURN = """
 import json, sys
 sys.path.insert(0, {tree!r})
@@ -83,8 +85,9 @@ for phase in {phases!r}:
         recs += chip_smoke.phase_train_kernels(torch, train_cuda, ptxas)
     else:
         lstm_cuda.build()
-        fn = (chip_smoke.phase_kernels if phase == "full"
-              else chip_smoke.phase_masked_kernels)
+        fn = {{"full": chip_smoke.phase_kernels,
+              "masked": chip_smoke.phase_masked_kernels,
+              "int8": chip_smoke.phase_int8_kernels}}[phase]
         recs += fn(torch, lstm_cuda)
 for rec in recs:
     cell = f"{{rec['name']}} T={{rec['T']}} B={{rec['B']}} H={{rec['H']}}"
@@ -92,6 +95,7 @@ for rec in recs:
         cell += " " + rec["case"]
     print(json.dumps({{"cell": cell, "value": rec["kernel_ms"], "unit": "ms",
                       "library_ms": rec["library_ms"],
+                      "float_kernel_ms": rec.get("float_kernel_ms"),
                       "bound_ms": rec["bound_ms"]}}), flush=True)
 """
 

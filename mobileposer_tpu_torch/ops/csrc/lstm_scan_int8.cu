@@ -9,7 +9,7 @@
 //   bilstm_scan_int8         <- bilstm_layer_pallas_int8
 //                               (_bilstm_step_kernel_int8): both directions
 //                               of a bidirectional layer in one launch,
-//                               blockIdx.y selecting the direction;
+//                               grid y selecting the direction;
 //   lstm_scan_masked_int8    <- lstm_layer_masked_pallas_int8
 //   bilstm_scan_masked_int8     (_masked_step_kernel_int8): one direction,
 //                               or both directions sharing one [T, B] mask
@@ -17,64 +17,380 @@
 //                               length), of a ragged batch.
 // Contract (the float kernels' of lstm_scan.cu, with the recurrent term of
 // mobileposer_tpu/ops/quant.py int8_recurrent_gates): x_proj [T, B, 4H]
-// already holds the int8 input projection plus b; w_hh comes as int32
-// words [H/4, 4H], word (k4, col) holding the int8 w_hh[4k4 .. 4k4+3, col]
-// in bytes 0..3 (ops/quant.py pack_w_hh); w_scale [4H]; gate order
-// (i, f, g, o); the carry stays float32. Per step and row, with h the
+// already holds the int8 input projection plus b; w_scale [4H]; gate order
+// (i, f, g, o); the carry stays float32. The full-length entries take the
+// int8 w_hh [H, 4H] as it is; the masked entries take it as int32 words
+// [H/4, 4H], word (k4, col) holding the int8 w_hh[4k4 .. 4k4+3, col] in
+// bytes 0..3 (ops/quant.py pack_w_hh). Per step and row, with h the
 // previous hidden state:
 //   scale = max(max_j |h_j| * f32(1/127), 1e-12)
 //   q_j   = clamp(round_half_even(h_j / scale), -127, 127)
 //   gate  = x_proj + f32(sum_k q_k * w[k, col]) * (scale * w_scale[col])
 // which is what the plain version computes, in the same order and with
-// the same roundings: the int32 sum is exact, and every product and sum,
-// the cell update's too, is written with __fmul_rn/__fadd_rn so nvcc
-// cannot contract them into an FMA. The nonlinearities are expf and tanhf
-// as in torch's CUDA sigmoid and tanh, so on the card the kernel can agree
-// with the plain version to the bit, and no h/scale lands on the other
-// side of a rounding boundary. XLA turns the JAX package's `amax / 127`
-// into a multiply by the float32 reciprocal; the kernel does the same.
-// Masked entries blend as the masked float kernel does (exact zeros at
-// masked steps).
+// the same roundings: the int32 sum is exact in any order, and every
+// product and sum, the cell update's too, is written with
+// __fmul_rn/__fadd_rn so nvcc cannot contract them into an FMA. The
+// nonlinearities are expf and tanhf as in torch's CUDA sigmoid and tanh,
+// so on the card the kernels can agree with the plain version to the bit,
+// and no h/scale lands on the other side of a rounding boundary. XLA turns
+// the JAX package's `amax / 127` into a multiply by the float32
+// reciprocal; the kernels do the same. Both bodies below share these
+// steps (`row_scale`, `quantize`, `dequant_gate`, `cell_update`), so with
+// every mask value 1 the masked entries give the full-length entries'
+// outputs bit for bit: blend(1, a, b) = a and 1 * h = h. Masked entries
+// blend as the masked float kernel does (exact zeros at masked steps).
 //
-// Design. As lstm_scan.cu: a block owns kRows batch rows for all T steps,
-// thread j owns hidden unit j and its four gate columns j, H+j, 2H+j,
-// 3H+j, so the cell update needs no exchange. h and c stay in registers
-// (thread j alone reads its h); the block shares only the quantized h
-// (int8, kRows x H bytes of shared memory) and the per-warp row maxima.
-// A step: (1) each warp reduces |h| per row with shuffles, lane 0 writes
-// its maxima; barrier; (2) every thread folds the <= 8 warp maxima of each
-// row (max is exact in any order), computes the scale and quantizes its
-// own h_j; barrier; (3) acc[r][g] += __dp4a(h_q word, w word), one 32-bit
-// w load per four k, coalesced across j; (4) dequantize, cell update,
-// blend. Two barriers a step suffice: the next step's row maxima are
-// written after every thread passed barrier (2), and the next h_q after
-// every thread passed the next barrier (1), i.e. after this step's (3).
-// An all-zero row (every row at t = 0 with zero h0, and padding rows)
-// gets scale 1e-12 and q = 0, so no NaN.
+// Full-length design: the thread-block-cluster body of lstm_scan.cu
+// (cluster_scan.cuh), with the recurrent product on the int8 tensor
+// cores. A cluster of n = H / 32 CTAs of 512 threads owns R batch rows of
+// one direction (R from 1 to 64, chosen by the wrapper: the fewest with
+// which all n_dir * ceil(B / R) clusters are resident at once); CTA c owns
+// the hidden units [32c, 32c + 32) and their 128 gate columns, so the cell
+// update needs no exchange. Each of its 16 warps owns 8 of those columns
+// (one n8 tile of mma.m16n8k32, int8_mma.cuh) and holds their B fragments
+// for every k in registers for all T steps (H / 16 registers a lane),
+// loaded once from the int8 w_hh. The int32 sum is exact, so the kernel
+// may take k in any order: the lane that holds logical k 4t .. 4t+3 and
+// 16+4t .. 16+4t+3 of a k-step holds the eight consecutive k 32s + 8t ..
+// 32s + 8t + 7, in A and B alike, so one 8-byte shared-memory read gives
+// two A registers. A thread owns the (row, unit) items (w + 16p, u) of
+// its warp w and lane u, and keeps their h and c in registers. Per step:
+//   (a) quantize: the scale of each row from its partial maxima of |h|,
+//       one per CTA (max is exact in any order, so every CTA computes the
+//       same scale), and each thread quantizes its own h and writes the
+//       int8 value into q of every CTA through distributed shared memory:
+//       a CTA quantizes only its own R x 32 values. q has 16 ceil(R / 16)
+//       rows (the padding rows zero) and a row stride that keeps the A
+//       reads free of bank conflicts. One cluster barrier.
+//   (b) products: ceil(R / 16) M-tiles x H / 32 k-steps of the mma per
+//       warp, int32 accumulators in registers, stored into a [R][136]
+//       buffer (8 words of padding a row: conflict-free 8-byte stores).
+//       One CTA barrier.
+//   (c) cell: each thread dequantizes its four sums with the x_proj
+//       values it fetched at the start of the step (in flight during (a)
+//       and (b)), updates the cell and writes ys; a warp is one row's 32
+//       units of the CTA, so one warp max gives the row's partial maximum,
+//       which lanes 0 .. n-1 push to the n CTAs. One cluster barrier.
+// q, the sums and the maxima need no second buffer: each is written only
+// after a cluster barrier that every reader of its last contents passed.
+// Every CTA quantizing the whole R x H tile itself would save the first
+// cluster barrier (~0.5 us) but cost ~2.4 us a step at R = 37 in
+// divisions and conversions (scan_variants.py on an H100); at R = 1 and
+// at H = 64 that body is the faster one (by ~0.02 ms a launch). Rows past
+// B read zeros (scale 1e-12, q = 0) and write nothing. Shared memory per
+// CTA: 16 ceil(R/16) S (q; S = H, or H + 32 where H / 32 is even) + 544R
+// (sums) + 32R (maxima) bytes: 35,136 at R = 37, H = 256.
+//
+// Masked design (kernel #5, still the first version): a block owns kRows
+// batch rows for all T steps, thread j owns hidden unit j and its four
+// gate columns j, H+j, 2H+j, 3H+j, h and c in registers, the quantized h
+// (kRows x H bytes) and the per-warp row maxima in shared memory. A step:
+// (1) each warp reduces |h| per row with shuffles; barrier; (2) every
+// thread folds the <= 8 warp maxima of each row and quantizes its own h_j;
+// barrier; (3) acc[r][g] += __dp4a(h_q word, w word), w_hh re-read from
+// L2 every step, one 32-bit word per four k; (4) dequantize, cell update,
+// blend.
 //
 // What bounds it on this card (worked out from the shapes, not measured):
 // per step and direction 2*B*H*4H integer operations against 1,979 TOP/s
 // of int8 tensor cores, and the bytes of x_proj/ys (f32), w_hh (int8),
 // the state and the mask against 3.35 TB/s. Streaming (T = 45, B = 256,
 // H = 256, both directions): ~12.1 G int8 ops (6 us) against ~118 MB of
-// x_proj, ys and state (35 us), so bytes bound it. This first version
-// multiplies with __dp4a on the CUDA cores, not the tensor cores, and,
-// like the float kernels, it is
-// per-step latency bound: every block re-reads w_hh (256 KiB at H = 256,
-// a quarter of the float kernels' 1 MiB; still too large for 227 KB of
-// shared memory) from L2 every step, and only ceil(B/kRows) blocks per
-// direction are in flight. int8 mma.sync/wgmma, a cluster-split w_hh and
-// TMA loads of x_proj are later work.
+// x_proj, ys and state (35 us), so bytes bound it. The scan is a chain of
+// T dependent steps: the full-length body takes a step's products off the
+// CUDA cores and w_hh out of L2, so a step is its latencies: the
+// quantization, the products, the cell update and two cluster barriers
+// (scan_variants.py times each part). The masked body still re-reads
+// w_hh (256 KiB at H = 256) from L2 every step with __dp4a on the CUDA
+// cores; it becomes the masked variant of the cluster body next.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_scan.cuh"
+#include "int8_mma.cuh"
+
 namespace {
+
+constexpr float kInvQmax = 1.0f / 127.0f;  // the float32 reciprocal
+
+// torch's CUDA sigmoid, 1 / (1 + exp(-x)) in float32, with each operation
+// rounded on its own
+__device__ __forceinline__ float sigmoid_rn(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// the row's quantization scale from its max |h|
+__device__ __forceinline__ float row_scale(float amax) {
+  return fmaxf(__fmul_rn(amax, kInvQmax), 1e-12f);
+}
+
+// h / scale rounded half to even, clamped to [-127, 127]
+__device__ __forceinline__ int quantize(float h, float scale) {
+  const int q = __float2int_rn(__fdiv_rn(h, scale));
+  return min(max(q, -127), 127);
+}
+
+// x_proj + f32(acc) * (scale * w_scale), rounded as written; |acc| <=
+// 127^2 * H < 2^24, so the conversion is exact
+__device__ __forceinline__ float dequant_gate(float x, int acc, float scale,
+                                              float w_scale) {
+  return __fadd_rn(x, __fmul_rn(__int2float_rn(acc),
+                                __fmul_rn(scale, w_scale)));
+}
+
+// the cell update as _gate_update computes it, one rounding per operation
+__device__ __forceinline__ void cell_update(const float (&gate)[4], float c,
+                                            float& c_new, float& h_new) {
+  const float i = sigmoid_rn(gate[0]);
+  const float f = sigmoid_rn(gate[1]);
+  const float g = tanhf(gate[2]);
+  const float o = sigmoid_rn(gate[3]);
+  c_new = __fadd_rn(__fmul_rn(f, c), __fmul_rn(i, g));
+  h_new = __fmul_rn(o, tanhf(c_new));
+}
+
+// ---------------------------------------------------------------------------
+// Full-length: the cluster body
+// ---------------------------------------------------------------------------
+
+constexpr int kTileRows = 16;                   // rows of an mma M-tile
+constexpr int kMaxTiles = 4;                    // M-tiles: MT templates 1..4
+constexpr int kMaxRows = kTileRows * kMaxTiles;
+constexpr int kMaxCtas = 8;                     // H / 32 at H = 256
+constexpr int kMaxKSteps = 8;                   // H / 32 at H = 256
+constexpr int kSumStride = kCols + 8;           // int32 words a row of sums
+
+struct ClusterDir {
+  const float* x_proj;   // [T, B, 4H]
+  const int8_t* w_hh;    // [H, 4H]
+  const float* w_scale;  // [4H]
+  const float* h0;       // [B, H]
+  const float* c0;       // [B, H]
+  float* ys;             // [T, B, H]
+  float* h_t;            // [B, H]
+  float* c_t;            // [B, H]
+};
+
+// Row stride of the quantized h (bytes): a half-warp's 8-byte A reads of
+// four rows then fall on 32 distinct banks.
+__host__ __device__ __forceinline__ int q_stride(int H) {
+  return (H / kUnits) % 2 == 0 ? H + 32 : H;
+}
+
+size_t cluster_smem_bytes(int H, int R) {
+  const int MT = (R + kTileRows - 1) / kTileRows;
+  return static_cast<size_t>(kTileRows) * MT * q_stride(H)
+         + sizeof(int) * static_cast<size_t>(R) * kSumStride
+         + sizeof(float) * static_cast<size_t>(R) * kMaxCtas;
+}
+
+// max |v| over the warp's 32 lanes: for v >= 0 the float order is the
+// order of the bit patterns
+__device__ __forceinline__ float warp_max_abs(float v) {
+  return __uint_as_float(
+      __reduce_max_sync(0xffffffffu, __float_as_uint(fabsf(v))));
+}
+
+// One direction (see the design note above). MT = ceil(R / 16) M-tiles;
+// the cell items of a thread are (row, unit) = (warp + 16 p, lane), p < MT:
+// a warp holds one row's 32 units of this CTA. `d` by value: a reference
+// to the kernel's parameters would put both directions' in local memory.
+template <int MT>
+__device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
+                                                  int B, int H, int R) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = H / kUnits;
+  const int n_ks = H / 32;
+  const int cta = static_cast<int>(cluster.block_rank());
+  const int b0 = (blockIdx.x / n_cta) * R;
+  const int unit0 = cta * kUnits;
+  const size_t H4 = 4 * static_cast<size_t>(H);
+  const int S = q_stride(H);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = lane / 4, tig = lane % 4;  // the mma fragment coordinates
+
+  extern __shared__ float4 smem[];
+  int8_t* q_s = reinterpret_cast<int8_t*>(smem);         // [16 MT][S]
+  int* sum_s = reinterpret_cast<int*>(q_s + kTileRows * MT * S);
+  float* amax_s = reinterpret_cast<float*>(sum_s + R * kSumStride);
+
+  // the warp's B fragments: slice column 8 * warp + grp, i.e. gate
+  // column (col / 32) * H + unit0 + col % 32; k-step s holds the k
+  // 32s + 8 tig .. + 3 (b[0]) and 32s + 8 tig + 4 .. + 7 (b[1])
+  unsigned wf[kMaxKSteps][2];
+  {
+    const int col = 8 * warp + grp;
+    const int8_t* wc = d.w_hh + (col / kUnits) * H + unit0 + col % kUnits;
+#pragma unroll
+    for (int s = 0; s < kMaxKSteps; ++s)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        unsigned v = 0;
+        if (s < n_ks) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const size_t k = 32 * s + 8 * tig + 4 * half + j;
+            v |= static_cast<unsigned>(static_cast<uint8_t>(
+                     __ldg(wc + k * H4))) << (8 * j);
+          }
+        }
+        wf[s][half] = v;
+      }
+  }
+
+  // the M-tiles' padding rows of q stay zero
+  for (int idx = R * S / 4 + tid; idx < kTileRows * MT * S / 4;
+       idx += kThreads)
+    reinterpret_cast<int*>(q_s)[idx] = 0;
+  const int u = lane;  // the unit (within the CTA) of every cell item
+  float ws[4], h[MT], c[MT];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) ws[g] = __ldg(d.w_scale + g * H + unit0 + u);
+#pragma unroll
+  for (int p = 0; p < MT; ++p) {
+    const int r = warp + kTileRows * p, b = b0 + r;
+    const bool ok = r < R && b < B;
+    h[p] = ok ? d.h0[static_cast<size_t>(b) * H + unit0 + u] : 0.0f;
+    c[p] = ok ? d.c0[static_cast<size_t>(b) * H + unit0 + u] : 0.0f;
+  }
+
+  // the partial maxima of a row's |h| over this CTA's units, to every CTA
+  auto push_maxima = [&]() {
+#pragma unroll
+    for (int p = 0; p < MT; ++p) {
+      const int r = warp + kTileRows * p;
+      if (r >= R) continue;  // the same for the whole warp
+      const float m = warp_max_abs(h[p]);
+      if (lane < n_cta)
+        cluster.map_shared_rank(amax_s, lane)[r * kMaxCtas + cta] = m;
+    }
+  };
+  cluster.sync();  // every CTA started: its shared memory may be written
+  push_maxima();
+  cluster.sync();  // the maxima of h0 in place
+
+  for (int t = 0; t < T; ++t) {
+    // this step's x_proj for the cell items, in flight during (a) and (b)
+    const float* xt = d.x_proj + static_cast<size_t>(t) * B * H4;
+    float x[MT][4];
+#pragma unroll
+    for (int p = 0; p < MT; ++p) {
+      const int r = warp + kTileRows * p, b = b0 + r;
+      const bool ok = r < R && b < B;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        x[p][g] = ok ? __ldg(xt + b * H4 + g * H + unit0 + u) : 0.0f;
+    }
+
+    // (a) each row's scale from its partial maxima (lane q < n_cta reads
+    // CTA q's; one warp max); this CTA's units of h_{t-1} quantized, into
+    // q of every CTA
+    float scale[MT] = {};
+#pragma unroll
+    for (int p = 0; p < MT; ++p) {
+      const int r = warp + kTileRows * p;
+      if (r >= R) continue;  // the same for the whole warp
+      scale[p] = row_scale(
+          warp_max_abs(lane < n_cta ? amax_s[r * kMaxCtas + lane] : 0.0f));
+      const int8_t q = static_cast<int8_t>(quantize(h[p], scale[p]));
+      for (int cq = 0; cq < n_cta; ++cq)
+        cluster.map_shared_rank(q_s, cq)[r * S + unit0 + u] = q;
+    }
+    cluster.sync();  // q complete everywhere; every maximum read
+
+    // (b) sums = q @ w_slice[:, the warp's 8 columns], exact int32
+    int acc[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][i] = 0;
+#pragma unroll
+    for (int s = 0; s < kMaxKSteps; ++s) {
+      if (s < n_ks) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int8_t* qa = q_s + (kTileRows * m + grp) * S + 32 * s
+                             + 8 * tig;
+          const int2 lo = *reinterpret_cast<const int2*>(qa);
+          const int2 hi = *reinterpret_cast<const int2*>(qa + 8 * S);
+          const unsigned a[4] = {static_cast<unsigned>(lo.x),
+                                 static_cast<unsigned>(hi.x),
+                                 static_cast<unsigned>(lo.y),
+                                 static_cast<unsigned>(hi.y)};
+          mma_s8_m16n8k32(acc[m], a, wf[s]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r = kTileRows * m + grp, col = 8 * warp + 2 * tig;
+      if (r < R)
+        *reinterpret_cast<int2*>(sum_s + r * kSumStride + col) =
+            make_int2(acc[m][0], acc[m][1]);
+      if (r + 8 < R)
+        *reinterpret_cast<int2*>(sum_s + (r + 8) * kSumStride + col) =
+            make_int2(acc[m][2], acc[m][3]);
+    }
+    __syncthreads();  // every sum of the tile is in shared memory
+
+    // (c) cell update; the maxima of the new h to every CTA
+    float* yt = d.ys + static_cast<size_t>(t) * B * H;
+#pragma unroll
+    for (int p = 0; p < MT; ++p) {
+      const int r = warp + kTileRows * p, b = b0 + r;
+      if (r >= R) continue;  // the same for the whole warp
+      const int* sr = sum_s + r * kSumStride + u;
+      float gate[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        gate[g] = dequant_gate(x[p][g], sr[g * kUnits], scale[p], ws[g]);
+      cell_update(gate, c[p], c[p], h[p]);
+      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = h[p];
+    }
+    push_maxima();
+    // the maxima of h_t are in place everywhere, and nobody reads q or the
+    // sums of this step any more
+    cluster.sync();
+  }
+
+#pragma unroll
+  for (int p = 0; p < MT; ++p) {
+    const int r = warp + kTileRows * p, b = b0 + r;
+    if (r < R && b < B) {
+      d.h_t[static_cast<size_t>(b) * H + unit0 + u] = h[p];
+      d.c_t[static_cast<size_t>(b) * H + unit0 + u] = c[p];
+    }
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_scan_int8_kernel(ClusterDir d0, ClusterDir d1, int T, int B, int H,
+                      int R) {
+  cluster_scan_int8<MT>(blockIdx.y == 0 ? d0 : d1, T, B, H, R);
+}
+
+template <int MT>
+cudaError_t cluster_rows(const ClusterDir& d0, const ClusterDir& d1,
+                         int n_dir, int T, int B, int H, int R,
+                         cudaStream_t stream) {
+  return launch_clusters(lstm_scan_int8_kernel<MT>, cluster_smem_bytes(H, R),
+                         B, H, R, n_dir, stream, d0, d1, T, B, H, R);
+}
+
+template <int MT>
+cudaError_t cluster_max_clusters(int H, int R, int* out) {
+  return max_clusters(lstm_scan_int8_kernel<MT>, cluster_smem_bytes(H, R), H,
+                      out);
+}
+
+// ---------------------------------------------------------------------------
+// Masked: one block per batch tile
+// ---------------------------------------------------------------------------
 
 constexpr int kRows = 8;         // batch rows per block
 constexpr int kMaxHidden = 256;  // one thread per hidden unit
 constexpr int kWarps = kMaxHidden / 32;
-constexpr float kInvQmax = 1.0f / 127.0f;  // the float32 reciprocal
 
 struct Dir {
   const float* x_proj;   // [T, B, 4H]
@@ -87,21 +403,9 @@ struct Dir {
   float* c_t;            // [B, H]
 };
 
-// torch's CUDA sigmoid, 1 / (1 + exp(-x)) in float32, with each operation
-// rounded on its own
-__device__ __forceinline__ float sigmoid(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
-// m*a + (1-m)*b rounded as written (no fused multiply-add), as the TPU
-// kernel and the plain version compute it.
-__device__ __forceinline__ float blend(float m, float a, float b) {
-  return __fadd_rn(__fmul_rn(m, a), __fmul_rn(__fsub_rn(1.0f, m), b));
-}
-
-template <bool kMasked>
-__device__ __forceinline__ void scan_int8(const Dir& d, const float* mask,
-                                          int T, int B, int H) {
+__device__ __forceinline__ void scan_masked_int8(const Dir& d,
+                                                 const float* mask, int T,
+                                                 int B, int H) {
   // quantized h_{t-1}, [kRows][H] int8, as int32 words for the dp4a reads
   __shared__ int hq_s[kRows * kMaxHidden / 4];
   __shared__ float amax_s[kWarps][kRows];  // per-warp row maxima of |h|
@@ -144,9 +448,8 @@ __device__ __forceinline__ void scan_int8(const Dir& d, const float* mask,
     for (int r = 0; r < kRows; ++r) {
       float amax = amax_s[0][r];
       for (int w = 1; w < n_warps; ++w) amax = fmaxf(amax, amax_s[w][r]);
-      hs[r] = fmaxf(__fmul_rn(amax, kInvQmax), 1e-12f);
-      const int q = __float2int_rn(__fdiv_rn(h[r], hs[r]));  // half to even
-      hq_b[r * H + j] = static_cast<int8_t>(min(max(q, -127), 127));
+      hs[r] = row_scale(amax);
+      hq_b[r * H + j] = static_cast<int8_t>(quantize(h[r], hs[r]));
     }
     __syncthreads();
 
@@ -181,28 +484,15 @@ __device__ __forceinline__ void scan_int8(const Dir& d, const float* mask,
       for (int g = 0; g < 4; ++g) {
         const float x = b < B ? xt[static_cast<size_t>(b) * H4 + g * H + j]
                               : 0.0f;
-        // |acc| <= 127^2 * H < 2^24: the conversion is exact
-        gate[g] = __fadd_rn(x, __fmul_rn(__int2float_rn(acc[r][g]),
-                                         __fmul_rn(hs[r], ws[g])));
+        gate[g] = dequant_gate(x, acc[r][g], hs[r], ws[g]);
       }
-      const float i = sigmoid(gate[0]);
-      const float f = sigmoid(gate[1]);
-      const float gg = tanhf(gate[2]);
-      const float o = sigmoid(gate[3]);
-      // as _gate_update computes it, one rounding per operation
-      const float c_new = __fadd_rn(__fmul_rn(f, c[r]), __fmul_rn(i, gg));
-      const float h_new = __fmul_rn(o, tanhf(c_new));
-      if (kMasked) {
-        const float m = b < B ? __ldg(mask + static_cast<size_t>(t) * B + b)
-                              : 0.0f;
-        c[r] = blend(m, c_new, c[r]);
-        h[r] = blend(m, h_new, h[r]);
-        if (b < B) yt[static_cast<size_t>(b) * H + j] = __fmul_rn(m, h_new);
-      } else {
-        c[r] = c_new;
-        h[r] = h_new;
-        if (b < B) yt[static_cast<size_t>(b) * H + j] = h_new;
-      }
+      float c_new, h_new;
+      cell_update(gate, c[r], c_new, h_new);
+      const float m = b < B ? __ldg(mask + static_cast<size_t>(t) * B + b)
+                            : 0.0f;
+      c[r] = blend(m, c_new, c[r]);
+      h[r] = blend(m, h_new, h[r]);
+      if (b < B) yt[static_cast<size_t>(b) * H + j] = __fmul_rn(m, h_new);
     }
   }
 
@@ -217,62 +507,85 @@ __device__ __forceinline__ void scan_int8(const Dir& d, const float* mask,
 }
 
 __global__ void __launch_bounds__(kMaxHidden)
-lstm_scan_int8_kernel(Dir d0, Dir d1, int T, int B, int H) {
-  scan_int8<false>(blockIdx.y == 0 ? d0 : d1, nullptr, T, B, H);
-}
-
-__global__ void __launch_bounds__(kMaxHidden)
 lstm_scan_masked_int8_kernel(Dir d0, Dir d1, const float* __restrict__ mask,
                              int T, int B, int H) {
-  scan_int8<true>(blockIdx.y == 0 ? d0 : d1, mask, T, B, H);
+  scan_masked_int8(blockIdx.y == 0 ? d0 : d1, mask, T, B, H);
 }
 
-int launch(const Dir& d0, const Dir& d1, const float* mask, int n_dir,
-           int T, int B, int H, void* stream) {
+int launch_masked(const Dir& d0, const Dir& d1, const float* mask, int n_dir,
+                  int T, int B, int H, void* stream) {
   const dim3 grid((B + kRows - 1) / kRows, n_dir);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask == nullptr)
-    lstm_scan_int8_kernel<<<grid, H, 0, s>>>(d0, d1, T, B, H);
-  else
-    lstm_scan_masked_int8_kernel<<<grid, H, 0, s>>>(d0, d1, mask, T, B, H);
+  lstm_scan_masked_int8_kernel<<<grid, H, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      d0, d1, mask, T, B, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Dispatch a cluster scan of `rows` rows per cluster on its M-tiles
+// MT = ceil(rows / 16); rows outside [1, kMaxRows] are refused with
+// cudaErrorInvalidValue.
+#define LSTM_SCAN_INT8_ROWS(rows, CALL)                                \
+  if (rows < 1 || rows > kMaxRows)                                     \
+    return static_cast<int>(cudaErrorInvalidValue);                    \
+  switch ((rows + kTileRows - 1) / kTileRows) {                        \
+    case 1: return static_cast<int>(CALL(1));                          \
+    case 2: return static_cast<int>(CALL(2));                          \
+    case 3: return static_cast<int>(CALL(3));                          \
+    default: return static_cast<int>(CALL(4));                         \
+  }
+static_assert(kMaxTiles == 4, "LSTM_SCAN_INT8_ROWS cases");
+
 extern "C" {
 
-// The caller guarantees: x_proj/h0/c0/mask/w_scale float32, w_hh the
-// int32 words of pack_w_hh, all contiguous, T >= 1, B >= 1, H a multiple
-// of 32 in [32, 256], all pointers on the current device; mask is [T, B].
-int lstm_scan_int8(const float* x_proj, const int* w_hh, const float* w_scale,
-                   const float* h0, const float* c0,
+// The caller guarantees: x_proj/h0/c0/w_scale float32, w_hh the int8
+// [H, 4H] weights, all contiguous, T >= 1, B >= 1, H a multiple of 32 in
+// [32, 256], all pointers on the current device. `rows` is the batch rows
+// per cluster (the wrapper's `scan_geometry(..., int8=True)`).
+int lstm_scan_int8(const float* x_proj, const int8_t* w_hh,
+                   const float* w_scale, const float* h0, const float* c0,
                    float* ys, float* h_t, float* c_t,
-                   int T, int B, int H, void* stream) {
-  const Dir d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
-  return launch(d, d, nullptr, 1, T, B, H, stream);
+                   int T, int B, int H, int rows, void* stream) {
+  const ClusterDir d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
+#define SCAN(MT) \
+  cluster_rows<MT>(d, d, 1, T, B, H, rows, static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
 }
 
 int bilstm_scan_int8(const float* x_proj_f, const float* x_proj_b,
-                     const int* w_hh_f, const int* w_hh_b,
+                     const int8_t* w_hh_f, const int8_t* w_hh_b,
                      const float* w_scale_f, const float* w_scale_b,
                      const float* h0_f, const float* c0_f,
                      const float* h0_b, const float* c0_b,
                      float* ys_f, float* ys_b,
                      float* h_f, float* c_f, float* h_b, float* c_b,
-                     int T, int B, int H, void* stream) {
-  const Dir f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f, ys_f, h_f, c_f};
-  const Dir b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b, ys_b, h_b, c_b};
-  return launch(f, b, nullptr, 2, T, B, H, stream);
+                     int T, int B, int H, int rows, void* stream) {
+  const ClusterDir f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const ClusterDir b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b, ys_b, h_b, c_b};
+#define SCAN(MT) \
+  cluster_rows<MT>(f, b, 2, T, B, H, rows, static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
 }
 
+// The clusters of the full-length int8 scan at (H, rows) that the current
+// device holds at once, into *out.
+int lstm_scan_int8_max_clusters(int H, int rows, int* out) {
+#define MAXC(MT) cluster_max_clusters<MT>(H, rows, out)
+  LSTM_SCAN_INT8_ROWS(rows, MAXC)
+#undef MAXC
+}
+
+// As above, with w_hh the int32 words of pack_w_hh and mask [T, B].
 int lstm_scan_masked_int8(const float* x_proj, const int* w_hh,
                           const float* w_scale, const float* h0,
                           const float* c0, const float* mask,
                           float* ys, float* h_t, float* c_t,
                           int T, int B, int H, void* stream) {
   const Dir d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
-  return launch(d, d, mask, 1, T, B, H, stream);
+  return launch_masked(d, d, mask, 1, T, B, H, stream);
 }
 
 int bilstm_scan_masked_int8(const float* x_proj_f, const float* x_proj_b,
@@ -286,7 +599,7 @@ int bilstm_scan_masked_int8(const float* x_proj_f, const float* x_proj_b,
                             int T, int B, int H, void* stream) {
   const Dir f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f, ys_f, h_f, c_f};
   const Dir b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b, ys_b, h_b, c_b};
-  return launch(f, b, mask, 2, T, B, H, stream);
+  return launch_masked(f, b, mask, 2, T, B, H, stream);
 }
 
 const char* lstm_scan_error_string(int code) {

@@ -26,13 +26,17 @@ int32 products; `ops/quant.py`):
 
 The four float scans run as thread-block clusters of H / 32 CTAs that
 hold w_hh in shared memory for all T steps, the masked ones as the masked
-variant of the full-length body; `scan_geometry` picks the batch rows per
-cluster from the clusters the card holds at once.
+variant of the full-length body. The two full-length int8 scans run as
+clusters of the same shape whose warps hold their int8 w_hh columns in
+registers and multiply on the int8 tensor cores (`mma.sync`); the masked
+int8 scans are still one block per batch tile. `scan_geometry` picks the
+batch rows per cluster from the clusters the card holds at once.
 
 Each wrapper checks device, dtypes (float32; int8 w_hh and float32
 scales for the int8 entries), shapes and contiguity and raises on
-anything else; it never copies an input to make it fit (the int8 wrappers
-repack w_hh into the kernel's k-packed words, `ops.quant.pack_w_hh`). On
+anything else; it never copies an input to make it fit (the masked int8
+wrappers repack w_hh into their kernel's k-packed words,
+`ops.quant.pack_w_hh`; the full-length ones pass it as it is). On
 a CPU tensor it runs the plain PyTorch version beside it (`*_plain`, a
 Python loop of `torch.matmul`, or `int8_recurrent_gates`, plus
 `_gate_update`); on a CUDA tensor it launches the kernel or raises: an
@@ -78,9 +82,16 @@ _ENTRIES = {
                           "lstm_scan_masked_int8": 9,
                           "bilstm_scan_masked_int8": 17},
 }
+#: {source: the residency queries of its cluster scans}
+_MAX_CLUSTERS_ENTRIES = {
+    "lstm_scan.cu": ("lstm_scan_max_clusters",
+                     "lstm_scan_masked_max_clusters"),
+    "lstm_scan_int8.cu": ("lstm_scan_int8_max_clusters",),
+}
 #: the cluster scans, which also take the batch rows per cluster
 _ROWS_ENTRIES = ("lstm_scan_f32", "bilstm_scan_f32", "lstm_scan_masked_f32",
-                 "bilstm_scan_masked_f32")
+                 "bilstm_scan_masked_f32", "lstm_scan_int8",
+                 "bilstm_scan_int8")
 
 # the cluster scans' geometry (csrc/cluster_scan.cuh, csrc/lstm_scan.cu):
 # hidden units per CTA, gate columns per CTA, the most batch rows per
@@ -90,16 +101,26 @@ _UNITS = 32
 _COLS = 4 * _UNITS
 _MAX_ROWS = 40
 _SMEM_LIMIT = 232_448
+# the int8 cluster scan's (csrc/lstm_scan_int8.cu): rows of an mma M-tile,
+# the most batch rows per cluster (4 M-tiles), the partial maxima a row
+# keeps (one per CTA, at most 8) and the int32 words a row of sums takes
+_TILE_ROWS = 16
+_INT8_MAX_ROWS = 64
+_MAX_CTAS = 8
+_SUM_STRIDE = _COLS + 8
 
 
 class ScanGeometry(NamedTuple):
-    """How one float layer scan is launched."""
-    cluster: int    # CTAs per cluster: H / 32
-    rows: int       # batch rows per cluster
-    clusters: int   # n_dir * ceil(B / rows)
-    smem: int       # dynamic shared memory per CTA, bytes
-    lane_rows: int  # rows per product lane (the kernel's RT): ceil(rows / 4)
-    lane_cols: int  # gate columns per product lane (its C): 1 or 4
+    """How one layer scan is launched. The float body's products give
+    each lane `lane_rows` rows and `lane_cols` gate columns; the int8
+    body's run `m_tiles` mma M-tiles of 16 rows (the others None)."""
+    cluster: int                 # CTAs per cluster: H / 32
+    rows: int                    # batch rows per cluster
+    clusters: int                # n_dir * ceil(B / rows)
+    smem: int                    # dynamic shared memory per CTA, bytes
+    lane_rows: int | None        # float: ceil(rows / 4) (the kernel's RT)
+    lane_cols: int | None        # float: 1 or 4 (its C)
+    m_tiles: int | None = None   # int8: ceil(rows / 16) (the kernel's MT)
 
 
 def scan_smem(H: int, rows: int) -> int:
@@ -108,30 +129,48 @@ def scan_smem(H: int, rows: int) -> int:
     return 4 * (H * _COLS + 2 * rows * H + rows * _COLS)
 
 
+def int8_scan_smem(H: int, rows: int) -> int:
+    """Shared memory per CTA as `lstm_scan_int8.cu`'s cluster body lays
+    it out: the quantized h, int8 [16 * m_tiles, S] with S = H, or H + 32
+    where H / 32 is even; the int32 sums [rows, 136]; the partial maxima
+    of |h| [rows, 8] float32."""
+    stride = H + 32 if (H // _UNITS) % 2 == 0 else H
+    return (_TILE_ROWS * math.ceil(rows / _TILE_ROWS) * stride
+            + 4 * rows * (_SUM_STRIDE + _MAX_CTAS))
+
+
 def _scan_geometry(n_dir: int, B: int, H: int,
-                   max_clusters: Callable[[int], int]) -> ScanGeometry:
+                   max_clusters: Callable[[int], int],
+                   int8: bool = False) -> ScanGeometry:
     """The fewest batch rows per cluster with which all
     n_dir * ceil(B / rows) clusters are resident at once, where
     `max_clusters(rows)` is the clusters the card holds at that rows'
     shared memory; the most rows that fit when none is (the clusters then
-    run in waves)."""
-    fits = [r for r in range(1, _MAX_ROWS + 1)
-            if scan_smem(H, r) <= _SMEM_LIMIT]
+    run in waves). `int8` takes the int8 body's rows and shared memory."""
+    smem, max_rows = ((int8_scan_smem, _INT8_MAX_ROWS) if int8
+                      else (scan_smem, _MAX_ROWS))
+    fits = [r for r in range(1, max_rows + 1) if smem(H, r) <= _SMEM_LIMIT]
     rows = next((r for r in fits
                  if n_dir * math.ceil(B / r) <= max_clusters(r)), fits[-1])
-    return ScanGeometry(H // _UNITS, rows, n_dir * math.ceil(B / rows),
-                        scan_smem(H, rows), math.ceil(rows / 4),
-                        1 if rows <= 2 else 4)
+    clusters = n_dir * math.ceil(B / rows)
+    if int8:
+        return ScanGeometry(H // _UNITS, rows, clusters, smem(H, rows), None,
+                            None, math.ceil(rows / _TILE_ROWS))
+    return ScanGeometry(H // _UNITS, rows, clusters, smem(H, rows),
+                        math.ceil(rows / 4), 1 if rows <= 2 else 4)
 
 
 @functools.lru_cache(maxsize=None)
 def max_active_clusters(H: int, rows: int, device_index: int,
-                        masked: bool = False) -> int:
-    """Clusters of the full-length (or, with `masked`, the masked) scan at
-    (H, rows) that the card holds at once
-    (`cudaOccupancyMaxActiveClusters`)."""
-    lib = _lib("lstm_scan.cu")
-    name = ("lstm_scan_masked_max_clusters" if masked
+                        masked: bool = False, int8: bool = False) -> int:
+    """Clusters of the full-length (or, with `masked`, the masked) float
+    scan, or with `int8` the full-length int8 scan, at (H, rows) that the
+    card holds at once (`cudaOccupancyMaxActiveClusters`)."""
+    if masked and int8:
+        raise ValueError("the masked int8 scans are not cluster kernels")
+    lib = _lib("lstm_scan_int8.cu" if int8 else "lstm_scan.cu")
+    name = ("lstm_scan_int8_max_clusters" if int8
+            else "lstm_scan_masked_max_clusters" if masked
             else "lstm_scan_max_clusters")
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
@@ -144,19 +183,21 @@ def max_active_clusters(H: int, rows: int, device_index: int,
 
 @functools.lru_cache(maxsize=None)
 def _scan_geometry_on(n_dir: int, B: int, H: int, device_index: int,
-                      masked: bool) -> ScanGeometry:
+                      masked: bool, int8: bool) -> ScanGeometry:
     return _scan_geometry(
         n_dir, B, H,
-        lambda rows: max_active_clusters(H, rows, device_index, masked))
+        lambda rows: max_active_clusters(H, rows, device_index, masked,
+                                         int8), int8)
 
 
 def scan_geometry(n_dir: int, B: int, H: int, device: torch.device,
-                  masked: bool = False) -> ScanGeometry:
+                  masked: bool = False, int8: bool = False) -> ScanGeometry:
     """`_scan_geometry` on the card that holds `device`, for the
-    full-length scans or (`masked`) the masked ones."""
+    full-length float scans, the masked ones (`masked`) or the
+    full-length int8 ones (`int8`)."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
-    return _scan_geometry_on(n_dir, B, H, index, masked)
+    return _scan_geometry_on(n_dir, B, H, index, masked, int8)
 
 
 def reset_launches() -> None:
@@ -174,11 +215,9 @@ def _lib(source: str) -> ctypes.CDLL:
         n_int = 4 if name in _ROWS_ENTRIES else 3
         getattr(lib, name).argtypes = [P] * n_ptr + [I] * n_int + [P]
         getattr(lib, name).restype = I
-    if source == "lstm_scan.cu":
-        for name in ("lstm_scan_max_clusters",
-                     "lstm_scan_masked_max_clusters"):
-            getattr(lib, name).argtypes = [I, I, ctypes.POINTER(I)]
-            getattr(lib, name).restype = I
+    for name in _MAX_CLUSTERS_ENTRIES[source]:
+        getattr(lib, name).argtypes = [I, I, ctypes.POINTER(I)]
+        getattr(lib, name).restype = I
     lib.lstm_scan_error_string.argtypes = [I]
     lib.lstm_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -257,7 +296,8 @@ def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
     dev = inputs[0].device
     ints = (T, B, H)
     if name in _ROWS_ENTRIES:
-        ints += (scan_geometry(n_dir, B, H, dev, "masked" in name).rows,)
+        ints += (scan_geometry(n_dir, B, H, dev, "masked" in name,
+                               "int8" in name).rows,)
     ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
           for _ in range(n_dir)]
     hc = [torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -406,9 +446,8 @@ def lstm_layer_int8(x_proj: torch.Tensor, w_hh: torch.Tensor,
     T, B, H = _check_layer(x_proj, w_hh, h0, c0, w_scale)
     if x_proj.device.type == "cpu":
         return lstm_layer_int8_plain(x_proj, w_hh, w_scale, h0, c0)
-    (ys,), (h_t, c_t) = _launch(
-        "lstm_scan_int8", [x_proj, pack_w_hh(w_hh), w_scale, h0, c0],
-        1, T, B, H)
+    (ys,), (h_t, c_t) = _launch("lstm_scan_int8",
+                                [x_proj, w_hh, w_scale, h0, c0], 1, T, B, H)
     return ys, (h_t, c_t)
 
 
@@ -434,10 +473,8 @@ def bilstm_layer_int8(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
                         c0b, w_scale_f, w_scale_b)
     if x_proj_f.device.type == "cpu":
         return bilstm_layer_int8_plain(*args)
-    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
-        "bilstm_scan_int8", [x_proj_f, x_proj_b, pack_w_hh(w_hh_f),
-                             pack_w_hh(w_hh_b), w_scale_f, w_scale_b,
-                             h0f, c0f, h0b, c0b], 2, T, B, H)
+    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch("bilstm_scan_int8", args,
+                                                 2, T, B, H)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 

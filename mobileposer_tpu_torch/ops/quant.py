@@ -170,7 +170,7 @@ def int8_recurrent_gates(h: torch.Tensor, w_q: torch.Tensor,
 
 
 def pack_w_hh(w_hh: torch.Tensor) -> torch.Tensor:
-    """int8 w_hh [H, 4H] -> the int8 kernels' layout: int32 words
+    """int8 w_hh [H, 4H] -> the masked int8 kernels' layout: int32 words
     [H/4, 4H], word (k4, col) holding w_hh[4*k4 .. 4*k4+3, col] in its
     bytes 0..3 (little-endian), so one 32-bit load feeds one `__dp4a`."""
     H, H4 = w_hh.shape

@@ -1,20 +1,27 @@
 // A CPU stand-in for the parts of the CUDA runtime and of cooperative
 // groups that the sources in ops/csrc/ use, so that g++ can build the
-// kernels and tests/test_torch_cuda_emulation.py can run them: every CUDA
-// thread is an OS thread, __syncthreads and cluster.sync are
-// std::barriers, a block's dynamic shared memory is a heap buffer
-// (poisoned with NaN), map_shared_rank maps an address into another
-// block's buffer, a cluster launch runs its clusters one after another,
-// and atomicMax is a compare-and-swap loop. The test rewrites
-// `extern __shared__ float4 smem[];` into `float4* smem = emu_smem();`
-// and a `<<<grid, threads, smem, stream>>>` launch into
-// `emu_launch(grid, threads, smem, kernel, ...)`. cp_async.cuh beside this
-// file stands in for the one in ops/csrc/.
+// kernels and tests/test_torch_cuda_emulation.py and
+// tests/test_torch_int8_emulation.py can run them: every CUDA thread is an
+// OS thread, __syncthreads and cluster.sync are std::barriers, a block's
+// dynamic shared memory is a heap buffer (poisoned with NaN),
+// map_shared_rank maps an address into another block's buffer, a cluster
+// launch runs its clusters one after another, and atomicMax is a
+// compare-and-swap loop. The lanes of a warp exchange values through
+// per-warp slots and a per-warp barrier (emu_warp_share), on which
+// __shfl_xor_sync, __reduce_max_sync and int8_mma.cuh's product are
+// built. A static `__shared__` array becomes a function-static one: a
+// plain launch runs its blocks one after another, so it is one block's
+// shared memory. The test rewrites `extern __shared__ float4 smem[];`
+// into `float4* smem = emu_smem();` and a `<<<grid, threads, smem,
+// stream>>>` launch into `emu_launch(grid, threads, smem, kernel, ...)`.
+// cp_async.cuh and int8_mma.cuh beside this file stand in for the ones
+// in ops/csrc/.
 #pragma once
 #include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -25,19 +32,35 @@ struct dim3 {
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) int2 { int x, y; };
 inline thread_local dim3 threadIdx, blockIdx;
 #define __global__
 #define __device__
+#define __host__
+#define __shared__ static
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __grid_constant__
-inline float __ldg(const float* p) { return *p; }
-inline float4 __ldg(const float4* p) { return *p; }
+template <class T> T __ldg(const T* p) { return *p; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline int2 make_int2(int x, int y) { return {x, y}; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+// round to nearest, ties to even (the default rounding mode)
+inline int __float2int_rn(float x) { return static_cast<int>(std::nearbyint(x)); }
+inline float __int2float_rn(int x) { return static_cast<float>(x); }
+inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
+inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
+// the four signed bytes of a times those of b, plus c
+inline int __dp4a(int a, int b, int c) {
+  for (int i = 0; i < 4; ++i)
+    c += static_cast<int8_t>(a >> (8 * i)) * static_cast<int8_t>(b >> (8 * i));
+  return c;
+}
 template <class T> T min(T a, T b) { return a < b ? a : b; }
+template <class T> T max(T a, T b) { return a < b ? b : a; }
 inline int atomicMax(int* p, int v) {
   std::atomic_ref<int> a(*p);
   int old = a.load();
@@ -71,15 +94,49 @@ template <class F> cudaError_t cudaOccupancyMaxActiveClusters(int* out, F*, cons
   return cudaSuccess;
 }
 
+// One warp's exchange: each lane's slot of up to 8 words, double-buffered
+// (a lane writes slot buffer p again only after every lane passed the
+// barrier of the exchange in between, i.e. finished reading buffer p).
+struct EmuWarp {
+  std::barrier<> bar{32};
+  uint32_t slot[2][32][8];
+};
+
 struct EmuCluster {
   std::unique_ptr<std::barrier<>> cbar;
   std::vector<std::unique_ptr<std::barrier<>>> bbar;
   std::vector<std::vector<float4>> smem;
+  std::vector<std::unique_ptr<EmuWarp>> warps;  // [rank][warp]
+  unsigned warps_per_block = 0;
+  void add_block(unsigned nt, size_t smem_bytes);
 };
 inline thread_local EmuCluster* emu_cluster = nullptr;
 inline thread_local unsigned emu_rank = 0;
+inline thread_local unsigned emu_warp_phase = 0;
 inline void __syncthreads() { emu_cluster->bbar[emu_rank]->arrive_and_wait(); }
 inline float4* emu_smem() { return emu_cluster->smem[emu_rank].data(); }
+
+// Put this lane's n words in its slot, wait for the warp, and return the
+// warp's slots [32][8]; valid until the lane's next exchange but one.
+inline const uint32_t (*emu_warp_share(const uint32_t* v, int n))[8] {
+  EmuWarp& w = *emu_cluster->warps[emu_rank * emu_cluster->warps_per_block
+                                    + threadIdx.x / 32];
+  auto& buf = w.slot[emu_warp_phase];
+  emu_warp_phase ^= 1;
+  std::memcpy(buf[threadIdx.x % 32], v, 4 * n);
+  w.bar.arrive_and_wait();
+  return buf;
+}
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const uint32_t mine = __float_as_uint(v);
+  return __uint_as_float(emu_warp_share(&mine, 1)[(threadIdx.x % 32) ^ lane_mask][0]);
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  const uint32_t (*all)[8] = emu_warp_share(&v, 1);
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m = all[l][0] > m ? all[l][0] : m;
+  return m;
+}
 
 namespace cooperative_groups {
 struct cluster_group {
@@ -104,6 +161,15 @@ inline std::vector<float4> emu_block_smem(size_t bytes) {
   return s;
 }
 
+// one block of nt threads: its barrier, its shared memory, its warps
+inline void EmuCluster::add_block(unsigned nt, size_t smem_bytes) {
+  bbar.push_back(std::make_unique<std::barrier<>>(nt));
+  smem.push_back(emu_block_smem(smem_bytes));
+  warps_per_block = (nt + 31) / 32;
+  for (unsigned w = 0; w < warps_per_block; ++w)
+    warps.push_back(std::make_unique<EmuWarp>());
+}
+
 template <class F, class... Args>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, F* kernel, Args&&... args) {
   const unsigned n = cfg->attrs[0].val.clusterDim.x;
@@ -113,10 +179,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, F* kernel, Args&&.
     for (unsigned cl = 0; cl < cfg->gridDim.x / n; ++cl) {
       EmuCluster c;
       c.cbar = std::make_unique<std::barrier<>>(n * nt);
-      for (unsigned r = 0; r < n; ++r) {
-        c.bbar.push_back(std::make_unique<std::barrier<>>(nt));
-        c.smem.push_back(emu_block_smem(cfg->dynamicSmemBytes));
-      }
+      for (unsigned r = 0; r < n; ++r) c.add_block(nt, cfg->dynamicSmemBytes);
       std::vector<std::thread> th;
       for (unsigned r = 0; r < n; ++r)
         for (unsigned t = 0; t < nt; ++t)
@@ -137,8 +200,7 @@ void emu_launch(dim3 grid, unsigned nt, size_t smem, F* kernel, Args... args) {
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         EmuCluster c;
-        c.bbar.push_back(std::make_unique<std::barrier<>>(nt));
-        c.smem.push_back(emu_block_smem(smem));
+        c.add_block(nt, smem);
         std::vector<std::thread> th;
         for (unsigned t = 0; t < nt; ++t)
           th.emplace_back([&, t] {

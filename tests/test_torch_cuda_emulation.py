@@ -428,7 +428,7 @@ def test_masked_scan_geometry_asks_the_masked_kernel(monkeypatch):
     instantiation, the full-length ones' from their own."""
     asked = []
 
-    def fake(H, rows, device_index, masked=False):
+    def fake(H, rows, device_index, masked=False, int8=False):
         asked.append(masked)
         return 15 if masked else 1
 
