@@ -15,11 +15,13 @@ each turn runs kernel phases of its tree's `chip_smoke.py` instead, LIST
 a comma-separated choice of `full` (phase 3, the full-length layer scans
 at the streaming shapes; the default), `masked` (phase 3b, the masked
 scans at the evaluation shapes), `train` (phase 3c, the training kernels
-and the dW reduction) and `int8` (phase 3d, the W8A8 scans at the
-streaming and evaluation shapes), and a cell is one kernel at one shape:
-its time in ms, with the yardstick's (cuDNN, or torch.matmul for dW; for
-an int8 kernel, which has none, the float kernel's at the same shape) in
-the same turn. Needs a CUDA card.
+and the dW reduction), `int8` (phase 3d, the W8A8 scans at the
+streaming and evaluation shapes) and `multicell` (phase 3e, the multicell
+scan at B = 256 and 8), and a cell is one kernel at one shape: its time
+in ms, with the yardstick's (cuDNN, or torch.matmul for dW; for an int8
+kernel, which has none, the float kernel's at the same shape; for the
+multicell scan the per-module kernels' on the same cells) in the same
+turn. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ for name, fn, kw in {cells!r}:
 """
 
 # the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked'),
-# 3c ('train') and 3d ('int8') of the tree's chip_smoke.py
-KERNEL_PHASES = ("full", "masked", "train", "int8")
+# 3c ('train'), 3d ('int8') and 3e ('multicell') of the tree's
+# chip_smoke.py
+KERNEL_PHASES = ("full", "masked", "train", "int8", "multicell")
 _KERNEL_TURN = """
 import json, sys
 sys.path.insert(0, {tree!r})
@@ -73,7 +76,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 import chip_smoke
-from mobileposer_tpu_torch.ops import _build, lstm_cuda
+from mobileposer_tpu_torch.ops import _build, lstm_cuda, multicell_cuda
 from mobileposer_tpu_torch.ops import lstm_train_cuda as train_cuda
 recs = []
 for phase in {phases!r}:
@@ -83,6 +86,10 @@ for phase in {phases!r}:
         ptxas = [ln.strip() for ln in log.read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
         recs += chip_smoke.phase_train_kernels(torch, train_cuda, ptxas)
+    elif phase == "multicell":
+        lstm_cuda.build()
+        multicell_cuda.build()
+        recs += chip_smoke.phase_multicell(torch, multicell_cuda, lstm_cuda)
     else:
         lstm_cuda.build()
         fn = {{"full": chip_smoke.phase_kernels,
@@ -96,6 +103,8 @@ for rec in recs:
     print(json.dumps({{"cell": cell, "value": rec["kernel_ms"], "unit": "ms",
                       "library_ms": rec["library_ms"],
                       "float_kernel_ms": rec.get("float_kernel_ms"),
+                      "per_module_kernels_ms":
+                          rec.get("per_module_kernels_ms"),
                       "bound_ms": rec["bound_ms"]}}), flush=True)
 """
 

@@ -1,10 +1,11 @@
 // What the thread-block-cluster LSTM scans for Hopper (sm_90a) share:
-// lstm_scan.cu (bilstm_scan_f32, lstm_scan_f32) and lstm_train.cu
-// (lstm_train_fwd_f32, lstm_train_bwd_f32). A cluster of n = H / 32 CTAs
-// of kThreads threads owns a tile of batch rows; CTA c owns the hidden
-// units [32c, 32c + 32) and their 128 gate columns g*H + 32c + u, and holds
-// the slice w_hh[:, those columns] in its shared memory for all T steps.
-// Each source's design note says how its kernels use that slice.
+// lstm_scan.cu and multicell_scan.cu (through scan_body.cuh),
+// lstm_scan_int8.cu and lstm_train.cu. A cluster of n = H / 32 CTAs of
+// kThreads threads owns a tile of batch rows; CTA c owns the hidden units
+// [32c, 32c + 32) and their 128 gate columns g*H + 32c + u, and holds its
+// part of w_hh (the float slice w_hh[:, those columns] in shared memory,
+// or the int8 columns in registers) for all T steps. Each source's design
+// note says how its kernels use it.
 
 #pragma once
 
@@ -49,27 +50,50 @@ __device__ __forceinline__ void load_w_slice(const float* __restrict__ w_hh,
   }
 }
 
-// Launch `kernel` as clusters of H / 32 CTAs over ceil(B / R) batch tiles
-// (grid x) and `n_dir` directions (grid y) with `smem` bytes of dynamic
-// shared memory; returns the launch's error.
+// One past the last step at which a row of the tile [b0, b0 + R) has a
+// nonzero mask [T, B]; the same in every CTA that reads the same tile.
+// `slot` is one int of shared memory, free until the function returns.
+__device__ __forceinline__ int tile_end(const float* __restrict__ mask,
+                                        int T, int B, int b0, int R,
+                                        int* slot) {
+  const int tid = threadIdx.x;
+  if (tid == 0) *slot = 0;
+  __syncthreads();
+  // item idx is (step, row) = (idx / R, idx % R); from the last step
+  // down, so a thread's first hit is its latest
+  for (int idx = T * R - 1 - tid; idx >= 0; idx -= kThreads) {
+    const int b = b0 + idx % R;
+    if (b < B && __ldg(mask + static_cast<size_t>(idx / R) * B + b) != 0.0f) {
+      atomicMax(slot, idx / R + 1);
+      break;
+    }
+  }
+  __syncthreads();
+  const int t_end = *slot;
+  __syncthreads();  // every thread has read the slot
+  return t_end;
+}
+
+// Launch `kernel` as `clusters` x `n_dir` clusters of n CTAs (grid x, grid
+// y) with `smem` bytes of dynamic shared memory; returns the launch's
+// error.
 template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), size_t smem, int B,
-                            int H, int R, int n_dir, cudaStream_t stream,
-                            Args... args) {
+cudaError_t launch_cluster_grid(void (*kernel)(Params...), size_t smem,
+                                int n, int clusters, int n_dir,
+                                cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const unsigned n = static_cast<unsigned>(H / kUnits);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n * static_cast<unsigned>((B + R - 1) / R),
+  cfg.gridDim = dim3(static_cast<unsigned>(n * clusters),
                      static_cast<unsigned>(n_dir));
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(n);
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -77,6 +101,16 @@ cudaError_t launch_clusters(void (*kernel)(Params...), size_t smem, int B,
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Launch `kernel` as clusters of H / 32 CTAs over ceil(B / R) batch tiles
+// (grid x) and `n_dir` directions (grid y).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), size_t smem, int B,
+                            int H, int R, int n_dir, cudaStream_t stream,
+                            Args... args) {
+  return launch_cluster_grid(kernel, smem, H / kUnits, (B + R - 1) / R,
+                             n_dir, stream, args...);
 }
 
 // Clusters of H / 32 CTAs of `kernel` with `smem` bytes each that fit on

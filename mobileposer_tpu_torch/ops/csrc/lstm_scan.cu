@@ -28,7 +28,8 @@
 // TPU kernel does), ys[t] = m*h_new (exactly zero at a masked step), and
 // the final (h, c) is each row's state at its last valid frame.
 //
-// Full-length design. The TPU keeps w_hh and the carry in VMEM across its
+// Full-length design (the body is scan_body.cuh, which multicell_scan.cu
+// runs too). The TPU keeps w_hh and the carry in VMEM across its
 // sequential time grid; here w_hh stays in the shared memory of a
 // thread-block cluster for all T steps (cluster_scan.cuh). A cluster of
 // n = H / 32 CTAs of 512 threads owns R batch rows of one direction (R
@@ -42,12 +43,12 @@
 //     owns C gate columns (C = 4, one float4 of the slice; C = 1 at R <= 2,
 //     where four warps share a row) for its group's rows, and sums each
 //     column over the whole k range in order: the gate starts at x_proj and
-//     adds h[k] * w[k][col] with fmaf for k = 0 .. H-1. That is the order of
-//     the block-per-tile kernel this replaces and of multicell_scan.cu, so
-//     forward(backend='fused') stays bit-identical to 'auto'. The lanes of
-//     a warp share their rows, so h is read as broadcast float4s; past the
-//     group's last row a lane repeats that row and stores nothing, so the
-//     k loop has no branch.
+//     adds h[k] * w[k][col] with fmaf for k = 0 .. H-1, the order of the
+//     block-per-tile kernel this replaces; multicell_scan.cu runs the same
+//     body, so forward(backend='fused') stays bit-identical to 'auto'. The
+//     lanes of a warp share their rows, so h is read as broadcast float4s;
+//     past the group's last row a lane repeats that row and stores nothing,
+//     so the k loop has no branch.
 //   * the four gates of one (row, unit) sit in different lanes: they go
 //     through a [R][128] shared buffer, and after one CTA barrier one
 //     thread per (row, unit) of all 512 does the cell update, writes ys
@@ -114,7 +115,7 @@
 // barrier. TF32/bf16 tensor cores through wgmma and TMA loads of x_proj
 // are later work.
 
-#include "cluster_scan.cuh"
+#include "scan_body.cuh"
 
 namespace {
 
@@ -122,264 +123,36 @@ constexpr int kGroups = 4;                 // row groups of the products
 constexpr int kMaxRowsPerLane = 10;        // RT templates 1 .. 10
 constexpr int kMaxRows = kGroups * kMaxRowsPerLane;
 
-struct Dir {
-  const float* x_proj;  // [T, B, 4H]
-  const float* w_hh;    // [H, 4H]
-  const float* h0;      // [B, H]
-  const float* c0;      // [B, H]
-  float* ys;            // [T, B, H]
-  float* h_t;           // [B, H]
-  float* c_t;           // [B, H]
-};
-
-size_t scan_smem_bytes(int H, int R) {
-  // w slice, h double-buffered [2][R][H], gates [R][kCols]
-  return sizeof(float) * (static_cast<size_t>(H) * kCols + 2 * R * H
-                          + R * kCols);
-}
-
-// C consecutive gate columns of the slice at `p` (C = 1, or 4: one float4)
-template <int C>
-__device__ __forceinline__ void load_cols(const float* p, float (&v)[C]) {
-  if constexpr (C == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
-  if constexpr (C == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *p = v[0];
-}
-
-// One past the last step at which a row of the tile [b0, b0 + R) has a
-// nonzero mask; the same in every CTA of the cluster. `slot` is one int
-// of shared memory, free until the function returns.
-__device__ __forceinline__ int tile_end(const float* __restrict__ mask,
-                                        int T, int B, int b0, int R,
-                                        int* slot) {
-  const int tid = threadIdx.x;
-  if (tid == 0) *slot = 0;
-  __syncthreads();
-  // item idx is (step, row) = (idx / R, idx % R); from the last step
-  // down, so a thread's first hit is its latest
-  for (int idx = T * R - 1 - tid; idx >= 0; idx -= kThreads) {
-    const int b = b0 + idx % R;
-    if (b < B && __ldg(mask + static_cast<size_t>(idx / R) * B + b) != 0.0f) {
-      atomicMax(slot, idx / R + 1);
-      break;
-    }
-  }
-  __syncthreads();
-  const int t_end = *slot;
-  __syncthreads();  // every thread has read the slot
-  return t_end;
-}
-
-// The scan of one direction (see the design notes above); with kMasked,
-// the masked variant over mask [T, B]. `d` by value: a reference to the
-// kernel's parameters would put both directions' in local memory.
-template <int RT, int C, bool kMasked>
-__device__ __forceinline__ void scan_body(const Dir d,
-                                          const float* __restrict__ mask,
-                                          int T, int B, int H, int R) {
-  constexpr int CPT = (kGroups * RT * kUnits + kThreads - 1) / kThreads;
-  constexpr int kWarpsPerGroup = 4 / C;  // warps covering the 128 columns
-  cg::cluster_group cluster = cg::this_cluster();
+// The layer scans' group is the whole cluster: CTA rank c owns the units
+// [32c, 32c + 32) of the cluster's batch tile
+__device__ __forceinline__ Group whole_cluster(int H, int R) {
   const int n_cta = H / kUnits;
-  const int cta = static_cast<int>(cluster.block_rank());
-  const int b0 = (blockIdx.x / n_cta) * R;
-  const int unit0 = cta * kUnits;
-  const size_t H4 = 4 * static_cast<size_t>(H);
-  const int tid = threadIdx.x;
-
-  extern __shared__ float4 smem[];
-  float* w_s = reinterpret_cast<float*>(smem);   // [H][kCols], swizzled
-  float* h_s = w_s + H * kCols;                  // [2][R][H]
-  float* gates = h_s + 2 * R * H;                // [R][kCols]
-
-  // products: the lane sums the gate columns col0 .. col0 + C - 1 of the
-  // slice for the tile rows [r_begin, r_begin + rows) of its row group;
-  // past `rows` it repeats the last row and stores nothing, so that the k
-  // loop has no branch
-  const int lane = tid % 32, grp = tid / 32 / kWarpsPerGroup;
-  const int col0 = C * (32 * (tid / 32 % kWarpsPerGroup) + lane);
-  const int r_begin = grp * RT;
-  const int rows = grp < kGroups ? min(RT, R - r_begin) : 0;
-
-  // the steps this cluster runs: all T, or (masked) up to the tile's last
-  // valid step; the gate buffer serves as the reduction's slot
-  int t_end = T;
-  if constexpr (kMasked)
-    t_end = tile_end(mask, T, B, b0, R, reinterpret_cast<int*>(gates));
-
-  // cells: item tid + p*kThreads is (row, unit) = (item / 32, item % 32);
-  // it also fetches that (row, unit)'s four x_proj columns (and, masked,
-  // its mask value) of the next step
-  load_w_slice(d.w_hh, w_s, H, cta);
-  for (int idx = tid; idx < R * H; idx += kThreads) {
-    const int b = b0 + idx / H;
-    h_s[idx] = b < B ? d.h0[static_cast<size_t>(b) * H + idx % H] : 0.0f;
-  }
-  float c[CPT];
-  float xn[CPT][4] = {};  // x_proj of the next step, per item and gate
-  float m[CPT] = {}, mn[CPT] = {};  // mask of this step and of the next
-#pragma unroll
-  for (int p = 0; p < CPT; ++p) {
-    const int item = tid + p * kThreads;
-    const int r = item / kUnits, u = item % kUnits, b = b0 + r;
-    const bool ok = item < R * kUnits && b < B;
-    c[p] = ok ? d.c0[static_cast<size_t>(b) * H + unit0 + u] : 0.0f;
-    if (item < R * kUnits) {
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        gates[r * kCols + g * kUnits + u] =
-            ok ? __ldg(d.x_proj + b * H4 + g * H + unit0 + u) : 0.0f;
-    }
-    if constexpr (kMasked) m[p] = ok && t_end > 0 ? __ldg(mask + b) : 0.0f;
-  }
-  cluster.sync();  // every CTA started; w_s, h_s[0], x_proj[0] loaded
-
-  int cur = 0;
-  for (int t = 0; t < t_end; ++t) {
-    if (t + 1 < t_end) {  // step t+1's x_proj, in flight during the products
-      const size_t row0 = static_cast<size_t>(t + 1) * B;
-#pragma unroll
-      for (int p = 0; p < CPT; ++p) {
-        const int item = tid + p * kThreads;
-        const int b = b0 + item / kUnits, u = item % kUnits;
-        const bool ok = item < R * kUnits && b < B;
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          xn[p][g] = ok ? __ldg(d.x_proj + (row0 + b) * H4 + g * H + unit0 + u)
-                        : 0.0f;
-        if constexpr (kMasked) mn[p] = ok ? __ldg(mask + row0 + b) : 0.0f;
-      }
-    }
-    if (rows > 0) {
-      // gates = x_proj + h_{t-1}[rows] @ w_slice[:, C columns], k
-      // ascending, four k at a time (one float4 of h per row)
-      int ro[RT];
-      float acc[RT][C];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        ro[i] = r_begin + min(i, rows - 1);
-        load_cols<C>(gates + ro[i] * kCols + col0, acc[i]);
-      }
-      const float* hb = h_s + cur * R * H;
-      auto k_group = [&](int k) {
-        float w[4][C];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          load_cols<C>(w_s + swizzle(k + kk, col0), w[kk]);
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(hb + ro[i] * H
-                                                            + k);
-          const float hk[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int j = 0; j < C; ++j)
-              acc[i][j] = fmaf(hk[kk], w[kk][j], acc[i][j]);
-        }
-      };
-      if constexpr (RT == 3) {
-        // nvcc leaves this loop rolled at three rows a lane; unrolled four
-        // times, a step of the masked bi layer at B = 64 (R = 10) takes
-        // ~23% less on an H100, with the same bits
-#pragma unroll 4
-        for (int k = 0; k < H; k += 4) k_group(k);
-      } else {
-        for (int k = 0; k < H; k += 4) k_group(k);
-      }
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-        if (i < rows) store_cols<C>(gates + ro[i] * kCols + col0, acc[i]);
-    }
-    __syncthreads();  // every gate of the tile is in shared memory
-
-    float* h_next = h_s + (cur ^ 1) * R * H;
-    float* yt = d.ys + static_cast<size_t>(t) * B * H;
-#pragma unroll
-    for (int p = 0; p < CPT; ++p) {
-      const int item = tid + p * kThreads;
-      if (item >= R * kUnits) continue;
-      const int r = item / kUnits, u = item % kUnits, b = b0 + r;
-      float* gr = gates + r * kCols + u;
-      const float i = sigmoid(gr[0]);
-      const float f = sigmoid(gr[kUnits]);
-      const float g = tanhf(gr[2 * kUnits]);
-      const float o = sigmoid(gr[3 * kUnits]);
-      // f*c + i*g with the rounding nvcc gives it in multicell_scan.cu
-      // (f*c rounded, then one FMA), written out: left to the compiler it
-      // contracts the other product in some instantiations of this kernel
-      const float c_new = fmaf(i, g, __fmul_rn(f, c[p]));
-      const float h_new = o * tanhf(c_new);
-      float h = h_new, y = h_new;
-      if constexpr (kMasked) {
-        c[p] = blend(m[p], c_new, c[p]);
-        h = blend(m[p], h_new, h_s[cur * R * H + r * H + unit0 + u]);
-        y = __fmul_rn(m[p], h_new);  // exactly zero at a masked step
-        m[p] = mn[p];
-      } else {
-        c[p] = c_new;
-      }
-      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = y;
-      // the new h of this unit, into the next h buffer of every CTA
-      for (int q = 0; q < n_cta; ++q)
-        cluster.map_shared_rank(h_next, q)[r * H + unit0 + u] = h;
-      // the next step's x_proj into this (row, unit)'s gate slots
-#pragma unroll
-      for (int gi = 0; gi < 4; ++gi) gr[gi * kUnits] = xn[p][gi];
-    }
-    // h_t and x_proj[t+1] are in place everywhere, and nobody reads h_{t-1}
-    // any more
-    cluster.sync();
-    cur ^= 1;
-  }
-
-#pragma unroll
-  for (int p = 0; p < CPT; ++p) {
-    const int item = tid + p * kThreads;
-    const int r = item / kUnits, u = item % kUnits, b = b0 + r;
-    if (item < R * kUnits && b < B) {
-      d.h_t[static_cast<size_t>(b) * H + unit0 + u] =
-          h_s[cur * R * H + r * H + unit0 + u];
-      d.c_t[static_cast<size_t>(b) * H + unit0 + u] = c[p];
-      if constexpr (kMasked)  // the steps past the tile's last valid one
-        for (int t = t_end; t < T; ++t)
-          d.ys[(static_cast<size_t>(t) * B + b) * H + unit0 + u] = 0.0f;
-    }
-  }
+  return Group{static_cast<int>(cg::this_cluster().block_rank()), 0,
+               static_cast<int>(blockIdx.x / n_cta) * R};
 }
 
 template <int RT, int C>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
-  scan_body<RT, C, false>(blockIdx.y == 0 ? d0 : d1, nullptr, T, B, H, R);
+  scan_body<RT, C, kGroups, false, false>(blockIdx.y == 0 ? d0 : d1, nullptr,
+                                          T, B, H, R, whole_cluster(H, R),
+                                          4 * static_cast<size_t>(H));
 }
 
 template <int RT, int C>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_masked_kernel(Dir d0, Dir d1, const float* __restrict__ mask,
                         int T, int B, int H, int R) {
-  scan_body<RT, C, true>(blockIdx.y == 0 ? d0 : d1, mask, T, B, H, R);
+  scan_body<RT, C, kGroups, true, false>(blockIdx.y == 0 ? d0 : d1, mask, T,
+                                         B, H, R, whole_cluster(H, R),
+                                         4 * static_cast<size_t>(H));
 }
 
 template <int RT, int C>
 cudaError_t scan_rows(const Dir& d0, const Dir& d1, int n_dir, int T, int B,
                       int H, int R, cudaStream_t stream) {
-  return launch_clusters(lstm_scan_kernel<RT, C>, scan_smem_bytes(H, R), B,
-                         H, R, n_dir, stream, d0, d1, T, B, H, R);
+  return launch_clusters(lstm_scan_kernel<RT, C>, scan_smem_bytes(H, R, 2),
+                         B, H, R, n_dir, stream, d0, d1, T, B, H, R);
 }
 
 template <int RT, int C>
@@ -387,20 +160,20 @@ cudaError_t masked_rows(const Dir& d0, const Dir& d1, const float* mask,
                         int n_dir, int T, int B, int H, int R,
                         cudaStream_t stream) {
   return launch_clusters(lstm_scan_masked_kernel<RT, C>,
-                         scan_smem_bytes(H, R), B, H, R, n_dir, stream, d0,
-                         d1, mask, T, B, H, R);
+                         scan_smem_bytes(H, R, 2), B, H, R, n_dir, stream,
+                         d0, d1, mask, T, B, H, R);
 }
 
 template <int RT, int C>
 cudaError_t max_clusters_rows(int H, int R, int* out) {
-  return max_clusters(lstm_scan_kernel<RT, C>, scan_smem_bytes(H, R), H,
-                      out);
+  return max_clusters(lstm_scan_kernel<RT, C>, scan_smem_bytes(H, R, 2),
+                      H, out);
 }
 
 template <int RT, int C>
 cudaError_t masked_max_clusters_rows(int H, int R, int* out) {
-  return max_clusters(lstm_scan_masked_kernel<RT, C>, scan_smem_bytes(H, R),
-                      H, out);
+  return max_clusters(lstm_scan_masked_kernel<RT, C>,
+                      scan_smem_bytes(H, R, 2), H, out);
 }
 
 }  // namespace

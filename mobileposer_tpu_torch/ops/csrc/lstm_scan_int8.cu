@@ -17,12 +17,9 @@
 //                               length), of a ragged batch.
 // Contract (the float kernels' of lstm_scan.cu, with the recurrent term of
 // mobileposer_tpu/ops/quant.py int8_recurrent_gates): x_proj [T, B, 4H]
-// already holds the int8 input projection plus b; w_scale [4H]; gate order
-// (i, f, g, o); the carry stays float32. The full-length entries take the
-// int8 w_hh [H, 4H] as it is; the masked entries take it as int32 words
-// [H/4, 4H], word (k4, col) holding the int8 w_hh[4k4 .. 4k4+3, col] in
-// bytes 0..3 (ops/quant.py pack_w_hh). Per step and row, with h the
-// previous hidden state:
+// already holds the int8 input projection plus b; w_hh the int8 [H, 4H]
+// as it is; w_scale [4H]; gate order (i, f, g, o); the carry stays
+// float32. Per step and row, with h the previous hidden state:
 //   scale = max(max_j |h_j| * f32(1/127), 1e-12)
 //   q_j   = clamp(round_half_even(h_j / scale), -127, 127)
 //   gate  = x_proj + f32(sum_k q_k * w[k, col]) * (scale * w_scale[col])
@@ -34,15 +31,12 @@
 // so on the card the kernels can agree with the plain version to the bit,
 // and no h/scale lands on the other side of a rounding boundary. XLA turns
 // the JAX package's `amax / 127` into a multiply by the float32
-// reciprocal; the kernels do the same. Both bodies below share these
-// steps (`row_scale`, `quantize`, `dequant_gate`, `cell_update`), so with
-// every mask value 1 the masked entries give the full-length entries'
-// outputs bit for bit: blend(1, a, b) = a and 1 * h = h. Masked entries
-// blend as the masked float kernel does (exact zeros at masked steps).
+// reciprocal; the kernels do the same. The masked entries blend as the
+// masked float kernel does (exact zeros at masked steps).
 //
-// Full-length design: the thread-block-cluster body of lstm_scan.cu
-// (cluster_scan.cuh), with the recurrent product on the int8 tensor
-// cores. A cluster of n = H / 32 CTAs of 512 threads owns R batch rows of
+// Design: the thread-block-cluster layout of lstm_scan.cu's float body
+// (scan_body.cuh, cluster_scan.cuh), with the recurrent product on the
+// int8 tensor cores. A cluster of n = H / 32 CTAs of 512 threads owns R batch rows of
 // one direction (R from 1 to 64, chosen by the wrapper: the fewest with
 // which all n_dir * ceil(B / R) clusters are resident at once); CTA c owns
 // the hidden units [32c, 32c + 32) and their 128 gate columns, so the cell
@@ -81,15 +75,26 @@
 // CTA: 16 ceil(R/16) S (q; S = H, or H + 32 where H / 32 is even) + 544R
 // (sums) + 32R (maxima) bytes: 35,136 at R = 37, H = 256.
 //
-// Masked design (kernel #5, still the first version): a block owns kRows
-// batch rows for all T steps, thread j owns hidden unit j and its four
-// gate columns j, H+j, 2H+j, 3H+j, h and c in registers, the quantized h
-// (kRows x H bytes) and the per-warp row maxima in shared memory. A step:
-// (1) each warp reduces |h| per row with shuffles; barrier; (2) every
-// thread folds the <= 8 warp maxima of each row and quantizes its own h_j;
-// barrier; (3) acc[r][g] += __dp4a(h_q word, w word), w_hh re-read from
-// L2 every step, one 32-bit word per four k; (4) dequantize, cell update,
-// blend.
+// Masked variant (lstm_scan_masked_int8_kernel, kernel #5): the same body
+// (a kMasked template flag), the same geometry (rows from the wrapper,
+// residency queried for the masked instantiation) and the same roundings,
+// plus what the masked float body of lstm_scan.cu adds:
+//   * at the start the cluster finds t_end, one past the last step at
+//     which any of its R rows has m != 0 (cluster_scan.cuh tile_end; every
+//     CTA reads the same mask columns, so all agree on the number of steps
+//     and on the cluster barriers). Steps from t_end on only write zeros
+//     to ys, so a tile whose rows all end early stops there;
+//   * each cell item reads its row's m of step t beside that step's
+//     x_proj, before the step's quantization and products;
+//   * after the cell update it blends, rounded as written
+//     (cluster_scan.cuh blend): c <- blend(m, c_new, c), h <- blend(m,
+//     h_new, h), ys[t] = __fmul_rn(m, h_new). h lives in registers, so h
+//     is blended there, and the row's partial maximum that the next step
+//     quantizes from is taken over the blended h (over h_new the scale of
+//     a masked step would change).
+// With every m = 1, blend(1, a, b) = a and 1 * h = h, and the int32 sums
+// are exact, so the masked entries give the full-length entries' outputs
+// bit for bit.
 //
 // What bounds it on this card (worked out from the shapes, not measured):
 // per step and direction 2*B*H*4H integer operations against 1,979 TOP/s
@@ -100,9 +105,8 @@
 // T dependent steps: the full-length body takes a step's products off the
 // CUDA cores and w_hh out of L2, so a step is its latencies: the
 // quantization, the products, the cell update and two cluster barriers
-// (scan_variants.py times each part). The masked body still re-reads
-// w_hh (256 KiB at H = 256) from L2 every step with __dp4a on the CUDA
-// cores; it becomes the masked variant of the cluster body next.
+// (scan_variants.py times each part). At evaluation's B = 64 a cluster
+// holds few rows (one M-tile), so a masked step is those latencies too.
 
 #include <stdint.h>
 
@@ -149,10 +153,6 @@ __device__ __forceinline__ void cell_update(const float (&gate)[4], float c,
   h_new = __fmul_rn(o, tanhf(c_new));
 }
 
-// ---------------------------------------------------------------------------
-// Full-length: the cluster body
-// ---------------------------------------------------------------------------
-
 constexpr int kTileRows = 16;                   // rows of an mma M-tile
 constexpr int kMaxTiles = 4;                    // M-tiles: MT templates 1..4
 constexpr int kMaxRows = kTileRows * kMaxTiles;
@@ -191,13 +191,15 @@ __device__ __forceinline__ float warp_max_abs(float v) {
       __reduce_max_sync(0xffffffffu, __float_as_uint(fabsf(v))));
 }
 
-// One direction (see the design note above). MT = ceil(R / 16) M-tiles;
-// the cell items of a thread are (row, unit) = (warp + 16 p, lane), p < MT:
-// a warp holds one row's 32 units of this CTA. `d` by value: a reference
-// to the kernel's parameters would put both directions' in local memory.
-template <int MT>
-__device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
-                                                  int B, int H, int R) {
+// One direction (see the design note above); with kMasked, the masked
+// variant over mask [T, B]. MT = ceil(R / 16) M-tiles; the cell items of a
+// thread are (row, unit) = (warp + 16 p, lane), p < MT: a warp holds one
+// row's 32 units of this CTA. `d` by value: a reference to the kernel's
+// parameters would put both directions' in local memory.
+template <int MT, bool kMasked>
+__device__ __forceinline__ void cluster_scan_int8(
+    const ClusterDir d, const float* __restrict__ mask, int T, int B, int H,
+    int R) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = H / kUnits;
   const int n_ks = H / 32;
@@ -242,6 +244,10 @@ __device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
   for (int idx = R * S / 4 + tid; idx < kTileRows * MT * S / 4;
        idx += kThreads)
     reinterpret_cast<int*>(q_s)[idx] = 0;
+  // the steps this cluster runs: all T, or (masked) up to the tile's last
+  // valid step; the sums serve as the reduction's slot
+  int t_end = T;
+  if constexpr (kMasked) t_end = tile_end(mask, T, B, b0, R, sum_s);
   const int u = lane;  // the unit (within the CTA) of every cell item
   float ws[4], h[MT], c[MT];
 #pragma unroll
@@ -269,10 +275,11 @@ __device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
   push_maxima();
   cluster.sync();  // the maxima of h0 in place
 
-  for (int t = 0; t < T; ++t) {
-    // this step's x_proj for the cell items, in flight during (a) and (b)
+  for (int t = 0; t < t_end; ++t) {
+    // this step's x_proj (and, masked, mask) for the cell items, in flight
+    // during (a) and (b)
     const float* xt = d.x_proj + static_cast<size_t>(t) * B * H4;
-    float x[MT][4];
+    float x[MT][4], m[MT];
 #pragma unroll
     for (int p = 0; p < MT; ++p) {
       const int r = warp + kTileRows * p, b = b0 + r;
@@ -280,6 +287,8 @@ __device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
 #pragma unroll
       for (int g = 0; g < 4; ++g)
         x[p][g] = ok ? __ldg(xt + b * H4 + g * H + unit0 + u) : 0.0f;
+      if constexpr (kMasked)
+        m[p] = ok ? __ldg(mask + static_cast<size_t>(t) * B + b) : 0.0f;
     }
 
     // (a) each row's scale from its partial maxima (lane q < n_cta reads
@@ -333,7 +342,8 @@ __device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
     }
     __syncthreads();  // every sum of the tile is in shared memory
 
-    // (c) cell update; the maxima of the new h to every CTA
+    // (c) cell update (masked: blend); the maxima of the new h to every
+    // CTA
     float* yt = d.ys + static_cast<size_t>(t) * B * H;
 #pragma unroll
     for (int p = 0; p < MT; ++p) {
@@ -344,8 +354,18 @@ __device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
 #pragma unroll
       for (int g = 0; g < 4; ++g)
         gate[g] = dequant_gate(x[p][g], sr[g * kUnits], scale[p], ws[g]);
-      cell_update(gate, c[p], c[p], h[p]);
-      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = h[p];
+      float c_new, h_new, y;
+      cell_update(gate, c[p], c_new, h_new);
+      if constexpr (kMasked) {
+        c[p] = blend(m[p], c_new, c[p]);
+        h[p] = blend(m[p], h_new, h[p]);
+        y = __fmul_rn(m[p], h_new);  // exactly zero at a masked step
+      } else {
+        c[p] = c_new;
+        h[p] = h_new;
+        y = h_new;
+      }
+      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = y;
     }
     push_maxima();
     // the maxima of h_t are in place everywhere, and nobody reads q or the
@@ -359,6 +379,9 @@ __device__ __forceinline__ void cluster_scan_int8(const ClusterDir d, int T,
     if (r < R && b < B) {
       d.h_t[static_cast<size_t>(b) * H + unit0 + u] = h[p];
       d.c_t[static_cast<size_t>(b) * H + unit0 + u] = c[p];
+      if constexpr (kMasked)  // the steps past the tile's last valid one
+        for (int t = t_end; t < T; ++t)
+          d.ys[(static_cast<size_t>(t) * B + b) * H + unit0 + u] = 0.0f;
     }
   }
 }
@@ -367,7 +390,16 @@ template <int MT>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_int8_kernel(ClusterDir d0, ClusterDir d1, int T, int B, int H,
                       int R) {
-  cluster_scan_int8<MT>(blockIdx.y == 0 ? d0 : d1, T, B, H, R);
+  cluster_scan_int8<MT, false>(blockIdx.y == 0 ? d0 : d1, nullptr, T, B, H,
+                               R);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_scan_masked_int8_kernel(ClusterDir d0, ClusterDir d1,
+                             const float* __restrict__ mask, int T, int B,
+                             int H, int R) {
+  cluster_scan_int8<MT, true>(blockIdx.y == 0 ? d0 : d1, mask, T, B, H, R);
 }
 
 template <int MT>
@@ -379,146 +411,24 @@ cudaError_t cluster_rows(const ClusterDir& d0, const ClusterDir& d1,
 }
 
 template <int MT>
+cudaError_t masked_rows(const ClusterDir& d0, const ClusterDir& d1,
+                        const float* mask, int n_dir, int T, int B, int H,
+                        int R, cudaStream_t stream) {
+  return launch_clusters(lstm_scan_masked_int8_kernel<MT>,
+                         cluster_smem_bytes(H, R), B, H, R, n_dir, stream,
+                         d0, d1, mask, T, B, H, R);
+}
+
+template <int MT>
 cudaError_t cluster_max_clusters(int H, int R, int* out) {
   return max_clusters(lstm_scan_int8_kernel<MT>, cluster_smem_bytes(H, R), H,
                       out);
 }
 
-// ---------------------------------------------------------------------------
-// Masked: one block per batch tile
-// ---------------------------------------------------------------------------
-
-constexpr int kRows = 8;         // batch rows per block
-constexpr int kMaxHidden = 256;  // one thread per hidden unit
-constexpr int kWarps = kMaxHidden / 32;
-
-struct Dir {
-  const float* x_proj;   // [T, B, 4H]
-  const int* w_hh;       // [H/4, 4H] k-packed int8 words
-  const float* w_scale;  // [4H]
-  const float* h0;       // [B, H]
-  const float* c0;       // [B, H]
-  float* ys;             // [T, B, H]
-  float* h_t;            // [B, H]
-  float* c_t;            // [B, H]
-};
-
-__device__ __forceinline__ void scan_masked_int8(const Dir& d,
-                                                 const float* mask, int T,
-                                                 int B, int H) {
-  // quantized h_{t-1}, [kRows][H] int8, as int32 words for the dp4a reads
-  __shared__ int hq_s[kRows * kMaxHidden / 4];
-  __shared__ float amax_s[kWarps][kRows];  // per-warp row maxima of |h|
-  int8_t* hq_b = reinterpret_cast<int8_t*>(hq_s);
-  const int j = threadIdx.x;
-  const int lane = j & 31;
-  const int warp = j >> 5;
-  const int n_warps = H >> 5;
-  const int K4 = H >> 2;
-  const int b0 = blockIdx.x * kRows;
-  const size_t H4 = 4 * static_cast<size_t>(H);
-
-  float h[kRows], c[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    const bool ok = b < B;
-    h[r] = ok ? d.h0[static_cast<size_t>(b) * H + j] : 0.0f;
-    c[r] = ok ? d.c0[static_cast<size_t>(b) * H + j] : 0.0f;
-  }
-  float ws[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) ws[g] = d.w_scale[g * H + j];
-
-  for (int t = 0; t < T; ++t) {
-    // (1) per-row max |h| within the warp
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float m = fabsf(h[r]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (lane == 0) amax_s[warp][r] = m;
-    }
-    __syncthreads();
-
-    // (2) row scales, and this thread's h_j quantized
-    float hs[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float amax = amax_s[0][r];
-      for (int w = 1; w < n_warps; ++w) amax = fmaxf(amax, amax_s[w][r]);
-      hs[r] = row_scale(amax);
-      hq_b[r * H + j] = static_cast<int8_t>(quantize(h[r], hs[r]));
-    }
-    __syncthreads();
-
-    // (3) acc = h_q @ w_hh, exact int32, four k per dp4a
-    int acc[kRows][4];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][g] = 0;
-    const int* wp = d.w_hh + j;
-    for (int k4 = 0; k4 < K4; ++k4) {
-      int w[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        w[g] = __ldg(wp + static_cast<size_t>(k4) * H4 + g * H);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int hw = hq_s[r * K4 + k4];  // one word, broadcast
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = __dp4a(hw, w[g], acc[r][g]);
-      }
-    }
-
-    // (4) dequantize in the plain version's order, cell update, blend
-    const float* xt = d.x_proj + static_cast<size_t>(t) * B * H4;
-    float* yt = d.ys + static_cast<size_t>(t) * B * H;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int b = b0 + r;
-      float gate[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float x = b < B ? xt[static_cast<size_t>(b) * H4 + g * H + j]
-                              : 0.0f;
-        gate[g] = dequant_gate(x, acc[r][g], hs[r], ws[g]);
-      }
-      float c_new, h_new;
-      cell_update(gate, c[r], c_new, h_new);
-      const float m = b < B ? __ldg(mask + static_cast<size_t>(t) * B + b)
-                            : 0.0f;
-      c[r] = blend(m, c_new, c[r]);
-      h[r] = blend(m, h_new, h[r]);
-      if (b < B) yt[static_cast<size_t>(b) * H + j] = __fmul_rn(m, h_new);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int b = b0 + r;
-    if (b < B) {
-      d.h_t[static_cast<size_t>(b) * H + j] = h[r];
-      d.c_t[static_cast<size_t>(b) * H + j] = c[r];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kMaxHidden)
-lstm_scan_masked_int8_kernel(Dir d0, Dir d1, const float* __restrict__ mask,
-                             int T, int B, int H) {
-  scan_masked_int8(blockIdx.y == 0 ? d0 : d1, mask, T, B, H);
-}
-
-int launch_masked(const Dir& d0, const Dir& d1, const float* mask, int n_dir,
-                  int T, int B, int H, void* stream) {
-  const dim3 grid((B + kRows - 1) / kRows, n_dir);
-  lstm_scan_masked_int8_kernel<<<grid, H, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      d0, d1, mask, T, B, H);
-  return static_cast<int>(cudaGetLastError());
+template <int MT>
+cudaError_t masked_max_clusters(int H, int R, int* out) {
+  return max_clusters(lstm_scan_masked_int8_kernel<MT>,
+                      cluster_smem_bytes(H, R), H, out);
 }
 
 }  // namespace
@@ -578,28 +488,45 @@ int lstm_scan_int8_max_clusters(int H, int rows, int* out) {
 #undef MAXC
 }
 
-// As above, with w_hh the int32 words of pack_w_hh and mask [T, B].
-int lstm_scan_masked_int8(const float* x_proj, const int* w_hh,
+// The masked entries: as above, with mask [T, B] float32 (the masked
+// instantiation's `rows`: `scan_geometry(..., masked=True, int8=True)`).
+int lstm_scan_masked_int8(const float* x_proj, const int8_t* w_hh,
                           const float* w_scale, const float* h0,
                           const float* c0, const float* mask,
                           float* ys, float* h_t, float* c_t,
-                          int T, int B, int H, void* stream) {
-  const Dir d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
-  return launch_masked(d, d, mask, 1, T, B, H, stream);
+                          int T, int B, int H, int rows, void* stream) {
+  const ClusterDir d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
+#define SCAN(MT)                                              \
+  masked_rows<MT>(d, d, mask, 1, T, B, H, rows,               \
+                  static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
 }
 
 int bilstm_scan_masked_int8(const float* x_proj_f, const float* x_proj_b,
-                            const int* w_hh_f, const int* w_hh_b,
+                            const int8_t* w_hh_f, const int8_t* w_hh_b,
                             const float* w_scale_f, const float* w_scale_b,
                             const float* h0_f, const float* c0_f,
                             const float* h0_b, const float* c0_b,
                             const float* mask,
                             float* ys_f, float* ys_b,
                             float* h_f, float* c_f, float* h_b, float* c_b,
-                            int T, int B, int H, void* stream) {
-  const Dir f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f, ys_f, h_f, c_f};
-  const Dir b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b, ys_b, h_b, c_b};
-  return launch_masked(f, b, mask, 2, T, B, H, stream);
+                            int T, int B, int H, int rows, void* stream) {
+  const ClusterDir f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const ClusterDir b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b, ys_b, h_b, c_b};
+#define SCAN(MT)                                              \
+  masked_rows<MT>(f, b, mask, 2, T, B, H, rows,               \
+                  static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+// The clusters of the masked int8 scan at (H, rows) that the current
+// device holds at once, into *out.
+int lstm_scan_masked_int8_max_clusters(int H, int rows, int* out) {
+#define MAXC(MT) masked_max_clusters<MT>(H, rows, out)
+  LSTM_SCAN_INT8_ROWS(rows, MAXC)
+#undef MAXC
 }
 
 const char* lstm_scan_error_string(int code) {

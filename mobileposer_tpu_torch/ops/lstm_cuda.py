@@ -26,17 +26,16 @@ int32 products; `ops/quant.py`):
 
 The four float scans run as thread-block clusters of H / 32 CTAs that
 hold w_hh in shared memory for all T steps, the masked ones as the masked
-variant of the full-length body. The two full-length int8 scans run as
-clusters of the same shape whose warps hold their int8 w_hh columns in
-registers and multiply on the int8 tensor cores (`mma.sync`); the masked
-int8 scans are still one block per batch tile. `scan_geometry` picks the
-batch rows per cluster from the clusters the card holds at once.
+variant of the full-length body. The four int8 scans run as clusters of
+the same shape whose warps hold their int8 w_hh columns in registers and
+multiply on the int8 tensor cores (`mma.sync`), the masked ones again as
+the masked variant. `scan_geometry` picks the batch rows per cluster from
+the clusters the card holds at once.
 
 Each wrapper checks device, dtypes (float32; int8 w_hh and float32
 scales for the int8 entries), shapes and contiguity and raises on
-anything else; it never copies an input to make it fit (the masked int8
-wrappers repack w_hh into their kernel's k-packed words,
-`ops.quant.pack_w_hh`; the full-length ones pass it as it is). On
+anything else; it never copies an input to make it fit (the int8
+wrappers pass the module's int8 w_hh as it is). On
 a CPU tensor it runs the plain PyTorch version beside it (`*_plain`, a
 Python loop of `torch.matmul`, or `int8_recurrent_gates`, plus
 `_gate_update`); on a CUDA tensor it launches the kernel or raises: an
@@ -64,8 +63,7 @@ import torch
 from mobileposer_tpu_torch.nn.lstm import (_lstm_scan, _reverse_by_length,
                                            length_mask)
 from mobileposer_tpu_torch.ops import _build
-from mobileposer_tpu_torch.ops.quant import (int8_matmul, is_quantized,
-                                            pack_w_hh)
+from mobileposer_tpu_torch.ops.quant import int8_matmul, is_quantized
 
 #: launches per kernel since the last `reset_launches()`
 launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
@@ -74,7 +72,7 @@ launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
             "lstm_scan_masked_int8": 0, "bilstm_scan_masked_int8": 0}
 
 #: {source: {entry: number of pointer arguments}}; every entry then takes
-#: T, B, H (and rows, for `_ROWS_ENTRIES`) and the stream
+#: T, B, H, the batch rows per cluster and the stream
 _ENTRIES = {
     "lstm_scan.cu": {"lstm_scan_f32": 7, "bilstm_scan_f32": 14,
                      "lstm_scan_masked_f32": 8, "bilstm_scan_masked_f32": 15},
@@ -86,12 +84,9 @@ _ENTRIES = {
 _MAX_CLUSTERS_ENTRIES = {
     "lstm_scan.cu": ("lstm_scan_max_clusters",
                      "lstm_scan_masked_max_clusters"),
-    "lstm_scan_int8.cu": ("lstm_scan_int8_max_clusters",),
+    "lstm_scan_int8.cu": ("lstm_scan_int8_max_clusters",
+                          "lstm_scan_masked_int8_max_clusters"),
 }
-#: the cluster scans, which also take the batch rows per cluster
-_ROWS_ENTRIES = ("lstm_scan_f32", "bilstm_scan_f32", "lstm_scan_masked_f32",
-                 "bilstm_scan_masked_f32", "lstm_scan_int8",
-                 "bilstm_scan_int8")
 
 # the cluster scans' geometry (csrc/cluster_scan.cuh, csrc/lstm_scan.cu):
 # hidden units per CTA, gate columns per CTA, the most batch rows per
@@ -123,10 +118,11 @@ class ScanGeometry(NamedTuple):
     m_tiles: int | None = None   # int8: ceil(rows / 16) (the kernel's MT)
 
 
-def scan_smem(H: int, rows: int) -> int:
-    """Shared memory per CTA as `lstm_scan.cu` lays it out: the w_hh slice
-    [H, 128], h double-buffered [2, rows, H], the gates [rows, 128]."""
-    return 4 * (H * _COLS + 2 * rows * H + rows * _COLS)
+def scan_smem(H: int, rows: int, h_buffers: int = 2) -> int:
+    """Shared memory per CTA as the float cluster body (`scan_body.cuh`)
+    lays it out: the w_hh slice [H, 128], h [h_buffers, rows, H] (double
+    buffered in `lstm_scan.cu`), the gates [rows, 128]."""
+    return 4 * (H * _COLS + h_buffers * rows * H + rows * _COLS)
 
 
 def int8_scan_smem(H: int, rows: int) -> int:
@@ -164,14 +160,11 @@ def _scan_geometry(n_dir: int, B: int, H: int,
 def max_active_clusters(H: int, rows: int, device_index: int,
                         masked: bool = False, int8: bool = False) -> int:
     """Clusters of the full-length (or, with `masked`, the masked) float
-    scan, or with `int8` the full-length int8 scan, at (H, rows) that the
-    card holds at once (`cudaOccupancyMaxActiveClusters`)."""
-    if masked and int8:
-        raise ValueError("the masked int8 scans are not cluster kernels")
+    scan, or with `int8` of the int8 one, at (H, rows) that the card holds
+    at once (`cudaOccupancyMaxActiveClusters`)."""
     lib = _lib("lstm_scan_int8.cu" if int8 else "lstm_scan.cu")
-    name = ("lstm_scan_int8_max_clusters" if int8
-            else "lstm_scan_masked_max_clusters" if masked
-            else "lstm_scan_max_clusters")
+    name = (f"lstm_scan{'_masked' if masked else ''}"
+            f"{'_int8' if int8 else ''}_max_clusters")
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = getattr(lib, name)(H, rows, ctypes.byref(out))
@@ -193,8 +186,8 @@ def _scan_geometry_on(n_dir: int, B: int, H: int, device_index: int,
 def scan_geometry(n_dir: int, B: int, H: int, device: torch.device,
                   masked: bool = False, int8: bool = False) -> ScanGeometry:
     """`_scan_geometry` on the card that holds `device`, for the
-    full-length float scans, the masked ones (`masked`) or the
-    full-length int8 ones (`int8`)."""
+    full-length float scans, the masked ones (`masked`), the int8 ones
+    (`int8`) or the masked int8 ones (both)."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
     return _scan_geometry_on(n_dir, B, H, index, masked, int8)
@@ -212,8 +205,7 @@ def _lib(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     P, I = ctypes.c_void_p, ctypes.c_int
     for name, n_ptr in _ENTRIES[source].items():
-        n_int = 4 if name in _ROWS_ENTRIES else 3
-        getattr(lib, name).argtypes = [P] * n_ptr + [I] * n_int + [P]
+        getattr(lib, name).argtypes = [P] * n_ptr + [I] * 4 + [P]
         getattr(lib, name).restype = I
     for name in _MAX_CLUSTERS_ENTRIES[source]:
         getattr(lib, name).argtypes = [I, I, ctypes.POINTER(I)]
@@ -290,14 +282,12 @@ def _check_bi(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b,
 def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
     """Allocate the outputs, launch C entry `name` on the current stream
     and count the launch. The entry takes the input pointers, then ys per
-    direction, then (h_T, c_T) per direction, then T, B, H (then the rows
-    per cluster of `scan_geometry`, for `_ROWS_ENTRIES`) and the stream.
-    Returns ([ys per direction], [h_T, c_T per direction])."""
+    direction, then (h_T, c_T) per direction, then T, B, H, the rows per
+    cluster of `scan_geometry` and the stream. Returns ([ys per
+    direction], [h_T, c_T per direction])."""
     dev = inputs[0].device
-    ints = (T, B, H)
-    if name in _ROWS_ENTRIES:
-        ints += (scan_geometry(n_dir, B, H, dev, "masked" in name,
-                               "int8" in name).rows,)
+    ints = (T, B, H, scan_geometry(n_dir, B, H, dev, "masked" in name,
+                                   "int8" in name).rows)
     ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
           for _ in range(n_dir)]
     hc = [torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -495,8 +485,8 @@ def lstm_layer_masked_int8(x_proj: torch.Tensor, w_hh: torch.Tensor,
         return lstm_layer_masked_int8_plain(x_proj, w_hh, w_scale, h0, c0,
                                             mask)
     (ys,), (h_t, c_t) = _launch(
-        "lstm_scan_masked_int8",
-        [x_proj, pack_w_hh(w_hh), w_scale, h0, c0, mask], 1, T, B, H)
+        "lstm_scan_masked_int8", [x_proj, w_hh, w_scale, h0, c0, mask], 1,
+        T, B, H)
     return ys, (h_t, c_t)
 
 
@@ -527,9 +517,7 @@ def bilstm_layer_masked_int8(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
     if x_proj_f.device.type == "cpu":
         return bilstm_layer_masked_int8_plain(*args, mask)
     (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
-        "bilstm_scan_masked_int8",
-        [x_proj_f, x_proj_b, pack_w_hh(w_hh_f), pack_w_hh(w_hh_b), w_scale_f,
-         w_scale_b, h0f, c0f, h0b, c0b, mask], 2, T, B, H)
+        "bilstm_scan_masked_int8", [*args, mask], 2, T, B, H)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 

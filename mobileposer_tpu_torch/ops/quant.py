@@ -167,12 +167,3 @@ def int8_recurrent_gates(h: torch.Tensor, w_q: torch.Tensor,
     of the int8 kernels' recurrent step."""
     h_q, h_scale = dynamic_quantize(h)
     return _int8_dot(h_q, w_q) * (h_scale * w_scale.reshape(1, -1))
-
-
-def pack_w_hh(w_hh: torch.Tensor) -> torch.Tensor:
-    """int8 w_hh [H, 4H] -> the masked int8 kernels' layout: int32 words
-    [H/4, 4H], word (k4, col) holding w_hh[4*k4 .. 4*k4+3, col] in its
-    bytes 0..3 (little-endian), so one 32-bit load feeds one `__dp4a`."""
-    H, H4 = w_hh.shape
-    return (w_hh.reshape(H // 4, 4, H4).transpose(1, 2).contiguous()
-            .view(torch.int32).reshape(H // 4, H4))

@@ -8,12 +8,10 @@
 // launch runs its clusters one after another, and atomicMax is a
 // compare-and-swap loop. The lanes of a warp exchange values through
 // per-warp slots and a per-warp barrier (emu_warp_share), on which
-// __shfl_xor_sync, __reduce_max_sync and int8_mma.cuh's product are
-// built. A static `__shared__` array becomes a function-static one: a
-// plain launch runs its blocks one after another, so it is one block's
-// shared memory. The test rewrites `extern __shared__ float4 smem[];`
-// into `float4* smem = emu_smem();` and a `<<<grid, threads, smem,
-// stream>>>` launch into `emu_launch(grid, threads, smem, kernel, ...)`.
+// __reduce_max_sync and int8_mma.cuh's product are built. The test
+// rewrites `extern __shared__ float4 smem[];` into `float4* smem =
+// emu_smem();` and a `<<<grid, threads, smem, stream>>>` launch into
+// `emu_launch(grid, threads, smem, kernel, ...)`.
 // cp_async.cuh and int8_mma.cuh beside this file stand in for the ones
 // in ops/csrc/.
 #pragma once
@@ -37,7 +35,6 @@ inline thread_local dim3 threadIdx, blockIdx;
 #define __global__
 #define __device__
 #define __host__
-#define __shared__ static
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __grid_constant__
@@ -53,12 +50,6 @@ inline int __float2int_rn(float x) { return static_cast<int>(std::nearbyint(x));
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
 inline unsigned __float_as_uint(float x) { unsigned u; std::memcpy(&u, &x, 4); return u; }
 inline float __uint_as_float(unsigned u) { float x; std::memcpy(&x, &u, 4); return x; }
-// the four signed bytes of a times those of b, plus c
-inline int __dp4a(int a, int b, int c) {
-  for (int i = 0; i < 4; ++i)
-    c += static_cast<int8_t>(a >> (8 * i)) * static_cast<int8_t>(b >> (8 * i));
-  return c;
-}
 template <class T> T min(T a, T b) { return a < b ? a : b; }
 template <class T> T max(T a, T b) { return a < b ? b : a; }
 inline int atomicMax(int* p, int v) {
@@ -126,10 +117,6 @@ inline const uint32_t (*emu_warp_share(const uint32_t* v, int n))[8] {
   std::memcpy(buf[threadIdx.x % 32], v, 4 * n);
   w.bar.arrive_and_wait();
   return buf;
-}
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
-  const uint32_t mine = __float_as_uint(v);
-  return __uint_as_float(emu_warp_share(&mine, 1)[(threadIdx.x % 32) ^ lane_mask][0]);
 }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   const uint32_t (*all)[8] = emu_warp_share(&v, 1);

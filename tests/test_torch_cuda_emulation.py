@@ -1,6 +1,7 @@
 """The cluster kernels' CUDA sources (`ops/csrc/lstm_train.cu`, the
 training scans and the dW reduction; `ops/csrc/lstm_scan.cu`, the
-full-length and masked layer scans) built with g++ against a CPU stand-in
+full-length and masked layer scans; `ops/csrc/multicell_scan.cu`, the
+multicell scan on the same body) built with g++ against a CPU stand-in
 for the CUDA runtime (`tests/cuda_emu/`) and run on the CPU: every CUDA
 thread an OS thread, the block and cluster barriers real barriers,
 distributed shared memory mapped between the blocks' buffers, cp.async a
@@ -9,19 +10,21 @@ exchange and their barriers (not the card's memory model, nor what nvcc
 accepts) against the plain versions, at small shapes that cover every
 rows-per-cluster template, partial batch tiles, clusters of one to eight
 CTAs and, for training and the masked scans, a ragged mask with an empty
-and a full row. `ops/csrc/multicell_scan.cu` is built the same way, to
-hold the layer scans to it bit for bit.
+and a full row. The multicell scan is held to the layer scans bit for
+bit, in both of its h layouts.
 
 The stand-in does not contract a*b + c into FMAs as nvcc does, so values
 differ from the plain versions by float32 rounding over a few steps: 1e-5
 (the chip check's TRAIN_TOL and KERNEL_TOL).
 """
 
+import contextlib
 import ctypes
 import math
 import re
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 import numpy as np
@@ -29,7 +32,7 @@ import pytest
 import torch
 
 from mobileposer_tpu_torch.models.fused import _ROW_H
-from mobileposer_tpu_torch.ops import _build, lstm_cuda
+from mobileposer_tpu_torch.ops import _build, lstm_cuda, multicell_cuda
 from mobileposer_tpu_torch.ops import lstm_train_cuda as train_cuda
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
@@ -44,10 +47,19 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
+def _emu_source(src: str) -> str:
+    """A source's dynamic shared memory and `<<<...>>>` launches rewritten
+    for the stand-in."""
+    src = src.replace("extern __shared__ float4 smem[];",
+                      "float4* smem = emu_smem();")
+    return re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\(",
+                  r"emu_launch(\2, \3, \4, \1, ", src, flags=re.S)
+
+
 def _emu_build(tmp_path_factory, source: str, edits=()) -> ctypes.CDLL:
-    """`csrc/<source>` built for the CPU stand-in: its dynamic shared
-    memory and its `<<<...>>>` launches rewritten for the stand-in, then
-    each (old, new) of `edits` applied."""
+    """`csrc/<source>` built for the CPU stand-in: it and the shared
+    headers the stand-in has no copy of rewritten (`_emu_source`), after
+    each (old, new) of `edits` is applied to the source."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the CPU stand-in")
@@ -55,13 +67,12 @@ def _emu_build(tmp_path_factory, source: str, edits=()) -> ctypes.CDLL:
     for old, new in edits:
         assert old in src, old
         src = src.replace(old, new)
-    src = src.replace("extern __shared__ float4 smem[];",
-                      "float4* smem = emu_smem();")
-    src = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\(",
-                 r"emu_launch(\2, \3, \4, \1, ", src, flags=re.S)
     d = tmp_path_factory.mktemp("cuda_emu")
+    for header in _build.CSRC_DIR.glob("*.cuh"):
+        if not (EMU_DIR / header.name).exists():
+            (d / header.name).write_text(_emu_source(header.read_text()))
     stem = Path(source).stem
-    (d / f"{stem}_emu.cpp").write_text(src)
+    (d / f"{stem}_emu.cpp").write_text(_emu_source(src))
     out = d / f"lib{stem}_emu.so"
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
@@ -170,23 +181,15 @@ def scan_lib(tmp_path_factory):
     return lib
 
 
-# nvcc contracts multicell_scan.cu's `f * c[r] + i * g` into
-# fmaf(i, g, f * c[r]) on the H100 (the layer scans, which write that form
-# out, match it bit for bit there: chip_smoke.py phase 3e); g++ with
-# -ffp-contract=off would not fuse it at all, so the stand-in builds it
-# with the card's rounding written out
-MULTICELL_CARD_ROUNDING = ("c[r] = f * c[r] + i * g;",
-                           "c[r] = fmaf(i, g, __fmul_rn(f, c[r]));")
-
-
 @pytest.fixture(scope="module")
 def multicell_lib(tmp_path_factory):
-    """multicell_scan.cu built for the CPU stand-in, with the card's
-    rounding of its cell update."""
-    lib = _emu_build(tmp_path_factory, "multicell_scan.cu",
-                     [MULTICELL_CARD_ROUNDING])
+    """multicell_scan.cu built for the CPU stand-in, its entries
+    declared."""
+    lib = _emu_build(tmp_path_factory, "multicell_scan.cu")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.multicell_scan_f32.argtypes = [P] * 8 + [I] * 3 + [P]
+    lib.multicell_scan_f32.argtypes = [P] * 8 + [I] * 5 + [P]
+    lib.multicell_scan_max_clusters.argtypes = [P, I, I, I,
+                                                ctypes.POINTER(I)]
     return lib
 
 
@@ -244,18 +247,12 @@ def test_layer_scans_match_plain_versions(scan_lib, n_dir, T, B, H, rows):
                                        err_msg=f"{d} {name}")
 
 
-# a card holding 15 clusters gives B = 5 one row per cluster (one column
-# per lane); one holding 2 gives 3 and 5 rows (four columns per lane)
-@pytest.mark.parametrize("max_clusters", [15, 2])
-def test_layer_scans_equal_multicell_bit_for_bit(scan_lib, multicell_lib,
-                                                 max_clusters):
-    """The multicell kernel and the per-module layer scans sum each gate in
-    one order (x_proj, then k ascending) and round the cell update alike,
-    so on the trio's five cells they give the same bits:
-    `forward(backend='fused')` equals 'auto'."""
-    T, B, hs = 3, 5, _ROW_H
-    rng = np.random.RandomState(9)
-    cells = [_scan_inputs(rng, T, B, H, 1)[0] for H in hs]
+def _emu_multicell(lib, cells, rows, h_buffers=2):
+    """One multicell scan on the stand-in over `cells` (per cell x_proj,
+    w_hh, h0, c0) at `rows` rows a group in the h layout `h_buffers`;
+    returns [ys, h_T, c_T] per cell."""
+    T, B, _ = cells[0][0].shape
+    hs = [c[1].shape[0] for c in cells]
     x = torch.cat([c[0] for c in cells], dim=-1).contiguous()
     outs = [[torch.full((T, B, H), float("nan")) for H in hs],
             [torch.full((B, H), float("nan")) for H in hs],
@@ -264,23 +261,178 @@ def test_layer_scans_equal_multicell_bit_for_bit(scan_lib, multicell_lib,
     def ptrs(ts):
         return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
-    hidden = (ctypes.c_int * len(hs))(*hs)
-    assert multicell_lib.multicell_scan_f32(
-        x.data_ptr(), ptrs([c[1] for c in cells]), ptrs([c[2] for c in cells]),
-        ptrs([c[3] for c in cells]), *(ptrs(o) for o in outs), hidden,
-        len(hs), T, B, None) == 0
-    # the per-module launches of the trio: poser bi (H = 256), footcontact
-    # bi (H = 64), velocity uni (H = 256), each at the rows it would take
+    assert lib.multicell_scan_f32(
+        x.data_ptr(), *(ptrs([c[i] for c in cells]) for i in (1, 2, 3)),
+        *(ptrs(o) for o in outs), (ctypes.c_int * len(hs))(*hs), len(hs), T,
+        B, rows, h_buffers, None) == 0
+    return [[outs[0][i], outs[1][i], outs[2][i]] for i in range(len(hs))]
+
+
+# the trio's five cells (clusters of 8: one group at H = 256, four of 2
+# CTAs at H = 64, the last ones past B) at one row a group (one column a
+# lane in four row groups), three and twenty (four columns in sixteen row
+# groups, one and two rows a lane); two H = 64 cells alone (clusters of
+# 2); H = 96 beside 256 (two groups of 3 CTAs and two spare CTAs a
+# cluster); each in both h layouts (double- and single-buffered)
+@pytest.mark.parametrize("h_buffers", [2, 1])
+@pytest.mark.parametrize("hs,B,rows", [
+    (_ROW_H, 3, 1), (_ROW_H, 5, 3), (_ROW_H, 21, 20), ((64, 64), 7, 2),
+    ((96, 256), 6, 2)])
+def test_layer_scans_equal_multicell_bit_for_bit(scan_lib, multicell_lib,
+                                                 hs, B, rows, h_buffers):
+    """The multicell kernel runs the layer scans' body: each gate summed in
+    one order (x_proj, then k ascending) and the cell update rounded
+    alike, so each cell gives the same bits as the per-module launch at
+    its own rows (the trio: poser bi at H = 256, footcontact bi at H = 64,
+    velocity uni at H = 256; `forward(backend='fused')` equals 'auto')."""
+    T = 2
+    rng = np.random.RandomState(9 + B + rows)
+    cells = [_scan_inputs(rng, T, B, H, 1)[0] for H in hs]
+    got = _emu_multicell(multicell_lib, cells, rows, h_buffers)
+    pairs = ((0, 1), (2, 3), (4,)) if hs == _ROW_H else [(i,) for i in
+                                                         range(len(hs))]
     per_module = []
-    for pair in ((0, 1), (2, 3), (4,)):
+    for pair in pairs:
         dirs = [cells[i] for i in pair]
         geo = lstm_cuda._scan_geometry(len(dirs), B, dirs[0][1].shape[0],
-                                       lambda rows: max_clusters)
+                                       lambda r: 15)
         per_module += _emu_scan(scan_lib, dirs, geo.rows)
-    for i, got in enumerate(per_module):
-        for name, a, b in zip(("ys", "h_T", "c_T"), got,
-                              (outs[0][i], outs[1][i], outs[2][i])):
-            assert torch.equal(a, b), f"cell {i} {name}"
+    for i, (g, w) in enumerate(zip(got, per_module)):
+        for name, a, b in zip(("ys", "h_T", "c_T"), g, w):
+            assert torch.equal(a, b), f"cell {i} (H = {hs[i]}) {name}"
+
+
+def test_multicell_matches_plain_version(multicell_lib):
+    """The multicell kernel against `multicell_lstm_plain` on the trio's
+    cells, a partial batch tile in every cell."""
+    T, B, hs = 4, 19, _ROW_H
+    rng = np.random.RandomState(12)
+    cells = [_scan_inputs(rng, T, B, H, 1)[0] for H in hs]
+    got = _emu_multicell(multicell_lib, cells, 17)
+    x = torch.cat([c[0] for c in cells], dim=-1)
+    want = multicell_cuda.multicell_lstm_plain(
+        x, [c[1] for c in cells], [c[2] for c in cells],
+        [c[3] for c in cells], hs)
+    for i, g in enumerate(got):
+        for name, a, b in zip(("ys", "h_T", "c_T"), g,
+                              (want[0][i], want[1][i], want[2][i])):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL,
+                                       err_msg=f"cell {i} {name}")
+
+
+def test_multicell_rows_outside_templates_are_refused(multicell_lib):
+    """rows outside [1, 64] (double-buffered [1, 48]), h layouts other than
+    2 and 1 and hidden sizes the kernel does not take return an error and
+    launch nothing; the occupancy query takes the same and is the stand-in
+    card's for clusters of the widest cell."""
+    hidden = (ctypes.c_int * 5)(*_ROW_H)
+    for rows, h_buffers in ((0, 2), (-1, 1), (49, 2), (65, 1), (100, 1),
+                            (4, 0), (4, 3)):
+        assert multicell_lib.multicell_scan_f32(
+            *([None] * 7), hidden, 5, 2, 2, rows, h_buffers, None) != 0
+        out = ctypes.c_int(-1)
+        assert multicell_lib.multicell_scan_max_clusters(
+            hidden, 5, rows, h_buffers, ctypes.byref(out)) != 0
+    bad = (ctypes.c_int * 2)(64, 48)
+    assert multicell_lib.multicell_scan_f32(*([None] * 7), bad, 2, 2, 2, 4,
+                                            2, None) != 0
+    for h_buffers in (2, 1):
+        out = ctypes.c_int(0)
+        assert multicell_lib.multicell_scan_max_clusters(
+            hidden, 5, 2, h_buffers, ctypes.byref(out)) == 0
+        assert out.value == 132 // 8   # the stand-in's card
+
+
+@pytest.mark.parametrize("B,hs,max_clusters,force,h_buffers,rows,clusters", [
+    # the fused path on a card that holds 15 clusters of 8: double
+    # buffered R <= 39 at H = 256, so B = 256 would take 3 x 7 + 2 x 2 = 25
+    # clusters (two waves); single-buffered R = 64 fits one wave of
+    # 3 x 4 + 2 x 1, and is taken; B = 8 one wave of 3 x 4 + 2 x 1 at R = 2
+    # double-buffered; either layout forced
+    (256, _ROW_H, 15, None, 1, 64, 14), (256, _ROW_H, 15, 2, 2, 39, 25),
+    (256, _ROW_H, 15, 1, 1, 64, 14), (8, _ROW_H, 15, None, 2, 2, 14),
+    (8, _ROW_H, 15, 1, 1, 2, 14),
+    # more than one wave holds either way: single-buffered at 64 rows
+    (4096, _ROW_H, 15, None, 1, 64, 224),
+    # two H = 64 cells, clusters of 2 (66 of them): 2 x 32 at R = 8;
+    # at B = 2048 double-buffered would need 63 rows, over its 48: single
+    (256, (64, 64), 66, None, 2, 8, 64),
+    (2048, (64, 64), 66, None, 1, 63, 66),
+    # H = 96 beside 256: two groups a cluster at H = 96, 5 + 10 at R = 4
+    (37, (96, 256), 15, None, 2, 4, 15)])
+def test_multicell_geometry(B, hs, max_clusters, force, h_buffers, rows,
+                            clusters):
+    geo = multicell_cuda._multicell_geometry(
+        B, hs, lambda r, h: max_clusters, force)
+    assert (geo.rows, geo.clusters, geo.h_buffers) == (rows, clusters,
+                                                       h_buffers)
+    assert geo.cluster == max(hs) // 32
+    assert geo.groups == tuple(geo.cluster // (H // 32) for H in hs)
+    assert geo.row_groups == (4 if rows <= 2 else 16)
+    assert geo.lane_rows == math.ceil(rows / geo.row_groups) <= 4
+    assert geo.lane_cols == (1 if rows <= 2 else 4)
+    assert geo.smem == max(lstm_cuda.scan_smem(H, rows, h_buffers)
+                           for H in hs) <= lstm_cuda._SMEM_LIMIT
+
+
+def test_multicell_geometry_reads_residency_at_each_rows():
+    """Residency is taken at each rows' own shared memory in each layout,
+    and the rows stop where the widest cell's shared memory stops
+    fitting: double-buffered up to 39 rows, then single-buffered up to
+    64."""
+    seen = []
+
+    def max_clusters(rows, h_buffers):
+        seen.append((rows, h_buffers))
+        return 10
+
+    geo = multicell_cuda._multicell_geometry(256, _ROW_H, max_clusters)
+    assert seen == ([(r, 2) for r in range(1, 40)]
+                    + [(r, 1) for r in range(1, 65)])
+    assert (geo.rows, geo.h_buffers) == (64, 1)
+    assert multicell_cuda.multicell_smem(_ROW_H, 40, 2) > lstm_cuda._SMEM_LIMIT
+    assert multicell_cuda.multicell_smem(_ROW_H, 64, 1) <= \
+        lstm_cuda._SMEM_LIMIT
+
+
+def test_multicell_wrapper_launches_with_the_geometry_rows(monkeypatch):
+    """On a tensor that reports a CUDA device the wrapper launches the
+    kernel with the rows and h layout of `multicell_geometry` after
+    (n, T, B), and counts the launch."""
+    import contextlib
+    import types
+
+    seen = []
+
+    class OnCard(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    def entry(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(multicell_cuda, "_lib", lambda: types.SimpleNamespace(
+        multicell_scan_f32=entry))
+    monkeypatch.setattr(multicell_cuda, "multicell_geometry",
+                        lambda B, hs, dev: types.SimpleNamespace(
+                            rows=29, h_buffers=1))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch, "empty", lambda shape, **kw: torch.zeros(
+        shape))
+    monkeypatch.setitem(multicell_cuda.launches, "multicell_scan_f32", 0)
+    hs, T, B = (64, 32), 2, 3
+    x = torch.zeros(T, B, 4 * sum(hs)).as_subclass(OnCard)
+    ws = [torch.zeros(H, 4 * H).as_subclass(OnCard) for H in hs]
+    st = [torch.zeros(B, H).as_subclass(OnCard) for H in hs]
+    multicell_cuda.multicell_lstm(x, ws, st, st, hs)
+    (args,) = seen
+    assert args[0] == x.data_ptr() and args[-6:] == (2, T, B, 29, 1, 7)
+    assert multicell_cuda.launches["multicell_scan_f32"] == 1
 
 
 def test_layer_scan_rows_outside_templates_are_refused(scan_lib):

@@ -5,15 +5,17 @@ emulated lane by lane) and run on the CPU.
 
 The full-length entries (#4 `lstm_scan_int8`, #6 `bilstm_scan_int8`: a
 thread-block cluster of H / 32 CTAs, w_hh in registers, the products on
-the tensor cores) compute the same exact int32 sums with the same
-roundings as the masked entries (#5, one block per batch tile, `__dp4a`):
-under an all-ones mask the two give the same bits. They are checked so
-at every M-tile count (1 to 4), clusters of one to eight CTAs, B = 1,
-partial batch tiles, nonzero h0 and a zero h0 row; and against the plain
-versions. Also here: the int8 rows-per-cluster choice, the wrappers'
-arguments (int8 w_hh as it is, with the int8 geometry's rows, for the
-full-length entries; packed words for the masked ones), and the profiler
-groups of both kernels' names.
+the tensor cores) and the masked ones (#5 `lstm_scan_masked_int8`,
+`bilstm_scan_masked_int8`: the masked variant of the same body) compute
+the same exact int32 sums with the same roundings: under an all-ones mask
+the two give the same bits. They are checked so at every M-tile count
+(1 to 4), clusters of one to eight CTAs, B = 1, partial batch tiles,
+nonzero h0 and a zero h0 row; and against the plain versions, the masked
+ones under a ragged mask (an empty row, a full row, a batch tile whose
+rows all end early) with exact zeros at masked steps. Also here: the int8
+rows-per-cluster choice and the residency each entry asks, the wrappers'
+arguments (int8 w_hh as it is, with the geometry's rows), and the
+profiler groups of both kernels' names.
 """
 
 import contextlib
@@ -26,8 +28,8 @@ import torch
 
 from mobileposer_tpu_torch import bench
 from mobileposer_tpu_torch.ops import lstm_cuda
-from mobileposer_tpu_torch.ops.quant import pack_w_hh, quantize_weight_int8
-from test_torch_cuda_emulation import _call, _emu_build
+from mobileposer_tpu_torch.ops.quant import quantize_weight_int8
+from test_torch_cuda_emulation import _call, _emu_build, _ragged_mask
 
 # One step from h0: both sides quantize the same h0, so the recurrent term
 # is the same exact product dequantized in the same order; only glibc's
@@ -56,9 +58,11 @@ def int8_lib(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.lstm_scan_int8.argtypes = [P] * 8 + [I] * 4 + [P]
     lib.bilstm_scan_int8.argtypes = [P] * 16 + [I] * 4 + [P]
-    lib.lstm_scan_masked_int8.argtypes = [P] * 9 + [I] * 3 + [P]
-    lib.bilstm_scan_masked_int8.argtypes = [P] * 17 + [I] * 3 + [P]
+    lib.lstm_scan_masked_int8.argtypes = [P] * 9 + [I] * 4 + [P]
+    lib.bilstm_scan_masked_int8.argtypes = [P] * 17 + [I] * 4 + [P]
     lib.lstm_scan_int8_max_clusters.argtypes = [I, I, ctypes.POINTER(I)]
+    lib.lstm_scan_masked_int8_max_clusters.argtypes = [
+        I, I, ctypes.POINTER(I)]
     return lib
 
 
@@ -84,20 +88,21 @@ def _inputs(rng, T, B, H, n_dir, zero_row=None):
     return dirs
 
 
-def _emu_scan(lib, dirs, rows=None, mask=None):
-    """One int8 scan on the stand-in: the full-length entry at `rows` rows
-    per cluster, or with `mask` the masked entry (w_hh packed); both
-    directions in one launch when `dirs` holds two. Returns [ys, h_T, c_T]
-    per direction."""
+def _emu_scan(lib, dirs, rows, mask=None):
+    """One int8 scan on the stand-in at `rows` rows per cluster: the
+    full-length entry, or with `mask` the masked one; both directions in
+    one launch when `dirs` holds two. Returns [ys, h_T, c_T] per
+    direction."""
     T, B, H4 = dirs[0][0].shape
     H = H4 // 4
     ys = [torch.full((T, B, H), float("nan")) for _ in dirs]
     hc = [torch.full((B, H), float("nan")) for _ in range(2 * len(dirs))]
     xs = [d[0][:T].contiguous() for d in dirs]
-    ws = [d[1] if mask is None else pack_w_hh(d[1]) for d in dirs]
+    ws = [d[1] for d in dirs]
     scales = [d[2] for d in dirs]
     state = [v for d in dirs for v in d[3:]]
-    m, ints = ((), (T, B, H, rows)) if mask is None else ((mask,), (T, B, H))
+    m = () if mask is None else (mask,)
+    ints = (T, B, H, rows)
     kind = "int8" if mask is None else "masked_int8"
     if len(dirs) == 1:
         _call(getattr(lib, f"lstm_scan_{kind}"), xs[0], ws[0], scales[0],
@@ -127,13 +132,13 @@ def _plain(dirs):
     (2, 2, 37, 256, 37, 36)])
 def test_full_length_equals_masked_under_all_ones(int8_lib, n_dir, T, B, H,
                                                   rows, zero_row):
-    """The cluster entries against the one-block masked body under an
-    all-ones mask: the same exact int32 sums, the same roundings, the same
-    bits."""
+    """The full-length entries against the masked variant of their body
+    under an all-ones mask: the same exact int32 sums, the same roundings,
+    the same bits."""
     rng = np.random.RandomState(n_dir + T + B + H + rows)
     dirs = _inputs(rng, T, B, H, n_dir, zero_row)
-    full = _emu_scan(int8_lib, dirs, rows=rows)
-    masked = _emu_scan(int8_lib, dirs, mask=torch.ones(T, B))
+    full = _emu_scan(int8_lib, dirs, rows)
+    masked = _emu_scan(int8_lib, dirs, rows, mask=torch.ones(T, B))
     for d, f, m in zip(("fwd", "bwd"), full, masked):
         for name, a, b in zip(("ys", "h_T", "c_T"), f, m):
             np.testing.assert_array_equal(a.numpy(), b.numpy(),
@@ -149,28 +154,80 @@ def test_full_length_matches_plain_versions(int8_lib, n_dir, B, H, rows):
     dirs = _inputs(rng, 3, B, H, n_dir, zero_row=0)
     for T, tol in ((1, STEP_TOL), (3, FULL_TOL)):
         cut = [(x[:T].contiguous(), *rest) for x, *rest in dirs]
-        got = _emu_scan(int8_lib, cut, rows=rows)
+        got = _emu_scan(int8_lib, cut, rows)
         for d, g, w in zip(("fwd", "bwd"), got, _plain(cut)):
             for name, a, b in zip(("ys", "h_T", "c_T"), g, w):
                 np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol,
                                            rtol=0, err_msg=f"T={T} {d} {name}")
 
 
+# every M-tile count (rows 1 to 64), clusters of one to eight CTAs, B = 1
+# (an empty row: no step at all), partial batch tiles, a zero h0 row; the
+# ragged mask holds an empty row, a full row, a last batch tile whose rows
+# all end early and one fractional value
+@pytest.mark.parametrize("n_dir,T,B,H,rows,zero_row", [
+    (1, 3, 1, 32, 1, None), (2, 4, 7, 64, 2, 3), (1, 4, 23, 96, 9, None),
+    (2, 3, 37, 128, 17, 20), (1, 3, 50, 160, 33, None),
+    (2, 3, 70, 192, 49, 1), (1, 4, 30, 224, 14, None),
+    (2, 3, 75, 256, 64, 70)])
+def test_masked_matches_plain_versions(int8_lib, n_dir, T, B, H, rows,
+                                       zero_row):
+    """The masked entries against the masked plain version, within
+    FULL_TOL (STEP_TOL for one step's worth of flips is not promised over
+    several steps), with exact zeros at masked steps and the state held
+    through them."""
+    rng = np.random.RandomState(400 + n_dir + T + B + H + rows)
+    dirs = _inputs(rng, T, B, H, n_dir, zero_row)
+    mask, _ = _ragged_mask(rng, T, B, rows)
+    got = _emu_scan(int8_lib, dirs, rows, mask=mask)
+    for d, (x, w, s, h0, c0), g in zip(("fwd", "bwd"), dirs, got):
+        ys, (h_t, c_t) = lstm_cuda.lstm_layer_masked_int8_plain(x, w, s, h0,
+                                                                c0, mask)
+        for name, a, b in zip(("ys", "h_T", "c_T"), g, (ys, h_t, c_t)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=FULL_TOL,
+                                       rtol=0, err_msg=f"{d} {name}")
+        assert bool((g[0][mask == 0] == 0).all()), f"{d}: masked ys not 0"
+
+
+def test_masked_tile_that_ends_early_holds_its_state(int8_lib):
+    """A batch tile whose rows all end at step 1 of 4: its clusters stop
+    there, write zeros from then on and return each row's state at its
+    last valid frame, the same bits as the masked entry over just that
+    frame; a row of length 0 returns h0 and c0 as they are."""
+    T, B, H, rows = 4, 6, 64, 3
+    dirs = _inputs(np.random.RandomState(7), T, B, H, 2)
+    lengths = torch.tensor([4, 2, 3, 1, 1, 0])
+    mask = (torch.arange(T)[:, None] < lengths[None]).float().contiguous()
+    got = _emu_scan(int8_lib, dirs, rows, mask=mask)
+    one = _emu_scan(int8_lib, [(x[:1].contiguous(), *rest)
+                               for x, *rest in dirs],
+                    rows, mask=mask[:1].contiguous())
+    for (ys, h_t, c_t), (ys1, h1, c1), (_, _, _, h0, c0) in zip(got, one,
+                                                                dirs):
+        assert bool((ys[1:, 3:] == 0).all())
+        assert torch.equal(ys[:1, 3:], ys1[:, 3:])
+        assert torch.equal(h_t[3:5], h1[3:5]) and torch.equal(c_t[3:5],
+                                                              c1[3:5])
+        assert torch.equal(h_t[5], h0[5]) and torch.equal(c_t[5], c0[5])
+
+
 def test_rows_outside_templates_are_refused(int8_lib):
     """rows outside [1, 64] return an error and launch nothing; the
     occupancy query takes the same rows."""
     for rows in (0, -1, 65, 100):
-        assert int8_lib.lstm_scan_int8(*([None] * 8), 2, 2, 64, rows,
-                                       None) != 0
-        assert int8_lib.bilstm_scan_int8(*([None] * 16), 2, 2, 64, rows,
-                                         None) != 0
-        out = ctypes.c_int(-1)
-        assert int8_lib.lstm_scan_int8_max_clusters(
-            64, rows, ctypes.byref(out)) != 0
-    out = ctypes.c_int(0)
-    assert int8_lib.lstm_scan_int8_max_clusters(256, 64,
-                                                ctypes.byref(out)) == 0
-    assert out.value == 132 // 8   # the stand-in's card
+        for kind, n_uni, n_bi in (("", 8, 16), ("_masked", 9, 17)):
+            assert getattr(int8_lib, f"lstm_scan{kind}_int8")(
+                *([None] * n_uni), 2, 2, 64, rows, None) != 0
+            assert getattr(int8_lib, f"bilstm_scan{kind}_int8")(
+                *([None] * n_bi), 2, 2, 64, rows, None) != 0
+            out = ctypes.c_int(-1)
+            assert getattr(int8_lib, f"lstm_scan{kind}_int8_max_clusters")(
+                64, rows, ctypes.byref(out)) != 0
+    for kind in ("", "_masked"):
+        out = ctypes.c_int(0)
+        assert getattr(int8_lib, f"lstm_scan{kind}_int8_max_clusters")(
+            256, 64, ctypes.byref(out)) == 0
+        assert out.value == 132 // 8   # the stand-in's card
 
 
 @pytest.mark.parametrize("n_dir,B,H,max_clusters,rows,clusters", [
@@ -238,11 +295,34 @@ def test_int8_scan_geometry_asks_the_int8_kernel(monkeypatch):
         lstm_cuda._scan_geometry_on.cache_clear()
 
 
-def test_masked_int8_scans_have_no_residency_query():
-    """The masked int8 scans are one block per tile: asking for their
-    clusters raises before any library is loaded."""
-    with pytest.raises(ValueError, match="not cluster kernels"):
-        lstm_cuda.max_active_clusters(256, 8, 0, masked=True, int8=True)
+def test_masked_int8_scans_have_no_residency_query(monkeypatch):
+    """The masked int8 geometry asks the masked int8 kernel: at
+    evaluation's shapes on a card that holds 15 clusters of 8 and 66 of 2,
+    bi B = 64 at H = 256 takes 14 clusters of 10 rows (one M-tile), the
+    velocity layer 13 of 5, footcontact (H = 64) 64 of 2, the 1024-frame
+    bucket's B = 37 14 of 6."""
+    asked = []
+
+    def fake(H, rows, device_index, masked=False, int8=False):
+        asked.append((masked, int8))
+        return 66 if H == 64 else 15
+
+    monkeypatch.setattr(lstm_cuda, "max_active_clusters", fake)
+    lstm_cuda._scan_geometry_on.cache_clear()
+    try:
+        dev = torch.device("cuda", 0)
+        for n_dir, B, H, rows, clusters in ((2, 64, 256, 10, 14),
+                                            (1, 64, 256, 5, 13),
+                                            (2, 64, 64, 2, 64),
+                                            (2, 37, 256, 6, 14)):
+            geo = lstm_cuda.scan_geometry(n_dir, B, H, dev, masked=True,
+                                          int8=True)
+            assert (geo.rows, geo.clusters, geo.m_tiles) == (rows, clusters,
+                                                             1)
+            assert geo.smem == lstm_cuda.int8_scan_smem(H, rows)
+        assert set(asked) == {(True, True)}
+    finally:
+        lstm_cuda._scan_geometry_on.cache_clear()
 
 
 class _OnCard(torch.Tensor):
@@ -269,8 +349,8 @@ def recorded(monkeypatch):
 
 
 def test_wrappers_pass_int8_w_hh_as_it_is(recorded):
-    """The full-length int8 routes hand the module's int8 w_hh itself to
-    the kernel; the masked int8 routes still hand it packed."""
+    """Every int8 route, full-length and masked, hands the module's int8
+    w_hh itself to the kernel."""
     T, B, H = 2, 3, 64
     rng = np.random.RandomState(0)
     (x, w, s, h0, c0), (xb, wb, sb, h0b, c0b) = [
@@ -287,19 +367,17 @@ def test_wrappers_pass_int8_w_hh_as_it_is(recorded):
     assert uni_in[1] is w
     assert bi_in[2] is w and bi_in[3] is wb
     assert (muni, mbi) == ("lstm_scan_masked_int8", "bilstm_scan_masked_int8")
-    for packed, raw in ((muni_in[1], w), (mbi_in[2], w), (mbi_in[3], wb)):
-        assert packed.dtype == torch.int32
-        assert torch.equal(packed.as_subclass(torch.Tensor),
-                           pack_w_hh(raw).as_subclass(torch.Tensor))
+    assert muni_in[1] is w
+    assert mbi_in[2] is w and mbi_in[3] is wb
+    assert muni_in[5] is mask and mbi_in[10] is mask
 
 
-@pytest.mark.parametrize("name,n_ptr,want_rows", [
-    ("lstm_scan_int8", 8, True), ("bilstm_scan_int8", 16, True),
-    ("lstm_scan_masked_int8", 9, False)])
-def test_launch_passes_the_int8_geometry_rows(monkeypatch, name, n_ptr,
-                                              want_rows):
-    """`_launch` gives the full-length int8 entries the rows of the int8
-    geometry after (T, B, H), and the masked int8 entries no rows."""
+@pytest.mark.parametrize("name,n_ptr", [
+    ("lstm_scan_int8", 8), ("bilstm_scan_int8", 16),
+    ("lstm_scan_masked_int8", 9), ("bilstm_scan_masked_int8", 17)])
+def test_launch_passes_the_int8_geometry_rows(monkeypatch, name, n_ptr):
+    """`_launch` gives every int8 entry the rows of the int8 geometry after
+    (T, B, H): the full-length one's, or the masked one's."""
     seen, geo_args = [], []
 
     def entry(*args):
@@ -324,8 +402,8 @@ def test_launch_passes_the_int8_geometry_rows(monkeypatch, name, n_ptr,
     lstm_cuda._launch(name, inputs, n_dir, 4, 5, 64)
     (args,) = seen
     assert args[:n_in] == tuple(t.data_ptr() for t in inputs)
-    assert args[n_ptr:] == ((4, 5, 64, 29, 7) if want_rows else (4, 5, 64, 7))
-    assert geo_args == ([(False, True)] if want_rows else [])
+    assert args[n_ptr:] == (4, 5, 64, 29, 7)
+    assert geo_args == [("masked" in name, True)]
     assert lstm_cuda.launches[name] == 1
 
 
@@ -335,11 +413,12 @@ def test_launch_passes_the_int8_geometry_rows(monkeypatch, name, n_ptr,
      "int, int)", "lstm_scan int8 (ops/csrc/lstm_scan_int8.cu)"),
     ("_ZN12_GLOBAL__N_121lstm_scan_int8_kernelILi3EEEvNS_10ClusterDirES1_"
      "iiii", "lstm_scan int8 (ops/csrc/lstm_scan_int8.cu)"),
-    ("(anonymous namespace)::lstm_scan_masked_int8_kernel((anonymous "
-     "namespace)::Dir, (anonymous namespace)::Dir, float const*, int, int, "
-     "int)", "lstm_scan int8 masked (ops/csrc/lstm_scan_int8.cu)"),
-    ("_ZN12_GLOBAL__N_128lstm_scan_masked_int8_kernelENS_3DirES0_PKfiii",
+    ("void (anonymous namespace)::lstm_scan_masked_int8_kernel<1>((anonymous "
+     "namespace)::ClusterDir, (anonymous namespace)::ClusterDir, float "
+     "const*, int, int, int, int)",
      "lstm_scan int8 masked (ops/csrc/lstm_scan_int8.cu)"),
+    ("_ZN12_GLOBAL__N_128lstm_scan_masked_int8_kernelILi1EEEvNS_10ClusterDir"
+     "ES1_PKfiiii", "lstm_scan int8 masked (ops/csrc/lstm_scan_int8.cu)"),
     ("void (anonymous namespace)::lstm_scan_kernel<10, 4>((anonymous "
      "namespace)::Dir, (anonymous namespace)::Dir, int, int, int, int)",
      "lstm_scan (ops/csrc/lstm_scan.cu)")])

@@ -192,17 +192,6 @@ def test_int8_matmul_matches_jax():
                         torch.zeros(1041, 4, dtype=torch.int8))
 
 
-def test_pack_w_hh_layout():
-    """Word (k4, col) holds w_hh[4*k4 .. 4*k4+3, col] in bytes 0..3."""
-    w = torch.from_numpy(np.random.RandomState(5).randint(
-        -127, 128, (64, 256)).astype(np.int8))
-    packed = quant.pack_w_hh(w)
-    assert packed.dtype == torch.int32 and packed.shape == (16, 256)
-    b = packed.numpy().view(np.uint8).reshape(16, 256, 4).view(np.int8)
-    np.testing.assert_array_equal(b.transpose(0, 2, 1).reshape(64, 256),
-                                  w.numpy())
-
-
 # ---------------------------------------------------------------------------
 # The four plain layer functions against the interpreted int8 kernels
 # ---------------------------------------------------------------------------
