@@ -1,12 +1,13 @@
 """MobilePoser on PyTorch and CUDA for NVIDIA Hopper (H100).
 
 A port of `mobileposer_tpu` that runs the exact multi-stream streaming
-path (`models.net.MobilePoserNet.forward_online_sequence_batched`), the
-pose evaluation (`cli.evaluate`, `evaluation.evaluate_pose`: offline
-ragged batches and the ONLINE protocol) and single-device training
-(`cli.train`, `train.TrainingManager`) with hand-written CUDA kernels for
-the LSTM layer scans and their training forward and backward
-(`ops/csrc/`). It imports neither JAX nor the
+path (`models.net.MobilePoserNet.forward_online_sequence_batched`) and
+carry-mode streaming (`models.streaming`), the multi-stream pose server
+(`cli.serve`, `stream.PoseServer`), the pose evaluation (`cli.evaluate`,
+`evaluation.evaluate_pose`: offline ragged batches and the ONLINE
+protocol) and single-device training (`cli.train`,
+`train.TrainingManager`) with hand-written CUDA kernels for the LSTM
+layer scans and their training forward and backward (`ops/csrc/`). It imports neither JAX nor the
 JAX package; the layout mirrors `mobileposer_tpu` module for module so
 each counterpart is easy to find.
 

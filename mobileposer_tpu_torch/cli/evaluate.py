@@ -9,10 +9,11 @@ Weights are the JAX package's `.npz` archives. Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
 versions). `--int8` quantizes the LSTM matmuls to W8A8 after loading, as
 the JAX CLI does (`ops.quant.quantize_params_int8`; every LSTM layer on
-the int8 kernels #4 to #6). `--data-parallel` evaluates on the one device
-when one is visible (the card, or `--device cpu`), as the JAX CLI does
-with one device. `--bf16`, `--online-mode carry` (with or without
-`--int8`) and `--data-parallel` over more than one CUDA device are
+the int8 kernels #4 to #6). `--online-mode carry` runs the ONLINE
+protocol through carry-mode streaming (`models/streaming.py`), with or
+without `--int8`. `--data-parallel` evaluates on the one device when one
+is visible (the card, or `--device cpu`), as the JAX CLI does with one
+device. `--bf16` and `--data-parallel` over more than one CUDA device are
 accepted as the JAX CLI accepts them and raise NotImplementedError naming
 the ROADMAP row that adds them.
 """
@@ -75,8 +76,9 @@ def main(argv=None) -> dict:
                         help="not ported (ROADMAP.md queue A item 14)")
     parser.add_argument("--online-mode", default="exact",
                         choices=["exact", "carry"],
-                        help="'carry' is not ported (ROADMAP.md queue A "
-                             "item 13)")
+                        help="ONLINE protocol semantics: 'exact' "
+                             "windows, or the carry-mode approximation "
+                             "(models/streaming.py)")
     parser.add_argument("--int8", action="store_true",
                         help="evaluate on W8A8-quantized LSTM matmuls "
                              "(ops/quant.py): scores what an int8 "
@@ -87,11 +89,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--int8 --bf16 (int8 on bf16 params) is not ported (bf16, "
             "ROADMAP.md queue A item 14)")
-    if args.int8 and args.online_mode == "carry":
-        raise NotImplementedError(
-            "--int8 --online-mode carry needs the int8 cell step "
-            "lstm_cell_step_int8, which is not ported (carry mode, "
-            "ROADMAP.md queue A item 13)")
     if Path(args.model).suffix != ".npz":
         raise NotImplementedError(
             f"{args.model}: only the JAX package's .npz archives load; a "

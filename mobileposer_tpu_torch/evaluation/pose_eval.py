@@ -14,9 +14,10 @@ their last frame to the bucket and run as one ragged batch per group
 two so that jit compiles few programs; eager PyTorch needs no such
 padding, so a group runs at its own size. ONLINE, each sequence is one
 stream of the exact streaming path (`forward_online_sequence_batched`,
-the full-length kernels); a group's streams run to the group's longest
-sequence rather than to the bucket, since an output at frame t depends
-only on frames up to t.
+the full-length kernels), or with `online_mode='carry'` of carry-mode
+streaming (`forward_carry_sequence_batched`, no LSTM kernel); a group's
+streams run to the group's longest sequence rather than to the bucket,
+since an output at frame t depends only on frames up to t in both modes.
 """
 
 from __future__ import annotations
@@ -151,22 +152,32 @@ def _predict_offline_batched(net, params, imus, bucket, max_batch):
 
 
 def _predict_online_batched(net, params, imus, num_future_frames, bucket,
-                            max_batch):
+                            max_batch, mode: str = "exact"):
     """ONLINE-protocol predictions for a list of sequences, batched as
     independent streams with fresh state (reference protocol:
     evaluate.py:62-64, per-frame streaming with `num_future_frames` of
     last-frame padding). Each sequence is padded with its last frame to
     its group's longest sequence; outputs at frame t depend only on frames
-    up to t, so the padding cannot reach the sliced-off prefix."""
+    up to t, so the padding cannot reach the sliced-off prefix.
+
+    mode='carry' runs the same protocol through carry-mode streaming,
+    whose emission timing is the exact path's, so the metrics measure
+    the approximation's accuracy cost."""
+    if mode == "carry":
+        init_state = net.init_carry_state_batched
+        run = net.forward_carry_sequence_batched
+    else:
+        init_state = net.init_online_state_batched
+        run = net.forward_online_sequence_batched
     ns = [x.shape[0] + num_future_frames for x in imus]
     out: List = [None] * len(imus)
     for _, chunk in _groups(ns, bucket, max_batch):
         n_max = max(ns[i] for i in chunk)
         frames = np.stack([_pad_to_bucket(imus[i], n_max) for i in chunk],
                           axis=1)                          # [n_max, S, 60]
-        state = net.init_online_state_batched(len(chunk))
-        (poses, _, trans, _), _ = net.forward_online_sequence_batched(
-            params, state, torch.as_tensor(frames, device=net.device))
+        (poses, _, trans, _), _ = run(
+            params, init_state(len(chunk)),
+            torch.as_tensor(frames, device=net.device))
         poses, trans = poses.cpu().numpy(), trans.cpu().numpy()
         for k, i in enumerate(chunk):
             out[i] = (poses[num_future_frames:ns[i], k],
@@ -179,10 +190,6 @@ def _check_scope(online_mode: str, bf16: bool, mesh) -> None:
         # an unknown mode must not fall back to the exact path
         raise ValueError(f"online_mode must be 'exact' or 'carry', "
                          f"got {online_mode!r}")
-    if online_mode == "carry":
-        raise NotImplementedError(
-            "online_mode='carry' is not ported (carry mode, ROADMAP.md "
-            "queue A item 13)")
     if bf16:
         raise NotImplementedError(
             "bf16 evaluation is not ported (ROADMAP.md queue A item 14)")
@@ -209,8 +216,14 @@ def evaluate_pose(net: MobilePoserNet, params, dataset,
     runs both protocols batched. False runs the offline pass one sequence
     at a time through `forward_offline(length=n)` and the ONLINE protocol
     as a single stream per sequence (same numbers; the tests' oracle).
+
+    online_mode: 'exact' (the reference's window semantics) or 'carry'
+    (the carry-mode approximation, `models/streaming.py`; requires
+    batch_sequences=True, as in the JAX package).
     """
     _check_scope(online_mode, bf16, mesh)
+    if online_mode != "exact" and not batch_sequences:
+        raise ValueError("online_mode='carry' requires batch_sequences=True")
     evaluator = PoseEvaluator(net.body_model, device=net.device)
     offline_errs, online_errs = [], []
     tran_errors: Dict[int, List[float]] = {w: [] for w in range(1, 8)}
@@ -224,7 +237,7 @@ def evaluate_pose(net: MobilePoserNet, params, dataset,
                                                  max_batch)
         online_preds = (_predict_online_batched(net, params, imus,
                                                 num_future_frames, _BUCKET,
-                                                max_batch)
+                                                max_batch, online_mode)
                         if online else none)
     else:
         offline_preds = []

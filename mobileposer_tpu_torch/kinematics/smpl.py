@@ -6,14 +6,17 @@ dataset also run forward kinematics and linear blend skinning. The body's
 arrays stay host-side numpy, as in the JAX package; each device gets its
 own tensor copy once.
 
-Only the deterministic synthetic body is built here. Loading the official
-SMPL `.pkl` file, and with it shape parameters and pose blend shapes, is
-a later slice (ROADMAP.md queue A item 12).
+The official SMPL `.pkl` file loads through `load_smpl_arrays`, without
+chumpy; without the file the deterministic synthetic body stands in
+(`ParametricModel.from_file_or_synthetic`). Forward kinematics takes
+shape parameters, and the mesh takes pose blend shapes when the body is
+built with `use_pose_blendshape=True`.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,8 +25,6 @@ import torch
 from mobileposer_tpu_torch.kinematics import spatial as S
 from mobileposer_tpu_torch.precision import f32_matmuls
 
-_SMPL_ROW = "the official SMPL .pkl loader, ROADMAP.md queue A item 12"
-
 # Standard SMPL kinematic tree (public model constant).
 SMPL_PARENTS: Tuple[int, ...] = (
     -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19,
@@ -31,6 +32,57 @@ SMPL_PARENTS: Tuple[int, ...] = (
 
 NUM_JOINTS = 24
 NUM_VERTICES = 6890  # reference: constants.py:33
+
+
+class _ChumpyShim:
+    """Stand-in for the chumpy array classes inside official SMPL pickles.
+
+    Some fields of the official model file are chumpy `Ch` objects.
+    Unpickling restores an instance's state into its `__dict__`, so a
+    plain class captures it; `_to_np` takes the numpy payload from its
+    `x` attribute, where chumpy keeps it.
+    """
+
+
+class _SMPLUnpickler(pickle.Unpickler):
+    """Resolves every class of the `chumpy` package to `_ChumpyShim`, so
+    chumpy need not be installed and `sys.modules` is left alone."""
+
+    def find_class(self, module, name):
+        if module == "chumpy" or module.startswith("chumpy."):
+            return _ChumpyShim
+        return super().find_class(module, name)
+
+
+def _to_np(x) -> np.ndarray:
+    if hasattr(x, "toarray"):        # scipy sparse
+        return np.asarray(x.toarray())
+    if isinstance(x, _ChumpyShim):
+        inner = x.__dict__.get("x")
+        if inner is None:
+            raise ValueError("cannot extract array from chumpy object "
+                             f"(attrs: {list(x.__dict__)})")
+        return _to_np(inner)
+    return np.asarray(x)
+
+
+def load_smpl_arrays(model_file: str) -> dict:
+    """The official SMPL pickle as plain numpy arrays: the fields the
+    reference reads (model.py:28-39), float32 (faces int32) and the
+    parent tuple from the kinematic tree."""
+    with open(model_file, "rb") as f:
+        data = _SMPLUnpickler(f, encoding="latin1").load()
+    return dict(
+        J_regressor=_to_np(data["J_regressor"]).astype(np.float32),
+        weights=_to_np(data["weights"]).astype(np.float32),
+        posedirs=_to_np(data["posedirs"]).astype(np.float32),
+        shapedirs=_to_np(data["shapedirs"]).astype(np.float32),
+        v_template=_to_np(data["v_template"]).astype(np.float32),
+        J=_to_np(data["J"]).astype(np.float32),
+        f=_to_np(data["f"]).astype(np.int32),
+        parents=tuple([-1] + [int(p) for p in
+                              _to_np(data["kintree_table"])[0][1:].tolist()]),
+    )
 
 
 def synthetic_smpl_arrays(num_vertices: int = NUM_VERTICES, seed: int = 0) -> dict:
@@ -105,43 +157,67 @@ def synthetic_smpl_arrays(num_vertices: int = NUM_VERTICES, seed: int = 0) -> di
 class ParametricModel:
     """SMPL body model (reference: model.py:16). Holds the rest-pose
     joints `_J` [24, 3], the vertex template, the skinning weights, the
-    joint regressor, the shape and pose blend-shape bases and the
-    canonical parent tuple as host numpy."""
+    joint regressor, the shape and pose blend-shape bases, the faces and
+    the canonical parent tuple as host numpy. `model_data` is a dict of
+    arrays or the path of an official SMPL `.pkl`."""
 
-    def __init__(self, model_data: dict, use_pose_blendshape: bool = False):
-        if use_pose_blendshape:
-            raise NotImplementedError(
-                f"pose blend shapes are not ported ({_SMPL_ROW})")
+    def __init__(self, model_data, use_pose_blendshape: bool = False):
+        if isinstance(model_data, (str, os.PathLike)):
+            model_data = load_smpl_arrays(str(model_data))
         self._J_regressor = np.asarray(model_data["J_regressor"], np.float32)
         self._skinning_weights = np.asarray(model_data["weights"], np.float32)
         self._posedirs = np.asarray(model_data["posedirs"], np.float32)
         self._shapedirs = np.asarray(model_data["shapedirs"], np.float32)
         self._v_template = np.asarray(model_data["v_template"], np.float32)
         self._J = np.asarray(model_data["J"], np.float32)
+        self.face = np.asarray(model_data["f"])
         self.parent = S._canon_parent(model_data["parents"])
+        self.use_pose_blendshape = use_pose_blendshape
+        self.num_joints = self._J.shape[0]
+        self.num_vertices = self._v_template.shape[0]
 
     @classmethod
-    def synthetic(cls, num_vertices: int = NUM_VERTICES,
-                  seed: int = 0) -> "ParametricModel":
-        return cls(synthetic_smpl_arrays(num_vertices, seed))
+    def synthetic(cls, num_vertices: int = NUM_VERTICES, seed: int = 0,
+                  **kw) -> "ParametricModel":
+        return cls(synthetic_smpl_arrays(num_vertices, seed), **kw)
 
     @classmethod
-    def from_file_or_synthetic(cls, model_file) -> "ParametricModel":
-        """The deterministic synthetic body when `model_file` is absent.
-        The JAX package loads the official file when it exists; the port
-        cannot yet, so it raises rather than score another body."""
+    def from_file_or_synthetic(cls, model_file, **kw) -> "ParametricModel":
+        """The official file if it exists, else the deterministic
+        synthetic body."""
         if model_file is not None and os.path.exists(str(model_file)):
-            raise NotImplementedError(
-                f"{model_file} exists, but loading it is not ported "
-                f"({_SMPL_ROW})")
-        return cls.synthetic()
+            return cls(str(model_file), **kw)
+        return cls.synthetic(**kw)
 
-    def get_zero_pose_joint_and_vertex(self):
+    def _host_tensors(self, device: torch.device):
+        """(J_regressor [24, V], shapedirs [V, 3, 10], v_template [V, 3],
+        posedirs [V, 3, 207]) as float32 tensors on `device`, built once
+        per device: the shape and pose blend-shape bases."""
+        cache = self.__dict__.setdefault("_blend_tensors", {})
+        if device not in cache:
+            cache[device] = tuple(
+                torch.as_tensor(a, device=device)
+                for a in (self._J_regressor, self._shapedirs,
+                          self._v_template, self._posedirs))
+        return cache[device]
+
+    @f32_matmuls
+    def get_zero_pose_joint_and_vertex(
+            self, shape: Optional[torch.Tensor] = None):
         """Zero-pose joints/vertices with the root at the origin
-        (reference: model.py:77-92, the `shape=None` case)."""
-        j = self._J - self._J[:1]
-        v = self._v_template - self._J[:1]
-        return j, v
+        (reference: model.py:77-92). With shape=None, host numpy
+        ([24, 3], [V, 3]); with shape parameters [N, 10] (or [10]),
+        float32 tensors [N, 24, 3] and [N, V, 3] on the shape's device.
+        """
+        if shape is None:
+            j = self._J - self._J[:1]
+            v = self._v_template - self._J[:1]
+            return j, v
+        J_reg, shapedirs, v_template, _ = self._host_tensors(shape.device)
+        shape = shape.reshape(-1, 10).float()
+        v = torch.tensordot(shape, shapedirs, dims=([1], [2])) + v_template
+        j = torch.einsum("jv,nvc->njc", J_reg, v)
+        return j - j[:, :1], v - j[:, :1]
 
     def _device_arrays(self, device: torch.device):
         """(zero-pose joints [24,3], vertices [V,3], bone vectors [1,24,3],
@@ -167,18 +243,26 @@ class ParametricModel:
         linear-blend-skinned mesh vertices (reference: model.py:208-240),
         in full float32.
 
-        pose [N, 24, 3, 3] local rotations, tran [N, 3] or None. Returns
-        (pose_global [N,24,3,3], joints [N,24,3]) and, with calc_mesh,
-        vertices [N,V,3].
+        pose [N, 24, 3, 3] local rotations; shape [N, 10] (or one [10] /
+        [1, 10] vector for the whole batch) or None; tran [N, 3] or None.
+        Returns (pose_global [N,24,3,3], joints [N,24,3]) and, with
+        calc_mesh, vertices [N,V,3].
         """
-        if shape is not None:
-            raise NotImplementedError(
-                f"shape parameters are not ported ({_SMPL_ROW})")
         pose = pose.reshape(pose.shape[0], -1, 3, 3)
         n = pose.shape[0]
-        j, v, bone, W = self._device_arrays(pose.device)
-        pose_global, joint_global = S.forward_kinematics(
-            pose, bone.expand(n, -1, -1), self.parent)
+        _, _, bone, W = self._device_arrays(pose.device)
+        if shape is None:
+            j, v, _, _ = self._device_arrays(pose.device)
+            bone = bone.expand(n, -1, -1)
+        else:
+            j, v = self.get_zero_pose_joint_and_vertex(shape.to(pose.device))
+            if j.shape[0] == 1 and n > 1:
+                # one shape vector shared by the whole pose batch
+                j = j.expand(n, -1, -1)
+                v = v.expand(n, -1, -1)
+            bone = S.joint_position_to_bone_vector(j, self.parent)
+        pose_global, joint_global = S.forward_kinematics(pose, bone,
+                                                         self.parent)
 
         def add_tran(x):
             return x if tran is None else x + tran.reshape(-1, 1, 3)
@@ -192,6 +276,11 @@ class ParametricModel:
         # (reference: model.py:234); then R_v = sum_j w[v,j] R_global[n,j]
         # and t_v = sum_j w[v,j] p_adj[n,j].
         p_adj = joint_global - (pose_global @ j[..., None])[..., 0]
+        if self.use_pose_blendshape:
+            posedirs = self._host_tensors(pose.device)[3]
+            eye = torch.eye(3, dtype=pose.dtype, device=pose.device)
+            r = (pose[:, 1:] - eye).reshape(n, -1)
+            v = v + torch.tensordot(r, posedirs, dims=([1], [2]))
         R_v = torch.einsum("vj,njab->nvab", W, pose_global)
         t_v = torch.einsum("vj,njc->nvc", W, p_adj)
         vertex_global = (R_v @ v[..., None])[..., 0] + t_v

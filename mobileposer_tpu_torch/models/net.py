@@ -13,6 +13,12 @@ path and offline inference (reference `mobileposer/models/net.py:101-219`):
   * `forward_online_sequence_batched`   — S streams x N frames, in 'scan'
                                           (per-frame replay) or 'unfolded'
                                           (windows batched) mode
+  * `forward_online`, `forward_online_sequence`
+                                        — one stream, S = 1 adapters over
+                                          `forward_online_batched`
+  * `forward_carry_batched`, `forward_carry_sequence_batched`
+                                        — carry-mode streaming
+                                          (`models/streaming.py`)
 
 The four RNN blocks run their LSTM layers through the CUDA kernels of
 `ops/lstm_cuda.py` on the card (plain versions on the CPU). Linears,
@@ -30,9 +36,7 @@ projections and the int8 kernels #4 to #6.
 of a single full-length window on the multicell kernel
 (`models/fused.py`); every other entry point computes 'fused' as 'auto'.
 
-Not ported yet: the single-stream `forward_online`, `init_online_state`
-and `forward_online_sequence`, carry mode and bf16 (see ROADMAP.md
-queue A).
+Not ported yet: bf16 streaming (ROADMAP.md queue A item 14).
 """
 
 from __future__ import annotations
@@ -340,10 +344,9 @@ class MobilePoserNet:
     module parameters explicitly, like the JAX package's (reference class:
     net.py:22).
 
-    body_model: the synthetic SMPL body unless given (the official `.pkl`
-    loader is ROADMAP.md queue A item 12; until then an official file at
-    `C.paths.smpl_file` raises). device: the CUDA card unless
-    given; `device="cpu"` runs the plain kernel versions.
+    body_model: the official SMPL body at `C.paths.smpl_file` when that
+    file exists, else the synthetic body, unless given. device: the CUDA
+    card unless given; `device="cpu"` runs the plain kernel versions.
     """
 
     OnlineState = OnlineState
@@ -411,6 +414,83 @@ class MobilePoserNet:
             last_rfoot=feet[1].expand(S, 3).clone(),
             current_root_y=zeros(S),
             last_root_pos=zeros(S, 3))
+
+    def init_online_state(self, dtype: torch.dtype = torch.float32
+                          ) -> OnlineState:
+        """Fresh state of one stream (reference: net.py:58-64 and the
+        reset at net.py:84): the batched state's fields without the
+        stream axis, the velocity carry kept as [2, 1, 256]."""
+        st = self.init_online_state_batched(1, dtype)
+        return OnlineState(
+            imu=st.imu[0], initialized=st.initialized[0],
+            vel_h=st.vel_h, vel_c=st.vel_c,
+            last_lfoot=st.last_lfoot[0], last_rfoot=st.last_rfoot[0],
+            current_root_y=st.current_root_y[0],
+            last_root_pos=st.last_root_pos[0])
+
+    def forward_online(self, params, state: OnlineState,
+                       frame: torch.Tensor):
+        """One streaming step of one stream (reference: net.py:174-219).
+
+        frame [60]. Returns ((pose [24,3,3], joints [24,3], root [3],
+        contact [2]), new_state): an S = 1 adapter over
+        `forward_online_batched`, the one implementation of the fusion.
+        """
+        bstate = OnlineState(
+            imu=state.imu[None], initialized=state.initialized.reshape(1),
+            vel_h=state.vel_h, vel_c=state.vel_c,
+            last_lfoot=state.last_lfoot[None],
+            last_rfoot=state.last_rfoot[None],
+            current_root_y=state.current_root_y.reshape(1),
+            last_root_pos=state.last_root_pos[None])
+        (pose, joints, root, contact), nb = self.forward_online_batched(
+            params, bstate, frame[None])
+        new_state = OnlineState(
+            imu=nb.imu[0], initialized=nb.initialized[0],
+            vel_h=nb.vel_h, vel_c=nb.vel_c,
+            last_lfoot=nb.last_lfoot[0], last_rfoot=nb.last_rfoot[0],
+            current_root_y=nb.current_root_y[0],
+            last_root_pos=nb.last_root_pos[0])
+        return (pose[0], joints[0], root[0], contact[0]), new_state
+
+    def forward_online_sequence(self, params, state: OnlineState,
+                                frames: torch.Tensor):
+        """One stream over frames [N, 60]: N successive `forward_online`
+        calls (the JAX package's `lax.scan`). Returns ((pose
+        [N,24,3,3], joints [N,24,3], root [N,3], contact [N,2]),
+        final_state)."""
+        if frames.device != self.device:
+            raise ValueError(f"frames are on {frames.device}, the net on "
+                             f"{self.device}")
+        outs = []
+        for frame in frames:
+            out, state = self.forward_online(params, state, frame)
+            outs.append(out)
+        pose, joints, root, contact = (torch.stack(o) for o in zip(*outs))
+        return (pose, joints, root, contact), state
+
+    # -- carry-mode streaming (opt-in approximation; models/streaming.py) --
+    def init_carry_state_batched(self, n_streams: int,
+                                 dtype: torch.dtype = torch.float32):
+        """Fresh state for carry-mode streaming: forward LSTM states
+        carried across frames, backward directions recomputed over the
+        5-frame lookahead tail only; see `models/streaming.py`."""
+        from mobileposer_tpu_torch.models.streaming import \
+            init_carry_state_batched
+        return init_carry_state_batched(self, n_streams, dtype)
+
+    def forward_carry_batched(self, params, state, frames: torch.Tensor):
+        """One carry-mode step for S streams. frames [S, 60]."""
+        from mobileposer_tpu_torch.models.streaming import \
+            forward_carry_batched
+        return forward_carry_batched(self, params, state, frames)
+
+    def forward_carry_sequence_batched(self, params, state,
+                                       frames: torch.Tensor):
+        """Carry-mode streaming over [N, S, 60] frames."""
+        from mobileposer_tpu_torch.models.streaming import \
+            forward_carry_sequence_batched
+        return forward_carry_sequence_batched(self, params, state, frames)
 
     def _fusion_step(self, joints, contact, vel_emit, last_lfoot, last_rfoot,
                      current_root_y, last_root_pos):

@@ -107,6 +107,20 @@ def _gate_update(gates: torch.Tensor, c: torch.Tensor):
     return o * torch.tanh(c_new), c_new
 
 
+def lstm_cell_step(p, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """One LSTM step from a raw input (nn/lstm.py:109-122 of the JAX
+    package): projects x, adds both biases and applies `_gate_update`.
+    p is one direction of one layer, an `LSTMDirection` or a W8A8
+    `LSTMDirectionInt8`; the dtype of its w_ih picks the route, so the
+    carry-mode stack (`models/streaming.py`) runs unchanged on quantized
+    params. x [B, D], h/c [B, H]; returns (h', c')."""
+    if is_quantized(p):
+        from mobileposer_tpu_torch.ops.quant import lstm_cell_step_int8
+        return lstm_cell_step_int8(p, x, h, c)
+    gates = x @ p.w_ih + (p.b_ih + p.b_hh) + h @ p.w_hh
+    return _gate_update(gates, c)
+
+
 def _lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor,
                h0: torch.Tensor, c0: torch.Tensor,
                mask: Optional[torch.Tensor] = None,

@@ -167,3 +167,16 @@ def int8_recurrent_gates(h: torch.Tensor, w_q: torch.Tensor,
     of the int8 kernels' recurrent step."""
     h_q, h_scale = dynamic_quantize(h)
     return _int8_dot(h_q, w_q) * (h_scale * w_scale.reshape(1, -1))
+
+
+def lstm_cell_step_int8(p, x: torch.Tensor, h: torch.Tensor,
+                        c: torch.Tensor):
+    """One LSTM step on a quantized direction (`nn.lstm.LSTMDirectionInt8`,
+    ops/quant.py:177-188 of the JAX package), the route
+    `nn.lstm.lstm_cell_step` takes for int8 w_ih: both products through
+    `int8_matmul`, then the pre-summed bias, then the gate update.
+    x [B, D], h/c [B, H] float32; returns (h', c')."""
+    from mobileposer_tpu_torch.nn.lstm import _gate_update
+    gates = (int8_matmul(x, p.w_ih, p.w_ih_scale)
+             + int8_matmul(h, p.w_hh, p.w_hh_scale) + p.b)
+    return _gate_update(gates, c)

@@ -280,7 +280,10 @@ def test_evaluate_pose_out_of_slice_options_raise(nets, weights):
     params = weights["random"][1]
     with pytest.raises(ValueError, match="online_mode"):
         evaluate_pose(net, params, [], online_mode="carry-mode")
-    for kw in ({"online_mode": "carry"}, {"bf16": True}, {"mesh": object()}):
+    # carry mode is ported (tests/test_torch_carry.py holds it to JAX)
+    assert evaluate_pose(net, params, [], online=True, online_mode="carry",
+                         verbose=False) == {}
+    for kw in ({"bf16": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             evaluate_pose(net, params, [], online=True, **kw)
 
@@ -298,8 +301,7 @@ def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
     for name in pose_eval.METRIC_NAMES:
         assert name in out
     assert res["offline"].shape == (8, 2) and "translation drift" in out
-    for flags in (["--int8", "--bf16"], ["--bf16"],
-                  ["--online", "--online-mode", "carry"]):
+    for flags in (["--int8", "--bf16"], ["--bf16"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",
                            "--device", "cpu", *flags])

@@ -43,6 +43,11 @@ def test_importing_the_port_loads_no_jax():
             "import mobileposer_tpu_torch.cli.evaluate\n"
             "import mobileposer_tpu_torch.cli.train\n"
             "import mobileposer_tpu_torch.cli.combine_weights\n"
+            "import mobileposer_tpu_torch.cli.serve\n"
+            "import mobileposer_tpu_torch.evaluation.drift\n"
+            "import mobileposer_tpu_torch.models.streaming\n"
+            "import mobileposer_tpu_torch.native\n"
+            "import mobileposer_tpu_torch.stream\n"
             "import mobileposer_tpu_torch.data.fixtures\n"
             "import mobileposer_tpu_torch.models\n"
             "import mobileposer_tpu_torch.nn.convert\n"
