@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's streaming, evaluation, training, fused
-single-window and serving paths on one CUDA card.
+single-window and serving paths on one CUDA card, in float32, W8A8 and
+bfloat16.
 
     python3 chip_smoke.py
 
@@ -61,6 +62,17 @@ then runs these phases, each printing JSON lines:
                report of its instantiation (no stack, no spill) and its
                difference to the per-module kernels (exactly 0.0: one
                body);
+  3f. bf16 kernels — the bf16-I/O entries of #1, #2, #3 and #9 against
+               their bf16 plain versions: the full-length scans at the
+               streaming shapes, the masked ones at T = 512, B = 64 (exact
+               zeros at masked steps), the multicell scan on the trio's
+               cells at T = 45, B = 256 (exactly 0.0 from the bf16 layer
+               entries on the same cells); one step within 1 bf16 ulp of
+               the output's magnitude, the shape within 2; the ptxas
+               report of each shape's bf16 instantiation and of every bf16
+               instantiation (no stack, no spill); kernel, float32-entry,
+               plain and bf16 cuDNN times (or what the card's PyTorch
+               refuses) and the bound with bf16 bytes;
   4. slice   — the trained fixture weights through
                `forward_online_sequence_batched` on the card in 'scan'
                and 'unfolded' modes, each continued from its final state,
@@ -111,11 +123,22 @@ then runs these phases, each printing JSON lines:
                rate) of every variant at 64 streams, pipelined and
                synchronous, and of the exact path at 256 streams, float32
                and int8; then `cli.serve` on the card;
+  4f. bf16   — the trained fixture cast to bf16 through the streaming
+               path on the card ('scan' at S = 256, 'unfolded' at S = 8)
+               against the CPU port, bf16 launch counts; 'fused' against
+               'auto' in bf16 (exactly 0.0) at B = 8 and 256, 2 multicell
+               and 2 bi bf16 launches a forward; `cli.evaluate --bf16` on
+               the synthetic sequences, card against CPU (masked bf16
+               launches offline, the full-length ones ONLINE); the bf16
+               `PoseServer` in lockstep (replies equal to the direct bf16
+               step, exactly), exact and carry, its paced 30 Hz runs at 64
+               streams, and `cli.serve --bf16` (exact and carry);
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
-               at 256 streams (scan) and 8 streams (unfolded), then one
-               traced call of each: device time by kernel group and the
-               device's busy share; then the same at 256 streams on W8A8
-               params (`bench.run(int8=True)`);
+               at 256 streams (scan; there also on bf16 params, beside the
+               float32 rate) and 8 streams (unfolded), then one traced call
+               of each: device time by kernel group and the device's busy
+               share; then the same at 256 streams on W8A8 params
+               (`bench.run(int8=True)`);
   5b. offline rate — offline-evaluation valid and padded frames/s of one
                64 x 512 ragged group (`bench.run_offline`), then one
                traced call;
@@ -227,7 +250,14 @@ PERF_MD_MULTICELL_MS = {256: 1.432, 8: 1.275}
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 F32_FLOPS_PER_S = 67e12      # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12    # H100 SXM, bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12     # H100 SXM, int8 tensor cores, dense
+
+
+def float_peak(elem_bytes: int) -> float:
+    """The card's peak rate for products of the I/O dtype: the bf16
+    tensor cores' for 2-byte I/O, float32's outside them for 4."""
+    return BF16_FLOPS_PER_S if elem_bytes == 2 else F32_FLOPS_PER_S
 
 # The int8 kernels against their plain versions. One step from h0: both
 # sides quantize the same h0, so the recurrent term is the same exact
@@ -262,6 +292,32 @@ INT8_DRIFT_RTOL = 1e-2
 # 3 (positional, cm) and 6 (jitter).
 INT8_DELTA_BOUND = {0: 0.5, 3: 0.5, 6: 0.2}
 
+# Phase 3f: the bf16-I/O entries against their bf16 plain versions, in
+# bf16 ulps of the output's largest magnitude, 2^(floor(log2 max|x|) - 7).
+# Both sides compute the same float32 products (a product of two bf16
+# values is exact in float32) and differ only in the order of the float32
+# sums and in the last bits of expf/tanhf, which moves a bf16 output by
+# one ulp where it lands on a rounding boundary: one step from h0, 1 ulp.
+# Over the shape such a flip of h moves the next gates by one ulp of h
+# times a weight (|w| <= 1/16 at H = 256), far below an ulp, and the cell
+# forgets it: 2 ulps over T = 45 and 512 steps.
+BF16_STEP_ULPS = 1
+BF16_ULPS = 2
+# Phase 4f: the bf16 slice on the card against the CPU port (both bf16,
+# the kernels against their plain versions at a flip per layer at most),
+# on every output, all of magnitude ~1: the JAX package's own bf16 bound
+# on joints (tests/test_extras.py:87-101).
+BF16_SLICE_TOL = 0.05
+# Phase 4f's bf16 evaluation, card against the CPU port (both bf16), on
+# every entry of both tables and every drift window: absolute bounds a
+# few times the largest difference measured on the synthetic fixture
+# (NVIDIA H100 80GB HBM3, 700 W: 0.0020 on the rows in degrees and cm,
+# 0.0171 on jitter, 2e-5 m on the drift windows). Jitter, a third
+# difference of positions, amplifies a bf16 flip the most.
+BF16_EVAL_ATOL = 0.01
+BF16_JITTER_ATOL = 0.06
+BF16_DRIFT_ATOL = 1e-4
+
 # file:line of each TPU kernel (the `pallas_call` site's function) and the
 # port's kernel for it; every one is ported
 TPU_KERNELS = [
@@ -289,6 +345,18 @@ TPU_KERNELS = [
      "lstm_train_dw_f32"),
     ("multicell_lstm_pallas", "mobileposer_tpu/ops/multicell_pallas.py:83",
      "multicell_scan_f32"),
+    # the bf16-I/O variants of the float TPU kernels (their I/O dtype is
+    # the inputs', lstm_pallas.py:51-69, multicell_pallas.py:52-78)
+    ("bilstm_layer_pallas", "mobileposer_tpu/ops/lstm_pallas.py:264",
+     "bilstm_scan_bf16"),
+    ("lstm_layer_pallas", "mobileposer_tpu/ops/lstm_pallas.py:73",
+     "lstm_scan_bf16"),
+    ("lstm_layer_masked_pallas", "mobileposer_tpu/ops/lstm_pallas.py:163",
+     "bilstm_scan_masked_bf16"),
+    ("lstm_layer_masked_pallas", "mobileposer_tpu/ops/lstm_pallas.py:163",
+     "lstm_scan_masked_bf16"),
+    ("multicell_lstm_pallas", "mobileposer_tpu/ops/multicell_pallas.py:83",
+     "multicell_scan_bf16"),
 ]
 
 
@@ -317,13 +385,15 @@ def time_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None):
+def layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None,
+                elem_bytes: int = 4):
     """Least time (ms) the card needs for one layer scan: each input read
-    once, each output written once, the recurrent products at the
-    float32 rate. With `valid_steps` (the sum of a ragged batch's
-    lengths) only the valid steps need their products and their x_proj
-    rows, and the [T, B] mask is read once. Returns (bound_ms, bound_by,
-    flops, bytes)."""
+    once, each output written once, the recurrent products at the I/O
+    dtype's peak rate (`float_peak`). With `valid_steps` (the sum of a
+    ragged batch's lengths) only the valid steps need their products and their x_proj
+    rows, and the [T, B] mask is read once. `elem_bytes` is the I/O
+    dtype's size: 4 for float32, 2 for bf16 (the same operations at the
+    bf16 rate, half the bytes). Returns (bound_ms, bound_by, flops, bytes)."""
     steps = T * B if valid_steps is None else valid_steps
     flops = n_dir * steps * 2.0 * H * 4 * H
     floats = n_dir * (steps * 4 * H      # x_proj
@@ -333,15 +403,18 @@ def layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None):
                       + 2 * B * H)       # h_T, c_T
     if valid_steps is not None:
         floats += T * B                  # mask, shared by the directions
-    t_bytes = 4.0 * floats / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOPS_PER_S
+    t_bytes = elem_bytes * floats / HBM_BYTES_PER_S
+    t_ops = flops / float_peak(elem_bytes)
     return (1e3 * max(t_bytes, t_ops),
-            "operations" if t_ops >= t_bytes else "bytes", flops, 4 * floats)
+            "operations" if t_ops >= t_bytes else "bytes", flops,
+            elem_bytes * floats)
 
 
-def ptxas_by_function(source: str, needle: str):
+def ptxas_by_function(source: str, needle: str, bf16: bool = False):
     """The ptxas report (registers, stack, spills) of each function of
-    `source`'s build whose mangled name holds `needle`: {name: [lines]}."""
+    `source`'s build whose mangled name holds `needle`, of the float32
+    instantiations or, with `bf16`, of the bf16-I/O ones: {name:
+    [lines]}."""
     from mobileposer_tpu_torch.ops import _build
     log = _build.library_path(source).with_suffix(".log").read_text()
     out, fn = {}, None
@@ -349,7 +422,8 @@ def ptxas_by_function(source: str, needle: str):
         for key in ("Compiling entry function '", "Function properties for "):
             if key in ln:
                 fn = ln.split(key, 1)[1].split("'", 1)[0].strip()
-        if fn and needle in fn and ("registers" in ln or "spill" in ln):
+        if (fn and needle in fn and ("bfloat16" in fn) == bf16
+                and ("registers" in ln or "spill" in ln)):
             out.setdefault(fn, []).append(ln.strip())
     return out
 
@@ -963,14 +1037,16 @@ def phase_train_kernels(torch, train_cuda, ptxas):
     return results
 
 
-def multicell_bound(T: int, B: int, hidden_sizes):
+def multicell_bound(T: int, B: int, hidden_sizes, elem_bytes: int = 4):
     """Least time (ms) the card needs for one multicell scan: the cells'
     operations and bytes, each counted as `layer_bound` counts one
-    direction, summed over the cells. Returns (bound_ms, bound_by, flops,
-    bytes)."""
-    parts = [layer_bound(1, T, B, H) for H in hidden_sizes]
+    direction (`elem_bytes` the I/O dtype's size), summed over the cells.
+    Returns (bound_ms, bound_by, flops, bytes)."""
+    parts = [layer_bound(1, T, B, H, elem_bytes=elem_bytes)
+             for H in hidden_sizes]
     flops, nbytes = sum(p[2] for p in parts), sum(p[3] for p in parts)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / float_peak(elem_bytes)
     return (1e3 * max(t_bytes, t_ops),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
@@ -1126,6 +1202,254 @@ def phase_multicell(torch, multicell_cuda, lstm_cuda):
     return results
 
 
+def bf16_ulp(x) -> float:
+    """One bf16 ulp at the largest magnitude of x."""
+    return 2.0 ** (math.floor(math.log2(float(x.float().abs().max()))) - 7)
+
+
+def ulps_apart(got, want) -> float:
+    """The largest difference of the outputs `got` and `want` (lists of
+    bf16 tensors), in bf16 ulps of each output's largest magnitude."""
+    return max(float((g.float().cpu() - w.float().cpu()).abs().max())
+               / bf16_ulp(w) for g, w in zip(got, want))
+
+
+def _flat(out):
+    return [x for o in out for x in (o if isinstance(o, (tuple, list))
+                                     else (o,))]
+
+
+def _lstm_library_ms(torch, H, B, T, bi, dtype, lengths=None):
+    """One torch.nn.LSTM layer (cuDNN) in `dtype` on a [T, B, H] input
+    (with `lengths`, on `pack_padded_sequence`), ms per call; None and
+    the error's first line where the card's PyTorch refuses the dtype."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+    n_dir = 2 if bi else 1
+    try:
+        lstm = torch.nn.LSTM(H, H, num_layers=1, bidirectional=bi).to(
+            device="cuda", dtype=dtype)
+        x = torch.randn(T, B, H, device="cuda", dtype=dtype)
+        if lengths is not None:
+            x = pack_padded_sequence(
+                x, torch.from_numpy(lengths).clamp(min=1),
+                enforce_sorted=False)
+        hc = (torch.zeros(n_dir, B, H, device="cuda", dtype=dtype),
+              torch.zeros(n_dir, B, H, device="cuda", dtype=dtype))
+        with torch.no_grad():
+            return time_ms(lambda: lstm(x, hc), 5), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
+def phase_bf16_kernels(torch, lstm_cuda, multicell_cuda):
+    """The bf16-I/O entries of #1, #2, #3 and #9 against their bf16 plain
+    versions on the card: the full-length scans at the streaming shapes
+    (T = 45: bi B = 256 at H = 256 and 64, uni B = 256 and 8), the masked
+    ones at the evaluation shape (T = 512, B = 64, a seeded ragged bf16
+    mask with an empty and a full row, exact zeros at masked steps), the
+    multicell scan on the trio's five cells at T = 45, B = 256 (its
+    difference to the bf16 layer entries on the same cells exactly 0.0).
+    Each shape: one step from h0 within BF16_STEP_ULPS, the whole shape
+    within BF16_ULPS, the ptxas report of its bf16 instantiation (no stack,
+    no spill), the kernel's time beside the float32 entry's on the same
+    values, the plain version's, cuDNN's in bf16 where the card's PyTorch
+    takes it, and the bound at the float32 rate with bf16 bytes."""
+    import numpy as np
+    from mobileposer_tpu_torch.models.fused import _ROW_H
+    BF = torch.bfloat16
+    dev = torch.device("cuda", 0)
+    cases = [("bilstm_scan_bf16", 256, 256, 45),
+             ("bilstm_scan_bf16", 64, 256, 45),
+             ("lstm_scan_bf16", 256, 256, 45),
+             ("lstm_scan_bf16", 256, 8, 45),
+             ("bilstm_scan_masked_bf16", 256, 64, 512),
+             ("bilstm_scan_masked_bf16", 64, 64, 512),
+             ("lstm_scan_masked_bf16", 256, 64, 512)]
+    results, failures = [], []
+
+    def bf(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device=dev, dtype=BF)
+
+    for name, H, B, T in cases:
+        bi, masked = name.startswith("bi"), "masked" in name
+        n_dir = 2 if bi else 1
+        geo = lstm_cuda.scan_geometry(n_dir, B, H, dev, masked=masked)
+        kernel = "lstm_scan_masked_kernel" if masked else "lstm_scan_kernel"
+        ptxas = ptxas_by_function(
+            "lstm_scan.cu", f"{kernel}ILi{geo.lane_rows}ELi{geo.lane_cols}E",
+            bf16=True)
+        rng = np.random.RandomState(H + B + T + 3)
+        bound = 1.0 / math.sqrt(H)
+        dirs = [(bf(rng.randn(T, B, 4 * H)),
+                 bf(rng.uniform(-bound, bound, (H, 4 * H))),
+                 bf(np.tanh(rng.randn(B, H))), bf(rng.randn(B, H) * 0.5))
+                for _ in range(n_dir)]
+        lengths = None
+        if masked:
+            lengths = rng.randint(1, T, size=B)
+            lengths[0], lengths[1] = 0, T
+            mask = (torch.arange(T)[:, None]
+                    < torch.from_numpy(lengths)[None, :]).to(
+                        device=dev, dtype=BF)
+        prefix = {"lstm_scan_bf16": "lstm_layer",
+                  "bilstm_scan_bf16": "bilstm_layer",
+                  "lstm_scan_masked_bf16": "lstm_layer_masked",
+                  "bilstm_scan_masked_bf16": "bilstm_layer_masked"}[name]
+        kern = getattr(lstm_cuda, prefix)
+        plain = getattr(lstm_cuda, prefix + "_plain")
+
+        def arguments(steps):
+            ds = [(x[:steps].contiguous(), *rest) for x, *rest in dirs]
+            if bi:
+                (xf, wf, h0f, c0f), (xb, wb, h0b, c0b) = ds
+                args = (xf, xb, wf, wb, h0f, c0f, h0b, c0b)
+            else:
+                args = tuple(ds[0])
+            return args + ((mask[:steps].contiguous(),) if masked else ())
+
+        step_args, args = arguments(1), arguments(T)
+        step_ulps = ulps_apart(_flat(kern(*step_args)),
+                               _flat(plain(*step_args)))
+        got = _flat(kern(*args))
+        torch.cuda.synchronize()
+        want = _flat(plain(*args))
+        ulps = ulps_apart(got, want)
+        err = max(float((g.float().cpu() - w.float().cpu()).abs().max())
+                  for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        masked_nonzero = (sum(int((y[mask == 0] != 0).sum())
+                              for y in got[:n_dir]) if masked else 0)
+        args32 = tuple(a.float() for a in args)
+        library_ms, library_refused = _lstm_library_ms(
+            torch, H, B, T, bi, BF, lengths)
+        with torch.no_grad():
+            kernel_ms = time_ms(lambda: kern(*args), 10)
+            float_ms = time_ms(lambda: kern(*args32), 10)
+            plain_ms = time_ms(lambda: plain(*args), 1, warmup=1)
+        bound_ms, bound_by, flops, nbytes = layer_bound(
+            n_dir, T, B, H, valid_steps=(int(lengths.sum()) if masked
+                                         else None), elem_bytes=2)
+        rec = {"phase": "bf16_kernel", "name": name, "T": T, "B": B, "H": H,
+               "rows_per_cluster": geo.rows, "clusters": geo.clusters,
+               "ptxas": ptxas, "step_err_ulps": step_ulps,
+               "max_err_ulps": ulps, "max_abs_err": err,
+               "step_tol_ulps": BF16_STEP_ULPS, "tol_ulps": BF16_ULPS,
+               "masked_steps_nonzero": masked_nonzero,
+               "kernel_ms": kernel_ms, "float_kernel_ms": float_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": ("torch.nn.LSTM 1 layer in bf16 (cuDNN; includes "
+                           "its input projection)"
+                           + (" on pack_padded_sequence" if masked else "")),
+               "library_refused": library_refused,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+        emit(rec)
+        results.append(rec)
+        tag = f"{name} H={H} B={B} T={T}"
+        if not no_stack_no_spill(ptxas):
+            failures.append(f"{tag}: the ptxas report of its bf16 "
+                            f"instantiation shows a stack frame or spills")
+        if not finite:
+            failures.append(f"{tag}: non-finite output")
+        if masked_nonzero:
+            failures.append(f"{tag}: {masked_nonzero} masked outputs are "
+                            "not zero")
+        if step_ulps > BF16_STEP_ULPS:
+            failures.append(f"{tag}: one step {step_ulps} ulps > "
+                            f"{BF16_STEP_ULPS}")
+        if ulps > BF16_ULPS:
+            failures.append(f"{tag}: {ulps} ulps > {BF16_ULPS}")
+
+    # #9 on the trio's cells, and the bf16 layer entries on the same cells
+    T, B, hs = 45, 256, _ROW_H
+    offs = [sum(4 * h for h in hs[:i]) for i in range(len(hs))]
+    geo = multicell_cuda.multicell_geometry(B, hs, dev)
+    ptxas = ptxas_by_function(
+        "multicell_scan.cu",
+        f"multicell_scan_kernelILi{geo.lane_rows}ELi{geo.lane_cols}"
+        f"ELi{geo.row_groups}ELb{int(geo.h_buffers == 1)}E", bf16=True)
+    rng = np.random.RandomState(B + 11)
+    x = bf(rng.randn(T, B, 4 * sum(hs)))
+    ws = [bf(rng.uniform(-1 / math.sqrt(H), 1 / math.sqrt(H), (H, 4 * H)))
+          for H in hs]
+    h0s = [bf(np.tanh(rng.randn(B, H))) for H in hs]
+    c0s = [bf(rng.randn(B, H) * 0.5) for H in hs]
+    args = (x, ws, h0s, c0s, hs)
+    step = (x[:1].contiguous(), ws, h0s, c0s, hs)
+    step_ulps = ulps_apart(_flat(multicell_cuda.multicell_lstm(*step)),
+                           _flat(multicell_cuda.multicell_lstm_plain(*step)))
+    got = _flat(multicell_cuda.multicell_lstm(*args))
+    torch.cuda.synchronize()
+    want = _flat(multicell_cuda.multicell_lstm_plain(*args))
+    ulps = ulps_apart(got, want)
+    err = max(float((g.float().cpu() - w.float().cpu()).abs().max())
+              for g, w in zip(got, want))
+    xs = [x[..., o:o + 4 * H].contiguous() for o, H in zip(offs, hs)]
+
+    def per_module():
+        pf = lstm_cuda.bilstm_layer(xs[0], xs[1], ws[0], ws[1], h0s[0],
+                                    c0s[0], h0s[1], c0s[1])
+        ff = lstm_cuda.bilstm_layer(xs[2], xs[3], ws[2], ws[3], h0s[2],
+                                    c0s[2], h0s[3], c0s[3])
+        ys_v, hc_v = lstm_cuda.lstm_layer(xs[4], ws[4], h0s[4], c0s[4])
+        return ([pf[0], pf[1], ff[0], ff[1], ys_v]
+                + [pf[2][0], pf[3][0], ff[2][0], ff[3][0], hc_v[0]]
+                + [pf[2][1], pf[3][1], ff[2][1], ff[3][1], hc_v[1]])
+
+    per_module_diff = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(per_module(), got))
+    args32 = (x.float(), [w.float() for w in ws], [h.float() for h in h0s],
+              [c.float() for c in c0s], hs)
+    with torch.no_grad():
+        kernel_ms = time_ms(lambda: multicell_cuda.multicell_lstm(*args), 10)
+        float_ms = time_ms(lambda: multicell_cuda.multicell_lstm(*args32),
+                           10)
+        per_module_ms = time_ms(per_module, 10)
+        plain_ms = time_ms(lambda: multicell_cuda.multicell_lstm_plain(
+            *args), 1, warmup=1)
+    bound_ms, bound_by, flops, nbytes = multicell_bound(T, B, hs,
+                                                        elem_bytes=2)
+    rec = {"phase": "bf16_multicell_kernel", "name": "multicell_scan_bf16",
+           "T": T, "B": B, "H": list(hs), "rows_per_group": geo.rows,
+           "h_buffers": geo.h_buffers, "clusters": geo.clusters,
+           "ptxas": ptxas, "step_err_ulps": step_ulps, "max_err_ulps": ulps,
+           "max_abs_err": err, "step_tol_ulps": BF16_STEP_ULPS,
+           "tol_ulps": BF16_ULPS, "per_module_max_abs_diff": per_module_diff,
+           "kernel_ms": kernel_ms, "float_kernel_ms": float_ms,
+           "per_module_kernels_ms": per_module_ms,
+           "per_module": "bilstm_scan_bf16 H=256 + bilstm_scan_bf16 H=64 + "
+                         "lstm_scan_bf16 H=256, one launch each",
+           "plain_ms": plain_ms, "library_ms": None,
+           "library": "none: no single PyTorch call computes five LSTM "
+                      "cells of different H",
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+    emit(rec)
+    results.append(rec)
+    tag = f"multicell_scan_bf16 B={B}"
+    if not no_stack_no_spill(ptxas):
+        failures.append(f"{tag}: the ptxas report of its bf16 "
+                        "instantiation shows a stack frame or spills")
+    if step_ulps > BF16_STEP_ULPS or ulps > BF16_ULPS:
+        failures.append(f"{tag}: {step_ulps} / {ulps} ulps")
+    if per_module_diff != 0.0:
+        failures.append(f"{tag}: differs from the bf16 layer entries by "
+                        f"{per_module_diff}")
+    # every bf16 instantiation of both libraries, whatever shape runs it
+    spilled = {src: sorted(fn for fn, lines in ptxas_by_function(
+                   src, "_kernel", bf16=True).items()
+                   if not no_stack_no_spill({fn: lines}))
+               for src in ("lstm_scan.cu", "multicell_scan.cu")}
+    emit({"phase": "bf16_ptxas", "instantiations_with_stack_or_spill":
+          spilled})
+    if any(spilled.values()):
+        failures.append(f"bf16 instantiations with a stack or spills: "
+                        f"{spilled}")
+    require(not failures, "; ".join(failures))
+    return results
+
+
 def phase_fused(torch, lstm_cuda, multicell_cuda):
     """The trained fixture through `forward(backend='fused')` on the card,
     B windows of T = 45 frames with a nonzero velocity carry, held to the
@@ -1257,17 +1581,19 @@ def write_eval_sequences(torch, path: Path) -> None:
 
 
 def phase_eval(torch, lstm_cuda, int8: bool = False,
-               online_mode: str = "exact"):
+               online_mode: str = "exact", bf16: bool = False):
     """The evaluation entry point on the card (with `--int8`: on W8A8
-    params; with online_mode='carry': `--online-mode carry`, whose ONLINE
-    pass launches no LSTM kernel), held to the CPU port. Returns (the
-    offline pass's launch counts, the online pass's, the card's result
-    dict)."""
+    params; with `--bf16`: on bf16 params, the tables and the drift
+    windows held to the CPU port's within BF16_EVAL_ATOL,
+    BF16_JITTER_ATOL and BF16_DRIFT_ATOL; with online_mode='carry': `--online-mode carry`, whose
+    ONLINE pass launches no LSTM kernel), held to the CPU port. Returns
+    (the offline pass's launch counts, the online pass's, the card's
+    result dict)."""
     import numpy as np
     from mobileposer_tpu_torch.cli import evaluate as eval_cli
     from mobileposer_tpu_torch.evaluation.pose_eval import _BUCKET, _groups
 
-    suffix = "int8" if int8 else "f32"
+    suffix = "int8" if int8 else "bf16" if bf16 else "f32"
     n_groups = len(_groups(EVAL_LENGTHS, _BUCKET, 64))
     with tempfile.TemporaryDirectory() as tmp:
         write_eval_sequences(torch, Path(tmp) / "synthetic.pt")
@@ -1275,6 +1601,8 @@ def phase_eval(torch, lstm_cuda, int8: bool = False,
         argv = ["--model", str(FIXTURE), "--dataset", "synthetic"]
         if int8:
             argv.append("--int8")
+        if bf16:
+            argv.append("--bf16")
         expect = dict.fromkeys(lstm_cuda.launches, 0)
         expect[f"bilstm_scan_masked_{suffix}"] = 6 * n_groups
         expect[f"lstm_scan_masked_{suffix}"] = 2 * n_groups
@@ -1287,6 +1615,7 @@ def phase_eval(torch, lstm_cuda, int8: bool = False,
             torch.cuda.synchronize()
             offline = dict(lstm_cuda.launches)
             emit({"phase": "eval_offline_launches", "int8": int8,
+                  "bf16": bf16,
                   "lengths": EVAL_LENGTHS,
                   "bucket_groups": n_groups, "launches": offline,
                   "expected_launches": expect})
@@ -1329,18 +1658,26 @@ def phase_eval(torch, lstm_cuda, int8: bool = False,
     for k in ("offline", "online"):
         require(card[k].shape == (8, 2) and bool(np.isfinite(card[k]).all()),
                 f"{k} table on the card: shape {card[k].shape} or non-finite")
-        tol = EVAL_ATOL + rtol * np.abs(cpu[k])
-        if int8:
-            tol[6] = INT8_JITTER_ATOL
+        if bf16:
+            tol = np.full(cpu[k].shape, BF16_EVAL_ATOL)
+            tol[6] = BF16_JITTER_ATOL
+        else:
+            tol = EVAL_ATOL + rtol * np.abs(cpu[k])
+            if int8:
+                tol[6] = INT8_JITTER_ATOL
         errs[k] = float(np.max(np.abs(card[k] - cpu[k]) / tol))
     require(card["tran_errors"].keys() == cpu["tran_errors"].keys(),
             f"drift windows {sorted(card['tran_errors'])} vs "
             f"{sorted(cpu['tran_errors'])}")
     errs["tran_errors"] = max(
         [abs(card["tran_errors"][w] - cpu["tran_errors"][w])
-         / (EVAL_ATOL + drift_rtol * abs(cpu["tran_errors"][w]))
+         / (BF16_DRIFT_ATOL if bf16 else
+            EVAL_ATOL + drift_rtol * abs(cpu["tran_errors"][w]))
          for w in cpu["tran_errors"]], default=0.0)
-    emit({"phase": "eval", "int8": int8, "online_mode": online_mode,
+    emit({"phase": "eval", "int8": int8, "bf16": bf16,
+          "online_mode": online_mode,
+          "cpu": {"offline": cpu["offline"].tolist(),
+                  "online": cpu["online"].tolist()} if bf16 else None,
           "lengths": EVAL_LENGTHS,
           "card": {"offline": card["offline"].tolist(),
                    "online": card["online"].tolist(),
@@ -1355,8 +1692,9 @@ def phase_eval(torch, lstm_cuda, int8: bool = False,
     require(online == expect_online,
             f"online evaluation launches {online}, expected {expect_online}")
     for k, e in errs.items():
-        require(e <= 1.0, f"eval {k} int8={int8} {online_mode}: card vs "
-                          f"CPU beyond its tolerance (worst ratio {e})")
+        require(e <= 1.0, f"eval {k} int8={int8} bf16={bf16} "
+                          f"{online_mode}: card vs CPU beyond its "
+                          f"tolerance (worst ratio {e})")
     return offline, online, card
 
 
@@ -1576,20 +1914,23 @@ def _serve_lockstep(srv, clients, frames):
     return out
 
 
-def _serve_direct(torch, net, params, mode, frames, slots):
+def _serve_direct(torch, net, params, mode, frames, slots, dtype=None):
     """The server's step and post step called directly on `net`'s device:
-    frames [T, S, 60] of S streams in slots `slots`, every slot fed.
-    Returns (replies [T, S, 77] like `_serve_lockstep`, the step's own
-    outputs {pose [T,S,24,3,3], joints [T,S,24,3], root [T,S,3],
-    contact [T,S,2]}), both in client order."""
+    frames [T, S, 60] of S streams in slots `slots`, every slot fed, the
+    state and frames in `dtype` (float32 unless given; bf16 for bf16
+    params, as the server runs them). Returns (replies [T, S, 77] like
+    `_serve_lockstep`, the step's own outputs {pose [T,S,24,3,3], joints
+    [T,S,24,3], root [T,S,3], contact [T,S,2]}, as float32), both in
+    client order."""
     import numpy as np
     from mobileposer_tpu_torch.kinematics import rotation as R
+    dtype = dtype or torch.float32
     T, S = frames.shape[:2]
     if mode == "carry":
-        st, step = (net.init_carry_state_batched(S),
+        st, step = (net.init_carry_state_batched(S, dtype),
                     net.forward_carry_batched)
     else:
-        st, step = (net.init_online_state_batched(S),
+        st, step = (net.init_online_state_batched(S, dtype),
                     net.forward_online_batched)
     replies = np.zeros((T, S, 77), np.float32)
     outs = {"pose": [], "joints": [], "root": [], "contact": []}
@@ -1597,14 +1938,14 @@ def _serve_direct(torch, net, params, mode, frames, slots):
         for t in range(T):
             x = torch.zeros((S, 60))
             x[slots] = torch.from_numpy(frames[t])
-            out, st = step(params, st, x.to(net.device))
+            out, st = step(params, st, x.to(net.device).to(dtype))
             pose, _, root, contact = out
             aa = R.rotation_matrix_to_axis_angle(
                 pose.reshape(-1, 3, 3)).reshape(S, 72)
-            replies[t] = torch.cat([aa, root, contact],
-                                   1).cpu().numpy()[slots]
+            replies[t] = torch.cat([aa.float(), root.float(),
+                                    contact.float()], 1).cpu().numpy()[slots]
             for k, v in zip(outs, out):
-                outs[k].append(v.cpu().numpy()[slots])
+                outs[k].append(v.float().cpu().numpy()[slots])
     return replies, {k: np.stack(v) for k, v in outs.items()}
 
 
@@ -1907,6 +2248,213 @@ def phase_serving(torch, lstm_cuda, smi):
     return serving_launches
 
 
+def phase_bf16_slice(torch, lstm_cuda, multicell_cuda):
+    """The bf16 slice on the card: the trained fixture cast to bf16
+    (`params_from_jax(dtype=torch.bfloat16)`) through
+    `forward_online_sequence_batched` in 'scan' mode at S = 256 and
+    'unfolded' at S = 8, held to the CPU port on the same frames within
+    BF16_SLICE_TOL, the bf16 layer counters moving by their per-window
+    and per-frame counts; then `forward(backend='fused')` at B = 8 and 256
+    against 'auto' on the card (exactly 0.0), 2 multicell and 2 bi bf16
+    launches each, and the CPU port at B = 8. Returns (the streaming
+    run's launch counts, the fused run's)."""
+    import numpy as np
+    from mobileposer_tpu_torch.models import MobilePoserNet, forward
+    from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+
+    BF = torch.bfloat16
+    tree = load_npz(FIXTURE)
+    nets = {d: MobilePoserNet(device=d) for d in ("cuda", "cpu")}
+    params = {d: params_from_jax(tree, device=d, dtype=BF) for d in nets}
+    rng = np.random.RandomState(4)
+    lstm_cuda.reset_launches()
+    for mode, S, N, chunk in (("scan", 256, 3, 25), ("unfolded", 8, 7, 3)):
+        frames = (rng.randn(N, S, 60) * 0.1).astype(np.float32)
+        before = dict(lstm_cuda.launches)
+        outs, states = {}, {}
+        t0 = {}
+        for d in ("cuda", "cpu"):
+            t0[d] = time.perf_counter()
+            outs[d], states[d] = nets[d].forward_online_sequence_batched(
+                params[d], nets[d].init_online_state_batched(S, BF),
+                torch.from_numpy(frames).to(device=d, dtype=BF), mode=mode,
+                chunk=chunk)
+            if d == "cuda":
+                torch.cuda.synchronize()
+            t0[d] = time.perf_counter() - t0[d]
+        moved = {k: lstm_cuda.launches[k] - before[k] for k in before}
+        n_windows = N if mode == "scan" else -(-N // chunk)
+        expect = dict.fromkeys(lstm_cuda.launches, 0)
+        expect["bilstm_scan_bf16"] = 6 * n_windows
+        expect["lstm_scan_bf16"] = 2 * N
+        errs = {}
+        for nm, g, c in zip(("pose", "joints", "root", "contact"),
+                            outs["cuda"], outs["cpu"]):
+            require(tuple(g.shape) == tuple(c.shape) and g.dtype == c.dtype,
+                    f"bf16 {mode} {nm}: {g.dtype} {tuple(g.shape)} vs "
+                    f"{c.dtype} {tuple(c.shape)}")
+            require(bool(torch.isfinite(g.float()).all()),
+                    f"bf16 {mode} {nm}: non-finite")
+            errs[nm] = float((g.float().cpu() - c.float()).abs().max())
+        state_errs = {nm: float((g.float().cpu() - c.float()).abs().max())
+                      for nm, g, c in zip(states["cuda"]._fields,
+                                          states["cuda"], states["cpu"])}
+        dtypes = {nm: str(t.dtype) for nm, t in
+                  zip(states["cuda"]._fields, states["cuda"])}
+        emit({"phase": "bf16_slice", "mode": mode, "S": S, "N": N,
+              "chunk": chunk if mode == "unfolded" else None,
+              "max_abs_err": errs, "tol": BF16_SLICE_TOL,
+              "state_max_abs_err": state_errs, "state_dtypes": dtypes,
+              "card_seconds": t0["cuda"], "cpu_seconds": t0["cpu"],
+              "launches": moved, "expected_launches": expect})
+        require(moved == expect,
+                f"bf16 {mode}: launches {moved}, expected {expect}")
+        require(max(errs.values()) <= BF16_SLICE_TOL,
+                f"bf16 {mode}: card vs CPU {errs} > {BF16_SLICE_TOL}")
+        require(dtypes["vel_h"] == "torch.bfloat16"
+                and dtypes["last_root_pos"] == "torch.float32",
+                f"bf16 {mode}: state dtypes {dtypes}")
+    stream_launches = dict(lstm_cuda.launches)
+
+    # the fused single-window forward in bf16: 'fused' equals 'auto'
+    def counts():
+        return {**lstm_cuda.launches, **multicell_cuda.launches}
+
+    T = 45
+    imu = (rng.randn(256, T, 60) * 0.1).astype(np.float32)
+    hc = (np.tanh(rng.randn(2, 256, 256)), rng.randn(2, 256, 256) * 0.5)
+    lstm_cuda.reset_launches()
+    multicell_cuda.reset_launches()
+    for B in (8, 256):
+        def inputs(d):
+            return (torch.from_numpy(imu[:B]).to(device=d, dtype=BF),
+                    tuple(torch.from_numpy(a[:, :B].astype(np.float32)).to(
+                        device=d, dtype=BF) for a in hc))
+
+        x, carry = inputs("cuda")
+        before = counts()
+        card = forward(params["cuda"], x, nets["cuda"].body_model,
+                       vel_h0c0=carry, backend="fused")
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in counts().items()}
+        expect = dict.fromkeys(moved, 0)
+        expect.update(multicell_scan_bf16=2, bilstm_scan_bf16=2)
+        auto = forward(params["cuda"], x, nets["cuda"].body_model,
+                       vel_h0c0=carry, backend="auto")
+        card, auto = ([*o[:4], *o[4]] for o in (card, auto))
+        auto_diff = max(float((g.float() - a.float()).abs().max())
+                        for g, a in zip(card, auto))
+        cpu_errs = None
+        if B == 8:
+            x_cpu, carry_cpu = inputs("cpu")
+            cpu = forward(params["cpu"], x_cpu, nets["cpu"].body_model,
+                          vel_h0c0=carry_cpu, backend="fused")
+            cpu_errs = {nm: float((g.float().cpu() - c.float()).abs().max())
+                        for nm, g, c in zip(("pose", "joints", "vel",
+                                             "contact"), card, cpu)}
+        emit({"phase": "bf16_fused", "B": B, "T": T,
+              "max_abs_diff_vs_auto_on_card": auto_diff,
+              "max_abs_err_vs_cpu": cpu_errs, "tol": BF16_SLICE_TOL,
+              "dtypes": [str(t.dtype) for t in card],
+              "launches": moved, "expected_launches": expect})
+        require(moved == expect,
+                f"bf16 fused B={B}: launches {moved}, expected {expect}")
+        require(auto_diff == 0.0,
+                f"bf16 fused B={B}: 'fused' differs from 'auto' by "
+                f"{auto_diff}")
+        require(all(bool(torch.isfinite(g.float()).all()) for g in card),
+                f"bf16 fused B={B}: non-finite")
+        if cpu_errs is not None:
+            require(max(cpu_errs.values()) <= BF16_SLICE_TOL,
+                    f"bf16 fused B={B}: card vs CPU {cpu_errs}")
+    return stream_launches, counts()
+
+
+def phase_bf16_serving(torch, lstm_cuda, smi):
+    """`PoseServer` on bf16 params (random weights from seed 0, cast) on
+    the card: SERVE_STREAMS `PoseClient`s in lockstep for SERVE_TICKS
+    ticks, exact and carry, synchronous and pipelined, the server in bf16
+    (state, frames, step) with float32 replies equal to the direct bf16
+    step on the card exactly, pipelined equal to synchronous, 6 bi + 2 uni
+    bf16 launches per exact tick and none in carry mode; then the paced
+    30 Hz runs at SERVE_STREAMS, exact and carry (reply rate, tick p50);
+    then `cli.serve --bf16` and `cli.serve --carry --bf16` on the card.
+    Returns the launch counts of the exact synchronous run."""
+    import numpy as np
+    from mobileposer_tpu_torch.cli import serve as serve_cli
+    from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
+    from mobileposer_tpu_torch.nn import cast_params
+    from mobileposer_tpu_torch.stream import PoseClient, PoseServer
+
+    BF = torch.bfloat16
+    net = MobilePoserNet(device="cuda")
+    params = cast_params(init_all_modules(torch.Generator().manual_seed(0),
+                                          device="cuda"), BF)
+    S, T = SERVE_STREAMS, SERVE_TICKS
+    frames = (np.random.RandomState(12).randn(T, S, 60) * 0.1).astype(
+        np.float32)
+    serving_launches = {}
+    for mode in ("exact", "carry"):
+        replies = {}
+        for pipelined in (False, True):
+            srv = PoseServer(net, params, host="127.0.0.1", port=0,
+                             max_streams=S, mode=mode, pipelined=pipelined)
+            clients = [PoseClient(stream_id=2000 + s, port=srv.port,
+                                  timeout=10.0) for s in range(S)]
+            try:
+                require(srv.dtype == BF, f"bf16 server dtype {srv.dtype}")
+                lstm_cuda.reset_launches()
+                replies[pipelined] = _serve_lockstep(srv, clients, frames)
+                torch.cuda.synchronize()
+                moved = dict(lstm_cuda.launches)
+                stats = srv.stats()
+                slots = [srv.slot_of[c.stream_id] for c in clients]
+            finally:
+                for c in clients:
+                    c.close()
+                srv.stop()
+                srv.close()
+            expect = dict.fromkeys(lstm_cuda.launches, 0)
+            if mode == "exact":
+                expect["bilstm_scan_bf16"] = 6 * T
+                expect["lstm_scan_bf16"] = 2 * T
+                if not pipelined:
+                    serving_launches = moved
+            emit({"phase": "bf16_serving_lockstep", "mode": mode,
+                  "pipelined": pipelined, "streams": S, "ticks": T,
+                  "launches": moved, "expected_launches": expect,
+                  "tick_ms_p50": stats["tick_ms_p50"]})
+            require(moved == expect, f"bf16 serving {mode} pipelined="
+                    f"{pipelined}: launches {moved}, expected {expect}")
+            require(bool(np.isfinite(replies[pipelined]).all()),
+                    "non-finite bf16 replies")
+        direct, _ = _serve_direct(torch, net, params, mode, frames, slots,
+                                  dtype=BF)
+        vs_step = float(abs(replies[False] - direct).max())
+        vs_sync = float(abs(replies[True] - replies[False]).max())
+        emit({"phase": "bf16_serving", "mode": mode, "streams": S,
+              "ticks": T, "replies_vs_direct_step_max_abs": vs_step,
+              "pipelined_vs_sync_max_abs": vs_sync})
+        require(vs_step == 0.0, f"bf16 serving {mode}: replies differ from "
+                                f"the direct bf16 step by {vs_step}")
+        require(vs_sync == 0.0, f"bf16 serving {mode}: pipelined differs "
+                                f"from sync by {vs_sync}")
+    for mode in ("exact", "carry"):
+        rec = _serve_paced(torch, net, params, smi, S, mode, None, True)
+        rec["bf16"] = True
+        emit(rec)
+        require(rec["replies_received"] > 0, "no reply in the bf16 paced "
+                                             "run")
+    for flags in (["--bf16"], ["--carry", "--bf16"]):
+        stats = serve_cli.main(["--model", str(FIXTURE), "--host",
+                                "127.0.0.1", "--port", "0",
+                                "--duration", "0.5", *flags])
+        emit({"phase": "serve_cli", "flags": flags, "stats": stats})
+        require(stats["device"].startswith("cuda"),
+                f"cli.serve ran on {stats['device']}")
+    return serving_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1967,6 +2515,9 @@ def main() -> int:
     kernel_recs += phase_int8_kernels(torch, lstm_cuda)
     # 3e. the multicell kernel against its plain version
     kernel_recs += phase_multicell(torch, multicell_cuda, lstm_cuda)
+    # 3f. the bf16-I/O entries of #1, #2, #3 and #9 against their plain
+    # versions
+    kernel_recs += phase_bf16_kernels(torch, lstm_cuda, multicell_cuda)
 
     # 4. the streaming slice on the card, float32 then int8 (their
     # main-path runs: the full-length counters are read on them)
@@ -2011,6 +2562,17 @@ def main() -> int:
                      "lstm_scan_int8")}
     for name, n in serving_by_kernel.items():
         require(n > 0, f"{name} was never launched by the server")
+    # 4f. the bf16 slice: streaming and the fused forward (their runs: the
+    # full-length and multicell bf16 counters), `cli.evaluate --bf16` (its
+    # offline run: the masked bf16 counters), bf16 serving
+    bf16_stream_launches, bf16_fused_launches = phase_bf16_slice(
+        torch, lstm_cuda, multicell_cuda)
+    bf16_offline_launches, _, _ = phase_eval(torch, lstm_cuda, bf16=True)
+    bf16_serving = phase_bf16_serving(torch, lstm_cuda, smi)
+    for name in ("bilstm_scan_bf16", "lstm_scan_bf16"):
+        serving_by_kernel[name] = bf16_serving[name]
+        require(bf16_serving[name] > 0,
+                f"{name} was never launched by the bf16 server")
     main_launches = {
         **{k: n for k, n in stream_launches.items() if k.endswith("f32")
            and "masked" not in k},
@@ -2021,11 +2583,17 @@ def main() -> int:
         **{k: n for k, n in offline_int8_launches.items()
            if k.endswith("int8") and "masked" in k},
         **train_launches,
-        "multicell_scan_f32": fused_launches["multicell_scan_f32"]}
+        "multicell_scan_f32": fused_launches["multicell_scan_f32"],
+        **{k: bf16_stream_launches[k] for k in ("bilstm_scan_bf16",
+                                                "lstm_scan_bf16")},
+        **{k: bf16_offline_launches[k] for k in ("bilstm_scan_masked_bf16",
+                                                 "lstm_scan_masked_bf16")},
+        "multicell_scan_bf16": bf16_fused_launches["multicell_scan_bf16"]}
     for name, n in main_launches.items():
         require(n > 0, f"{name} was never launched on its main path")
 
-    # 5. exact-path streamed frames/s (tracing off), then one traced call
+    # 5. exact-path streamed frames/s (tracing off), then one traced call;
+    # at 256 streams (C1's shape) the same on bf16 params beside it
     for streams in (256, 8):
         rec = bench.run(n_streams=streams, n_frames=100)
         emit({"phase": "rate", **rec})
@@ -2035,6 +2603,18 @@ def main() -> int:
         emit({"phase": "breakdown", **trace})
         require(trace["device_busy_seconds"] > 0,
                 "the traced call shows no device time")
+        if streams == 256:
+            rec16 = bench.run(n_streams=256, n_frames=100, bf16=True)
+            emit({"phase": "rate", **rec16,
+                  "f32_value_same_run": rec["value"],
+                  "bf16_over_f32": rec16["value"] / rec["value"]})
+            require(rec16["pct_of_f32_peak"] < 100.0,
+                    "implied FLOP/s above the card's peak: the harness is "
+                    "wrong")
+            trace = bench.breakdown(n_streams=256, n_frames=100, bf16=True)
+            emit({"phase": "breakdown", **trace})
+            require(any(g.endswith("bf16") for g in trace["groups"]),
+                    "the traced bf16 call shows no bf16 kernel")
     # the same on W8A8 params at 256 streams (the JAX bench's exact_int8)
     rec = bench.run(n_streams=256, n_frames=100, mode="scan", int8=True)
     emit({"phase": "rate", **rec})
@@ -2096,7 +2676,7 @@ def main() -> int:
     ported = []
     for tpu_name, replaces, name in TPU_KERNELS:
         recs = [r for r in kernel_recs + train_recs if r["name"] == name]
-        multicell = name == "multicell_scan_f32"
+        multicell = name.startswith("multicell")
         T, B = ((512, 64) if "masked" in name
                 else (125, 256) if "train" in name else (45, 256))
         main = next(r for r in recs if (r["T"], r["B"]) == (T, B)
@@ -2108,10 +2688,9 @@ def main() -> int:
         errs = [max(r["max_abs_err"].values())
                 if isinstance(r["max_abs_err"], dict) else r["max_abs_err"]
                 for r in recs]
-        extra = ({"float_kernel_ms": main["float_kernel_ms"]}
-                 if "int8" in name else
-                 {"per_module_kernels_ms": main["per_module_kernels_ms"]}
-                 if multicell else {})
+        extra = {k: main[k] for k in ("float_kernel_ms",
+                                      "per_module_kernels_ms",
+                                      "max_err_ulps") if k in main}
         ported.append({
             "name": name, "route": "cuda",
             "source": f"mobileposer_tpu_torch/ops/csrc/{source}",

@@ -24,8 +24,12 @@ package's root `bench.py`:
 `run(..., int8=True)` times the same streaming call on W8A8-quantized
 params (`ops.quant.quantize_params_int8`: int8 input projections and the
 int8 kernels #4 and #6), the counterpart of the JAX bench's `exact_int8`
-leg. The JAX bench quantizes bf16 params; the port has no bf16, so it
-quantizes the float32 params, and the record says so.
+leg. The JAX bench quantizes bf16 params; int8 on bf16 params is not
+ported yet (ROADMAP.md queue A item 14b), so it quantizes the float32
+params, and the record says so. `run(..., bf16=True)` times the call on
+bf16 params, state and frames (`nn.convert.cast_params`: the layer
+kernels' bf16 entries), the counterpart of the JAX bench's
+`exact_bf16_frames_per_sec`.
 
 `run_train` times the concurrent four-module train step
 (`train.make_multi_train_step`: every LSTM layer on the training kernels
@@ -49,6 +53,7 @@ device's busy share of the wall time. The rates come from `run`,
 Random weights from a seed (the JAX bench uses random weights too).
 Run:  python -m mobileposer_tpu_torch.bench [--streams 256] [--frames 100]
       python -m mobileposer_tpu_torch.bench --int8 [--streams 256]
+      python -m mobileposer_tpu_torch.bench --bf16 [--streams 256]
       python -m mobileposer_tpu_torch.bench --offline
       python -m mobileposer_tpu_torch.bench --train
 Prints one JSON line.
@@ -72,6 +77,7 @@ from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, init_all_module
 from mobileposer_tpu_torch.models.net import (NUM_TOTAL, MobilePoserNet,
                                               forward)
 from mobileposer_tpu_torch.ops import lstm_train_cuda
+from mobileposer_tpu_torch.nn.lstm import INT8_BF16_ERROR, cast_params
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 from mobileposer_tpu_torch.train.trainer import (MODULE_NAMES,
                                                  init_train_state,
@@ -120,17 +126,23 @@ def _net(seed: int, device):
 
 
 def _setup(n_streams: int, n_frames: int, mode: str, seed: int, device,
-           int8: bool = False):
-    """Net, random weights (W8A8-quantized with `int8`), fresh state and
-    frames on the CUDA device."""
+           int8: bool = False, bf16: bool = False):
+    """Net, random weights (W8A8-quantized with `int8`; cast to bf16 with
+    `bf16`, the state and frames too), fresh state and frames on the CUDA
+    device."""
+    if int8 and bf16:
+        raise NotImplementedError(INT8_BF16_ERROR)
+    dtype = torch.bfloat16 if bf16 else torch.float32
     device, net, params = _net(seed, device)
     if int8:
         params = quantize_params_int8(params)
-    state0 = net.init_online_state_batched(n_streams)
+    if bf16:
+        params = cast_params(params, dtype)
+    state0 = net.init_online_state_batched(n_streams, dtype)
     rng = np.random.RandomState(seed)
     frames = torch.from_numpy(
         rng.randn(n_frames, n_streams, 60).astype(np.float32) * 0.1
-    ).to(device)
+    ).to(device=device, dtype=dtype)
     if mode == "auto":
         mode = ("unfolded" if n_streams < MobilePoserNet.UNFOLD_MAX_STREAMS
                 else "scan")
@@ -170,14 +182,15 @@ def _chained_rates(call, state0, per_call: int, reps: int, trials: int,
 
 def run(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
         reps: int = 3, trials: int = 5, seed: int = 0, device=None,
-        int8: bool = False) -> dict:
+        int8: bool = False, bf16: bool = False) -> dict:
     """Measure exact-path streamed frames/s; returns the JSON record.
 
     `trials` chained regions of `reps` calls each are timed; the record's
     value is their median rate, with the lowest and highest beside it.
-    `int8` runs on W8A8-quantized params."""
+    `int8` runs on W8A8-quantized params, `bf16` on bf16 params with a
+    bf16 state and bf16 frames."""
     device, net, params, state0, frames, mode = _setup(
-        n_streams, n_frames, mode, seed, device, int8)
+        n_streams, n_frames, mode, seed, device, int8, bf16)
     per_call = n_streams * n_frames
     rates, t_single, checksum = _chained_rates(
         lambda st: net.forward_online_sequence_batched(params, st, frames,
@@ -187,13 +200,15 @@ def run(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
     # one emitted streaming frame re-runs the full window through all four
     # modules (reference semantics, net.py:174-178)
     flops = NUM_TOTAL * model_flops_per_frame()
-    int8_fields = {"int8": int8}
+    int8_fields = {"int8": int8, "bf16": bf16}
     if int8:
         int8_fields["int8_quantized_from"] = (
             "float32 params (the JAX bench's exact_int8 leg quantizes its "
-            "bf16 params; the port has no bf16)")
+            "bf16 params; int8 on bf16 params is ROADMAP.md queue A item "
+            "14b)")
     return {
         "metric": ("exact_int8_streamed_frames_per_sec" if int8
+                   else "exact_bf16_streamed_frames_per_sec" if bf16
                    else "exact_streamed_frames_per_sec"),
         "value": fps,
         **int8_fields,
@@ -420,6 +435,8 @@ def breakdown_forward(batch: int = 256, window: int = 45,
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "bfloat16" in low and "_scan_" in low:  # a bf16-I/O entry's kernel
+        return _kernel_group(low.replace("bfloat16", "")) + " bf16"
     if "multicell_scan_kernel" in low:
         return "#9 multicell_scan (ops/csrc/multicell_scan.cu)"
     if "lstm_train_fwd_kernel" in low:
@@ -444,18 +461,20 @@ def _kernel_group(name: str) -> str:
 
 
 def breakdown(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
-              seed: int = 0, device=None, int8: bool = False) -> dict:
+              seed: int = 0, device=None, int8: bool = False,
+              bf16: bool = False) -> dict:
     """One streaming call under `torch.profiler`: device time by kernel
     group, the device's busy share of the call's wall time (profiler on),
     the longest kernels by name, and the host operations with the most
     self time (what keeps the host from running ahead of the device).
-    `int8` traces the call on W8A8-quantized params."""
+    `int8` traces the call on W8A8-quantized params, `bf16` on bf16
+    ones."""
     device, net, params, state0, frames, mode = _setup(
-        n_streams, n_frames, mode, seed, device, int8)
+        n_streams, n_frames, mode, seed, device, int8, bf16)
     rec = _traced(lambda: net.forward_online_sequence_batched(
         params, state0, frames, mode=mode), device)
     return {"streams": n_streams, "frames": n_frames, "mode": mode,
-            "int8": int8, **rec}
+            "int8": int8, "bf16": bf16, **rec}
 
 
 def breakdown_offline(batch: int = 64, bucket: int = 512, seed: int = 0,
@@ -520,13 +539,15 @@ def main() -> None:
                          "instead")
     ap.add_argument("--int8", action="store_true",
                     help="stream on W8A8-quantized params")
+    ap.add_argument("--bf16", action="store_true",
+                    help="stream on bf16 params, state and frames")
     args = ap.parse_args()
     if args.train:
         print(json.dumps(run_train()))
     else:
         print(json.dumps(run_offline() if args.offline
                          else run(args.streams, args.frames,
-                                  int8=args.int8)))
+                                  int8=args.int8, bf16=args.bf16)))
 
 
 if __name__ == "__main__":

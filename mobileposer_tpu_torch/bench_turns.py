@@ -1,7 +1,8 @@
-"""Time cells C1 to C6 (PERF.md section 4) of two checkouts in turns on one
+"""Time cells C1 to C7 (PERF.md section 4) of two checkouts in turns on one
 card, so that a change is compared with its parent under the same clocks.
 
     python -m mobileposer_tpu_torch.bench_turns --other DIR [--out FILE]
+        [--cells C1,C7]
     python -m mobileposer_tpu_torch.bench_turns --other DIR --kernels [LIST]
 
 DIR is another checkout of this repository (for example the parent
@@ -10,14 +11,19 @@ turns run other, this, this, other; each turn is one process that imports
 `mobileposer_tpu_torch.bench` from its own tree, builds that tree's
 kernels and runs every cell once. Prints one JSON line per cell and turn,
 then one line of medians per cell and tree with the change's relative
-difference; with --out, writes the lines to FILE as well. With --kernels
+difference; with --out, writes the lines to FILE as well; --cells runs
+only those cells (a noisy one again, for more turns). A cell whose
+bench function a tree does not take (C7's `bf16` before the port ran
+bf16) is skipped in that tree's turns. With --kernels
 each turn runs kernel phases of its tree's `chip_smoke.py` instead, LIST
 a comma-separated choice of `full` (phase 3, the full-length layer scans
 at the streaming shapes; the default), `masked` (phase 3b, the masked
 scans at the evaluation shapes), `train` (phase 3c, the training kernels
 and the dW reduction), `int8` (phase 3d, the W8A8 scans at the
-streaming and evaluation shapes) and `multicell` (phase 3e, the multicell
-scan at B = 256 and 8), and a cell is one kernel at one shape: its time
+streaming and evaluation shapes), `multicell` (phase 3e, the multicell
+scan at B = 256 and 8) and `bf16` (phase 3f, the bf16-I/O entries of the
+float scans; skipped in a tree without it), and a cell is one kernel at
+one shape: its time
 in ms, with the yardstick's (cuDNN, or torch.matmul for dW; for an int8
 kernel, which has none, the float kernel's at the same shape; for the
 multicell scan the per-module kernels' on the same cells) in the same
@@ -47,18 +53,22 @@ CELLS = [
                    "int8": True}),
     ("C6f", "run_forward", {"batch": 256, "window": 45, "backend": "fused"}),
     ("C6a", "run_forward", {"batch": 256, "window": 45, "backend": "auto"}),
+    # C1 on bf16 params, state and frames
+    ("C7", "run", {"n_streams": 256, "n_frames": 100, "bf16": True}),
 ]
 
 # run inside the tree under test: its own package, TF32 off as in
 # chip_smoke.py
 _TURN = """
-import json, sys
+import inspect, json, sys
 sys.path.insert(0, {tree!r})
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 from mobileposer_tpu_torch import bench
 for name, fn, kw in {cells!r}:
+    if set(kw) - set(inspect.signature(getattr(bench, fn)).parameters):
+        continue
     rec = getattr(bench, fn)(**kw)
     print(json.dumps({{"cell": name, "value": rec["value"],
                       "unit": rec.get("unit"), "rate_min": rec.get("rate_min"),
@@ -68,7 +78,7 @@ for name, fn, kw in {cells!r}:
 # the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked'),
 # 3c ('train'), 3d ('int8') and 3e ('multicell') of the tree's
 # chip_smoke.py
-KERNEL_PHASES = ("full", "masked", "train", "int8", "multicell")
+KERNEL_PHASES = ("full", "masked", "train", "int8", "multicell", "bf16")
 _KERNEL_TURN = """
 import json, sys
 sys.path.insert(0, {tree!r})
@@ -90,6 +100,13 @@ for phase in {phases!r}:
         lstm_cuda.build()
         multicell_cuda.build()
         recs += chip_smoke.phase_multicell(torch, multicell_cuda, lstm_cuda)
+    elif phase == "bf16":
+        if not hasattr(chip_smoke, "phase_bf16_kernels"):
+            continue
+        lstm_cuda.build()
+        multicell_cuda.build()
+        recs += chip_smoke.phase_bf16_kernels(torch, lstm_cuda,
+                                              multicell_cuda)
     else:
         lstm_cuda.build()
         fn = {{"full": chip_smoke.phase_kernels,
@@ -109,11 +126,11 @@ for rec in recs:
 """
 
 
-def run_turn(tree: Path, kernels=()) -> dict:
-    """One process in `tree` running every cell (or, with `kernels`, every
+def run_turn(tree: Path, kernels=(), cells=CELLS) -> dict:
+    """One process in `tree` running `cells` (or, with `kernels`, every
     shape of those kernel phases); {cell: record}."""
     script = (_KERNEL_TURN.format(tree=str(tree), phases=tuple(kernels))
-              if kernels else _TURN.format(tree=str(tree), cells=CELLS))
+              if kernels else _TURN.format(tree=str(tree), cells=cells))
     proc = subprocess.run([sys.executable, "-c", script], cwd=tree,
                           capture_output=True, text=True)
     if proc.returncode != 0:
@@ -132,8 +149,16 @@ def main(argv=None) -> None:
                     help="time these kernel phases instead of the cells: "
                          "a comma-separated choice of "
                          + ", ".join(KERNEL_PHASES) + " (default full)")
+    ap.add_argument("--cells", default="",
+                    help="run only these cells, comma-separated (default "
+                         "all: " + ",".join(c[0] for c in CELLS) + ")")
     args = ap.parse_args(argv)
     kernels = [k for k in args.kernels.split(",") if k]
+    names = [c for c in args.cells.split(",") if c]
+    if set(names) - {c[0] for c in CELLS}:
+        ap.error(f"--cells takes {', '.join(c[0] for c in CELLS)}; got "
+                 f"{args.cells}")
+    chosen = [c for c in CELLS if not names or c[0] in names]
     if set(kernels) - set(KERNEL_PHASES):
         ap.error(f"--kernels takes {', '.join(KERNEL_PHASES)}; got "
                  f"{args.kernels}")
@@ -146,7 +171,7 @@ def main(argv=None) -> None:
     values = {t: defaultdict(list) for t in trees}
     cells = {}   # every cell either tree ran, in order of first appearance
     for turn, tree in enumerate(("other", "this", "this", "other")):
-        for cell, rec in run_turn(trees[tree], kernels).items():
+        for cell, rec in run_turn(trees[tree], kernels, chosen).items():
             values[tree][cell].append(rec["value"])
             cells[cell] = None
             lines.append({"turn": turn, "tree": tree, **rec})

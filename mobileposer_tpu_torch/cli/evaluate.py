@@ -3,7 +3,7 @@
 
     python -m mobileposer_tpu_torch.cli.evaluate --model weights.npz \\
         --dataset {dip,totalcapture,imuposer,synthetic} [--combo lw_rp] \\
-        [--online] [--tran] [--int8] [--device cpu]
+        [--online] [--tran] [--int8 | --bf16] [--device cpu]
 
 Weights are the JAX package's `.npz` archives. Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
@@ -11,11 +11,13 @@ versions). `--int8` quantizes the LSTM matmuls to W8A8 after loading, as
 the JAX CLI does (`ops.quant.quantize_params_int8`; every LSTM layer on
 the int8 kernels #4 to #6). `--online-mode carry` runs the ONLINE
 protocol through carry-mode streaming (`models/streaming.py`), with or
-without `--int8`. `--data-parallel` evaluates on the one device when one
-is visible (the card, or `--device cpu`), as the JAX CLI does with one
-device. `--bf16` and `--data-parallel` over more than one CUDA device are
-accepted as the JAX CLI accepts them and raise NotImplementedError naming
-the ROADMAP row that adds them.
+without `--int8`. `--bf16` evaluates on bf16-cast params, both
+protocols in bf16 (`evaluate_pose(bf16=True)`; the metrics in float32 on
+the cast-back outputs). `--data-parallel` evaluates on the one device
+when one is visible (the card, or `--device cpu`), as the JAX CLI does
+with one device. `--int8 --bf16` and `--data-parallel` over more than
+one CUDA device are accepted as the JAX CLI accepts them and raise
+NotImplementedError naming the ROADMAP row that adds them.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from mobileposer_tpu_torch.evaluation import evaluate_pose
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
 from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+from mobileposer_tpu_torch.nn.lstm import INT8_BF16_ERROR
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 
 
@@ -73,7 +76,10 @@ def main(argv=None) -> dict:
                              "than one CUDA device not ported (ROADMAP.md "
                              "queue A item 16)")
     parser.add_argument("--bf16", action="store_true",
-                        help="not ported (ROADMAP.md queue A item 14)")
+                        help="bf16 inference dtype (weights, state, "
+                             "frames); metrics computed in float32 on the "
+                             "cast-back outputs. With --int8 not ported "
+                             "(ROADMAP.md queue A item 14b)")
     parser.add_argument("--online-mode", default="exact",
                         choices=["exact", "carry"],
                         help="ONLINE protocol semantics: 'exact' "
@@ -86,9 +92,8 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     if args.int8 and args.bf16:
-        raise NotImplementedError(
-            "--int8 --bf16 (int8 on bf16 params) is not ported (bf16, "
-            "ROADMAP.md queue A item 14)")
+        # the JAX CLI casts to bf16 first, then quantizes
+        raise NotImplementedError("--int8 --bf16: " + INT8_BF16_ERROR)
     if Path(args.model).suffix != ".npz":
         raise NotImplementedError(
             f"{args.model}: only the JAX package's .npz archives load; a "

@@ -3,15 +3,17 @@
 
     python -m mobileposer_tpu_torch.cli.serve --model weights.npz \\
         [--port 9000] [--max-streams 64] [--tick-hz 30] [--carry] \\
-        [--int8] [--wire f16] [--no-pipeline] [--device cpu]
+        [--int8 | --bf16] [--wire f16] [--no-pipeline] [--device cpu]
 
 Weights are the JAX package's `.npz` archives. Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
-versions). `--data-parallel` serves on the one device when one is
-visible, as the JAX CLI does with one device. `--bf16`, a `.pth`
-checkpoint and `--data-parallel` over more than one CUDA device are
-accepted as the JAX CLI accepts them and raise NotImplementedError naming
-the ROADMAP row that adds them.
+versions). `--bf16` casts the loaded params to bfloat16
+(`nn.convert.cast_params`, as the JAX CLI does): the server then runs its
+state, frames and step in bf16, exact and carry mode. `--data-parallel`
+serves on the one device when one is visible, as the JAX CLI does with
+one device. `--int8 --bf16`, a `.pth` checkpoint and `--data-parallel`
+over more than one CUDA device are accepted as the JAX CLI accepts them
+and raise NotImplementedError naming the ROADMAP row that adds them.
 """
 
 from __future__ import annotations
@@ -26,16 +28,16 @@ from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
-from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+from mobileposer_tpu_torch.nn.convert import (cast_params, load_npz,
+                                              params_from_jax)
+from mobileposer_tpu_torch.nn.lstm import INT8_BF16_ERROR
 from mobileposer_tpu_torch.stream import PoseServer
 
 
 def build_server(args) -> PoseServer:
     """The server the parsed arguments describe (bound, not running)."""
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 serving is not ported (bf16 streaming, ROADMAP.md "
-            "queue A item 14)")
+    if args.int8 and args.bf16:
+        raise NotImplementedError("--int8 --bf16: " + INT8_BF16_ERROR)
     if Path(args.model).suffix != ".npz":
         raise NotImplementedError(
             f"{args.model}: only the JAX package's .npz archives load; a "
@@ -51,6 +53,8 @@ def build_server(args) -> PoseServer:
     net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
         C.paths.smpl_file), device=device)
     params = params_from_jax(load_npz(args.model), device=net.device)
+    if args.bf16:
+        params = cast_params(params, torch.bfloat16)
     return PoseServer(net, params, host=args.host, port=args.port,
                       max_streams=args.max_streams, tick_hz=args.tick_hz,
                       mode="carry" if args.carry else "exact",
@@ -73,7 +77,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     parser.add_argument("--bf16", action="store_true",
-                        help="not ported (ROADMAP.md queue A item 14)")
+                        help="serve on bf16-cast params: bf16 state, "
+                             "frames and step (exact and carry mode); "
+                             "replies stay float32 or f16 on the wire. "
+                             "With --int8 not ported (ROADMAP.md queue A "
+                             "item 14b)")
     parser.add_argument("--data-parallel", action="store_true",
                         help="serves on the one device; over more than "
                              "one CUDA device not ported (ROADMAP.md "
@@ -105,6 +113,7 @@ def main(argv=None) -> dict:
           f"({args.max_streams} streams @ {args.tick_hz} Hz, "
           f"{server.mode} mode on {server.device}"
           + (", int8" if args.int8 else "")
+          + (", bf16" if args.bf16 else "")
           + (", f16 wire" if args.wire == "f16" else "")
           + (", pipelined" if server.pipelined else ", synchronous")
           + "). Ctrl-C to stop.", flush=True)

@@ -18,6 +18,11 @@ the full-length kernels), or with `online_mode='carry'` of carry-mode
 streaming (`forward_carry_sequence_batched`, no LSTM kernel); a group's
 streams run to the group's longest sequence rather than to the bucket,
 since an output at frame t depends only on frames up to t in both modes.
+
+`bf16=True` casts the params to bfloat16 and runs both protocols in bf16
+(frames and state; the offline groups through the masked kernels' bf16
+entries); the metrics are computed in float32 on the cast-back outputs,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.evaluation.evaluator import FullMotionEvaluator
 from mobileposer_tpu_torch.models.net import MobilePoserNet, _fuse_velocity, forward
+from mobileposer_tpu_torch.nn.convert import cast_params
 
 _IGNORED = np.asarray(C.joint_set.ignored)
 _BUCKET = 512
@@ -134,25 +140,28 @@ def _groups(ns: Sequence[int], bucket: int, max_batch: int):
             for c0 in range(0, len(idxs), max_batch)]
 
 
-def _predict_offline_batched(net, params, imus, bucket, max_batch):
+def _predict_offline_batched(net, params, imus, bucket, max_batch,
+                             dtype=torch.float32):
     """Offline predictions for a list of [T_i, 60] sequences, one ragged
-    batch per bucket group. Returns [(pose [T_i,24,3,3], tran [T_i,3]),
-    ...] in the order of `imus`."""
+    batch per bucket group, the IMU in `dtype`. Returns [(pose
+    [T_i,24,3,3], tran [T_i,3]) float32, ...] in the order of `imus`."""
     ns = [x.shape[0] for x in imus]
     out: List = [None] * len(imus)
     for P, chunk in _groups(ns, bucket, max_batch):
         batch = np.stack([_pad_to_bucket(imus[i], P) for i in chunk])
         lengths = torch.as_tensor([ns[i] for i in chunk])
         pose, _, tran, _ = forward_offline_batched(
-            net, params, torch.as_tensor(batch, device=net.device), lengths)
-        pose, tran = pose.cpu().numpy(), tran.cpu().numpy()
+            net, params, torch.as_tensor(batch, device=net.device).to(dtype),
+            lengths)
+        pose, tran = pose.float().cpu().numpy(), tran.float().cpu().numpy()
         for k, i in enumerate(chunk):
             out[i] = (pose[k, :ns[i]], tran[k, :ns[i]])
     return out
 
 
 def _predict_online_batched(net, params, imus, num_future_frames, bucket,
-                            max_batch, mode: str = "exact"):
+                            max_batch, mode: str = "exact",
+                            dtype=torch.float32):
     """ONLINE-protocol predictions for a list of sequences, batched as
     independent streams with fresh state (reference protocol:
     evaluate.py:62-64, per-frame streaming with `num_future_frames` of
@@ -162,7 +171,8 @@ def _predict_online_batched(net, params, imus, num_future_frames, bucket,
 
     mode='carry' runs the same protocol through carry-mode streaming,
     whose emission timing is the exact path's, so the metrics measure
-    the approximation's accuracy cost."""
+    the approximation's accuracy cost. Frames and state in `dtype`;
+    outputs returned as float32."""
     if mode == "carry":
         init_state = net.init_carry_state_batched
         run = net.forward_carry_sequence_batched
@@ -176,23 +186,23 @@ def _predict_online_batched(net, params, imus, num_future_frames, bucket,
         frames = np.stack([_pad_to_bucket(imus[i], n_max) for i in chunk],
                           axis=1)                          # [n_max, S, 60]
         (poses, _, trans, _), _ = run(
-            params, init_state(len(chunk)),
-            torch.as_tensor(frames, device=net.device))
-        poses, trans = poses.cpu().numpy(), trans.cpu().numpy()
+            params, init_state(len(chunk), dtype),
+            torch.as_tensor(frames, device=net.device).to(dtype))
+        poses, trans = poses.float().cpu().numpy(), trans.float().cpu().numpy()
         for k, i in enumerate(chunk):
             out[i] = (poses[num_future_frames:ns[i], k],
                       trans[num_future_frames:ns[i], k])
     return out
 
 
-def _check_scope(online_mode: str, bf16: bool, mesh) -> None:
+def _check_scope(online_mode: str, bf16: bool, batch_sequences: bool,
+                 mesh) -> None:
     if online_mode not in ("exact", "carry"):
         # an unknown mode must not fall back to the exact path
         raise ValueError(f"online_mode must be 'exact' or 'carry', "
                          f"got {online_mode!r}")
-    if bf16:
-        raise NotImplementedError(
-            "bf16 evaluation is not ported (ROADMAP.md queue A item 14)")
+    if bf16 and not batch_sequences:
+        raise ValueError("bf16=True requires batch_sequences=True")
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel evaluation is not ported (ROADMAP.md queue A "
@@ -220,8 +230,13 @@ def evaluate_pose(net: MobilePoserNet, params, dataset,
     online_mode: 'exact' (the reference's window semantics) or 'carry'
     (the carry-mode approximation, `models/streaming.py`; requires
     batch_sequences=True, as in the JAX package).
+
+    bf16=True (requires batch_sequences=True, as in the JAX package)
+    casts the params to bfloat16 (`nn.convert.cast_params`) and runs both
+    protocols with bf16 frames and state; the metric math stays float32
+    on the cast-back outputs.
     """
-    _check_scope(online_mode, bf16, mesh)
+    _check_scope(online_mode, bf16, batch_sequences, mesh)
     if online_mode != "exact" and not batch_sequences:
         raise ValueError("online_mode='carry' requires batch_sequences=True")
     evaluator = PoseEvaluator(net.body_model, device=net.device)
@@ -233,11 +248,15 @@ def evaluate_pose(net: MobilePoserNet, params, dataset,
     none = [None] * len(items)
 
     if batch_sequences:
+        dtype = torch.float32
+        if bf16:
+            params = cast_params(params, torch.bfloat16)
+            dtype = torch.bfloat16
         offline_preds = _predict_offline_batched(net, params, imus, _BUCKET,
-                                                 max_batch)
+                                                 max_batch, dtype)
         online_preds = (_predict_online_batched(net, params, imus,
                                                 num_future_frames, _BUCKET,
-                                                max_batch, online_mode)
+                                                max_batch, online_mode, dtype)
                         if online else none)
     else:
         offline_preds = []

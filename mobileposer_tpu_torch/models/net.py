@@ -36,7 +36,12 @@ projections and the int8 kernels #4 to #6.
 of a single full-length window on the multicell kernel
 (`models/fused.py`); every other entry point computes 'fused' as 'auto'.
 
-Not ported yet: bf16 streaming (ROADMAP.md queue A item 14).
+bfloat16 inference: params cast with `nn.convert.cast_params`, the IMU
+input and the streaming state (`dtype=torch.bfloat16`) in bf16, and every
+entry point runs in bf16 with the JAX package's dtypes: the LSTM layers
+on the kernels' bf16 entries (float32 carry), the IK products in float32
+cast back, and the fusion accumulators and foot anchors of the streaming
+state always float32.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.kinematics.smpl import SMPL_PARENTS, ParametricModel
 from mobileposer_tpu_torch.models.fused import trio_apply
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, module_apply
-from mobileposer_tpu_torch.nn.lstm import (check_backend, check_float32,
+from mobileposer_tpu_torch.nn.lstm import (check_backend, check_dtype,
                                            check_lengths, rnn_zero_state)
 from mobileposer_tpu_torch.precision import f32_matmuls
 
@@ -149,7 +154,9 @@ def reduced_global_to_full_soa(reduced_r6d: torch.Tensor,
 
     r6d -> global rotations at the reduced joints (identity elsewhere) ->
     IK to local (parent^T @ child) -> identity at ignored joints -> the
-    root keeps its global rotation.
+    root keeps its global rotation. The IK products accumulate in float32
+    and are cast back to the input's dtype, as the JAX package does under
+    bf16 streaming.
     """
     N = reduced_r6d.shape[0]
     k = _soa_constants(body_model, reduced_r6d.device, reduced_r6d.dtype)
@@ -160,7 +167,13 @@ def reduced_global_to_full_soa(reduced_r6d: torch.Tensor,
 
     # IK: local[j] = glob[parent[j]]^T @ glob[j] — three elementwise FMAs
     par = glob.index_select(0, k.parent)
-    local = sum(par[:, i, :, None] * glob[:, i, None, :] for i in range(3))
+    if glob.dtype == torch.float32:
+        local = sum(par[:, i, :, None] * glob[:, i, None, :]
+                    for i in range(3))
+    else:  # bf16: the products summed in float32, then cast back
+        par32, glob32 = par.float(), glob.float()
+        local = sum(par32[:, i, :, None] * glob32[:, i, None, :]
+                    for i in range(3)).to(glob.dtype)
     local = torch.where(k.ignored, k.eye, local)
     local = torch.where(k.root, glob[0:1], local)
     return local.permute(3, 0, 1, 2)                             # [N,24,3,3]
@@ -250,7 +263,7 @@ def forward(params, imu: torch.Tensor, body_model: ParametricModel,
     does (net.py:269-288 of the JAX package).
     """
     check_backend(backend, allow_train=False)
-    check_float32(imu.dtype)
+    check_dtype(imu.dtype)
     B, T, _ = imu.shape
     if lengths is not None:
         # checked and moved to the device once, not once per module
@@ -300,9 +313,10 @@ def _fuse_velocity(joints: torch.Tensor, vel: torch.Tensor,
     rfoot_disp = torch.cat([zero, joints[:, :-1, 11] - joints[:, 1:, 11]], 1)
     # argmax takes the first maximum, as jnp.argmax does
     pick_right = torch.argmax(contact, dim=2).to(joints.dtype)[..., None]
-    contact_vel = R.lerp(lfoot_disp, rfoot_disp, pick_right)
-    # + GRAVITY_VELOCITY, whose x and z are 0: a scalar add, so no
-    # host-to-device copy makes the host wait for the device here
+    # + GRAVITY_VELOCITY (float32 there, so a bf16 lerp is widened first),
+    # whose x and z are 0: a scalar add, so no host-to-device copy makes
+    # the host wait for the device here
+    contact_vel = R.lerp(lfoot_disp, rfoot_disp, pick_right).float()
     contact_vel[..., 1] += GRAVITY_VELOCITY[1]
 
     root_vel = vel.reshape(N, T, 24, 3)[:, :, 0] / VEL_SCALE_PER_FRAME
@@ -312,7 +326,8 @@ def _fuse_velocity(joints: torch.Tensor, vel: torch.Tensor,
     # Floor-penetration clamp: the reference's frame-serial loop
     # (net.py:149-153), one step per frame for all N sequences at once.
     foot_min_y = torch.amin(joints[:, :, 10:12, 1], dim=2)       # [N, T]
-    root_y = joints.new_zeros((N,))
+    # in velocity's dtype, float32 (the JAX scan promotes its 0.0 carry)
+    root_y = velocity.new_zeros((N,))
     v_y = []
     for t in range(T):
         current_foot_y = root_y + foot_min_y[:, t]
@@ -397,19 +412,25 @@ class MobilePoserNet:
                                   dtype: torch.dtype = torch.float32
                                   ) -> OnlineState:
         """Fresh streaming state for `n_streams` independent streams on
-        the net's device."""
-        check_float32(dtype)
+        the net's device: the window and the velocity carry in `dtype`
+        (float32 or bfloat16), the fusion accumulators and foot anchors
+        always float32 (net.py:450-456 of the JAX package: a bf16
+        accumulator's ulp passes a 30 Hz step past ~16 m, and translation
+        would freeze)."""
+        check_dtype(dtype)
         S, dev = n_streams, self.device
         cfg = MODULE_CONFIGS["velocity"]
         feet = torch.as_tensor(np.asarray(self.feet_pos, np.float32),
                                device=dev)
-        zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
-                                           device=dev)
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
         return OnlineState(
-            imu=zeros(S, NUM_TOTAL, C.model_config.n_imu),
+            imu=zeros(S, NUM_TOTAL, C.model_config.n_imu, dtype=dtype),
             initialized=torch.zeros((S,), dtype=torch.bool, device=dev),
-            vel_h=zeros(cfg.n_layers, S, cfg.n_hidden),
-            vel_c=zeros(cfg.n_layers, S, cfg.n_hidden),
+            vel_h=zeros(cfg.n_layers, S, cfg.n_hidden, dtype=dtype),
+            vel_c=zeros(cfg.n_layers, S, cfg.n_hidden, dtype=dtype),
             last_lfoot=feet[0].expand(S, 3).clone(),
             last_rfoot=feet[1].expand(S, 3).clone(),
             current_root_y=zeros(S),
@@ -516,6 +537,11 @@ class MobilePoserNet:
                           self.floor_y - current_foot_y, velocity[:, 1])
         velocity = torch.cat(
             [velocity[:, :1], v_y[:, None], velocity[:, 2:]], dim=1)
+        # velocity and v_y are float32 already (the float32 state promotes
+        # them); bf16 joints give bf16 feet, cast to the float32 anchors
+        if lfoot.dtype != last_lfoot.dtype:
+            lfoot = lfoot.to(last_lfoot.dtype)
+            rfoot = rfoot.to(last_rfoot.dtype)
         return velocity, v_y, lfoot, rfoot
 
     def forward_online_batched(self, params, state: OnlineState,

@@ -27,6 +27,9 @@ No Pallas kernel runs here in the JAX package, and none runs here: every
 step is a few batched matmuls (`nn.lstm.lstm_cell_step`, or its W8A8
 route `ops.quant.lstm_cell_step_int8` when w_ih is int8) and elementwise
 ops, cuBLAS on the card. The JAX `lax.scan` over frames is a Python loop.
+On bf16 params with a bf16 state every step runs in bf16, carries
+included, as the JAX package's cell step does; the fusion state stays
+float32.
 """
 
 from __future__ import annotations
@@ -192,11 +195,12 @@ CarryState.STREAM_AXES = CarryState(
 def init_carry_state_batched(net, n_streams: int,
                              dtype: torch.dtype = torch.float32
                              ) -> CarryState:
-    """Fresh carry-mode state for `n_streams` streams on the net's device.
-    The port runs float32 only (bf16 streaming: ROADMAP.md queue A item
-    14)."""
-    from mobileposer_tpu_torch.nn.lstm import check_float32
-    check_float32(dtype)
+    """Fresh carry-mode state for `n_streams` streams on the net's device:
+    rings and LSTM carries in `dtype` (float32 or bfloat16), the fusion
+    accumulators and foot anchors always float32, as in the JAX package
+    (a bf16 translation accumulator would freeze past ~16 m)."""
+    from mobileposer_tpu_torch.nn.lstm import check_dtype
+    check_dtype(dtype)
     S, dev = n_streams, net.device
     Hv = MODULE_CONFIGS["velocity"].n_hidden
     Hj = MODULE_CONFIGS["joints"].n_hidden
@@ -204,8 +208,8 @@ def init_carry_state_batched(net, n_streams: int,
     Hf = MODULE_CONFIGS["footcontact"].n_hidden
     feet = torch.as_tensor(np.asarray(net.feet_pos, np.float32), device=dev)
 
-    def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    def z(*shape, dtype=dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     return CarryState(
         imu_ring=z(LOOKAHEAD, S, C.model_config.n_imu),
@@ -217,8 +221,8 @@ def init_carry_state_batched(net, n_streams: int,
         vel_h=z(2, S, Hv), vel_c=z(2, S, Hv),
         last_lfoot=feet[0].expand(S, 3).clone(),
         last_rfoot=feet[1].expand(S, 3).clone(),
-        current_root_y=z(S),
-        last_root_pos=z(S, 3))
+        current_root_y=z(S, dtype=torch.float32),
+        last_root_pos=z(S, 3, dtype=torch.float32))
 
 
 def forward_carry_batched(net, params, state: CarryState,

@@ -10,6 +10,14 @@ The JAX pytree layout is kept: LSTM weights are input-major
 (w_ih [D, 4H], w_hh [H, 4H]; `nn/lstm.py:53-63` there), which is also the
 layout the CUDA kernels read. Only the linears move to torch's
 `nn.Linear` layout (weight [out, in]), a transpose.
+
+bfloat16 leaves ride in the archives as uint16 bit patterns under a
+"bfloat16" manifest entry, as `savez_typed` writes them. numpy has no
+bfloat16 of its own (the JAX package's comes from ml_dtypes, which the
+port does not need), so in the port's pytrees a bf16 leaf is a CPU
+`torch.bfloat16` tensor; both directions move the bits unrounded.
+`cast_params` is the counterpart of the JAX package's
+`nn.torch_convert.cast_params`.
 """
 
 from __future__ import annotations
@@ -21,8 +29,8 @@ from torch import nn
 
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS
-from mobileposer_tpu_torch.nn.lstm import (LSTMConfig, LSTMDirectionInt8,
-                                           RNNBlock, check_float32)
+from mobileposer_tpu_torch.nn.lstm import (  # noqa: F401 (cast_params)
+    LSTMConfig, LSTMDirectionInt8, RNNBlock, cast_params, check_dtype)
 from mobileposer_tpu_torch.ops.quant import is_quantized
 
 # the keys of one direction of one layer: float, and W8A8
@@ -31,25 +39,40 @@ _FLOAT_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
 _INT8_KEYS = ("w_ih", "w_ih_scale", "w_hh", "w_hh_scale", "b")
 
 
+def _bf16_bits(a):
+    """The uint16 bit patterns of a bfloat16 leaf (a torch.bfloat16
+    tensor, or a numpy array of ml_dtypes' bfloat16 as the JAX package
+    hands them out), else None."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != torch.bfloat16:
+            return None
+        return a.detach().cpu().contiguous().view(torch.int16).numpy().view(
+            np.uint16)
+    if str(getattr(a, "dtype", "")) == "bfloat16":
+        return np.ascontiguousarray(a).view(np.uint16)
+    return None
+
+
+def _bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
+    """A CPU torch.bfloat16 tensor holding (a copy of) these uint16 bit
+    patterns."""
+    return torch.from_numpy(np.array(bits, np.uint16).view(np.int16)).view(
+        torch.bfloat16)
+
+
 def _loadz_typed(path) -> dict:
     """Flat {key: array} from an archive written by the JAX package's
     `savez_typed`; archives without a `__dtypes__` manifest load as plain
-    `np.load` dicts. bfloat16 archives are refused (they need the bf16
-    path: ROADMAP.md queue A item 14)."""
+    `np.load` dicts. bfloat16 leaves come back as torch.bfloat16 tensors
+    of their stored bits."""
     # allow_pickle stays False: model archives must never execute pickle
     # payloads on load
     with np.load(path) as z:
         if "__dtypes__" not in z.files:
             return {k: z[k] for k in z.files}
         dtypes = json.loads(str(z["__dtypes__"]))
-        out = {}
-        for key, dt in dtypes.items():
-            if dt == "bfloat16":
-                raise NotImplementedError(
-                    f"{key} is bfloat16; bf16 weights are not ported "
-                    "(ROADMAP.md queue A item 14)")
-            out[key] = z[key]
-        return out
+        return {key: _bf16_from_bits(z[key]) if dt == "bfloat16" else z[key]
+                for key, dt in dtypes.items()}
 
 
 def load_npz(path) -> dict:
@@ -78,8 +101,8 @@ def export_npz(tree: dict, path) -> None:
     """Flatten a params pytree (nested dicts and lists of arrays) into an
     `.npz` with the `__dtypes__` manifest, as the JAX package's
     `export_to_npz` + `savez_typed` write it: keys are '/'-joined paths,
-    list indices as digits."""
-    flat = {}
+    list indices as digits; bfloat16 leaves as their uint16 bits."""
+    flat, dtypes = {}, {}
 
     def walk(node, key):
         if isinstance(node, dict):
@@ -89,19 +112,25 @@ def export_npz(tree: dict, path) -> None:
             for i, v in enumerate(node):
                 walk(v, f"{key}/{i}")
         else:
-            flat[key] = np.asarray(node)
+            bits = _bf16_bits(node)
+            flat[key] = np.asarray(node) if bits is None else bits
+            dtypes[key] = ("bfloat16" if bits is not None
+                           else str(flat[key].dtype))
 
     walk(tree, "")
-    dtypes = {k: str(v.dtype) for k, v in flat.items()}
     np.savez(path, __dtypes__=json.dumps(dtypes), **flat)
 
 
 def rnn_block_to_jax(block: RNNBlock) -> dict:
     """One `RNNBlock` -> its JAX-layout numpy pytree ({"linear1",
     "linear2", "lstm"}; linears as w [in, out]; W8A8 directions in the
-    quantized layout), the inverse of `rnn_block_from_jax`."""
-    def arr(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy().copy()
+    quantized layout; bf16 leaves as CPU torch.bfloat16 tensors), the
+    inverse of `rnn_block_from_jax`."""
+    def arr(t: torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().clone()
+        return t.numpy().copy()
 
     return {
         "linear1": {"w": arr(block.linear1.weight.t()),
@@ -122,6 +151,14 @@ def params_to_jax(modules) -> dict:
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
+    bits = _bf16_bits(src)
+    if bits is not None:            # widened to float32, exactly
+        src = _bf16_from_bits(bits)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: expected shape {tuple(dst.shape)}, "
+                             f"got {tuple(src.shape)}")
+        dst.copy_(src.float())
+        return
     src = np.asarray(src)
     if src.dtype == np.int8:
         raise NotImplementedError(
@@ -138,13 +175,16 @@ def _copy(dst: torch.Tensor, src, name: str) -> None:
 
 def rnn_block_from_jax(tree: dict, cfg: LSTMConfig, device) -> RNNBlock:
     """One RNN block's numpy pytree ({"linear1", "linear2", "lstm"}) ->
-    an `RNNBlock` on `device`, every float array carried over as float32,
-    W8A8 directions as `LSTMDirectionInt8`."""
+    an `RNNBlock` on `device`, every float array carried over as float32
+    (bf16 leaves widened exactly), W8A8 directions as
+    `LSTMDirectionInt8`."""
     # a private generator: the placeholder draws leave the global RNG alone
     block = RNNBlock(cfg, device=device, generator=torch.Generator())
     for lin in ("linear1", "linear2"):
         mod = getattr(block, lin)
-        _copy(mod.weight, np.asarray(tree[lin]["w"]).T, f"{lin}/w")
+        w = tree[lin]["w"]
+        _copy(mod.weight, w.t() if isinstance(w, torch.Tensor)
+              else np.asarray(w).T, f"{lin}/w")
         _copy(mod.bias, tree[lin]["b"], f"{lin}/b")
     if len(tree["lstm"]) != cfg.n_layers:
         raise ValueError(f"expected {cfg.n_layers} LSTM layers, got "
@@ -177,12 +217,16 @@ def params_from_jax(tree: dict, device=None,
                     dtype: torch.dtype = torch.float32) -> nn.ModuleDict:
     """The JAX package's params pytree (numpy leaves, e.g. from `load_npz`
     or `init_all_modules` there) -> the port's four modules on `device`
-    (the CUDA card unless given). Float16/32/64 leaves are cast to
-    float32, the only float dtype the port runs. A direction in the W8A8
-    layout of the JAX package's `quantize_params_int8` (int8 w_ih/w_hh,
-    float32 scales, pre-summed b) becomes an `LSTMDirectionInt8` with its
-    arrays as they are."""
-    check_float32(dtype)
+    (the CUDA card unless given), in `dtype`: float32, or bfloat16 for
+    inference. Float leaves (bf16/16/32/64) are carried over as float32,
+    then cast as `cast_params` casts them, so `dtype=torch.bfloat16`
+    gives `cast_params(params_from_jax(tree), torch.bfloat16)` and a bf16
+    archive its own bits. A direction in the W8A8 layout of the JAX
+    package's `quantize_params_int8` (int8 w_ih/w_hh, float32 scales,
+    pre-summed b) becomes an `LSTMDirectionInt8` with its arrays as they
+    are."""
+    check_dtype(dtype)
     device = resolve_device(device)
-    return nn.ModuleDict({name: rnn_block_from_jax(tree[name], cfg, device)
-                          for name, cfg in MODULE_CONFIGS.items()})
+    params = nn.ModuleDict({name: rnn_block_from_jax(tree[name], cfg, device)
+                            for name, cfg in MODULE_CONFIGS.items()})
+    return params if dtype == torch.float32 else cast_params(params, dtype)

@@ -18,7 +18,15 @@ W8A8 int8 directions (`LSTMDirectionInt8`, made by
 routes with int8 input projections and the int8 scan kernels; the dtype of
 w_ih selects them. Activations and carries stay float32.
 
-Backends, float32 activations only:
+Dtypes: float32, or bfloat16 for inference (params cast with
+`nn.convert.cast_params`). In bf16 the layer scans and the multicell scan
+take bf16 I/O and keep their carry in float32, as the TPU kernels do
+(`_lstm_scan` below is their plain version); the carry-mode cell step
+(`lstm_cell_step`) runs wholly in bf16, as the JAX package's does. int8
+on bf16 params and bf16 training are not ported (ROADMAP.md queue A
+items 14b and 20).
+
+Backends:
 
   * 'auto' (inference): the scan kernels of `ops/lstm_cuda.py`. They
     write their outputs through ctypes and carry no gradient, so 'auto'
@@ -37,6 +45,7 @@ them.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -87,11 +96,44 @@ def check_backend(backend: str = "auto", allow_train: bool = True) -> None:
                                   f"({row})")
 
 
-def check_float32(dtype: torch.dtype) -> None:
-    if dtype != torch.float32:
+#: the float dtypes the port runs: float32, and bfloat16 for inference
+DTYPES = (torch.float32, torch.bfloat16)
+
+INT8_BF16_ERROR = ("int8 on bf16 params (the W8A8 kernels #4 to #6 with "
+                   "bf16 I/O, and the int8 quantization of a bf16 cast) is "
+                   "not ported (ROADMAP.md queue A item 14b)")
+
+
+def check_dtype(dtype: torch.dtype) -> None:
+    """Refuse a dtype other than float32 and bfloat16."""
+    if dtype not in DTYPES:
         raise NotImplementedError(
-            f"dtype {dtype} is not ported; the port runs float32 only "
-            "(bf16 streaming: ROADMAP.md queue A item 14)")
+            f"dtype {dtype} is not ported; the port runs float32 and "
+            "bfloat16 (no ROADMAP.md row adds another)")
+
+
+# the int8 dequantization scales stay float32 under `cast_params`, as in
+# the JAX package (a bf16 scale would add ~0.4% error to every product)
+_SCALE_KEYS = ("w_ih_scale", "w_hh_scale")
+
+
+def cast_params(params: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of the port's modules (an `nn.ModuleDict` of `RNNBlock`s, or
+    one block) with every float parameter and buffer cast to `dtype`
+    (float32, or bfloat16 for inference), as the JAX package's
+    `cast_params` casts every float leaf: int8 tensors are left alone,
+    and so are the int8 dequantization scales, which stay float32. The
+    input is left as it is. (`nn.convert` and `nn` export it too.)"""
+    check_dtype(dtype)
+    out = copy.deepcopy(params)
+    for mod in out.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if p.dtype.is_floating_point:
+                p.data = p.data.to(dtype)
+        for name, b in mod.named_buffers(recurse=False):
+            if b.dtype.is_floating_point and name not in _SCALE_KEYS:
+                mod._buffers[name] = b.to(dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -115,6 +157,8 @@ def lstm_cell_step(p, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     carry-mode stack (`models/streaming.py`) runs unchanged on quantized
     params. x [B, D], h/c [B, H]; returns (h', c')."""
     if is_quantized(p):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(INT8_BF16_ERROR)
         from mobileposer_tpu_torch.ops.quant import lstm_cell_step_int8
         return lstm_cell_step_int8(p, x, h, c)
     gates = x @ p.w_ih + (p.b_ih + p.b_hh) + h @ p.w_hh
@@ -135,22 +179,32 @@ def _lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor,
     Masked steps hold the carry (so (h_T, c_T) equals the state at each
     sequence's last valid frame) and emit zeros, blended without a branch
     as the JAX package does: h <- m*h_new + (1-m)*h.
+
+    I/O dtype: float32, or bfloat16 (x_proj, w_hh, h0, c0 and the
+    mask). In bf16 it computes what the TPU kernels compute in bf16
+    (lstm_pallas.py:51-69): every input widened to float32, the recurrent
+    product `h.to(bf16).float() @ w_hh.float()` (products of two bf16
+    values are exact in float32, the sum float32), the gates, h and c in
+    float32, and only ys, h_T and c_T rounded to bf16. (A bf16 matmul
+    would round the product to bf16.) In float32 every cast is a no-op.
     """
-    h, c = h0, c0
+    io = x_proj.dtype
+    w = w_hh.float() if w_hh_scale is None else w_hh
+    h, c = h0.float(), c0.float()
     ys = []
     for t in range(x_proj.shape[0]):
-        rec = (h @ w_hh if w_hh_scale is None
+        rec = (h.to(io).float() @ w if w_hh_scale is None
                else int8_recurrent_gates(h, w_hh, w_hh_scale))
-        h_new, c_new = _gate_update(x_proj[t] + rec, c)
+        h_new, c_new = _gate_update(x_proj[t].float() + rec, c)
         if mask is None:
             h, c = h_new, c_new
             ys.append(h)
             continue
-        m = mask[t][:, None]
+        m = mask[t][:, None].float()
         c = m * c_new + (1 - m) * c
         ys.append(m * h_new)
         h = m * h_new + (1 - m) * h
-    return torch.stack(ys), (h, c)
+    return torch.stack(ys).to(io), (h.to(io), c.to(io))
 
 
 def _reverse_by_length(x: torch.Tensor, lengths: Optional[torch.Tensor]):
@@ -309,6 +363,9 @@ def _needs_grad(layers, x: torch.Tensor) -> bool:
 
 _INT8_TRAIN_ERROR = ("int8-quantized params are inference-only (rounding "
                      "has no gradient); use float params for training")
+_BF16_TRAIN_ERROR = ("bf16 params are inference-only here: the training "
+                     "kernels #7 and #8 take float32 (their bf16 residuals "
+                     "are ROADMAP.md queue A item 20); train in float32")
 
 
 def _quantized(layers) -> bool:
@@ -343,13 +400,17 @@ def lstm_forward(layers, x: torch.Tensor,
     kernels' plain versions; on CUDA tensors, the kernels.
     """
     check_backend(backend)
-    check_float32(x.dtype)
+    check_dtype(x.dtype)
     if lengths is not None:
         B, T = (x.shape[1], x.shape[0]) if time_major else x.shape[:2]
         lengths = check_lengths(lengths, B, T, x.device)
+    if x.dtype != torch.float32 and _quantized(layers):
+        raise NotImplementedError(INT8_BF16_ERROR)
     if backend in TRAIN_BACKENDS:
         if _quantized(layers):
             raise ValueError(_INT8_TRAIN_ERROR + " backends")
+        if x.dtype != torch.float32:
+            raise NotImplementedError(_BF16_TRAIN_ERROR)
         from mobileposer_tpu_torch.ops.lstm_train_cuda import \
             lstm_forward_train
         return lstm_forward_train(layers, x, lengths, h0c0,
@@ -390,7 +451,7 @@ def rnn_apply(params: RNNBlock, cfg: LSTMConfig, x: torch.Tensor,
     caller owns the random draw.
     """
     check_backend(backend)
-    check_float32(x.dtype)
+    check_dtype(x.dtype)
     if train and _quantized(params.lstm):
         # caught here whatever the backend, before any work is done
         raise ValueError(_INT8_TRAIN_ERROR)

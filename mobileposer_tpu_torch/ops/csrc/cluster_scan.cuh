@@ -5,11 +5,15 @@
 // [32c, 32c + 32) and their 128 gate columns g*H + 32c + u, and holds its
 // part of w_hh (the float slice w_hh[:, those columns] in shared memory,
 // or the int8 columns in registers) for all T steps. Each source's design
-// note says how its kernels use it.
+// note says how its kernels use it. Tensors in global memory are float32
+// or, for the bf16-I/O instantiations of the float body, bfloat16: every
+// value read is widened to float32 (`to_f32`, exact), and everything held
+// in shared memory and registers is float32.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -19,6 +23,11 @@ namespace {
 constexpr int kThreads = 512;      // 16 warps per CTA
 constexpr int kUnits = 32;         // hidden units per CTA
 constexpr int kCols = 4 * kUnits;  // gate columns per CTA
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -38,22 +47,26 @@ __device__ __forceinline__ int swizzle(int k, int col) {
   return k * kCols + ((((col >> 2) ^ (k & 7)) << 2) | (col & 3));
 }
 
-// CTA `cta`'s slice of w_hh [H, 4H]: columns g*H + 32*cta + u.
-__device__ __forceinline__ void load_w_slice(const float* __restrict__ w_hh,
+// CTA `cta`'s slice of w_hh [H, 4H]: columns g*H + 32*cta + u, as float32
+// (a bf16 w_hh widened once, here).
+template <class W>
+__device__ __forceinline__ void load_w_slice(const W* __restrict__ w_hh,
                                              float* w_s, int H, int cta) {
   const int n = H * kCols;
   for (int idx = threadIdx.x; idx < n; idx += kThreads) {
     const int k = idx / kCols, col = idx % kCols;
-    w_s[swizzle(k, col)] = __ldg(w_hh + static_cast<size_t>(k) * 4 * H
-                                 + (col / kUnits) * H + cta * kUnits
-                                 + col % kUnits);
+    w_s[swizzle(k, col)] = to_f32(__ldg(w_hh + static_cast<size_t>(k) * 4 * H
+                                        + (col / kUnits) * H + cta * kUnits
+                                        + col % kUnits));
   }
 }
 
 // One past the last step at which a row of the tile [b0, b0 + R) has a
-// nonzero mask [T, B]; the same in every CTA that reads the same tile.
-// `slot` is one int of shared memory, free until the function returns.
-__device__ __forceinline__ int tile_end(const float* __restrict__ mask,
+// nonzero mask [T, B] (float32 or bf16); the same in every CTA that reads
+// the same tile. `slot` is one int of shared memory, free until the
+// function returns.
+template <class M>
+__device__ __forceinline__ int tile_end(const M* __restrict__ mask,
                                         int T, int B, int b0, int R,
                                         int* slot) {
   const int tid = threadIdx.x;
@@ -63,7 +76,9 @@ __device__ __forceinline__ int tile_end(const float* __restrict__ mask,
   // down, so a thread's first hit is its latest
   for (int idx = T * R - 1 - tid; idx >= 0; idx -= kThreads) {
     const int b = b0 + idx % R;
-    if (b < B && __ldg(mask + static_cast<size_t>(idx / R) * B + b) != 0.0f) {
+    if (b < B
+        && to_f32(__ldg(mask + static_cast<size_t>(idx / R) * B + b))
+               != 0.0f) {
       atomicMax(slot, idx / R + 1);
       break;
     }

@@ -1,6 +1,8 @@
-// LSTM layer scans for Hopper (sm_90a), float32.
+// LSTM layer scans for Hopper (sm_90a), float32 or bf16 I/O.
 //
-// Replaces three TPU kernels of mobileposer_tpu/ops/lstm_pallas.py:
+// Replaces three TPU kernels of mobileposer_tpu/ops/lstm_pallas.py, each
+// in both of their I/O dtypes (float32: the *_f32 entries; bf16: the
+// *_bf16 entries, with the float32 carry and sums of scan_body.cuh):
 //   lstm_scan_f32          <- lstm_layer_pallas   (_lstm_step_kernel): one
 //                             unidirectional full-length layer;
 //   bilstm_scan_f32        <- bilstm_layer_pallas (_bilstm_step_kernel):
@@ -98,6 +100,19 @@
 //     1 * h = h, so the masked entries give the full-length entries'
 //     outputs bit for bit.
 //
+// bf16 I/O (the *_bf16 entries): the same instantiations over
+// __nv_bfloat16 tensors, the same geometry (rows per cluster from the
+// wrapper's float32 residency query: the shared memory and the threads
+// are the same), the same products and the same order of summation, so
+// forward(backend='fused') stays bit-identical to 'auto' in bf16 too.
+// w_hh is widened to float32 once, into the same shared-memory slice;
+// x_proj, the mask, h0 and c0 as they are read; h is rounded to bf16 where
+// it is pushed to the h buffers (scan_body.cuh says why that gives the
+// TPU kernel's products), and ys, h_T and c_T are rounded to bf16 where
+// they are stored. The carry stays float32 in registers; the masked body
+// keeps each item's float32 h beside c for the hold of a masked step.
+// Holding w_hh as bf16 in shared memory (half the slice) is later work.
+//
 // What bounds it on this card (worked out from the shapes, not measured):
 // the recurrent product is 2*B*H*4H FLOPs per step and direction, against
 // float32 outside the tensor cores (67 TFLOP/s) and 3.35 TB/s of HBM.
@@ -131,48 +146,52 @@ __device__ __forceinline__ Group whole_cluster(int H, int R) {
                static_cast<int>(blockIdx.x / n_cta) * R};
 }
 
-template <int RT, int C>
+template <int RT, int C, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_scan_kernel(Dir d0, Dir d1, int T, int B, int H, int R) {
-  scan_body<RT, C, kGroups, false, false>(blockIdx.y == 0 ? d0 : d1, nullptr,
-                                          T, B, H, R, whole_cluster(H, R),
-                                          4 * static_cast<size_t>(H));
+lstm_scan_kernel(Dir<IO> d0, Dir<IO> d1, int T, int B, int H, int R) {
+  scan_body<RT, C, kGroups, false, false, IO>(
+      blockIdx.y == 0 ? d0 : d1, nullptr, T, B, H, R, whole_cluster(H, R),
+      4 * static_cast<size_t>(H));
 }
 
-template <int RT, int C>
+template <int RT, int C, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_scan_masked_kernel(Dir d0, Dir d1, const float* __restrict__ mask,
+lstm_scan_masked_kernel(Dir<IO> d0, Dir<IO> d1, const IO* __restrict__ mask,
                         int T, int B, int H, int R) {
-  scan_body<RT, C, kGroups, true, false>(blockIdx.y == 0 ? d0 : d1, mask, T,
-                                         B, H, R, whole_cluster(H, R),
-                                         4 * static_cast<size_t>(H));
+  scan_body<RT, C, kGroups, true, false, IO>(
+      blockIdx.y == 0 ? d0 : d1, mask, T, B, H, R, whole_cluster(H, R),
+      4 * static_cast<size_t>(H));
 }
 
-template <int RT, int C>
-cudaError_t scan_rows(const Dir& d0, const Dir& d1, int n_dir, int T, int B,
-                      int H, int R, cudaStream_t stream) {
-  return launch_clusters(lstm_scan_kernel<RT, C>, scan_smem_bytes(H, R, 2),
-                         B, H, R, n_dir, stream, d0, d1, T, B, H, R);
+template <int RT, int C, class IO>
+cudaError_t scan_rows(const Dir<IO>& d0, const Dir<IO>& d1, int n_dir, int T,
+                      int B, int H, int R, cudaStream_t stream) {
+  return launch_clusters(lstm_scan_kernel<RT, C, IO>,
+                         scan_smem_bytes(H, R, 2), B, H, R, n_dir, stream,
+                         d0, d1, T, B, H, R);
 }
 
-template <int RT, int C>
-cudaError_t masked_rows(const Dir& d0, const Dir& d1, const float* mask,
+template <int RT, int C, class IO>
+cudaError_t masked_rows(const Dir<IO>& d0, const Dir<IO>& d1, const IO* mask,
                         int n_dir, int T, int B, int H, int R,
                         cudaStream_t stream) {
-  return launch_clusters(lstm_scan_masked_kernel<RT, C>,
+  return launch_clusters(lstm_scan_masked_kernel<RT, C, IO>,
                          scan_smem_bytes(H, R, 2), B, H, R, n_dir, stream,
                          d0, d1, mask, T, B, H, R);
 }
 
+// residency of the float32 instantiations: the bf16 ones have the same
+// threads, the same shared memory and one CTA an SM (the geometry is the
+// same for both dtypes)
 template <int RT, int C>
 cudaError_t max_clusters_rows(int H, int R, int* out) {
-  return max_clusters(lstm_scan_kernel<RT, C>, scan_smem_bytes(H, R, 2),
-                      H, out);
+  return max_clusters(lstm_scan_kernel<RT, C, float>,
+                      scan_smem_bytes(H, R, 2), H, out);
 }
 
 template <int RT, int C>
 cudaError_t masked_max_clusters_rows(int H, int R, int* out) {
-  return max_clusters(lstm_scan_masked_kernel<RT, C>,
+  return max_clusters(lstm_scan_masked_kernel<RT, C, float>,
                       scan_smem_bytes(H, R, 2), H, out);
 }
 
@@ -203,14 +222,15 @@ static_assert(kMaxRowsPerLane == 10, "LSTM_SCAN_ROWS cases");
 
 extern "C" {
 
-// The caller guarantees: float32, contiguous, T >= 1, B >= 1,
+// The caller guarantees (all entries): float32 (the *_f32 entries) or
+// bf16 (the *_bf16 entries), contiguous, T >= 1, B >= 1,
 // H a multiple of 32 in [32, 256], all pointers on the current device;
 // for the masked entries, mask is [T, B]. `rows` is the batch rows per
 // cluster (the wrapper's `scan_geometry`).
 int lstm_scan_f32(const float* x_proj, const float* w_hh, const float* h0,
                   const float* c0, float* ys, float* h_t, float* c_t,
                   int T, int B, int H, int rows, void* stream) {
-  const Dir d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
+  const Dir<float> d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
 #define SCAN(RT, C) \
   scan_rows<RT, C>(d, d, 1, T, B, H, rows, static_cast<cudaStream_t>(stream))
   LSTM_SCAN_ROWS(rows, SCAN)
@@ -224,8 +244,8 @@ int bilstm_scan_f32(const float* x_proj_f, const float* x_proj_b,
                     float* ys_f, float* ys_b,
                     float* h_f, float* c_f, float* h_b, float* c_b,
                     int T, int B, int H, int rows, void* stream) {
-  const Dir f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
-  const Dir b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
+  const Dir<float> f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const Dir<float> b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
 #define SCAN(RT, C) \
   scan_rows<RT, C>(f, b, 2, T, B, H, rows, static_cast<cudaStream_t>(stream))
   LSTM_SCAN_ROWS(rows, SCAN)
@@ -252,7 +272,7 @@ int lstm_scan_masked_f32(const float* x_proj, const float* w_hh,
                          const float* h0, const float* c0, const float* mask,
                          float* ys, float* h_t, float* c_t,
                          int T, int B, int H, int rows, void* stream) {
-  const Dir d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
+  const Dir<float> d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
 #define SCAN(RT, C)                                                \
   masked_rows<RT, C>(d, d, mask, 1, T, B, H, rows,                 \
                      static_cast<cudaStream_t>(stream))
@@ -268,8 +288,68 @@ int bilstm_scan_masked_f32(const float* x_proj_f, const float* x_proj_b,
                            float* ys_f, float* ys_b,
                            float* h_f, float* c_f, float* h_b, float* c_b,
                            int T, int B, int H, int rows, void* stream) {
-  const Dir f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
-  const Dir b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
+  const Dir<float> f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const Dir<float> b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
+#define SCAN(RT, C)                                                \
+  masked_rows<RT, C>(f, b, mask, 2, T, B, H, rows,                 \
+                     static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+// The bf16-I/O entries: the float32 entries' contract with x_proj,
+// w_hh, h0, c0 and the outputs in bf16 (__nv_bfloat16, raw bits), the
+// carry and the sums float32 (scan_body.cuh). The masked ones take the
+// mask [T, B] in bf16, the I/O dtype, as the TPU kernel does.
+typedef __nv_bfloat16 bf16;
+
+int lstm_scan_bf16(const bf16* x_proj, const bf16* w_hh, const bf16* h0,
+                   const bf16* c0, bf16* ys, bf16* h_t, bf16* c_t,
+                   int T, int B, int H, int rows, void* stream) {
+  const Dir<bf16> d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
+#define SCAN(RT, C) \
+  scan_rows<RT, C>(d, d, 1, T, B, H, rows, static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int bilstm_scan_bf16(const bf16* x_proj_f, const bf16* x_proj_b,
+                     const bf16* w_hh_f, const bf16* w_hh_b,
+                     const bf16* h0_f, const bf16* c0_f,
+                     const bf16* h0_b, const bf16* c0_b,
+                     bf16* ys_f, bf16* ys_b,
+                     bf16* h_f, bf16* c_f, bf16* h_b, bf16* c_b,
+                     int T, int B, int H, int rows, void* stream) {
+  const Dir<bf16> f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const Dir<bf16> b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
+#define SCAN(RT, C) \
+  scan_rows<RT, C>(f, b, 2, T, B, H, rows, static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int lstm_scan_masked_bf16(const bf16* x_proj, const bf16* w_hh,
+                          const bf16* h0, const bf16* c0, const bf16* mask,
+                          bf16* ys, bf16* h_t, bf16* c_t,
+                          int T, int B, int H, int rows, void* stream) {
+  const Dir<bf16> d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
+#define SCAN(RT, C)                                                \
+  masked_rows<RT, C>(d, d, mask, 1, T, B, H, rows,                 \
+                     static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int bilstm_scan_masked_bf16(const bf16* x_proj_f, const bf16* x_proj_b,
+                            const bf16* w_hh_f, const bf16* w_hh_b,
+                            const bf16* h0_f, const bf16* c0_f,
+                            const bf16* h0_b, const bf16* c0_b,
+                            const bf16* mask,
+                            bf16* ys_f, bf16* ys_b,
+                            bf16* h_f, bf16* c_f, bf16* h_b, bf16* c_b,
+                            int T, int B, int H, int rows, void* stream) {
+  const Dir<bf16> f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const Dir<bf16> b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
 #define SCAN(RT, C)                                                \
   masked_rows<RT, C>(f, b, mask, 2, T, B, H, rows,                 \
                      static_cast<cudaStream_t>(stream))

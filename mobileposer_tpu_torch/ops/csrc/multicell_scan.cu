@@ -1,4 +1,5 @@
-// Multicell LSTM scan for Hopper (sm_90a), float32.
+// Multicell LSTM scan for Hopper (sm_90a), float32 or bf16 I/O
+// (multicell_scan_f32, multicell_scan_bf16).
 //
 // Replaces the TPU kernel multicell_lstm_pallas (_make_kernel) of
 // mobileposer_tpu/ops/multicell_pallas.py: n independent LSTM cells of
@@ -16,6 +17,10 @@
 //   c_i = f * c_i + i * g;  h_i = o * tanh(c_i)     (gates i, f, g, o)
 // ys_i[t] = h_i; (h_T, c_T) after the last step. The carry stays float32.
 // A backward cell's ys come out still reversed; the caller un-reverses.
+// With bf16 I/O, x_proj, w_hh, h0, c0 and the outputs are bf16 and h is
+// cast to bf16 before the product (multicell_pallas.py:62), as in the
+// layer scans' bf16 entries: the same body (scan_body.cuh) in its bf16
+// instantiation, so each cell gives their bits in bf16 too.
 //
 // Design. The TPU kernel advances the five cells one after another inside
 // one grid step, because one TPU core runs one thing at a time. Here one
@@ -90,27 +95,29 @@ constexpr int kMaxRows = kGroups * kMaxRowsPerLane;
 constexpr int kMaxDoubleRowsPerLane = 3;
 constexpr int kMaxDoubleRows = kGroups * kMaxDoubleRowsPerLane;
 
+template <class IO>
 struct Cell {
-  Dir d;       // x_proj at the cell's feature offset
+  Dir<IO> d;   // x_proj at the cell's feature offset
   int H;
   int first;   // the cell's first cluster in the grid
 };
 
+template <class IO>
 struct Cells {
-  Cell cell[kMaxCells];  // widest first
+  Cell<IO> cell[kMaxCells];  // widest first
   int n;                 // cells
   int ctas;              // CTAs per cluster: the widest H / 32
   int width;             // x_proj's row: sum_i 4H_i floats
 };
 
-template <int RT, int C, int G, bool kSingleH>
+template <int RT, int C, int G, bool kSingleH, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
-multicell_scan_kernel(const __grid_constant__ Cells cells, int T, int B,
+multicell_scan_kernel(const __grid_constant__ Cells<IO> cells, int T, int B,
                       int R) {
   const int k = blockIdx.x / cells.ctas;  // this cluster
   int i = 0;
   while (i + 1 < cells.n && k >= cells.cell[i + 1].first) ++i;
-  const Cell& cell = cells.cell[i];
+  const Cell<IO>& cell = cells.cell[i];
   const int n = cell.H / kUnits, groups = cells.ctas / n;
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int g = rank / n;
@@ -118,7 +125,7 @@ multicell_scan_kernel(const __grid_constant__ Cells cells, int T, int B,
     scan_idle<kSingleH>(T);
     return;
   }
-  scan_body<RT, C, G, false, kSingleH>(
+  scan_body<RT, C, G, false, kSingleH, IO>(
       cell.d, nullptr, T, B, cell.H, R,
       Group{rank % n, g * n, ((k - cell.first) * groups + g) * R},
       static_cast<size_t>(cells.width));
@@ -134,34 +141,36 @@ size_t multicell_smem(const int* hidden, int n_cells, int R, int h_bufs) {
   return smem;
 }
 
-template <int RT, int C, int G>
-cudaError_t multicell_rows(const Cells& cells, int clusters, size_t smem,
+template <int RT, int C, int G, class IO>
+cudaError_t multicell_rows(const Cells<IO>& cells, int clusters, size_t smem,
                            int T, int B, int R, int h_bufs,
                            cudaStream_t stream) {
   if (h_bufs == 1)
-    return launch_cluster_grid(multicell_scan_kernel<RT, C, G, true>, smem,
-                               cells.ctas, clusters, 1, stream, cells, T, B,
-                               R);
+    return launch_cluster_grid(multicell_scan_kernel<RT, C, G, true, IO>,
+                               smem, cells.ctas, clusters, 1, stream, cells,
+                               T, B, R);
   if constexpr (RT > kMaxDoubleRowsPerLane) {
     return cudaErrorInvalidValue;
   } else {
-    return launch_cluster_grid(multicell_scan_kernel<RT, C, G, false>, smem,
-                               cells.ctas, clusters, 1, stream, cells, T, B,
-                               R);
+    return launch_cluster_grid(multicell_scan_kernel<RT, C, G, false, IO>,
+                               smem, cells.ctas, clusters, 1, stream, cells,
+                               T, B, R);
   }
 }
 
+// residency of the float32 instantiations (the bf16 ones have the same
+// threads and shared memory)
 template <int RT, int C, int G>
 cudaError_t multicell_max_clusters_rows(size_t smem, int max_h, int h_bufs,
                                         int* out) {
   if (h_bufs == 1)
-    return max_clusters(multicell_scan_kernel<RT, C, G, true>, smem, max_h,
-                        out);
+    return max_clusters(multicell_scan_kernel<RT, C, G, true, float>, smem,
+                        max_h, out);
   if constexpr (RT > kMaxDoubleRowsPerLane) {
     return cudaErrorInvalidValue;
   } else {
-    return max_clusters(multicell_scan_kernel<RT, C, G, false>, smem, max_h,
-                        out);
+    return max_clusters(multicell_scan_kernel<RT, C, G, false, float>, smem,
+                        max_h, out);
   }
 }
 
@@ -196,21 +205,15 @@ int widest(const int* hidden, int n_cells) {
   }
 static_assert(kMaxRowsPerLane == 4, "MULTICELL_ROWS cases");
 
-extern "C" {
+namespace {
 
-// n_cells cells; the pointer arrays and `hidden` are host arrays of
-// n_cells entries, in the caller's cell order (x_proj's feature order).
-// The caller guarantees: float32, contiguous, T >= 1, B >= 1,
-// 1 <= n_cells <= 8, each H a multiple of 32 in [32, 256], all pointers on
-// the current device. `rows` is the batch rows of a group and `h_buffers`
-// the h layout, 2 (rows <= 48) or 1 (rows <= 64)
-// (multicell_cuda.multicell_geometry). Returns the launch's cudaError_t
-// (cudaErrorInvalidValue for arguments outside that range).
-int multicell_scan_f32(const float* x_proj, const float* const* w_hh,
-                       const float* const* h0, const float* const* c0,
-                       float* const* ys, float* const* h_t,
-                       float* const* c_t, const int* hidden, int n_cells,
-                       int T, int B, int rows, int h_buffers, void* stream) {
+// One launch of the multicell scan over IO tensors (the entries below).
+template <class IO>
+int multicell_scan(const IO* x_proj, const IO* const* w_hh,
+                   const IO* const* h0, const IO* const* c0, IO* const* ys,
+                   IO* const* h_t, IO* const* c_t, const int* hidden,
+                   int n_cells, int T, int B, int rows, int h_buffers,
+                   void* stream) {
   if (n_cells < 1 || n_cells > kMaxCells || T < 1 || B < 1 || rows < 1
       || rows > (h_buffers == 2 ? kMaxDoubleRows : kMaxRows)
       || (h_buffers != 1 && h_buffers != 2))
@@ -231,7 +234,7 @@ int multicell_scan_f32(const float* x_proj, const float* const* w_hh,
       order[k] = order[k - 1];
       order[k - 1] = tmp;
     }
-  Cells cells{};
+  Cells<IO> cells{};
   cells.n = n_cells;
   cells.ctas = max_h / kUnits;
   cells.width = width;
@@ -239,17 +242,51 @@ int multicell_scan_f32(const float* x_proj, const float* const* w_hh,
   for (int s = 0; s < n_cells; ++s) {
     const int i = order[s], H = hidden[i];
     const int per = rows * (cells.ctas / (H / kUnits));  // rows a cluster
-    cells.cell[s] = Cell{Dir{x_proj + offs[i], w_hh[i], h0[i], c0[i], ys[i],
-                             h_t[i], c_t[i]},
-                         H, clusters};
+    cells.cell[s] = Cell<IO>{Dir<IO>{x_proj + offs[i], w_hh[i], h0[i], c0[i],
+                                     ys[i], h_t[i], c_t[i]},
+                             H, clusters};
     clusters += (B + per - 1) / per;
   }
   const size_t smem = multicell_smem(hidden, n_cells, rows, h_buffers);
 #define SCAN(RT, C, G)                                                 \
-  multicell_rows<RT, C, G>(cells, clusters, smem, T, B, rows,          \
-                           h_buffers, static_cast<cudaStream_t>(stream))
+  multicell_rows<RT, C, G, IO>(cells, clusters, smem, T, B, rows,      \
+                               h_buffers, static_cast<cudaStream_t>(stream))
   MULTICELL_ROWS(rows, SCAN)
 #undef SCAN
+}
+
+}  // namespace
+
+extern "C" {
+
+// n_cells cells; the pointer arrays and `hidden` are host arrays of
+// n_cells entries, in the caller's cell order (x_proj's feature order).
+// The caller guarantees: float32 (multicell_scan_f32) or bf16
+// (multicell_scan_bf16), contiguous, T >= 1, B >= 1,
+// 1 <= n_cells <= 8, each H a multiple of 32 in [32, 256], all pointers on
+// the current device. `rows` is the batch rows of a group and `h_buffers`
+// the h layout, 2 (rows <= 48) or 1 (rows <= 64)
+// (multicell_cuda.multicell_geometry). Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for arguments outside that range).
+int multicell_scan_f32(const float* x_proj, const float* const* w_hh,
+                       const float* const* h0, const float* const* c0,
+                       float* const* ys, float* const* h_t,
+                       float* const* c_t, const int* hidden, int n_cells,
+                       int T, int B, int rows, int h_buffers, void* stream) {
+  return multicell_scan(x_proj, w_hh, h0, c0, ys, h_t, c_t, hidden, n_cells,
+                        T, B, rows, h_buffers, stream);
+}
+
+int multicell_scan_bf16(const __nv_bfloat16* x_proj,
+                        const __nv_bfloat16* const* w_hh,
+                        const __nv_bfloat16* const* h0,
+                        const __nv_bfloat16* const* c0,
+                        __nv_bfloat16* const* ys, __nv_bfloat16* const* h_t,
+                        __nv_bfloat16* const* c_t, const int* hidden,
+                        int n_cells, int T, int B, int rows, int h_buffers,
+                        void* stream) {
+  return multicell_scan(x_proj, w_hh, h0, c0, ys, h_t, c_t, hidden, n_cells,
+                        T, B, rows, h_buffers, stream);
 }
 
 // The clusters of the multicell scan over cells of these hidden sizes at

@@ -1,10 +1,12 @@
 """CUDA LSTM layer scans (counterpart of `mobileposer_tpu/ops/lstm_pallas.py`).
 
-Four float32 kernel entries in `csrc/lstm_scan.cu`:
+Four float kernel entries in `csrc/lstm_scan.cu`, each in float32 I/O
+(`*_f32`) and bf16 I/O (`*_bf16`: the float32 carry and sums of the TPU
+kernels' bf16 variant, `csrc/scan_body.cuh`):
 
-  * `lstm_layer`   -> `lstm_scan_f32`, ports `lstm_layer_pallas`
+  * `lstm_layer`   -> `lstm_scan_f32`/`_bf16`, ports `lstm_layer_pallas`
     (unidirectional full-length layer; the velocity module);
-  * `bilstm_layer` -> `bilstm_scan_f32`, ports `bilstm_layer_pallas`
+  * `bilstm_layer` -> `bilstm_scan_f32`/`_bf16`, ports `bilstm_layer_pallas`
     (both directions of a bidirectional layer in one launch; joints,
     poser and footcontact);
   * `lstm_layer_masked` -> `lstm_scan_masked_f32` and `bilstm_layer_masked`
@@ -32,10 +34,12 @@ multiply on the int8 tensor cores (`mma.sync`), the masked ones again as
 the masked variant. `scan_geometry` picks the batch rows per cluster from
 the clusters the card holds at once.
 
-Each wrapper checks device, dtypes (float32; int8 w_hh and float32
-scales for the int8 entries), shapes and contiguity and raises on
-anything else; it never copies an input to make it fit (the int8
-wrappers pass the module's int8 w_hh as it is). On
+Each wrapper checks device, dtypes (one float I/O dtype per call, all
+float32 or all bfloat16, the mask included; int8 w_hh
+and float32 scales and I/O for the int8 entries), shapes and contiguity
+and raises on anything else; it never copies an input to make it fit
+(the int8 wrappers pass the module's int8 w_hh as it is). The I/O dtype
+picks the entry, and the outputs come in it. On
 a CPU tensor it runs the plain PyTorch version beside it (`*_plain`, a
 Python loop of `torch.matmul`, or `int8_recurrent_gates`, plus
 `_gate_update`); on a CUDA tensor it launches the kernel or raises: an
@@ -45,7 +49,8 @@ to `launches`.
 `lstm_forward_cuda` is the multi-layer forward, mirroring
 `lstm_forward_pallas` (and `nn/lstm.py` `lstm_forward` of the JAX package
 for ragged batches): input projections for all timesteps as one matmul
-per direction (`int8_matmul` for an int8 layer), the backward direction
+per direction in the weights' dtype (`int8_matmul` for an int8 layer),
+the mask in the activations' dtype, the backward direction
 pre-reversed in time (per length, with `lengths`) and its outputs
 un-reversed after the kernel. The dtype of w_ih picks the float or the
 int8 kernels, layer by layer.
@@ -60,14 +65,16 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from mobileposer_tpu_torch.nn.lstm import (_lstm_scan, _reverse_by_length,
-                                           length_mask)
+from mobileposer_tpu_torch.nn.lstm import (INT8_BF16_ERROR, _lstm_scan,
+                                           _reverse_by_length, length_mask)
 from mobileposer_tpu_torch.ops import _build
 from mobileposer_tpu_torch.ops.quant import int8_matmul, is_quantized
 
 #: launches per kernel since the last `reset_launches()`
 launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
             "lstm_scan_masked_f32": 0, "bilstm_scan_masked_f32": 0,
+            "lstm_scan_bf16": 0, "bilstm_scan_bf16": 0,
+            "lstm_scan_masked_bf16": 0, "bilstm_scan_masked_bf16": 0,
             "lstm_scan_int8": 0, "bilstm_scan_int8": 0,
             "lstm_scan_masked_int8": 0, "bilstm_scan_masked_int8": 0}
 
@@ -75,11 +82,16 @@ launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
 #: T, B, H, the batch rows per cluster and the stream
 _ENTRIES = {
     "lstm_scan.cu": {"lstm_scan_f32": 7, "bilstm_scan_f32": 14,
-                     "lstm_scan_masked_f32": 8, "bilstm_scan_masked_f32": 15},
+                     "lstm_scan_masked_f32": 8, "bilstm_scan_masked_f32": 15,
+                     "lstm_scan_bf16": 7, "bilstm_scan_bf16": 14,
+                     "lstm_scan_masked_bf16": 8,
+                     "bilstm_scan_masked_bf16": 15},
     "lstm_scan_int8.cu": {"lstm_scan_int8": 8, "bilstm_scan_int8": 16,
                           "lstm_scan_masked_int8": 9,
                           "bilstm_scan_masked_int8": 17},
 }
+#: the I/O dtypes of the float entries, by their names' suffix
+_IO_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: {source: the residency queries of its cluster scans}
 _MAX_CLUSTERS_ENTRIES = {
     "lstm_scan.cu": ("lstm_scan_max_clusters",
@@ -222,19 +234,26 @@ def build() -> None:
 
 
 def _check_layer(x_proj, w_hh, h0, c0, w_scale=None):
-    """Validate one direction's inputs; returns (T, B, H). With `w_scale`
-    (an int8 layer), w_hh must be int8 and w_scale float32 [4H]."""
+    """Validate one direction's inputs; returns (T, B, H). The float
+    inputs share one I/O dtype, x_proj's: float32 or bfloat16. With
+    `w_scale` (an int8 layer), w_hh must be int8, w_scale float32 [4H] and
+    the I/O float32 (int8 with bf16 I/O: ROADMAP.md queue A item 14b)."""
     if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
         raise ValueError(f"x_proj must be [T, B, 4H], got {tuple(x_proj.shape)}")
     T, B, H4 = x_proj.shape
     H = H4 // 4
+    io = x_proj.dtype
+    if io not in _IO_SUFFIX:
+        raise ValueError(f"x_proj must be float32 or bfloat16, got {io}")
+    if w_scale is not None and io != torch.float32:
+        raise NotImplementedError(INT8_BF16_ERROR)
     want = {"w_hh": (H, H4), "h0": (B, H), "c0": (B, H), "w_scale": (H4,)}
     tensors = [("x_proj", x_proj), ("w_hh", w_hh), ("h0", h0), ("c0", c0)]
     if w_scale is not None:
         tensors.append(("w_scale", w_scale))
     for name, t in tensors:
         dtype = (torch.int8 if name == "w_hh" and w_scale is not None
-                 else torch.float32)
+                 else io)
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
         if t.device != x_proj.device:
@@ -255,10 +274,11 @@ def _check_layer(x_proj, w_hh, h0, c0, w_scale=None):
     return T, B, H
 
 
-def _check_mask(mask, T: int, B: int, device) -> None:
-    """The validity mask: [T, B] float32, contiguous, beside x_proj."""
-    if mask.dtype != torch.float32:
-        raise ValueError(f"mask must be float32, got {mask.dtype}")
+def _check_mask(mask, T: int, B: int, device, io=torch.float32) -> None:
+    """The validity mask: [T, B] in the I/O dtype `io`, contiguous, beside
+    x_proj."""
+    if mask.dtype != io:
+        raise ValueError(f"mask must be {str(io)[6:]}, got {mask.dtype}")
     if tuple(mask.shape) != (T, B):
         raise ValueError(f"mask must be {(T, B)}, got {tuple(mask.shape)}")
     if mask.device != device:
@@ -276,21 +296,31 @@ def _check_bi(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b,
         raise ValueError("forward and backward shapes differ")
     if x_proj_b.device != x_proj_f.device:
         raise ValueError("forward and backward inputs on different devices")
+    if x_proj_b.dtype != x_proj_f.dtype:
+        raise ValueError(f"forward inputs are {x_proj_f.dtype}, backward "
+                         f"{x_proj_b.dtype}")
     return T, B, H
 
 
+def _entry(kind: str, x_proj: torch.Tensor) -> str:
+    """The float entry `kind` ('lstm_scan', 'bilstm_scan_masked', ...) for
+    x_proj's I/O dtype."""
+    return f"{kind}_{_IO_SUFFIX[x_proj.dtype]}"
+
+
 def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
-    """Allocate the outputs, launch C entry `name` on the current stream
-    and count the launch. The entry takes the input pointers, then ys per
+    """Allocate the outputs in the I/O dtype (x_proj's; float32 for the
+    int8 entries), launch C entry `name` on the current stream and count
+    the launch. The entry takes the input pointers, then ys per
     direction, then (h_T, c_T) per direction, then T, B, H, the rows per
-    cluster of `scan_geometry` and the stream. Returns ([ys per
-    direction], [h_T, c_T per direction])."""
-    dev = inputs[0].device
+    cluster of `scan_geometry` (the same for both I/O dtypes) and the
+    stream. Returns ([ys per direction], [h_T, c_T per direction])."""
+    dev, io = inputs[0].device, inputs[0].dtype
     ints = (T, B, H, scan_geometry(n_dir, B, H, dev, "masked" in name,
                                    "int8" in name).rows)
-    ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    ys = [torch.empty((T, B, H), dtype=io, device=dev)
           for _ in range(n_dir)]
-    hc = [torch.empty((B, H), dtype=torch.float32, device=dev)
+    hc = [torch.empty((B, H), dtype=io, device=dev)
           for _ in range(2 * n_dir)]
     lib = _lib(next(src for src, entries in _ENTRIES.items()
                     if name in entries))
@@ -324,8 +354,8 @@ def lstm_layer(x_proj: torch.Tensor, w_hh: torch.Tensor,
     T, B, H = _check_layer(x_proj, w_hh, h0, c0)
     if x_proj.device.type == "cpu":
         return lstm_layer_plain(x_proj, w_hh, h0, c0)
-    (ys,), (h_t, c_t) = _launch("lstm_scan_f32", [x_proj, w_hh, h0, c0],
-                                1, T, B, H)
+    (ys,), (h_t, c_t) = _launch(_entry("lstm_scan", x_proj),
+                                [x_proj, w_hh, h0, c0], 1, T, B, H)
     return ys, (h_t, c_t)
 
 
@@ -353,8 +383,8 @@ def bilstm_layer(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
     T, B, H = _check_bi(*args)
     if x_proj_f.device.type == "cpu":
         return bilstm_layer_plain(*args)
-    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch("bilstm_scan_f32", args,
-                                                 2, T, B, H)
+    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
+        _entry("bilstm_scan", x_proj_f), args, 2, T, B, H)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 
@@ -377,10 +407,10 @@ def lstm_layer_masked(x_proj: torch.Tensor, w_hh: torch.Tensor,
     and emit zeros. Returns (ys [T, B, H], (h_T, c_T)).
     """
     T, B, H = _check_layer(x_proj, w_hh, h0, c0)
-    _check_mask(mask, T, B, x_proj.device)
+    _check_mask(mask, T, B, x_proj.device, x_proj.dtype)
     if x_proj.device.type == "cpu":
         return lstm_layer_masked_plain(x_proj, w_hh, h0, c0, mask)
-    (ys,), (h_t, c_t) = _launch("lstm_scan_masked_f32",
+    (ys,), (h_t, c_t) = _launch(_entry("lstm_scan_masked", x_proj),
                                 [x_proj, w_hh, h0, c0, mask], 1, T, B, H)
     return ys, (h_t, c_t)
 
@@ -407,11 +437,11 @@ def bilstm_layer_masked(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
     """
     args = (x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b)
     T, B, H = _check_bi(*args)
-    _check_mask(mask, T, B, x_proj_f.device)
+    _check_mask(mask, T, B, x_proj_f.device, x_proj_f.dtype)
     if x_proj_f.device.type == "cpu":
         return bilstm_layer_masked_plain(*args, mask)
     (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
-        "bilstm_scan_masked_f32", [*args, mask], 2, T, B, H)
+        _entry("bilstm_scan_masked", x_proj_f), [*args, mask], 2, T, B, H)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 
@@ -527,8 +557,9 @@ def bilstm_layer_masked_int8(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
 
 def _project_timesteps(xs: torch.Tensor, p) -> torch.Tensor:
     """Input projection over all timesteps (lstm_pallas.py:571-578): float,
-    both biases summed first and added after the product; or W8A8 for an
-    int8 direction, `int8_matmul` plus the pre-summed bias."""
+    both biases summed first and added after the product, in the weights'
+    dtype (bf16 params give a bf16 x_proj, as in the JAX package); or W8A8
+    for an int8 direction, `int8_matmul` plus the pre-summed bias."""
     if is_quantized(p):
         return int8_matmul(xs, p.w_ih, p.w_ih_scale) + p.b
     return torch.matmul(xs, p.w_ih) + (p.b_ih + p.b_hh)
@@ -570,7 +601,7 @@ def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
               (False, True): (bilstm_layer_int8, lstm_layer_int8),
               (True, True): (bilstm_layer_masked_int8,
                              lstm_layer_masked_int8)}
-    extra = () if lengths is None else (length_mask(lengths, T),)
+    extra = () if lengths is None else (length_mask(lengths, T, x.dtype),)
     h_finals, c_finals = [], []
     for li, layer in enumerate(layers):
         int8 = is_quantized(layer["fwd"])

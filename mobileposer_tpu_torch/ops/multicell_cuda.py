@@ -1,9 +1,10 @@
 """CUDA multicell LSTM scan (counterpart of
 `mobileposer_tpu/ops/multicell_pallas.py`).
 
-One float32 kernel entry in `csrc/multicell_scan.cu`:
+One kernel in `csrc/multicell_scan.cu`, in float32 and bf16 I/O:
 
-  * `multicell_lstm` -> `multicell_scan_f32`, ports `multicell_lstm_pallas`:
+  * `multicell_lstm` -> `multicell_scan_f32` / `multicell_scan_bf16`,
+    ports `multicell_lstm_pallas`:
     n independent LSTM cells of different hidden sizes over the same T
     steps in one launch (`models/fused.py` runs one launch per layer-row
     of the poser / footcontact / velocity trio).
@@ -12,8 +13,10 @@ The kernel runs thread-block clusters of the widest cell's H / 32 CTAs on
 the float cluster body of the layer scans (`csrc/scan_body.cuh`), each
 cluster one cell's, a narrower cell's holding several groups of its
 H / 32 CTAs; `multicell_geometry` picks the h layout and the batch rows
-of a group from the clusters the card holds at once. The wrapper checks device, dtype
-(float32), shapes and contiguity and raises on anything else. On a CPU tensor it runs the plain PyTorch version
+of a group from the clusters the card holds at once (the same for both
+I/O dtypes). The wrapper checks device, dtype (one I/O dtype, float32 or
+bfloat16, for every input; the outputs come in it), shapes and
+contiguity and raises on anything else. On a CPU tensor it runs the plain PyTorch version
 beside it (`multicell_lstm_plain`, one `nn.lstm._lstm_scan` loop per cell
 over its feature slice); on a CUDA tensor it launches the kernel or
 raises. Every launch adds one to `launches`.
@@ -41,7 +44,10 @@ MAX_HIDDEN = 256
 MAX_ROWS = {2: 48, 1: 64}
 
 #: launches per kernel since the last `reset_launches()`
-launches = {"multicell_scan_f32": 0}
+launches = {"multicell_scan_f32": 0, "multicell_scan_bf16": 0}
+#: the entry for each I/O dtype
+_ENTRY = {torch.float32: "multicell_scan_f32",
+          torch.bfloat16: "multicell_scan_bf16"}
 
 
 def reset_launches() -> None:
@@ -111,8 +117,9 @@ def _lib() -> ctypes.CDLL:
     """Build (first use) and load the kernel, declaring its entries."""
     lib = _build.load(SOURCE)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.multicell_scan_f32.argtypes = [P] * 8 + [I] * 5 + [P]
-    lib.multicell_scan_f32.restype = I
+    for name in _ENTRY.values():
+        getattr(lib, name).argtypes = [P] * 8 + [I] * 5 + [P]
+        getattr(lib, name).restype = I
     lib.multicell_scan_max_clusters.argtypes = [P, I, I, I,
                                                 ctypes.POINTER(I)]
     lib.multicell_scan_max_clusters.restype = I
@@ -166,7 +173,8 @@ def build() -> None:
 
 
 def _check(x_proj, w_hhs, h0s, c0s, hidden_sizes) -> Tuple[int, int]:
-    """Validate the inputs; returns (T, B)."""
+    """Validate the inputs (every one in x_proj's dtype, float32 or
+    bfloat16); returns (T, B)."""
     hs = tuple(int(h) for h in hidden_sizes)
     n = len(hs)
     if not (len(w_hhs) == len(h0s) == len(c0s) == n) or n == 0:
@@ -180,14 +188,18 @@ def _check(x_proj, w_hhs, h0s, c0s, hidden_sizes) -> Tuple[int, int]:
     if width != 4 * sum(hs):
         raise ValueError(f"x_proj is {width} wide, the cells' sum of 4H is "
                          f"{4 * sum(hs)} (hidden sizes {hs})")
+    if x_proj.dtype not in _ENTRY:
+        raise ValueError(f"x_proj must be float32 or bfloat16, got "
+                         f"{x_proj.dtype}")
     tensors = [("x_proj", x_proj, None)]
     for i, H in enumerate(hs):
         tensors += [(f"w_hh[{i}]", w_hhs[i], (H, 4 * H)),
                     (f"h0[{i}]", h0s[i], (B, H)),
                     (f"c0[{i}]", c0s[i], (B, H))]
     for name, t, shape in tensors:
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != x_proj.dtype:
+            raise ValueError(f"{name} must be {x_proj.dtype} as x_proj is, "
+                             f"got {t.dtype}")
         if t.device != x_proj.device:
             raise ValueError(f"{name} is on {t.device}, x_proj on "
                              f"{x_proj.device}")
@@ -209,7 +221,8 @@ def _check(x_proj, w_hhs, h0s, c0s, hidden_sizes) -> Tuple[int, int]:
 
 def multicell_lstm_plain(x_proj, w_hhs, h0s, c0s, hidden_sizes):
     """Plain version of `multicell_lstm`: one `_lstm_scan` loop per cell
-    over its feature slice of x_proj."""
+    over its feature slice of x_proj (in bf16, the TPU kernel's bf16
+    semantics: float32 carry and sums, h cast to bf16 for the product)."""
     ys, h_ts, c_ts = [], [], []
     off = 0
     for w_hh, h0, c0, H in zip(w_hhs, h0s, c0s, hidden_sizes):
@@ -236,11 +249,11 @@ def multicell_lstm(x_proj: torch.Tensor, w_hhs: Sequence[torch.Tensor],
     if x_proj.device.type == "cpu":
         return multicell_lstm_plain(x_proj, w_hhs, h0s, c0s, hidden_sizes)
     hs = [int(h) for h in hidden_sizes]
-    n, dev = len(hs), x_proj.device
-    ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
-          for H in hs]
-    h_ts = [torch.empty((B, H), dtype=torch.float32, device=dev) for H in hs]
-    c_ts = [torch.empty((B, H), dtype=torch.float32, device=dev) for H in hs]
+    n, dev, io = len(hs), x_proj.device, x_proj.dtype
+    name = _ENTRY[io]
+    ys = [torch.empty((T, B, H), dtype=io, device=dev) for H in hs]
+    h_ts = [torch.empty((B, H), dtype=io, device=dev) for H in hs]
+    c_ts = [torch.empty((B, H), dtype=io, device=dev) for H in hs]
 
     def ptrs(ts):
         return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
@@ -249,13 +262,12 @@ def multicell_lstm(x_proj: torch.Tensor, w_hhs: Sequence[torch.Tensor],
     geo = multicell_geometry(B, hs, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.multicell_scan_f32(
+        err = getattr(lib, name)(
             x_proj.data_ptr(), ptrs(w_hhs), ptrs(h0s), ptrs(c0s), ptrs(ys),
             ptrs(h_ts), ptrs(c_ts), (ctypes.c_int * n)(*hs), n, T, B,
             geo.rows, geo.h_buffers, stream)
     if err != 0:
         msg = lib.multicell_scan_error_string(err).decode()
-        raise RuntimeError(f"multicell_scan_f32 launch failed: CUDA error "
-                           f"{err} ({msg})")
-    launches["multicell_scan_f32"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    launches[name] += 1
     return tuple(ys), tuple(h_ts), tuple(c_ts)

@@ -93,8 +93,11 @@ def quantize_params_int8(params: nn.Module) -> nn.Module:
     `nn.ModuleDict` of `RNNBlock`s (the four modules) or one `RNNBlock`.
     Returns new modules on the same device; the input is left as it is.
     The weights are quantized on the host from their float32 values;
-    linears (and anything else) are copied unchanged."""
-    from mobileposer_tpu_torch.nn.lstm import LSTMDirectionInt8, RNNBlock
+    linears (and anything else) are copied unchanged. bf16 params are
+    refused: the JAX package quantizes a bf16 cast (int8 on bf16 params),
+    which is not ported (ROADMAP.md queue A item 14b)."""
+    from mobileposer_tpu_torch.nn.lstm import (INT8_BF16_ERROR,
+                                               LSTMDirectionInt8, RNNBlock)
 
     def rec(mod):
         if isinstance(mod, RNNBlock):
@@ -104,6 +107,8 @@ def quantize_params_int8(params: nn.Module) -> nn.Module:
                     if is_quantized(d):
                         raise ValueError("quantize_params_int8: the params "
                                          "are quantized already")
+                    if d.w_ih.dtype != torch.float32:
+                        raise NotImplementedError(INT8_BF16_ERROR)
                     arrays = {k: getattr(d, k).detach().cpu().numpy()
                               for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
                     layer[dname] = LSTMDirectionInt8(

@@ -47,8 +47,8 @@ _K_LOOP = ("      } else {\n"
            "        for (int k = 0; k < H; k += 4) k_group(k);\n")
 _PRODUCTS = "    if (rows > 0) {\n      // gates = x_proj"
 _PUSH = ("      for (int q = 0; q < n_cta; ++q)\n        cluster."
-         "map_shared_rank(h_next, at.rank0 + q)[r * H + unit0 + u] = h;\n")
-_OWN_PUSH = "      h_next[r * H + unit0 + u] = h;\n"
+         "map_shared_rank(h_next, at.rank0 + q)[r * H + unit0 + u] = hx;\n")
+_OWN_PUSH = "      h_next[r * H + unit0 + u] = hx;\n"
 _END = "    cluster.sync();\n    if constexpr (!kSingleH) cur ^= 1;\n"
 
 #: name: (what it changes, [([file,] old, new, times old must occur)])

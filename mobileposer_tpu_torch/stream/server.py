@@ -64,19 +64,23 @@ REPLY_STRUCT = struct.Struct("<I72f3f2f")
 REPLY_STRUCT_F16 = struct.Struct("<I72e3f2e")
 
 
-def _check_params(net, params) -> None:
-    """The params must sit on the net's device and be float32 (int8
-    kernels aside): bf16 serving is not ported."""
+def _params_dtype(net, params) -> torch.dtype:
+    """The dtype the server runs in: the params' float dtype, float32 or
+    bfloat16, as the JAX server's `self.dtype` is (int8 kernels and their
+    float32 scales aside). The params must sit on the net's device."""
+    from mobileposer_tpu_torch.nn.lstm import check_dtype
+    dtypes = set()
     for name, t in list(params.named_parameters()) + list(
             params.named_buffers()):
         if t.device != net.device:
             raise ValueError(f"params {name} is on {t.device}, the net on "
                              f"{net.device}")
-        if t.dtype.is_floating_point and t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"params {name} is {t.dtype}: serving in the weights' "
-                "dtype is ported for float32 only (bf16 streaming, "
-                "ROADMAP.md queue A item 14)")
+        if t.dtype.is_floating_point and not name.endswith("_scale"):
+            check_dtype(t.dtype)
+            dtypes.add(t.dtype)
+    if len(dtypes) > 1:
+        raise ValueError(f"params mix the float dtypes {sorted(map(str, dtypes))}")
+    return dtypes.pop() if dtypes else torch.float32
 
 
 class PoseServer:
@@ -126,7 +130,10 @@ class PoseServer:
             raise ValueError(f"unknown serving mode {mode!r}")
         if fetch_workers < 1:
             raise ValueError(f"fetch_workers must be >= 1, got {fetch_workers}")
-        _check_params(net, params)
+        # serve in the weights' dtype: the state, the frames and the step
+        # in bf16 on bf16 params; the fusion accumulators stay float32
+        # (the state factories), and replies go out as float32 or f16
+        self.dtype = _params_dtype(net, params)
         if quantize == "int8":
             from mobileposer_tpu_torch.ops.quant import quantize_params_int8
             params = quantize_params_int8(params)
@@ -181,10 +188,12 @@ class PoseServer:
                                      device=self.device)
         self._stage = None               # pinned frame staging (card only)
         if mode == "carry":
-            self.states = net.init_carry_state_batched(max_streams)
+            self.states = net.init_carry_state_batched(max_streams,
+                                                       self.dtype)
             self._step = net.forward_carry_batched
         else:
-            self.states = net.init_online_state_batched(max_streams)
+            self.states = net.init_online_state_batched(max_streams,
+                                                        self.dtype)
             self._step = net.forward_online_batched
         self._reply_struct = (REPLY_STRUCT if wire == "f32"
                               else REPLY_STRUCT_F16)
@@ -236,14 +245,15 @@ class PoseServer:
         return contextlib.nullcontext()
 
     def _post(self, pose, root, contact):
-        """Reply post step on the device: rotation matrices to axis-angle,
-        and the f16 wire casts before the copy (that is where the bytes
-        are)."""
+        """Reply post step on the device: rotation matrices to axis-angle
+        (in the server's dtype, as the JAX server computes it), and the
+        wire casts before the copy (that is where the bytes are): f16, or
+        float32 for a bf16 server."""
         aa = R.rotation_matrix_to_axis_angle(
             pose.reshape(-1, 3, 3)).reshape(pose.shape[0], 72)
         if self.wire == "f16":
-            return aa.half(), root, contact.half()
-        return aa, root, contact
+            return aa.half(), root.float(), contact.half()
+        return aa.float(), root.float(), contact.float()
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         """Frames to the device. On the card through a pinned staging
@@ -252,7 +262,7 @@ class PoseServer:
         synchronize); the buffer is rewritten only once the previous
         tick's copy out of it has completed (its event)."""
         if self.device.type != "cuda":
-            return torch.from_numpy(frames.copy())
+            return torch.from_numpy(frames.copy()).to(self.dtype)
         if self._stage is None:
             self._stage = torch.empty(frames.shape, dtype=torch.float32,
                                       pin_memory=True)
@@ -262,7 +272,7 @@ class PoseServer:
         self._stage.numpy()[:] = frames
         out = self._stage.to(self.device, non_blocking=True)
         self._stage_done.record()
-        return out
+        return out.to(self.dtype)
 
     def _issue_copy(self, outs):
         """Start the tick's device-to-host copy: (host tensors, the CUDA

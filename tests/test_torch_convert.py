@@ -67,6 +67,7 @@ def test_params_from_jax_rejects_out_of_slice_weights():
     tree["velocity"]["lstm"][0]["fwd"]["w_hh"] = w_hh[:-1]
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # float32 and bfloat16 are the dtypes the port runs
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
         params_from_jax(load_npz(_FIXTURE), device="cpu",
-                        dtype=torch.bfloat16)
+                        dtype=torch.float16)

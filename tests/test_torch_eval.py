@@ -283,9 +283,14 @@ def test_evaluate_pose_out_of_slice_options_raise(nets, weights):
     # carry mode is ported (tests/test_torch_carry.py holds it to JAX)
     assert evaluate_pose(net, params, [], online=True, online_mode="carry",
                          verbose=False) == {}
-    for kw in ({"bf16": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            evaluate_pose(net, params, [], online=True, **kw)
+    # bf16 is ported (tests/test_torch_bf16.py), batched as in the JAX
+    # package
+    assert evaluate_pose(net, params, [], online=True, bf16=True,
+                         verbose=False) == {}
+    with pytest.raises(ValueError, match="batch_sequences"):
+        evaluate_pose(net, params, [], bf16=True, batch_sequences=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        evaluate_pose(net, params, [], online=True, mesh=object())
 
 
 def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
@@ -301,10 +306,10 @@ def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
     for name in pose_eval.METRIC_NAMES:
         assert name in out
     assert res["offline"].shape == (8, 2) and "translation drift" in out
-    for flags in (["--int8", "--bf16"], ["--bf16"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",
-                           "--device", "cpu", *flags])
+    # --bf16 alone is ported (tests/test_torch_bf16.py); on int8 not yet
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",
+                       "--device", "cpu", "--int8", "--bf16"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eval_cli.main(["--model", "model.pth", "--device", "cpu"])
 

@@ -450,7 +450,7 @@ def test_cli_evaluate_int8_out_of_slice_raises(cli_env, flags):
     carry table (tests/test_quant.py:328-361)."""
     args = ["--model", _FIXTURE, "--dataset", "synthetic", "--device", "cpu"]
     if "--bf16" in flags:
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
             eval_cli.main(args + ["--int8", *flags])
         return
     q = eval_cli.main(args + ["--int8", "--online", *flags])
