@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's streaming, evaluation, training, fused
-single-window and serving paths on one CUDA card, in float32, W8A8 and
-bfloat16.
+single-window and serving paths on one CUDA card, in float32, W8A8,
+bfloat16 and W8A8 on bfloat16 params.
 
     python3 chip_smoke.py
 
@@ -73,6 +73,17 @@ then runs these phases, each printing JSON lines:
                instantiation (no stack, no spill); kernel, float32-entry,
                plain and bf16 cuDNN times (or what the card's PyTorch
                refuses) and the bound with bf16 bytes;
+  3g. int8 bf16 kernels — the bf16-I/O entries of the W8A8 scans #4, #5
+               and #6 against their bf16 plain versions at the main path's
+               shapes (#6 at T = 45, B = 256, H = 256 and 64; #4 at B = 256
+               and 8; #5 at T = 512, B = 64, bi at H = 256 and 64, uni at
+               256, a ragged bf16 mask): within 1 bf16 ulp with at most 1%
+               of the outputs differing, exactly 0.0 from the float32 int8
+               entry on the same inputs widened, rounded to bf16; no stack
+               or spill in any bf16 int8 instantiation; the bf16
+               instantiation's residency equal to the float32 one's;
+               kernel, float32 int8 entry, float bf16 entry and plain
+               times and the bound with bf16 bytes at the int8 rate;
   4. slice   — the trained fixture weights through
                `forward_online_sequence_batched` on the card in 'scan'
                and 'unfolded' modes, each continued from its final state,
@@ -91,7 +102,8 @@ then runs these phases, each printing JSON lines:
                float32 ones within the JAX package's accuracy bound;
                then `--online --online-mode carry`, float32 and `--int8`,
                on the card and on the CPU (the ONLINE pass launches no
-               LSTM kernel);
+               LSTM kernel); the CPU evaluations of 4b, 4f and 4g run in
+               processes of their own from phase 4 on, joined before 4e;
   4c. train  — synthetic training data written with the port's fixture,
                `cli.train --concurrent --fast-dev-run --combine` on the
                card (two steps at B = 256, one validation batch): finite
@@ -133,12 +145,26 @@ then runs these phases, each printing JSON lines:
                `PoseServer` in lockstep (replies equal to the direct bf16
                step, exactly), exact and carry, its paced 30 Hz runs at 64
                streams, and `cli.serve --bf16` (exact and carry);
+  4g. int8 on bf16 params — the trained fixture cast to bf16 and then
+               quantized on each device through streaming on the card
+               ('scan' and 'unfolded', fresh and continued, then carry
+               mode) against the CPU port, the int8 bf16 launch counts;
+               `cli.evaluate --int8 --bf16` card against CPU on every
+               table entry and drift window (masked int8 bf16 launches
+               offline, the full-length ones ONLINE); `PoseServer(bf16
+               params, quantize='int8')` in lockstep (replies equal to the
+               direct step on the quantized cast, exactly), exact and
+               carry, its paced 30 Hz runs at 64 streams, and
+               `cli.serve --int8 --bf16` (exact and carry);
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan; there also on bf16 params, beside the
                float32 rate) and 8 streams (unfolded), then one traced call
                of each: device time by kernel group and the device's busy
                share; then the same at 256 streams on W8A8 params
-               (`bench.run(int8=True)`);
+               (`bench.run(int8=True)`) and on W8A8 on bf16 params
+               (`bench.run(int8=True, bf16=True)`, beside the W8A8 and the
+               bf16 rates of the same run; its trace shows the bf16 int8
+               kernels);
   5b. offline rate — offline-evaluation valid and padded frames/s of one
                64 x 512 ragged group (`bench.run_offline`), then one
                traced call;
@@ -158,6 +184,7 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -279,6 +306,13 @@ INT8_KERNEL_TOL = 5e-3
 # normalization, as tests/test_torch_quant.py holds the CPU port to the
 # JAX package.
 INT8_SLICE_TOL = 2e-3
+# The int8-on-bf16 slice on the card against the CPU port: the int8 flips
+# above (INT8_SLICE_TOL) and bf16's own, whole bf16 ulps of outputs of
+# magnitude up to ~1 where a last float32 bit lands a value on the other
+# side of a rounding boundary. Phase 4f measured two such ulps at 1
+# (1.6e-2 on pose, measured on one H100); an int8 flip moves a value by
+# up to INT8_SLICE_TOL before the rounding and can add a third.
+INT8_BF16_SLICE_TOL = INT8_SLICE_TOL + 3 * 2.0 ** -7
 # The int8 evaluation tables, card against the CPU port: the same flips
 # move a frame's pose and joints by a few 1e-4, so each mean row by a
 # relative 1e-3 at most; the jitter row (6) is a mean of jerks, positions
@@ -317,6 +351,18 @@ BF16_SLICE_TOL = 0.05
 BF16_EVAL_ATOL = 0.01
 BF16_JITTER_ATOL = 0.06
 BF16_DRIFT_ATOL = 1e-4
+# Phase 3g: the bf16-I/O int8 entries against their bf16 plain versions.
+# The card's kernel and the plain version on the card compute the same
+# exact int32 sums with the same roundings and the same expf/tanhf (the
+# float32 int8 entries meet their plain versions at 0.0 on an H100 at
+# 700 W), so the outputs should agree to the bit; where a last float32
+# bit did differ, it moves a bf16 output by one ulp only on a rounding
+# boundary: at most 1 ulp of the output's largest magnitude, on at most
+# 1% of the outputs (the bound the CPU tests hold the plain versions to
+# against the Pallas kernels; quantizing h rounded to bf16, the float
+# body's product and not the int8 one's, differs on ~19% of them).
+INT8_BF16_ULPS = 1
+INT8_BF16_DIFFER_SHARE = 0.01
 
 # file:line of each TPU kernel (the `pallas_call` site's function) and the
 # port's kernel for it; every one is ported
@@ -357,6 +403,18 @@ TPU_KERNELS = [
      "lstm_scan_masked_bf16"),
     ("multicell_lstm_pallas", "mobileposer_tpu/ops/multicell_pallas.py:83",
      "multicell_scan_bf16"),
+    # the bf16-I/O variants of the W8A8 TPU kernels (int8 on bf16 params:
+    # x_proj, state, mask and outputs in bf16, the carry float32,
+    # lstm_pallas.py:318-337)
+    ("lstm_layer_pallas_int8", "mobileposer_tpu/ops/lstm_pallas.py:434",
+     "lstm_scan_int8_bf16"),
+    ("lstm_layer_masked_pallas_int8",
+     "mobileposer_tpu/ops/lstm_pallas.py:354",
+     "bilstm_scan_masked_int8_bf16"),
+    ("lstm_layer_masked_pallas_int8",
+     "mobileposer_tpu/ops/lstm_pallas.py:354", "lstm_scan_masked_int8_bf16"),
+    ("bilstm_layer_pallas_int8", "mobileposer_tpu/ops/lstm_pallas.py:523",
+     "bilstm_scan_int8_bf16"),
 ]
 
 
@@ -643,22 +701,24 @@ def phase_masked_kernels(torch, lstm_cuda):
     return results
 
 
-def int8_layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None):
+def int8_layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None,
+                     elem_bytes: int = 4):
     """Least time (ms) the card needs for one int8 layer scan: each input
-    read once (x_proj, state and mask float32, w_hh int8, its scale
-    float32), each output written once, the recurrent products at the
-    int8 tensor-core rate; with `valid_steps`, only the valid steps'
-    products and x_proj rows. Returns (bound_ms, bound_by, ops, bytes)."""
+    read once (x_proj, state and mask in the I/O dtype of `elem_bytes`
+    bytes, 4 for float32 and 2 for bf16; w_hh int8, its scale float32),
+    each output written once, the recurrent products at the int8
+    tensor-core rate; with `valid_steps`, only the valid steps' products
+    and x_proj rows. Returns (bound_ms, bound_by, ops, bytes)."""
     steps = T * B if valid_steps is None else valid_steps
     ops = n_dir * steps * 2.0 * H * 4 * H
-    nbytes = n_dir * (4.0 * (steps * 4 * H    # x_proj
-                             + 4 * H          # w_scale
-                             + 2 * B * H      # h0, c0
-                             + T * B * H      # ys
-                             + 2 * B * H)     # h_T, c_T
-                      + H * 4 * H)            # w_hh, int8
+    nbytes = n_dir * (elem_bytes * (steps * 4 * H    # x_proj
+                                    + 2 * B * H      # h0, c0
+                                    + T * B * H      # ys
+                                    + 2 * B * H)     # h_T, c_T
+                      + 4.0 * 4 * H                  # w_scale, float32
+                      + H * 4 * H)                   # w_hh, int8
     if valid_steps is not None:
-        nbytes += 4.0 * T * B                 # mask, shared by the directions
+        nbytes += elem_bytes * T * B  # mask, shared by the directions
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / INT8_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
@@ -1450,6 +1510,172 @@ def phase_bf16_kernels(torch, lstm_cuda, multicell_cuda):
     return results
 
 
+def phase_int8_bf16_kernels(torch, lstm_cuda):
+    """The bf16-I/O entries of the W8A8 scans #4, #5 and #6 against their
+    bf16 plain versions on the card, at the main path's shapes: #6 at T =
+    45, B = 256 (H = 256 and 64), #4 at T = 45, B = 256 and 8, #5 at T =
+    512, B = 64 (bi at H = 256 and 64, uni at 256) under a seeded ragged
+    bf16 mask with an empty and a full row. Weights drawn like torch's
+    init and quantized per column; inputs drawn in float32 and rounded to
+    bf16. Three gates a shape: the outputs within INT8_BF16_ULPS bf16 ulp
+    of the plain version's with at most INT8_BF16_DIFFER_SHARE of them
+    differing; the bf16 entry's outputs equal to the float32 entry's on
+    the same inputs widened, then rounded to bf16 (exactly 0.0: the same
+    body, only the loads and stores differ); no stack and no spill in the
+    ptxas report of the shape's bf16 instantiation (and, at the end, of
+    every bf16 instantiation of the int8 source). Each shape also prints
+    the residency of its bf16 instantiation beside the float32 one's (the
+    wrappers take the float32 one's rows for both); the times of the
+    kernel, the float32 int8 entry on the widened inputs, the float bf16
+    entry on the dequantized bf16 weights (no PyTorch call computes a
+    W8A8 scan, so these are the yardsticks), the plain version; and the
+    bound with bf16 bytes at the int8 rate."""
+    import numpy as np
+    from mobileposer_tpu_torch.ops.quant import quantize_weight_int8
+    L = lstm_cuda
+    BF = torch.bfloat16
+    dev = torch.device("cuda", 0)
+    prefix = {"bilstm_scan_int8_bf16": "bilstm_layer",
+              "lstm_scan_int8_bf16": "lstm_layer",
+              "bilstm_scan_masked_int8_bf16": "bilstm_layer_masked",
+              "lstm_scan_masked_int8_bf16": "lstm_layer_masked"}
+    cases = [("bilstm_scan_int8_bf16", 256, 256, 45),
+             ("bilstm_scan_int8_bf16", 64, 256, 45),
+             ("lstm_scan_int8_bf16", 256, 256, 45),
+             ("lstm_scan_int8_bf16", 256, 8, 45),
+             ("bilstm_scan_masked_int8_bf16", 256, 64, 512),
+             ("bilstm_scan_masked_int8_bf16", 64, 64, 512),
+             ("lstm_scan_masked_int8_bf16", 256, 64, 512)]
+    results, failures = [], []
+
+    def bf(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device=dev, dtype=BF)
+
+    for name, H, B, T in cases:
+        bi, masked = name.startswith("bi"), "masked" in name
+        n_dir = 2 if bi else 1
+        kern = getattr(L, prefix[name] + "_int8")
+        plain = getattr(L, prefix[name] + "_int8_plain")
+        kern_float = getattr(L, prefix[name])
+        geo = L.scan_geometry(n_dir, B, H, dev, masked=masked, int8=True)
+        held = {"float32": L.max_active_clusters(H, geo.rows, 0, masked,
+                                                 int8=True),
+                "bf16": L.int8_bf16_max_active_clusters(H, geo.rows, 0,
+                                                        masked)}
+        kernel = ("lstm_scan_masked_int8_kernel" if masked
+                  else "lstm_scan_int8_kernel")
+        ptxas = ptxas_by_function("lstm_scan_int8.cu",
+                                  f"{kernel}ILi{geo.m_tiles}E", bf16=True)
+        rng = np.random.RandomState(H + B + T + 7)
+        bound = 1.0 / math.sqrt(H)
+        dirs = []
+        for _ in range(n_dir):
+            w_q, w_s = quantize_weight_int8(rng.uniform(-bound, bound,
+                                                        (H, 4 * H)))
+            dirs.append({"x": bf(rng.randn(T, B, 4 * H)),
+                         "w": torch.from_numpy(w_q).to(dev),
+                         "s": torch.from_numpy(w_s).to(dev),
+                         "w_bf16": bf(w_q.astype(np.float32) * w_s),
+                         "h0": bf(np.tanh(rng.randn(B, H))),
+                         "c0": bf(rng.randn(B, H) * 0.5)})
+        lengths = None
+        if masked:
+            lengths = rng.randint(1, T, size=B)
+            lengths[0], lengths[1] = 0, T
+            mask = (torch.arange(T)[:, None]
+                    < torch.from_numpy(lengths)[None, :]).to(device=dev,
+                                                            dtype=BF)
+
+        def arguments(int8=True, widen=False):
+            """The int8 kernel's arguments (widened to float32 with
+            `widen`), or with int8=False the float bf16 kernel's."""
+            def io(t):
+                return t.float() if widen else t
+            xs = [io(d["x"]) for d in dirs]
+            ws = [d["w"] if int8 else d["w_bf16"] for d in dirs]
+            scales = [d["s"] for d in dirs] if int8 else []
+            state = [io(v) for d in dirs for v in (d["h0"], d["c0"])]
+            m = [io(mask)] if masked else []
+            return (*xs, *ws, *scales, *state, *m)
+
+        args = arguments()
+        got = _flat(kern(*args))
+        torch.cuda.synchronize()
+        want = _flat(plain(*args))
+        ulps = ulps_apart(got, want)
+        differ = sum(int((g != w).sum()) for g, w in zip(got, want))
+        share = differ / sum(g.numel() for g in got)
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        widened = _flat(kern(*arguments(widen=True)))
+        identity = max(float((g.float() - w.to(BF).float()).abs().max())
+                       for g, w in zip(got, widened))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        masked_nonzero = (sum(int((y[mask == 0] != 0).sum())
+                              for y in got[:n_dir]) if masked else 0)
+        n = 5 if masked else 20
+        with torch.no_grad():
+            kernel_ms = time_ms(lambda: kern(*args), n)
+            args32 = arguments(widen=True)
+            int8_f32_ms = time_ms(lambda: kern(*args32), n)
+            args_float = arguments(int8=False)
+            float_ms = time_ms(lambda: kern_float(*args_float), n)
+            plain_ms = time_ms(lambda: plain(*args), 1, warmup=1)
+        bound_ms, bound_by, ops, nbytes = int8_layer_bound(
+            n_dir, T, B, H, int(lengths.sum()) if masked else None,
+            elem_bytes=2)
+        rec = {"phase": "int8_bf16_kernel", "name": name, "T": T, "B": B,
+               "H": H, "rows_per_cluster": geo.rows, "m_tiles": geo.m_tiles,
+               "clusters": geo.clusters, "max_active_clusters": held,
+               "ptxas": ptxas, "max_err_ulps": ulps,
+               "tol_ulps": INT8_BF16_ULPS, "share_differing": share,
+               "share_tol": INT8_BF16_DIFFER_SHARE, "max_abs_err": err,
+               "vs_f32_entry_rounded_max_abs": identity,
+               "masked_steps_nonzero": masked_nonzero,
+               "kernel_ms": kernel_ms, "int8_f32_kernel_ms": int8_f32_ms,
+               "float_kernel_ms": float_ms, "plain_ms": plain_ms,
+               "library_ms": None,
+               "library": "none: no single PyTorch call computes a W8A8 "
+                          "LSTM scan; yardsticks: the float32 int8 entry "
+                          "on the widened inputs, the float bf16 entry on "
+                          "the dequantized bf16 weights",
+               "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+        emit(rec)
+        results.append(rec)
+        tag = f"{name} H={H} B={B} T={T}"
+        if not no_stack_no_spill(ptxas):
+            failures.append(f"{tag}: the ptxas report of its bf16 "
+                            "instantiation shows a stack frame or spills")
+        if held["bf16"] != held["float32"]:
+            failures.append(f"{tag}: the bf16 instantiation holds "
+                            f"{held['bf16']} clusters, the float32 one "
+                            f"{held['float32']}")
+        if not finite:
+            failures.append(f"{tag}: non-finite output")
+        if masked_nonzero:
+            failures.append(f"{tag}: {masked_nonzero} masked outputs are "
+                            "not zero")
+        if ulps > INT8_BF16_ULPS or share > INT8_BF16_DIFFER_SHARE:
+            failures.append(f"{tag}: {ulps} ulps, {share:.4f} of the "
+                            "outputs differing from the plain version")
+        if identity != 0.0:
+            failures.append(f"{tag}: differs from the float32 entry on the "
+                            f"widened inputs, rounded, by {identity}")
+    # every bf16 instantiation of the int8 source, whatever shape runs it
+    spilled = sorted(fn for fn, lines in ptxas_by_function(
+        "lstm_scan_int8.cu", "_kernel", bf16=True).items()
+        if not no_stack_no_spill({fn: lines}))
+    emit({"phase": "int8_bf16_ptxas",
+          "instantiations_with_stack_or_spill": spilled})
+    if spilled:
+        failures.append(f"bf16 int8 instantiations with a stack or spills: "
+                        f"{spilled}")
+    require(not failures, "; ".join(failures))
+    return results
+
+
 def phase_fused(torch, lstm_cuda, multicell_cuda):
     """The trained fixture through `forward(backend='fused')` on the card,
     B windows of T = 45 frames with a nonzero velocity carry, held to the
@@ -1580,29 +1806,121 @@ def write_eval_sequences(torch, path: Path) -> None:
     torch.save(data, path)
 
 
-def phase_eval(torch, lstm_cuda, int8: bool = False,
+def _eval_argv(int8: bool, bf16: bool, online_mode: str):
+    """`cli.evaluate`'s arguments for one evaluation configuration (the
+    trained fixture on the synthetic sequences)."""
+    argv = ["--model", str(FIXTURE), "--dataset", "synthetic"]
+    if int8:
+        argv.append("--int8")
+    if bf16:
+        argv.append("--bf16")
+    if online_mode != "exact":
+        argv += ["--online-mode", online_mode]
+    return argv
+
+
+# Run inside a subprocess: one `cli.evaluate` on the CPU (the plain
+# versions), its result written as JSON (the drift windows as pairs, since
+# JSON keys are strings).
+_CPU_EVAL = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from mobileposer_tpu_torch.cli import evaluate as eval_cli
+t0 = time.perf_counter()
+res = eval_cli.main(json.loads(sys.argv[2]))
+with open(sys.argv[3], "w") as f:
+    json.dump({"offline": res["offline"].tolist(),
+               "online": res["online"].tolist(),
+               "tran_errors": [[w, e] for w, e in res["tran_errors"].items()],
+               "seconds": time.perf_counter() - t0}, f)
+"""
+
+
+class CpuEvals:
+    """The CPU port's evaluation of every configuration phase 4 holds the
+    card to, each a `cli.evaluate --online --tran --device cpu` in a
+    process of its own, all started together with one torch thread each:
+    the plain versions are thousands of small operations, and run one
+    after another they took ~200 s of the script. They share one
+    directory of synthetic sequences (`MP_PROCESSED`), which the card's
+    runs read too. `result` waits for one; `wait` for all; `close` stops
+    any still running and removes the directory."""
+
+    CONFIGS = [(False, False, "exact"), (True, False, "exact"),
+               (False, False, "carry"), (True, False, "carry"),
+               (False, True, "exact"), (True, True, "exact")]
+
+    def __init__(self, torch):
+        self.dir = tempfile.TemporaryDirectory()
+        write_eval_sequences(torch, Path(self.dir.name) / "synthetic.pt")
+        env = {**os.environ, "MP_PROCESSED": self.dir.name,
+               "OMP_NUM_THREADS": "1"}
+        self.procs = {}
+        for cfg in self.CONFIGS:
+            out = Path(self.dir.name) / ("cpu_%d_%d_%s" % cfg)
+            argv = _eval_argv(*cfg) + ["--online", "--tran", "--device",
+                                       "cpu"]
+            with open(out.with_suffix(".log"), "w") as log:
+                self.procs[cfg] = (subprocess.Popen(
+                    [sys.executable, "-c", _CPU_EVAL, str(ROOT),
+                     json.dumps(argv), str(out.with_suffix(".json"))],
+                    env=env, stdout=subprocess.DEVNULL, stderr=log), out)
+        self.results = {}
+
+    def result(self, int8: bool, bf16: bool, online_mode: str) -> dict:
+        """The CPU result of one configuration: tables as arrays, drift
+        windows as a dict, and the seconds its evaluation took."""
+        import numpy as np
+        cfg = (int8, bf16, online_mode)
+        if cfg not in self.results:
+            proc, out = self.procs[cfg]
+            proc.wait(timeout=900)
+            require(proc.returncode == 0, f"CPU evaluation {cfg} failed:\n"
+                    f"{out.with_suffix('.log').read_text()[-3000:]}")
+            res = json.loads(out.with_suffix(".json").read_text())
+            self.results[cfg] = {
+                "offline": np.asarray(res["offline"]),
+                "online": np.asarray(res["online"]),
+                "tran_errors": {w: e for w, e in res["tran_errors"]},
+                "seconds": res["seconds"]}
+        return self.results[cfg]
+
+    def wait(self) -> None:
+        for cfg in self.procs:
+            self.result(*cfg)
+
+    def close(self) -> None:
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.dir.cleanup()
+
+
+def phase_eval(torch, lstm_cuda, cpu_evals, int8: bool = False,
                online_mode: str = "exact", bf16: bool = False):
     """The evaluation entry point on the card (with `--int8`: on W8A8
     params; with `--bf16`: on bf16 params, the tables and the drift
     windows held to the CPU port's within BF16_EVAL_ATOL,
-    BF16_JITTER_ATOL and BF16_DRIFT_ATOL; with online_mode='carry': `--online-mode carry`, whose
-    ONLINE pass launches no LSTM kernel), held to the CPU port. Returns
-    (the offline pass's launch counts, the online pass's, the card's
-    result dict)."""
+    BF16_JITTER_ATOL and BF16_DRIFT_ATOL; with both, int8 on bf16 params
+    (the int8 kernels' bf16 entries), within the sum of the bf16 and the
+    int8 bounds, the two sources of a card-against-CPU difference; with
+    online_mode='carry': `--online-mode carry`, whose ONLINE pass launches
+    no LSTM kernel), held to the CPU port's result from `cpu_evals`
+    (`CpuEvals`). Returns (the offline pass's launch counts, the online
+    pass's, the card's result dict)."""
     import numpy as np
     from mobileposer_tpu_torch.cli import evaluate as eval_cli
     from mobileposer_tpu_torch.evaluation.pose_eval import _BUCKET, _groups
 
-    suffix = "int8" if int8 else "bf16" if bf16 else "f32"
+    suffix = ("int8_bf16" if int8 and bf16 else "int8" if int8
+              else "bf16" if bf16 else "f32")
     n_groups = len(_groups(EVAL_LENGTHS, _BUCKET, 64))
-    with tempfile.TemporaryDirectory() as tmp:
-        write_eval_sequences(torch, Path(tmp) / "synthetic.pt")
-        os.environ["MP_PROCESSED"] = tmp
-        argv = ["--model", str(FIXTURE), "--dataset", "synthetic"]
-        if int8:
-            argv.append("--int8")
-        if bf16:
-            argv.append("--bf16")
+    os.environ["MP_PROCESSED"] = cpu_evals.dir.name
+    try:
+        argv = _eval_argv(int8, bf16, "exact")
         expect = dict.fromkeys(lstm_cuda.launches, 0)
         expect[f"bilstm_scan_masked_{suffix}"] = 6 * n_groups
         expect[f"lstm_scan_masked_{suffix}"] = 2 * n_groups
@@ -1626,17 +1944,17 @@ def phase_eval(torch, lstm_cuda, int8: bool = False,
             offline = expect            # held in the exact mode's run
             argv += ["--online-mode", online_mode]
 
-        # offline + ONLINE + drift, on the card, then on the CPU
+        # offline + ONLINE + drift on the card, against the CPU's
         lstm_cuda.reset_launches()
         t0 = time.perf_counter()
         card = eval_cli.main(argv + ["--online", "--tran"])
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         both = dict(lstm_cuda.launches)
-        t0 = time.perf_counter()
-        cpu = eval_cli.main(argv + ["--online", "--tran", "--device", "cpu"])
-        cpu_s = time.perf_counter() - t0
+    finally:
         del os.environ["MP_PROCESSED"]
+    cpu = cpu_evals.result(int8, bf16, online_mode)
+    cpu_s = cpu["seconds"]
 
     online = {k: both[k] - offline[k] for k in both}
     # ONLINE: each bucket group is one unfolded stream batch (S < 32) of
@@ -1661,6 +1979,9 @@ def phase_eval(torch, lstm_cuda, int8: bool = False,
         if bf16:
             tol = np.full(cpu[k].shape, BF16_EVAL_ATOL)
             tol[6] = BF16_JITTER_ATOL
+            if int8:
+                tol += INT8_EVAL_RTOL * np.abs(cpu[k])
+                tol[6] = BF16_JITTER_ATOL + INT8_JITTER_ATOL
         else:
             tol = EVAL_ATOL + rtol * np.abs(cpu[k])
             if int8:
@@ -1671,7 +1992,8 @@ def phase_eval(torch, lstm_cuda, int8: bool = False,
             f"{sorted(cpu['tran_errors'])}")
     errs["tran_errors"] = max(
         [abs(card["tran_errors"][w] - cpu["tran_errors"][w])
-         / (BF16_DRIFT_ATOL if bf16 else
+         / (BF16_DRIFT_ATOL + (drift_rtol * abs(cpu["tran_errors"][w])
+                               if int8 else 0.0) if bf16 else
             EVAL_ATOL + drift_rtol * abs(cpu["tran_errors"][w]))
          for w in cpu["tran_errors"]], default=0.0)
     emit({"phase": "eval", "int8": int8, "bf16": bf16,
@@ -1822,34 +2144,42 @@ def phase_train(torch, lstm_cuda, train_cuda):
     return train_launches
 
 
-def phase_slice(torch, lstm_cuda, int8: bool = False):
+def phase_slice(torch, lstm_cuda, int8: bool = False, bf16: bool = False):
     """The trained weights (W8A8-quantized with `int8`, from the same
-    float32 weights on each device) through the streaming entry point on
-    the card, against the CPU port; returns the launch counts of the
-    whole phase."""
+    float32 weights on each device; with `bf16` too, the int8
+    quantization of their bf16 cast, with a bf16 state and bf16 frames)
+    through the streaming entry point on the card, against the CPU port;
+    with both, carry mode too (no LSTM kernel). Returns the launch counts
+    of the exact runs."""
     import numpy as np
     from mobileposer_tpu_torch.models import MobilePoserNet
     from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
     from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 
+    dtype = torch.bfloat16 if bf16 else torch.float32
     tree = load_npz(FIXTURE)
     nets = {d: MobilePoserNet(device=d) for d in ("cuda", "cpu")}
-    params = {d: params_from_jax(tree, device=d) for d in ("cuda", "cpu")}
+    params = {d: params_from_jax(tree, device=d, dtype=dtype)
+              for d in ("cuda", "cpu")}
     if int8:
         params = {d: quantize_params_int8(p) for d, p in params.items()}
-    suffix, tol = ("int8", INT8_SLICE_TOL) if int8 else ("f32", SLICE_TOL)
+    suffix, tol = (("int8_bf16", INT8_BF16_SLICE_TOL) if int8 and bf16
+                   else ("int8", INT8_SLICE_TOL) if int8
+                   else ("f32", SLICE_TOL))
     rng = np.random.RandomState(1)
     S = 8
     lstm_cuda.reset_launches()
     for mode, N, chunk in (("scan", 6, 25), ("unfolded", 7, 3)):
-        states = {d: nets[d].init_online_state_batched(S) for d in nets}
+        states = {d: nets[d].init_online_state_batched(S, dtype)
+                  for d in nets}
         for call in ("fresh", "continued"):
             frames = (rng.randn(N, S, 60) * 0.1).astype(np.float32)
             before = dict(lstm_cuda.launches)
             outs = {}
             for d in ("cuda", "cpu"):
                 outs[d], states[d] = nets[d].forward_online_sequence_batched(
-                    params[d], states[d], torch.from_numpy(frames).to(d),
+                    params[d], states[d],
+                    torch.from_numpy(frames).to(device=d, dtype=dtype),
                     mode=mode, chunk=chunk)
             torch.cuda.synchronize()
             moved = {k: lstm_cuda.launches[k] - before[k] for k in before}
@@ -1863,30 +2193,63 @@ def phase_slice(torch, lstm_cuda, int8: bool = False):
             for nm, g, c in zip(names, outs["cuda"], outs["cpu"]):
                 require(tuple(g.shape) == tuple(c.shape),
                         f"{mode} {nm}: shape {tuple(g.shape)} vs {tuple(c.shape)}")
-                require(bool(torch.isfinite(g).all()), f"{mode} {nm}: non-finite")
-                errs[nm] = float((g.cpu() - c).abs().max())
+                require(bool(torch.isfinite(g.float()).all()),
+                        f"{mode} {nm}: non-finite")
+                errs[nm] = float((g.float().cpu() - c.float()).abs().max())
             for nm, g, c in zip(states["cuda"]._fields, states["cuda"],
                                 states["cpu"]):
                 errs["state." + nm] = float(
                     (g.cpu().float() - c.float()).abs().max())
-            pose = outs["cuda"][0]
-            ortho = float((pose @ pose.transpose(-1, -2)
-                           - torch.eye(3, device=pose.device)).abs().max())
-            emit({"phase": "slice", "int8": int8, "mode": mode,
+            ortho, ortho_cpu = (
+                float((p @ p.transpose(-1, -2)
+                       - torch.eye(3, device=p.device)).abs().max())
+                for p in (outs[d][0].float() for d in ("cuda", "cpu")))
+            emit({"phase": "slice", "int8": int8, "bf16": bf16, "mode": mode,
                   "call": call, "S": S,
                   "N": N, "chunk": chunk if mode == "unfolded" else None,
                   "max_abs_err": errs, "tol": tol,
-                  "pose_orthonormal_err": ortho, "launches": moved,
+                  "pose_orthonormal_err": ortho,
+                  "cpu_pose_orthonormal_err": ortho_cpu, "launches": moved,
                   "expected_launches": expect})
             require(moved == expect,
                     f"{mode} {call}: launches {moved}, expected {expect}")
             worst = max(errs.values())
             require(worst <= tol,
-                    f"{mode} {call} int8={int8}: card vs CPU max abs err "
-                    f"{worst} > {tol}")
-            require(ortho <= 1e-4, f"{mode} {call}: pose not orthonormal "
-                                   f"({ortho})")
-    return dict(lstm_cuda.launches)
+                    f"{mode} {call} int8={int8} bf16={bf16}: card vs CPU "
+                    f"max abs err {worst} > {tol}")
+            # a bf16 pose is orthonormal to bf16's rounding of the r6d
+            # normalization: as much as the CPU port's, to the slice's
+            # tolerance
+            require(ortho <= (ortho_cpu + tol if bf16 else 1e-4),
+                    f"{mode} {call}: pose not orthonormal ({ortho}; CPU "
+                    f"{ortho_cpu})")
+    exact_launches = dict(lstm_cuda.launches)
+    if bf16:
+        # carry mode: the int8 cell steps in bf16, no LSTM kernel
+        N = 10
+        frames = (rng.randn(N, S, 60) * 0.1).astype(np.float32)
+        lstm_cuda.reset_launches()
+        outs = {d: nets[d].forward_carry_sequence_batched(
+                    params[d], nets[d].init_carry_state_batched(S, dtype),
+                    torch.from_numpy(frames).to(device=d, dtype=dtype))[0]
+                for d in ("cuda", "cpu")}
+        torch.cuda.synchronize()
+        moved = dict(lstm_cuda.launches)
+        errs = {nm: float((g.float().cpu() - c.float()).abs().max())
+                for nm, g, c in zip(("pose", "joints", "root", "contact"),
+                                    outs["cuda"], outs["cpu"])}
+        emit({"phase": "slice", "int8": int8, "bf16": bf16, "mode": "carry",
+              "S": S, "N": N, "max_abs_err": errs, "tol": tol,
+              "dtypes": [str(t.dtype) for t in outs["cuda"]],
+              "launches": moved})
+        require(not any(moved.values()),
+                f"carry mode launched LSTM kernels: {moved}")
+        require(all(bool(torch.isfinite(g.float()).all())
+                    for g in outs["cuda"]), "carry: non-finite")
+        require(max(errs.values()) <= tol,
+                f"carry int8={int8} bf16={bf16}: card vs CPU {errs} > "
+                f"{tol}")
+    return exact_launches
 
 
 def _serve_lockstep(srv, clients, frames):
@@ -2370,26 +2733,33 @@ def phase_bf16_slice(torch, lstm_cuda, multicell_cuda):
     return stream_launches, counts()
 
 
-def phase_bf16_serving(torch, lstm_cuda, smi):
-    """`PoseServer` on bf16 params (random weights from seed 0, cast) on
+def phase_bf16_serving(torch, lstm_cuda, smi, quantize=None):
+    """`PoseServer` on bf16 params (random weights from seed 0, cast; with
+    quantize='int8' the server quantizes the cast, int8 on bf16 params) on
     the card: SERVE_STREAMS `PoseClient`s in lockstep for SERVE_TICKS
     ticks, exact and carry, synchronous and pipelined, the server in bf16
     (state, frames, step) with float32 replies equal to the direct bf16
     step on the card exactly, pipelined equal to synchronous, 6 bi + 2 uni
-    bf16 launches per exact tick and none in carry mode; then the paced
-    30 Hz runs at SERVE_STREAMS, exact and carry (reply rate, tick p50);
-    then `cli.serve --bf16` and `cli.serve --carry --bf16` on the card.
-    Returns the launch counts of the exact synchronous run."""
+    bf16 launches (of the int8 kernels' bf16 entries with int8) per exact
+    tick and none in carry mode; then the paced 30 Hz runs at
+    SERVE_STREAMS, exact and carry (reply rate, tick p50); then
+    `cli.serve --bf16` and `cli.serve --carry --bf16` (with `--int8`) on
+    the card. Returns the launch counts of the exact synchronous run."""
     import numpy as np
     from mobileposer_tpu_torch.cli import serve as serve_cli
     from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
     from mobileposer_tpu_torch.nn import cast_params
+    from mobileposer_tpu_torch.ops.quant import quantize_params_int8
     from mobileposer_tpu_torch.stream import PoseClient, PoseServer
 
     BF = torch.bfloat16
+    int8 = quantize == "int8"
+    suffix = "int8_bf16" if int8 else "bf16"
     net = MobilePoserNet(device="cuda")
     params = cast_params(init_all_modules(torch.Generator().manual_seed(0),
                                           device="cuda"), BF)
+    # what the server steps on: it quantizes the cast it is given
+    stepped = quantize_params_int8(params) if int8 else params
     S, T = SERVE_STREAMS, SERVE_TICKS
     frames = (np.random.RandomState(12).randn(T, S, 60) * 0.1).astype(
         np.float32)
@@ -2398,7 +2768,8 @@ def phase_bf16_serving(torch, lstm_cuda, smi):
         replies = {}
         for pipelined in (False, True):
             srv = PoseServer(net, params, host="127.0.0.1", port=0,
-                             max_streams=S, mode=mode, pipelined=pipelined)
+                             max_streams=S, mode=mode, pipelined=pipelined,
+                             quantize=quantize)
             clients = [PoseClient(stream_id=2000 + s, port=srv.port,
                                   timeout=10.0) for s in range(S)]
             try:
@@ -2416,11 +2787,12 @@ def phase_bf16_serving(torch, lstm_cuda, smi):
                 srv.close()
             expect = dict.fromkeys(lstm_cuda.launches, 0)
             if mode == "exact":
-                expect["bilstm_scan_bf16"] = 6 * T
-                expect["lstm_scan_bf16"] = 2 * T
+                expect[f"bilstm_scan_{suffix}"] = 6 * T
+                expect[f"lstm_scan_{suffix}"] = 2 * T
                 if not pipelined:
                     serving_launches = moved
-            emit({"phase": "bf16_serving_lockstep", "mode": mode,
+            emit({"phase": "bf16_serving_lockstep", "int8": int8,
+                  "mode": mode,
                   "pipelined": pipelined, "streams": S, "ticks": T,
                   "launches": moved, "expected_launches": expect,
                   "tick_ms_p50": stats["tick_ms_p50"]})
@@ -2428,11 +2800,12 @@ def phase_bf16_serving(torch, lstm_cuda, smi):
                     f"{pipelined}: launches {moved}, expected {expect}")
             require(bool(np.isfinite(replies[pipelined]).all()),
                     "non-finite bf16 replies")
-        direct, _ = _serve_direct(torch, net, params, mode, frames, slots,
+        direct, _ = _serve_direct(torch, net, stepped, mode, frames, slots,
                                   dtype=BF)
         vs_step = float(abs(replies[False] - direct).max())
         vs_sync = float(abs(replies[True] - replies[False]).max())
-        emit({"phase": "bf16_serving", "mode": mode, "streams": S,
+        emit({"phase": "bf16_serving", "int8": int8, "mode": mode,
+              "streams": S,
               "ticks": T, "replies_vs_direct_step_max_abs": vs_step,
               "pipelined_vs_sync_max_abs": vs_sync})
         require(vs_step == 0.0, f"bf16 serving {mode}: replies differ from "
@@ -2440,18 +2813,21 @@ def phase_bf16_serving(torch, lstm_cuda, smi):
         require(vs_sync == 0.0, f"bf16 serving {mode}: pipelined differs "
                                 f"from sync by {vs_sync}")
     for mode in ("exact", "carry"):
-        rec = _serve_paced(torch, net, params, smi, S, mode, None, True)
+        rec = _serve_paced(torch, net, params, smi, S, mode, quantize, True)
         rec["bf16"] = True
         emit(rec)
         require(rec["replies_received"] > 0, "no reply in the bf16 paced "
                                              "run")
     for flags in (["--bf16"], ["--carry", "--bf16"]):
+        flags += ["--int8"] if int8 else []
         stats = serve_cli.main(["--model", str(FIXTURE), "--host",
                                 "127.0.0.1", "--port", "0",
                                 "--duration", "0.5", *flags])
         emit({"phase": "serve_cli", "flags": flags, "stats": stats})
         require(stats["device"].startswith("cuda"),
                 f"cli.serve ran on {stats['device']}")
+        require(stats["quantize"] == quantize,
+                f"cli.serve {flags}: quantize {stats['quantize']}")
     return serving_launches
 
 
@@ -2518,6 +2894,15 @@ def main() -> int:
     # 3f. the bf16-I/O entries of #1, #2, #3 and #9 against their plain
     # versions
     kernel_recs += phase_bf16_kernels(torch, lstm_cuda, multicell_cuda)
+    # 3g. the bf16-I/O entries of #4, #5 and #6 against their plain
+    # versions
+    kernel_recs += phase_int8_bf16_kernels(torch, lstm_cuda)
+
+    # the CPU port's evaluations, the references of phases 4b, 4f and 4g,
+    # in processes of their own while the card runs phases 4 to 4d; they
+    # are stopped whichever way the script ends
+    cpu_evals = CpuEvals(torch)
+    atexit.register(cpu_evals.close)
 
     # 4. the streaming slice on the card, float32 then int8 (their
     # main-path runs: the full-length counters are read on them)
@@ -2526,13 +2911,14 @@ def main() -> int:
     stream_int8_launches = phase_slice(torch, lstm_cuda, int8=True)
     # 4b. the evaluation entry point, float32 then --int8 (their offline
     # runs: the masked counters)
-    offline_launches, online_launches, card_f32 = phase_eval(torch,
-                                                             lstm_cuda)
+    offline_launches, online_launches, card_f32 = phase_eval(
+        torch, lstm_cuda, cpu_evals)
     offline_int8_launches, online_int8_launches, card_int8 = phase_eval(
-        torch, lstm_cuda, int8=True)
+        torch, lstm_cuda, cpu_evals, int8=True)
     # the ONLINE protocol in carry mode, float32 and int8: no LSTM kernel
     for int8 in (False, True):
-        phase_eval(torch, lstm_cuda, int8=int8, online_mode="carry")
+        phase_eval(torch, lstm_cuda, cpu_evals, int8=int8,
+                   online_mode="carry")
     # int8 against float32 on the card, within the JAX package's bound
     deltas = {k: {row: float(card_int8[k][row, 0] - card_f32[k][row, 0])
                   for row in INT8_DELTA_BOUND} for k in ("offline", "online")}
@@ -2553,6 +2939,9 @@ def main() -> int:
             "multicell kernel")
     # 4d. the fused single-window forward (its run: the multicell counter)
     fused_launches = phase_fused(torch, lstm_cuda, multicell_cuda)
+    # every CPU evaluation done before the paced serving runs, which the
+    # host's load would slow
+    cpu_evals.wait()
     # 4e. the serving entry point (its runs: the full-length counters of
     # the exact float32 and int8 servers)
     serving_launches = phase_serving(torch, lstm_cuda, smi)
@@ -2567,12 +2956,27 @@ def main() -> int:
     # offline run: the masked bf16 counters), bf16 serving
     bf16_stream_launches, bf16_fused_launches = phase_bf16_slice(
         torch, lstm_cuda, multicell_cuda)
-    bf16_offline_launches, _, _ = phase_eval(torch, lstm_cuda, bf16=True)
+    bf16_offline_launches, _, _ = phase_eval(torch, lstm_cuda, cpu_evals,
+                                             bf16=True)
     bf16_serving = phase_bf16_serving(torch, lstm_cuda, smi)
     for name in ("bilstm_scan_bf16", "lstm_scan_bf16"):
         serving_by_kernel[name] = bf16_serving[name]
         require(bf16_serving[name] > 0,
                 f"{name} was never launched by the bf16 server")
+    # 4g. int8 on bf16 params: streaming exact and carry (the exact runs:
+    # the full-length int8 bf16 counters), `cli.evaluate --int8 --bf16`
+    # (its offline run: the masked int8 bf16 counters), serving
+    int8_bf16_stream_launches = phase_slice(torch, lstm_cuda, int8=True,
+                                            bf16=True)
+    int8_bf16_offline_launches, _, _ = phase_eval(
+        torch, lstm_cuda, cpu_evals, int8=True, bf16=True)
+    cpu_evals.close()
+    int8_bf16_serving = phase_bf16_serving(torch, lstm_cuda, smi,
+                                           quantize="int8")
+    for name in ("bilstm_scan_int8_bf16", "lstm_scan_int8_bf16"):
+        serving_by_kernel[name] = int8_bf16_serving[name]
+        require(int8_bf16_serving[name] > 0,
+                f"{name} was never launched by the int8 bf16 server")
     main_launches = {
         **{k: n for k, n in stream_launches.items() if k.endswith("f32")
            and "masked" not in k},
@@ -2588,7 +2992,11 @@ def main() -> int:
                                                 "lstm_scan_bf16")},
         **{k: bf16_offline_launches[k] for k in ("bilstm_scan_masked_bf16",
                                                  "lstm_scan_masked_bf16")},
-        "multicell_scan_bf16": bf16_fused_launches["multicell_scan_bf16"]}
+        "multicell_scan_bf16": bf16_fused_launches["multicell_scan_bf16"],
+        **{k: int8_bf16_stream_launches[k] for k in (
+            "bilstm_scan_int8_bf16", "lstm_scan_int8_bf16")},
+        **{k: int8_bf16_offline_launches[k] for k in (
+            "bilstm_scan_masked_int8_bf16", "lstm_scan_masked_int8_bf16")}}
     for name, n in main_launches.items():
         require(n > 0, f"{name} was never launched on its main path")
 
@@ -2625,6 +3033,21 @@ def main() -> int:
     emit({"phase": "breakdown", **trace})
     require(any("int8" in g for g in trace["groups"]),
             "the traced int8 call shows no int8 kernel")
+    # int8 on bf16 params (the JAX bench's exact_int8 leg as written)
+    # beside C5 (int8 on float32 params) and C7 (bf16)
+    rec8 = bench.run(n_streams=256, n_frames=100, mode="scan", int8=True,
+                     bf16=True)
+    emit({"phase": "rate", **rec8, "int8_f32_value_same_run": rec["value"],
+          "bf16_value_same_run": rec16["value"],
+          "over_int8_f32": rec8["value"] / rec["value"],
+          "over_bf16": rec8["value"] / rec16["value"]})
+    require(rec8["pct_of_f32_peak"] < 100.0,
+            "implied FLOP/s above the card's peak: the harness is wrong")
+    trace = bench.breakdown(n_streams=256, n_frames=100, mode="scan",
+                            int8=True, bf16=True)
+    emit({"phase": "breakdown", **trace})
+    require(any("int8" in g and g.endswith("bf16") for g in trace["groups"]),
+            "the traced int8 bf16 call shows no int8 bf16 kernel")
 
     # 5b. offline-evaluation frames/s of one 64 x 512 ragged group
     rec = bench.run_offline(batch=64, bucket=512)
@@ -2689,6 +3112,7 @@ def main() -> int:
                 if isinstance(r["max_abs_err"], dict) else r["max_abs_err"]
                 for r in recs]
         extra = {k: main[k] for k in ("float_kernel_ms",
+                                      "int8_f32_kernel_ms",
                                       "per_module_kernels_ms",
                                       "max_err_ulps") if k in main}
         ported.append({

@@ -23,13 +23,13 @@ package's root `bench.py`:
 
 `run(..., int8=True)` times the same streaming call on W8A8-quantized
 params (`ops.quant.quantize_params_int8`: int8 input projections and the
-int8 kernels #4 and #6), the counterpart of the JAX bench's `exact_int8`
-leg. The JAX bench quantizes bf16 params; int8 on bf16 params is not
-ported yet (ROADMAP.md queue A item 14b), so it quantizes the float32
-params, and the record says so. `run(..., bf16=True)` times the call on
-bf16 params, state and frames (`nn.convert.cast_params`: the layer
-kernels' bf16 entries), the counterpart of the JAX bench's
-`exact_bf16_frames_per_sec`.
+int8 kernels #4 and #6) quantized from the float32 params, and the
+record says so. `run(..., bf16=True)` times the call on bf16 params,
+state and frames (`nn.convert.cast_params`: the layer kernels' bf16
+entries), the counterpart of the JAX bench's `exact_bf16_frames_per_sec`.
+`run(..., int8=True, bf16=True)` casts to bf16 first and then quantizes
+(int8 on bf16 params: the int8 kernels' bf16 entries, a bf16 state and
+bf16 frames), the JAX bench's `exact_int8` leg as it is written.
 
 `run_train` times the concurrent four-module train step
 (`train.make_multi_train_step`: every LSTM layer on the training kernels
@@ -54,6 +54,7 @@ Random weights from a seed (the JAX bench uses random weights too).
 Run:  python -m mobileposer_tpu_torch.bench [--streams 256] [--frames 100]
       python -m mobileposer_tpu_torch.bench --int8 [--streams 256]
       python -m mobileposer_tpu_torch.bench --bf16 [--streams 256]
+      python -m mobileposer_tpu_torch.bench --int8 --bf16 [--streams 256]
       python -m mobileposer_tpu_torch.bench --offline
       python -m mobileposer_tpu_torch.bench --train
 Prints one JSON line.
@@ -77,7 +78,7 @@ from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, init_all_module
 from mobileposer_tpu_torch.models.net import (NUM_TOTAL, MobilePoserNet,
                                               forward)
 from mobileposer_tpu_torch.ops import lstm_train_cuda
-from mobileposer_tpu_torch.nn.lstm import INT8_BF16_ERROR, cast_params
+from mobileposer_tpu_torch.nn.lstm import cast_params
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 from mobileposer_tpu_torch.train.trainer import (MODULE_NAMES,
                                                  init_train_state,
@@ -127,17 +128,16 @@ def _net(seed: int, device):
 
 def _setup(n_streams: int, n_frames: int, mode: str, seed: int, device,
            int8: bool = False, bf16: bool = False):
-    """Net, random weights (W8A8-quantized with `int8`; cast to bf16 with
-    `bf16`, the state and frames too), fresh state and frames on the CUDA
-    device."""
-    if int8 and bf16:
-        raise NotImplementedError(INT8_BF16_ERROR)
+    """Net, random weights (cast to bf16 with `bf16`, the state and frames
+    too; then W8A8-quantized with `int8`: with both, the int8 quantization
+    of the bf16 cast, as the JAX bench makes it), fresh state and frames
+    on the CUDA device."""
     dtype = torch.bfloat16 if bf16 else torch.float32
     device, net, params = _net(seed, device)
-    if int8:
-        params = quantize_params_int8(params)
     if bf16:
         params = cast_params(params, dtype)
+    if int8:
+        params = quantize_params_int8(params)
     state0 = net.init_online_state_batched(n_streams, dtype)
     rng = np.random.RandomState(seed)
     frames = torch.from_numpy(
@@ -188,7 +188,8 @@ def run(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
     `trials` chained regions of `reps` calls each are timed; the record's
     value is their median rate, with the lowest and highest beside it.
     `int8` runs on W8A8-quantized params, `bf16` on bf16 params with a
-    bf16 state and bf16 frames."""
+    bf16 state and bf16 frames, both on the int8 quantization of the bf16
+    cast."""
     device, net, params, state0, frames, mode = _setup(
         n_streams, n_frames, mode, seed, device, int8, bf16)
     per_call = n_streams * n_frames
@@ -203,11 +204,12 @@ def run(n_streams: int = 256, n_frames: int = 100, mode: str = "auto",
     int8_fields = {"int8": int8, "bf16": bf16}
     if int8:
         int8_fields["int8_quantized_from"] = (
+            "bf16 params (the JAX bench's exact_int8 leg)" if bf16 else
             "float32 params (the JAX bench's exact_int8 leg quantizes its "
-            "bf16 params; int8 on bf16 params is ROADMAP.md queue A item "
-            "14b)")
+            "bf16 params: run(int8=True, bf16=True))")
     return {
-        "metric": ("exact_int8_streamed_frames_per_sec" if int8
+        "metric": ("exact_int8_bf16_streamed_frames_per_sec" if int8 and bf16
+                   else "exact_int8_streamed_frames_per_sec" if int8
                    else "exact_bf16_streamed_frames_per_sec" if bf16
                    else "exact_streamed_frames_per_sec"),
         "value": fps,
@@ -453,7 +455,9 @@ def _kernel_group(name: str) -> str:
         return "lstm_scan masked (ops/csrc/lstm_scan.cu)"
     if "lstm_scan_kernel" in low:
         return "lstm_scan (ops/csrc/lstm_scan.cu)"
-    if "gemm" in low or "cutlass" in low or "xmma" in low:
+    # cuBLAS's Hopper kernels for bf16 products are named nvjet_*
+    if ("gemm" in low or "cutlass" in low or "xmma" in low
+            or low.startswith("nvjet")):
         return "matmul (cuBLAS: projections, linears)"
     if "memcpy" in low or "memset" in low:
         return "copies"

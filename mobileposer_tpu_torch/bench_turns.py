@@ -1,4 +1,4 @@
-"""Time cells C1 to C7 (PERF.md section 4) of two checkouts in turns on one
+"""Time cells C1 to C8 (PERF.md section 4) of two checkouts in turns on one
 card, so that a change is compared with its parent under the same clocks.
 
     python -m mobileposer_tpu_torch.bench_turns --other DIR [--out FILE]
@@ -14,20 +14,23 @@ then one line of medians per cell and tree with the change's relative
 difference; with --out, writes the lines to FILE as well; --cells runs
 only those cells (a noisy one again, for more turns). A cell whose
 bench function a tree does not take (C7's `bf16` before the port ran
-bf16) is skipped in that tree's turns. With --kernels
+bf16) or refuses with NotImplementedError (C8's int8 on bf16 params
+before the port ran it) is skipped in that tree's turns. With --kernels
 each turn runs kernel phases of its tree's `chip_smoke.py` instead, LIST
 a comma-separated choice of `full` (phase 3, the full-length layer scans
 at the streaming shapes; the default), `masked` (phase 3b, the masked
 scans at the evaluation shapes), `train` (phase 3c, the training kernels
 and the dW reduction), `int8` (phase 3d, the W8A8 scans at the
 streaming and evaluation shapes), `multicell` (phase 3e, the multicell
-scan at B = 256 and 8) and `bf16` (phase 3f, the bf16-I/O entries of the
-float scans; skipped in a tree without it), and a cell is one kernel at
+scan at B = 256 and 8), `bf16` (phase 3f, the bf16-I/O entries of the
+float scans) and `int8_bf16` (phase 3g, the bf16-I/O entries of the W8A8
+scans; each skipped in a tree without it), and a cell is one kernel at
 one shape: its time
 in ms, with the yardstick's (cuDNN, or torch.matmul for dW; for an int8
-kernel, which has none, the float kernel's at the same shape; for the
-multicell scan the per-module kernels' on the same cells) in the same
-turn. Needs a CUDA card.
+kernel, which has none, the float kernel's at the same shape, and for a
+bf16 int8 kernel also the float32 int8 entry's; for the multicell scan
+the per-module kernels' on the same cells) in the same turn. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -55,6 +58,10 @@ CELLS = [
     ("C6a", "run_forward", {"batch": 256, "window": 45, "backend": "auto"}),
     # C1 on bf16 params, state and frames
     ("C7", "run", {"n_streams": 256, "n_frames": 100, "bf16": True}),
+    # C1's shape on bf16 params quantized to W8A8 (the JAX bench's
+    # exact_int8 leg as it is written)
+    ("C8", "run", {"n_streams": 256, "n_frames": 100, "mode": "scan",
+                   "int8": True, "bf16": True}),
 ]
 
 # run inside the tree under test: its own package, TF32 off as in
@@ -69,16 +76,20 @@ from mobileposer_tpu_torch import bench
 for name, fn, kw in {cells!r}:
     if set(kw) - set(inspect.signature(getattr(bench, fn)).parameters):
         continue
-    rec = getattr(bench, fn)(**kw)
+    try:
+        rec = getattr(bench, fn)(**kw)
+    except NotImplementedError:
+        continue
     print(json.dumps({{"cell": name, "value": rec["value"],
                       "unit": rec.get("unit"), "rate_min": rec.get("rate_min"),
                       "rate_max": rec.get("rate_max")}}), flush=True)
 """
 
 # the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked'),
-# 3c ('train'), 3d ('int8') and 3e ('multicell') of the tree's
-# chip_smoke.py
-KERNEL_PHASES = ("full", "masked", "train", "int8", "multicell", "bf16")
+# 3c ('train'), 3d ('int8'), 3e ('multicell'), 3f ('bf16') and 3g
+# ('int8_bf16') of the tree's chip_smoke.py
+KERNEL_PHASES = ("full", "masked", "train", "int8", "multicell", "bf16",
+                 "int8_bf16")
 _KERNEL_TURN = """
 import json, sys
 sys.path.insert(0, {tree!r})
@@ -107,6 +118,11 @@ for phase in {phases!r}:
         multicell_cuda.build()
         recs += chip_smoke.phase_bf16_kernels(torch, lstm_cuda,
                                               multicell_cuda)
+    elif phase == "int8_bf16":
+        if not hasattr(chip_smoke, "phase_int8_bf16_kernels"):
+            continue
+        lstm_cuda.build()
+        recs += chip_smoke.phase_int8_bf16_kernels(torch, lstm_cuda)
     else:
         lstm_cuda.build()
         fn = {{"full": chip_smoke.phase_kernels,
@@ -120,6 +136,7 @@ for rec in recs:
     print(json.dumps({{"cell": cell, "value": rec["kernel_ms"], "unit": "ms",
                       "library_ms": rec["library_ms"],
                       "float_kernel_ms": rec.get("float_kernel_ms"),
+                      "int8_f32_kernel_ms": rec.get("int8_f32_kernel_ms"),
                       "per_module_kernels_ms":
                           rec.get("per_module_kernels_ms"),
                       "bound_ms": rec["bound_ms"]}}), flush=True)

@@ -13,11 +13,13 @@ the int8 kernels #4 to #6). `--online-mode carry` runs the ONLINE
 protocol through carry-mode streaming (`models/streaming.py`), with or
 without `--int8`. `--bf16` evaluates on bf16-cast params, both
 protocols in bf16 (`evaluate_pose(bf16=True)`; the metrics in float32 on
-the cast-back outputs). `--data-parallel` evaluates on the one device
-when one is visible (the card, or `--device cpu`), as the JAX CLI does
-with one device. `--int8 --bf16` and `--data-parallel` over more than
-one CUDA device are accepted as the JAX CLI accepts them and raise
-NotImplementedError naming the ROADMAP row that adds them.
+the cast-back outputs). `--int8 --bf16` does what the JAX CLI does:
+casts to bf16, then quantizes, then evaluates in bf16 (the int8 kernels'
+bf16-I/O entries). `--data-parallel` evaluates on the one device when
+one is visible (the card, or `--device cpu`), as the JAX CLI does with
+one device; over more than one CUDA device it is accepted as the JAX
+CLI accepts it and raises NotImplementedError naming the ROADMAP row
+that adds it.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from mobileposer_tpu_torch.evaluation import evaluate_pose
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
 from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
-from mobileposer_tpu_torch.nn.lstm import INT8_BF16_ERROR
+from mobileposer_tpu_torch.nn.lstm import cast_params
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 
 
@@ -78,8 +80,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 inference dtype (weights, state, "
                              "frames); metrics computed in float32 on the "
-                             "cast-back outputs. With --int8 not ported "
-                             "(ROADMAP.md queue A item 14b)")
+                             "cast-back outputs; with --int8 the bf16 "
+                             "cast is quantized")
     parser.add_argument("--online-mode", default="exact",
                         choices=["exact", "carry"],
                         help="ONLINE protocol semantics: 'exact' "
@@ -88,12 +90,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--int8", action="store_true",
                         help="evaluate on W8A8-quantized LSTM matmuls "
                              "(ops/quant.py): scores what an int8 "
-                             "deployment would serve")
+                             "deployment would serve; composes with "
+                             "--bf16 and both --online-mode values")
     args = parser.parse_args(argv)
 
-    if args.int8 and args.bf16:
-        # the JAX CLI casts to bf16 first, then quantizes
-        raise NotImplementedError("--int8 --bf16: " + INT8_BF16_ERROR)
     if Path(args.model).suffix != ".npz":
         raise NotImplementedError(
             f"{args.model}: only the JAX package's .npz archives load; a "
@@ -110,6 +110,10 @@ def main(argv=None) -> dict:
         C.paths.smpl_file), device=device)
     params = params_from_jax(load_npz(args.model), device=net.device)
     if args.int8:
+        if args.bf16:
+            # the JAX CLI's order: cast first, so the scales stay float32
+            # and the linears and the state run in bf16
+            params = cast_params(params, torch.bfloat16)
         params = quantize_params_int8(params)
     if args.dataset == "synthetic":
         fixture = C.paths.processed_datasets / "synthetic.pt"

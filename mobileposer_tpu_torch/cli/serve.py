@@ -9,11 +9,14 @@ Weights are the JAX package's `.npz` archives. Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
 versions). `--bf16` casts the loaded params to bfloat16
 (`nn.convert.cast_params`, as the JAX CLI does): the server then runs its
-state, frames and step in bf16, exact and carry mode. `--data-parallel`
-serves on the one device when one is visible, as the JAX CLI does with
-one device. `--int8 --bf16`, a `.pth` checkpoint and `--data-parallel`
-over more than one CUDA device are accepted as the JAX CLI accepts them
-and raise NotImplementedError naming the ROADMAP row that adds them.
+state, frames and step in bf16, exact and carry mode. `--int8 --bf16`
+casts first and hands `quantize="int8"` to the server, which quantizes
+the bf16 cast (int8 on bf16 params, the JAX package's serving
+configuration). `--data-parallel` serves on the one device when one is
+visible, as the JAX CLI does with one device. A `.pth` checkpoint and
+`--data-parallel` over more than one CUDA device are accepted as the JAX
+CLI accepts them and raise NotImplementedError naming the ROADMAP row
+that adds them.
 """
 
 from __future__ import annotations
@@ -30,14 +33,11 @@ from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
 from mobileposer_tpu_torch.nn.convert import (cast_params, load_npz,
                                               params_from_jax)
-from mobileposer_tpu_torch.nn.lstm import INT8_BF16_ERROR
 from mobileposer_tpu_torch.stream import PoseServer
 
 
 def build_server(args) -> PoseServer:
     """The server the parsed arguments describe (bound, not running)."""
-    if args.int8 and args.bf16:
-        raise NotImplementedError("--int8 --bf16: " + INT8_BF16_ERROR)
     if Path(args.model).suffix != ".npz":
         raise NotImplementedError(
             f"{args.model}: only the JAX package's .npz archives load; a "
@@ -79,9 +79,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--bf16", action="store_true",
                         help="serve on bf16-cast params: bf16 state, "
                              "frames and step (exact and carry mode); "
-                             "replies stay float32 or f16 on the wire. "
-                             "With --int8 not ported (ROADMAP.md queue A "
-                             "item 14b)")
+                             "replies stay float32 or f16 on the wire; "
+                             "with --int8 the server quantizes the bf16 "
+                             "cast")
     parser.add_argument("--data-parallel", action="store_true",
                         help="serves on the one device; over more than "
                              "one CUDA device not ported (ROADMAP.md "

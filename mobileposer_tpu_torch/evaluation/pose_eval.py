@@ -22,7 +22,10 @@ since an output at frame t depends only on frames up to t in both modes.
 `bf16=True` casts the params to bfloat16 and runs both protocols in bf16
 (frames and state; the offline groups through the masked kernels' bf16
 entries); the metrics are computed in float32 on the cast-back outputs,
-as in the JAX package.
+as in the JAX package. On quantized params (int8 on bf16 params, as
+`cli.evaluate --int8 --bf16` makes them) the cast leaves the int8 tensors
+and their scales alone and casts `b` and the linears, and the layers run
+the int8 kernels' bf16 entries: the masked #5 offline, #4 and #6 ONLINE.
 """
 
 from __future__ import annotations

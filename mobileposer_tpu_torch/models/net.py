@@ -30,7 +30,9 @@ hold every output and state field to the JAX package.
 W8A8 int8 params (`ops.quant.quantize_params_int8`, or a quantized tree
 through `nn.convert.params_from_jax`) flow through every entry point
 unchanged: the dtype of each LSTM layer's w_ih sends it to the int8
-projections and the int8 kernels #4 to #6.
+projections and the int8 kernels #4 to #6; on a bf16 cast quantized
+(int8 on bf16 params) with a bf16 input and state, to their bf16 entries
+(x_proj rounded to bf16 once, the carry float32).
 
 `forward(backend='fused')` runs the poser / footcontact / velocity trio
 of a single full-length window on the multicell kernel

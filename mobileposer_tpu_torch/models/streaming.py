@@ -28,8 +28,9 @@ step is a few batched matmuls (`nn.lstm.lstm_cell_step`, or its W8A8
 route `ops.quant.lstm_cell_step_int8` when w_ih is int8) and elementwise
 ops, cuBLAS on the card. The JAX `lax.scan` over frames is a Python loop.
 On bf16 params with a bf16 state every step runs in bf16, carries
-included, as the JAX package's cell step does; the fusion state stays
-float32.
+included, as the JAX package's cell step does (on int8 on bf16 params the
+int8 cell's float32 gates are cast to bf16 before the nonlinearity); the
+fusion state stays float32.
 """
 
 from __future__ import annotations

@@ -16,15 +16,17 @@ zeros; the backward direction reverses each row by its own length).
 W8A8 int8 directions (`LSTMDirectionInt8`, made by
 `ops.quant.quantize_params_int8` or loaded by `nn.convert`) run the same
 routes with int8 input projections and the int8 scan kernels; the dtype of
-w_ih selects them. Activations and carries stay float32.
+w_ih selects them. Activations are float32, or bf16 on int8-on-bf16 params
+(the int8 quantization of a bf16 cast); the scan kernels' carry stays
+float32 in both.
 
 Dtypes: float32, or bfloat16 for inference (params cast with
 `nn.convert.cast_params`). In bf16 the layer scans and the multicell scan
 take bf16 I/O and keep their carry in float32, as the TPU kernels do
 (`_lstm_scan` below is their plain version); the carry-mode cell step
-(`lstm_cell_step`) runs wholly in bf16, as the JAX package's does. int8
-on bf16 params and bf16 training are not ported (ROADMAP.md queue A
-items 14b and 20).
+(`lstm_cell_step`) runs wholly in bf16, as the JAX package's does, the
+int8 cell's gates too. bf16 training is not ported (ROADMAP.md queue A
+item 20).
 
 Backends:
 
@@ -99,10 +101,6 @@ def check_backend(backend: str = "auto", allow_train: bool = True) -> None:
 #: the float dtypes the port runs: float32, and bfloat16 for inference
 DTYPES = (torch.float32, torch.bfloat16)
 
-INT8_BF16_ERROR = ("int8 on bf16 params (the W8A8 kernels #4 to #6 with "
-                   "bf16 I/O, and the int8 quantization of a bf16 cast) is "
-                   "not ported (ROADMAP.md queue A item 14b)")
-
 
 def check_dtype(dtype: torch.dtype) -> None:
     """Refuse a dtype other than float32 and bfloat16."""
@@ -157,8 +155,6 @@ def lstm_cell_step(p, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     carry-mode stack (`models/streaming.py`) runs unchanged on quantized
     params. x [B, D], h/c [B, H]; returns (h', c')."""
     if is_quantized(p):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(INT8_BF16_ERROR)
         from mobileposer_tpu_torch.ops.quant import lstm_cell_step_int8
         return lstm_cell_step_int8(p, x, h, c)
     gates = x @ p.w_ih + (p.b_ih + p.b_hh) + h @ p.w_hh
@@ -404,8 +400,6 @@ def lstm_forward(layers, x: torch.Tensor,
     if lengths is not None:
         B, T = (x.shape[1], x.shape[0]) if time_major else x.shape[:2]
         lengths = check_lengths(lengths, B, T, x.device)
-    if x.dtype != torch.float32 and _quantized(layers):
-        raise NotImplementedError(INT8_BF16_ERROR)
     if backend in TRAIN_BACKENDS:
         if _quantized(layers):
             raise ValueError(_INT8_TRAIN_ERROR + " backends")

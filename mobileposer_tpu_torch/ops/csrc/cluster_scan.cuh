@@ -6,15 +6,18 @@
 // part of w_hh (the float slice w_hh[:, those columns] in shared memory,
 // or the int8 columns in registers) for all T steps. Each source's design
 // note says how its kernels use it. Tensors in global memory are float32
-// or, for the bf16-I/O instantiations of the float body, bfloat16: every
-// value read is widened to float32 (`to_f32`, exact), and everything held
-// in shared memory and registers is float32.
+// or, for the bf16-I/O instantiations of the float and the int8 bodies,
+// bfloat16: every value read is widened to float32 (`to_f32`, exact),
+// everything held in shared memory and registers is float32, and every
+// value written is rounded to the I/O type (`from_f32`, nearest even).
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -27,6 +30,15 @@ constexpr int kCols = 4 * kUnits;  // gate columns per CTA
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// v stored as IO: float32 as it is, bf16 rounded to nearest even
+template <class IO>
+__device__ __forceinline__ IO from_f32(float v) {
+  if constexpr (std::is_same_v<IO, float>)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ float sigmoid(float x) {

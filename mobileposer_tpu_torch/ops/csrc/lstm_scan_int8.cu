@@ -1,6 +1,6 @@
-// W8A8 int8 LSTM layer scans for Hopper (sm_90a): float32 activations and
-// carry, int8 recurrent weights with a per-column scale, the hidden state
-// re-quantized per row at every step.
+// W8A8 int8 LSTM layer scans for Hopper (sm_90a): float32 or bf16
+// activations (I/O), a float32 carry, int8 recurrent weights with a
+// per-column scale, the hidden state re-quantized per row at every step.
 //
 // Replaces three TPU kernels of mobileposer_tpu/ops/lstm_pallas.py:
 //   lstm_scan_int8           <- lstm_layer_pallas_int8 (_lstm_step_kernel_int8):
@@ -96,6 +96,27 @@
 // are exact, so the masked entries give the full-length entries' outputs
 // bit for bit.
 //
+// bf16 I/O (the *_int8_bf16 entries; the TPU kernels' bf16 variant): the
+// same body over the I/O type IO = __nv_bfloat16. Only its loads and
+// stores change: x_proj, h0, c0 and the mask are read as bf16 and widened
+// (`to_f32`, exact), and ys, h_T, c_T and the masked tail's zeros are
+// rounded to bf16 (`from_f32`, nearest even) as they are written. w_hh
+// stays int8 and w_scale float32. Everything between is the float32
+// instantiation's: h and c in registers, the maxima, the scale, the
+// quantization, the int32 products, the dequantization, the cell update
+// and the blend. In particular the quantized h is that of the float32
+// carry, as in the TPU kernel (`_gates_int8` quantizes its float32
+// scratch h; only the float body rounds h to bf16 for its product). So
+// for any bf16 inputs a bf16 entry's outputs are the float32 entry's on
+// the same inputs widened, rounded to bf16, bit for bit. Shared memory
+// holds q, the sums and the maxima, none in the I/O type, so the geometry
+// and the residency are the float32 instantiation's. A step's x_proj and
+// mask are held as read and widened at the cell update: widened where
+// they were loaded, each step waited for its loads before the
+// quantization, ~0.35 us a step (the masked scans at T = 512 took 1.10x
+// to 1.14x the float32 entry's time, 0.99x held as read; chip_smoke.py
+// phase 3g and bench_turns on an NVIDIA H100 80GB HBM3 at 700 W).
+//
 // What bounds it on this card (worked out from the shapes, not measured):
 // per step and direction 2*B*H*4H integer operations against 1,979 TOP/s
 // of int8 tensor cores, and the bytes of x_proj/ys (f32), w_hh (int8),
@@ -160,15 +181,16 @@ constexpr int kMaxCtas = 8;                     // H / 32 at H = 256
 constexpr int kMaxKSteps = 8;                   // H / 32 at H = 256
 constexpr int kSumStride = kCols + 8;           // int32 words a row of sums
 
+template <class IO>
 struct ClusterDir {
-  const float* x_proj;   // [T, B, 4H]
+  const IO* x_proj;      // [T, B, 4H]
   const int8_t* w_hh;    // [H, 4H]
-  const float* w_scale;  // [4H]
-  const float* h0;       // [B, H]
-  const float* c0;       // [B, H]
-  float* ys;             // [T, B, H]
-  float* h_t;            // [B, H]
-  float* c_t;            // [B, H]
+  const float* w_scale;  // [4H], float32 whatever IO is
+  const IO* h0;          // [B, H]
+  const IO* c0;          // [B, H]
+  IO* ys;                // [T, B, H]
+  IO* h_t;               // [B, H]
+  IO* c_t;               // [B, H]
 };
 
 // Row stride of the quantized h (bytes): a half-warp's 8-byte A reads of
@@ -195,10 +217,11 @@ __device__ __forceinline__ float warp_max_abs(float v) {
 // variant over mask [T, B]. MT = ceil(R / 16) M-tiles; the cell items of a
 // thread are (row, unit) = (warp + 16 p, lane), p < MT: a warp holds one
 // row's 32 units of this CTA. `d` by value: a reference to the kernel's
-// parameters would put both directions' in local memory.
-template <int MT, bool kMasked>
+// parameters would put both directions' in local memory. IO is the I/O
+// type (float or __nv_bfloat16), the mask's too.
+template <int MT, bool kMasked, class IO>
 __device__ __forceinline__ void cluster_scan_int8(
-    const ClusterDir d, const float* __restrict__ mask, int T, int B, int H,
+    const ClusterDir<IO> d, const IO* __restrict__ mask, int T, int B, int H,
     int R) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = H / kUnits;
@@ -256,8 +279,8 @@ __device__ __forceinline__ void cluster_scan_int8(
   for (int p = 0; p < MT; ++p) {
     const int r = warp + kTileRows * p, b = b0 + r;
     const bool ok = r < R && b < B;
-    h[p] = ok ? d.h0[static_cast<size_t>(b) * H + unit0 + u] : 0.0f;
-    c[p] = ok ? d.c0[static_cast<size_t>(b) * H + unit0 + u] : 0.0f;
+    h[p] = ok ? to_f32(d.h0[static_cast<size_t>(b) * H + unit0 + u]) : 0.0f;
+    c[p] = ok ? to_f32(d.c0[static_cast<size_t>(b) * H + unit0 + u]) : 0.0f;
   }
 
   // the partial maxima of a row's |h| over this CTA's units, to every CTA
@@ -275,20 +298,22 @@ __device__ __forceinline__ void cluster_scan_int8(
   push_maxima();
   cluster.sync();  // the maxima of h0 in place
 
+  const IO zero = from_f32<IO>(0.0f);
   for (int t = 0; t < t_end; ++t) {
     // this step's x_proj (and, masked, mask) for the cell items, in flight
-    // during (a) and (b)
-    const float* xt = d.x_proj + static_cast<size_t>(t) * B * H4;
-    float x[MT][4], m[MT];
+    // during (a) and (b); held as read and widened in (c), so that no
+    // widening of a bf16 value waits for its load before the barriers
+    const IO* xt = d.x_proj + static_cast<size_t>(t) * B * H4;
+    IO x[MT][4], m[MT];
 #pragma unroll
     for (int p = 0; p < MT; ++p) {
       const int r = warp + kTileRows * p, b = b0 + r;
       const bool ok = r < R && b < B;
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-        x[p][g] = ok ? __ldg(xt + b * H4 + g * H + unit0 + u) : 0.0f;
+        x[p][g] = ok ? __ldg(xt + b * H4 + g * H + unit0 + u) : zero;
       if constexpr (kMasked)
-        m[p] = ok ? __ldg(mask + static_cast<size_t>(t) * B + b) : 0.0f;
+        m[p] = ok ? __ldg(mask + static_cast<size_t>(t) * B + b) : zero;
     }
 
     // (a) each row's scale from its partial maxima (lane q < n_cta reads
@@ -344,7 +369,7 @@ __device__ __forceinline__ void cluster_scan_int8(
 
     // (c) cell update (masked: blend); the maxima of the new h to every
     // CTA
-    float* yt = d.ys + static_cast<size_t>(t) * B * H;
+    IO* yt = d.ys + static_cast<size_t>(t) * B * H;
 #pragma unroll
     for (int p = 0; p < MT; ++p) {
       const int r = warp + kTileRows * p, b = b0 + r;
@@ -353,19 +378,21 @@ __device__ __forceinline__ void cluster_scan_int8(
       float gate[4];
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-        gate[g] = dequant_gate(x[p][g], sr[g * kUnits], scale[p], ws[g]);
+        gate[g] = dequant_gate(to_f32(x[p][g]), sr[g * kUnits], scale[p],
+                               ws[g]);
       float c_new, h_new, y;
       cell_update(gate, c[p], c_new, h_new);
       if constexpr (kMasked) {
-        c[p] = blend(m[p], c_new, c[p]);
-        h[p] = blend(m[p], h_new, h[p]);
-        y = __fmul_rn(m[p], h_new);  // exactly zero at a masked step
+        const float mp = to_f32(m[p]);
+        c[p] = blend(mp, c_new, c[p]);
+        h[p] = blend(mp, h_new, h[p]);
+        y = __fmul_rn(mp, h_new);  // exactly zero at a masked step
       } else {
         c[p] = c_new;
         h[p] = h_new;
         y = h_new;
       }
-      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = y;
+      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = from_f32<IO>(y);
     }
     push_maxima();
     // the maxima of h_t are in place everywhere, and nobody reads q or the
@@ -377,57 +404,63 @@ __device__ __forceinline__ void cluster_scan_int8(
   for (int p = 0; p < MT; ++p) {
     const int r = warp + kTileRows * p, b = b0 + r;
     if (r < R && b < B) {
-      d.h_t[static_cast<size_t>(b) * H + unit0 + u] = h[p];
-      d.c_t[static_cast<size_t>(b) * H + unit0 + u] = c[p];
+      d.h_t[static_cast<size_t>(b) * H + unit0 + u] = from_f32<IO>(h[p]);
+      d.c_t[static_cast<size_t>(b) * H + unit0 + u] = from_f32<IO>(c[p]);
       if constexpr (kMasked)  // the steps past the tile's last valid one
         for (int t = t_end; t < T; ++t)
-          d.ys[(static_cast<size_t>(t) * B + b) * H + unit0 + u] = 0.0f;
+          d.ys[(static_cast<size_t>(t) * B + b) * H + unit0 + u] =
+              from_f32<IO>(0.0f);
     }
   }
 }
 
-template <int MT>
+template <int MT, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_scan_int8_kernel(ClusterDir d0, ClusterDir d1, int T, int B, int H,
-                      int R) {
-  cluster_scan_int8<MT, false>(blockIdx.y == 0 ? d0 : d1, nullptr, T, B, H,
-                               R);
+lstm_scan_int8_kernel(ClusterDir<IO> d0, ClusterDir<IO> d1, int T, int B,
+                      int H, int R) {
+  cluster_scan_int8<MT, false, IO>(blockIdx.y == 0 ? d0 : d1, nullptr, T, B,
+                                   H, R);
 }
 
-template <int MT>
+template <int MT, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_scan_masked_int8_kernel(ClusterDir d0, ClusterDir d1,
-                             const float* __restrict__ mask, int T, int B,
+lstm_scan_masked_int8_kernel(ClusterDir<IO> d0, ClusterDir<IO> d1,
+                             const IO* __restrict__ mask, int T, int B,
                              int H, int R) {
-  cluster_scan_int8<MT, true>(blockIdx.y == 0 ? d0 : d1, mask, T, B, H, R);
+  cluster_scan_int8<MT, true, IO>(blockIdx.y == 0 ? d0 : d1, mask, T, B, H,
+                                  R);
 }
 
-template <int MT>
-cudaError_t cluster_rows(const ClusterDir& d0, const ClusterDir& d1,
+template <int MT, class IO>
+cudaError_t cluster_rows(const ClusterDir<IO>& d0, const ClusterDir<IO>& d1,
                          int n_dir, int T, int B, int H, int R,
                          cudaStream_t stream) {
-  return launch_clusters(lstm_scan_int8_kernel<MT>, cluster_smem_bytes(H, R),
-                         B, H, R, n_dir, stream, d0, d1, T, B, H, R);
+  return launch_clusters(lstm_scan_int8_kernel<MT, IO>,
+                         cluster_smem_bytes(H, R), B, H, R, n_dir, stream,
+                         d0, d1, T, B, H, R);
 }
 
-template <int MT>
-cudaError_t masked_rows(const ClusterDir& d0, const ClusterDir& d1,
-                        const float* mask, int n_dir, int T, int B, int H,
+template <int MT, class IO>
+cudaError_t masked_rows(const ClusterDir<IO>& d0, const ClusterDir<IO>& d1,
+                        const IO* mask, int n_dir, int T, int B, int H,
                         int R, cudaStream_t stream) {
-  return launch_clusters(lstm_scan_masked_int8_kernel<MT>,
+  return launch_clusters(lstm_scan_masked_int8_kernel<MT, IO>,
                          cluster_smem_bytes(H, R), B, H, R, n_dir, stream,
                          d0, d1, mask, T, B, H, R);
 }
 
-template <int MT>
+// residency of the float32 instantiations: the bf16 ones have the same
+// threads, the same shared memory and one CTA an SM (the geometry is the
+// same for both dtypes; chip_smoke.py phase 3g compares the two)
+template <int MT, class IO = float>
 cudaError_t cluster_max_clusters(int H, int R, int* out) {
-  return max_clusters(lstm_scan_int8_kernel<MT>, cluster_smem_bytes(H, R), H,
-                      out);
+  return max_clusters(lstm_scan_int8_kernel<MT, IO>,
+                      cluster_smem_bytes(H, R), H, out);
 }
 
-template <int MT>
+template <int MT, class IO = float>
 cudaError_t masked_max_clusters(int H, int R, int* out) {
-  return max_clusters(lstm_scan_masked_int8_kernel<MT>,
+  return max_clusters(lstm_scan_masked_int8_kernel<MT, IO>,
                       cluster_smem_bytes(H, R), H, out);
 }
 
@@ -457,7 +490,7 @@ int lstm_scan_int8(const float* x_proj, const int8_t* w_hh,
                    const float* w_scale, const float* h0, const float* c0,
                    float* ys, float* h_t, float* c_t,
                    int T, int B, int H, int rows, void* stream) {
-  const ClusterDir d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
+  const ClusterDir<float> d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
 #define SCAN(MT) \
   cluster_rows<MT>(d, d, 1, T, B, H, rows, static_cast<cudaStream_t>(stream))
   LSTM_SCAN_INT8_ROWS(rows, SCAN)
@@ -472,8 +505,10 @@ int bilstm_scan_int8(const float* x_proj_f, const float* x_proj_b,
                      float* ys_f, float* ys_b,
                      float* h_f, float* c_f, float* h_b, float* c_b,
                      int T, int B, int H, int rows, void* stream) {
-  const ClusterDir f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f, ys_f, h_f, c_f};
-  const ClusterDir b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b, ys_b, h_b, c_b};
+  const ClusterDir<float> f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f,
+                            ys_f, h_f, c_f};
+  const ClusterDir<float> b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b,
+                            ys_b, h_b, c_b};
 #define SCAN(MT) \
   cluster_rows<MT>(f, b, 2, T, B, H, rows, static_cast<cudaStream_t>(stream))
   LSTM_SCAN_INT8_ROWS(rows, SCAN)
@@ -495,7 +530,7 @@ int lstm_scan_masked_int8(const float* x_proj, const int8_t* w_hh,
                           const float* c0, const float* mask,
                           float* ys, float* h_t, float* c_t,
                           int T, int B, int H, int rows, void* stream) {
-  const ClusterDir d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
+  const ClusterDir<float> d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
 #define SCAN(MT)                                              \
   masked_rows<MT>(d, d, mask, 1, T, B, H, rows,               \
                   static_cast<cudaStream_t>(stream))
@@ -512,8 +547,10 @@ int bilstm_scan_masked_int8(const float* x_proj_f, const float* x_proj_b,
                             float* ys_f, float* ys_b,
                             float* h_f, float* c_f, float* h_b, float* c_b,
                             int T, int B, int H, int rows, void* stream) {
-  const ClusterDir f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f, ys_f, h_f, c_f};
-  const ClusterDir b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b, ys_b, h_b, c_b};
+  const ClusterDir<float> f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f,
+                            ys_f, h_f, c_f};
+  const ClusterDir<float> b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b,
+                            ys_b, h_b, c_b};
 #define SCAN(MT)                                              \
   masked_rows<MT>(f, b, mask, 2, T, B, H, rows,               \
                   static_cast<cudaStream_t>(stream))
@@ -525,6 +562,89 @@ int bilstm_scan_masked_int8(const float* x_proj_f, const float* x_proj_b,
 // device holds at once, into *out.
 int lstm_scan_masked_int8_max_clusters(int H, int rows, int* out) {
 #define MAXC(MT) masked_max_clusters<MT>(H, rows, out)
+  LSTM_SCAN_INT8_ROWS(rows, MAXC)
+#undef MAXC
+}
+
+// The bf16-I/O entries: the float32 entries' contract with x_proj, h0,
+// c0, the mask and the outputs in bf16 (__nv_bfloat16, raw bits); w_hh
+// int8 and w_scale float32 as there, the carry float32. The same rows per
+// cluster as the float32 entries (`scan_geometry(..., int8=True)`, with
+// masked=True for the masked ones).
+typedef __nv_bfloat16 bf16;
+
+int lstm_scan_int8_bf16(const bf16* x_proj, const int8_t* w_hh,
+                        const float* w_scale, const bf16* h0, const bf16* c0,
+                        bf16* ys, bf16* h_t, bf16* c_t,
+                        int T, int B, int H, int rows, void* stream) {
+  const ClusterDir<bf16> d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
+#define SCAN(MT) \
+  cluster_rows<MT>(d, d, 1, T, B, H, rows, static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int bilstm_scan_int8_bf16(const bf16* x_proj_f, const bf16* x_proj_b,
+                          const int8_t* w_hh_f, const int8_t* w_hh_b,
+                          const float* w_scale_f, const float* w_scale_b,
+                          const bf16* h0_f, const bf16* c0_f,
+                          const bf16* h0_b, const bf16* c0_b,
+                          bf16* ys_f, bf16* ys_b,
+                          bf16* h_f, bf16* c_f, bf16* h_b, bf16* c_b,
+                          int T, int B, int H, int rows, void* stream) {
+  const ClusterDir<bf16> f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f,
+                           ys_f, h_f, c_f};
+  const ClusterDir<bf16> b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b,
+                           ys_b, h_b, c_b};
+#define SCAN(MT) \
+  cluster_rows<MT>(f, b, 2, T, B, H, rows, static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int lstm_scan_masked_int8_bf16(const bf16* x_proj, const int8_t* w_hh,
+                               const float* w_scale, const bf16* h0,
+                               const bf16* c0, const bf16* mask,
+                               bf16* ys, bf16* h_t, bf16* c_t,
+                               int T, int B, int H, int rows, void* stream) {
+  const ClusterDir<bf16> d{x_proj, w_hh, w_scale, h0, c0, ys, h_t, c_t};
+#define SCAN(MT)                                              \
+  masked_rows<MT>(d, d, mask, 1, T, B, H, rows,               \
+                  static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int bilstm_scan_masked_int8_bf16(const bf16* x_proj_f, const bf16* x_proj_b,
+                                 const int8_t* w_hh_f, const int8_t* w_hh_b,
+                                 const float* w_scale_f,
+                                 const float* w_scale_b,
+                                 const bf16* h0_f, const bf16* c0_f,
+                                 const bf16* h0_b, const bf16* c0_b,
+                                 const bf16* mask,
+                                 bf16* ys_f, bf16* ys_b,
+                                 bf16* h_f, bf16* c_f, bf16* h_b, bf16* c_b,
+                                 int T, int B, int H, int rows,
+                                 void* stream) {
+  const ClusterDir<bf16> f{x_proj_f, w_hh_f, w_scale_f, h0_f, c0_f,
+                           ys_f, h_f, c_f};
+  const ClusterDir<bf16> b{x_proj_b, w_hh_b, w_scale_b, h0_b, c0_b,
+                           ys_b, h_b, c_b};
+#define SCAN(MT)                                              \
+  masked_rows<MT>(f, b, mask, 2, T, B, H, rows,               \
+                  static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_INT8_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+// The clusters of the bf16 instantiations at (H, rows) that the current
+// device holds at once, into *out: the full-length one, or with `masked`
+// the masked one. The wrappers take the float32 instantiations' rows for
+// both dtypes; chip_smoke.py compares the two counts.
+int lstm_scan_int8_bf16_max_clusters(int H, int rows, int masked, int* out) {
+#define MAXC(MT)                                                    \
+  (masked ? masked_max_clusters<MT, bf16>(H, rows, out)             \
+          : cluster_max_clusters<MT, bf16>(H, rows, out))
   LSTM_SCAN_INT8_ROWS(rows, MAXC)
 #undef MAXC
 }

@@ -31,15 +31,6 @@
 
 namespace {
 
-// v stored as IO: float32 as it is, bf16 rounded to nearest even
-template <class IO>
-__device__ __forceinline__ IO from_f32(float v) {
-  if constexpr (std::is_same_v<IO, float>)
-    return v;
-  else
-    return __float2bfloat16_rn(v);
-}
-
 // v as IO holds it, widened back to float32
 template <class IO>
 __device__ __forceinline__ float round_io(float v) {

@@ -17,14 +17,17 @@ kernels' bf16 variant, `csrc/scan_body.cuh`):
 
 and their W8A8 int8 counterparts in `csrc/lstm_scan_int8.cu` (int8 w_hh
 with a per-column scale [4H], h re-quantized per row every step, exact
-int32 products; `ops/quant.py`):
+int32 products; `ops/quant.py`), each in float32 I/O and bf16 I/O
+(`*_int8_bf16`: the same float32 body and carry, only the loads widened
+and the stores rounded):
 
-  * `lstm_layer_int8` -> `lstm_scan_int8`, ports `lstm_layer_pallas_int8`;
-  * `bilstm_layer_int8` -> `bilstm_scan_int8`, ports
+  * `lstm_layer_int8` -> `lstm_scan_int8`/`_int8_bf16`, ports
+    `lstm_layer_pallas_int8`;
+  * `bilstm_layer_int8` -> `bilstm_scan_int8`/`_int8_bf16`, ports
     `bilstm_layer_pallas_int8`;
-  * `lstm_layer_masked_int8` -> `lstm_scan_masked_int8` and
-    `bilstm_layer_masked_int8` -> `bilstm_scan_masked_int8` port
-    `lstm_layer_masked_pallas_int8`.
+  * `lstm_layer_masked_int8` -> `lstm_scan_masked_int8`/`_int8_bf16` and
+    `bilstm_layer_masked_int8` -> `bilstm_scan_masked_int8`/`_int8_bf16`
+    port `lstm_layer_masked_pallas_int8`.
 
 The four float scans run as thread-block clusters of H / 32 CTAs that
 hold w_hh in shared memory for all T steps, the masked ones as the masked
@@ -35,8 +38,8 @@ the masked variant. `scan_geometry` picks the batch rows per cluster from
 the clusters the card holds at once.
 
 Each wrapper checks device, dtypes (one float I/O dtype per call, all
-float32 or all bfloat16, the mask included; int8 w_hh
-and float32 scales and I/O for the int8 entries), shapes and contiguity
+float32 or all bfloat16, the mask included; for the int8 entries int8
+w_hh and float32 scales whatever the I/O dtype), shapes and contiguity
 and raises on anything else; it never copies an input to make it fit
 (the int8 wrappers pass the module's int8 w_hh as it is). The I/O dtype
 picks the entry, and the outputs come in it. On
@@ -65,8 +68,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from mobileposer_tpu_torch.nn.lstm import (INT8_BF16_ERROR, _lstm_scan,
-                                           _reverse_by_length, length_mask)
+from mobileposer_tpu_torch.nn.lstm import (_lstm_scan, _reverse_by_length,
+                                           length_mask)
 from mobileposer_tpu_torch.ops import _build
 from mobileposer_tpu_torch.ops.quant import int8_matmul, is_quantized
 
@@ -76,7 +79,10 @@ launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
             "lstm_scan_bf16": 0, "bilstm_scan_bf16": 0,
             "lstm_scan_masked_bf16": 0, "bilstm_scan_masked_bf16": 0,
             "lstm_scan_int8": 0, "bilstm_scan_int8": 0,
-            "lstm_scan_masked_int8": 0, "bilstm_scan_masked_int8": 0}
+            "lstm_scan_masked_int8": 0, "bilstm_scan_masked_int8": 0,
+            "lstm_scan_int8_bf16": 0, "bilstm_scan_int8_bf16": 0,
+            "lstm_scan_masked_int8_bf16": 0,
+            "bilstm_scan_masked_int8_bf16": 0}
 
 #: {source: {entry: number of pointer arguments}}; every entry then takes
 #: T, B, H, the batch rows per cluster and the stream
@@ -88,10 +94,16 @@ _ENTRIES = {
                      "bilstm_scan_masked_bf16": 15},
     "lstm_scan_int8.cu": {"lstm_scan_int8": 8, "bilstm_scan_int8": 16,
                           "lstm_scan_masked_int8": 9,
-                          "bilstm_scan_masked_int8": 17},
+                          "bilstm_scan_masked_int8": 17,
+                          "lstm_scan_int8_bf16": 8,
+                          "bilstm_scan_int8_bf16": 16,
+                          "lstm_scan_masked_int8_bf16": 9,
+                          "bilstm_scan_masked_int8_bf16": 17},
 }
 #: the I/O dtypes of the float entries, by their names' suffix
 _IO_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+#: the same for the int8 entries (the float32 ones carry no suffix)
+_INT8_IO_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 #: {source: the residency queries of its cluster scans}
 _MAX_CLUSTERS_ENTRIES = {
     "lstm_scan.cu": ("lstm_scan_max_clusters",
@@ -186,6 +198,24 @@ def max_active_clusters(H: int, rows: int, device_index: int,
     return out.value
 
 
+def int8_bf16_max_active_clusters(H: int, rows: int, device_index: int,
+                                  masked: bool = False) -> int:
+    """`max_active_clusters(..., int8=True)` of the bf16-I/O
+    instantiations. The wrappers take the float32 ones' rows for both
+    dtypes (the same threads and shared memory); `chip_smoke.py` holds the
+    two counts equal."""
+    lib = _lib("lstm_scan_int8.cu")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.lstm_scan_int8_bf16_max_clusters(H, rows, int(masked),
+                                                   ctypes.byref(out))
+    if err != 0:
+        msg = lib.lstm_scan_error_string(err).decode()
+        raise RuntimeError(f"lstm_scan_int8_bf16_max_clusters failed: CUDA "
+                           f"error {err} ({msg})")
+    return out.value
+
+
 @functools.lru_cache(maxsize=None)
 def _scan_geometry_on(n_dir: int, B: int, H: int, device_index: int,
                       masked: bool, int8: bool) -> ScanGeometry:
@@ -222,6 +252,10 @@ def _lib(source: str) -> ctypes.CDLL:
     for name in _MAX_CLUSTERS_ENTRIES[source]:
         getattr(lib, name).argtypes = [I, I, ctypes.POINTER(I)]
         getattr(lib, name).restype = I
+    if source == "lstm_scan_int8.cu":
+        lib.lstm_scan_int8_bf16_max_clusters.argtypes = [
+            I, I, I, ctypes.POINTER(I)]
+        lib.lstm_scan_int8_bf16_max_clusters.restype = I
     lib.lstm_scan_error_string.argtypes = [I]
     lib.lstm_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -236,8 +270,8 @@ def build() -> None:
 def _check_layer(x_proj, w_hh, h0, c0, w_scale=None):
     """Validate one direction's inputs; returns (T, B, H). The float
     inputs share one I/O dtype, x_proj's: float32 or bfloat16. With
-    `w_scale` (an int8 layer), w_hh must be int8, w_scale float32 [4H] and
-    the I/O float32 (int8 with bf16 I/O: ROADMAP.md queue A item 14b)."""
+    `w_scale` (an int8 layer), w_hh must be int8 and w_scale float32 [4H]
+    whatever the I/O dtype."""
     if x_proj.dim() != 3 or x_proj.shape[-1] % 4:
         raise ValueError(f"x_proj must be [T, B, 4H], got {tuple(x_proj.shape)}")
     T, B, H4 = x_proj.shape
@@ -245,15 +279,13 @@ def _check_layer(x_proj, w_hh, h0, c0, w_scale=None):
     io = x_proj.dtype
     if io not in _IO_SUFFIX:
         raise ValueError(f"x_proj must be float32 or bfloat16, got {io}")
-    if w_scale is not None and io != torch.float32:
-        raise NotImplementedError(INT8_BF16_ERROR)
     want = {"w_hh": (H, H4), "h0": (B, H), "c0": (B, H), "w_scale": (H4,)}
     tensors = [("x_proj", x_proj), ("w_hh", w_hh), ("h0", h0), ("c0", c0)]
     if w_scale is not None:
         tensors.append(("w_scale", w_scale))
     for name, t in tensors:
-        dtype = (torch.int8 if name == "w_hh" and w_scale is not None
-                 else io)
+        dtype = ({"w_hh": torch.int8, "w_scale": torch.float32}.get(name, io)
+                 if w_scale is not None else io)
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
         if t.device != x_proj.device:
@@ -308,13 +340,19 @@ def _entry(kind: str, x_proj: torch.Tensor) -> str:
     return f"{kind}_{_IO_SUFFIX[x_proj.dtype]}"
 
 
+def _int8_entry(kind: str, x_proj: torch.Tensor) -> str:
+    """The int8 entry `kind` ('lstm_scan', 'bilstm_scan_masked', ...) for
+    x_proj's I/O dtype: `<kind>_int8` or `<kind>_int8_bf16`."""
+    return f"{kind}_int8{_INT8_IO_SUFFIX[x_proj.dtype]}"
+
+
 def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
-    """Allocate the outputs in the I/O dtype (x_proj's; float32 for the
-    int8 entries), launch C entry `name` on the current stream and count
-    the launch. The entry takes the input pointers, then ys per
-    direction, then (h_T, c_T) per direction, then T, B, H, the rows per
-    cluster of `scan_geometry` (the same for both I/O dtypes) and the
-    stream. Returns ([ys per direction], [h_T, c_T per direction])."""
+    """Allocate the outputs in the I/O dtype (x_proj's), launch C entry
+    `name` on the current stream and count the launch. The entry takes the
+    input pointers, then ys per direction, then (h_T, c_T) per direction,
+    then T, B, H, the rows per cluster of `scan_geometry` (the same for
+    both I/O dtypes) and the stream. Returns ([ys per direction],
+    [h_T, c_T per direction])."""
     dev, io = inputs[0].device, inputs[0].dtype
     ints = (T, B, H, scan_geometry(n_dir, B, H, dev, "masked" in name,
                                    "int8" in name).rows)
@@ -447,7 +485,9 @@ def bilstm_layer_masked(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
 
 # ---------------------------------------------------------------------------
 # Kernels 4-6: the W8A8 int8 layer scans. Same contracts as kernels 2, 1
-# and 3, with int8 w_hh [H, 4H] and its per-column scale [4H].
+# and 3, with int8 w_hh [H, 4H] and its per-column scale [4H] (float32 in
+# both I/O dtypes). With bf16 I/O the plain versions keep the float32
+# carry and quantize it, as the TPU kernels and the bf16 entries do.
 # ---------------------------------------------------------------------------
 
 def lstm_layer_int8_plain(x_proj, w_hh, w_scale, h0, c0):
@@ -466,7 +506,7 @@ def lstm_layer_int8(x_proj: torch.Tensor, w_hh: torch.Tensor,
     T, B, H = _check_layer(x_proj, w_hh, h0, c0, w_scale)
     if x_proj.device.type == "cpu":
         return lstm_layer_int8_plain(x_proj, w_hh, w_scale, h0, c0)
-    (ys,), (h_t, c_t) = _launch("lstm_scan_int8",
+    (ys,), (h_t, c_t) = _launch(_int8_entry("lstm_scan", x_proj),
                                 [x_proj, w_hh, w_scale, h0, c0], 1, T, B, H)
     return ys, (h_t, c_t)
 
@@ -493,8 +533,8 @@ def bilstm_layer_int8(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
                         c0b, w_scale_f, w_scale_b)
     if x_proj_f.device.type == "cpu":
         return bilstm_layer_int8_plain(*args)
-    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch("bilstm_scan_int8", args,
-                                                 2, T, B, H)
+    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
+        _int8_entry("bilstm_scan", x_proj_f), args, 2, T, B, H)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 
@@ -510,13 +550,13 @@ def lstm_layer_masked_int8(x_proj: torch.Tensor, w_hh: torch.Tensor,
     the argument order of `lstm_layer_masked_pallas_int8`). Masked steps
     hold the carry and emit zeros. Returns (ys [T, B, H], (h_T, c_T))."""
     T, B, H = _check_layer(x_proj, w_hh, h0, c0, w_scale)
-    _check_mask(mask, T, B, x_proj.device)
+    _check_mask(mask, T, B, x_proj.device, x_proj.dtype)
     if x_proj.device.type == "cpu":
         return lstm_layer_masked_int8_plain(x_proj, w_hh, w_scale, h0, c0,
                                             mask)
     (ys,), (h_t, c_t) = _launch(
-        "lstm_scan_masked_int8", [x_proj, w_hh, w_scale, h0, c0, mask], 1,
-        T, B, H)
+        _int8_entry("lstm_scan_masked", x_proj),
+        [x_proj, w_hh, w_scale, h0, c0, mask], 1, T, B, H)
     return ys, (h_t, c_t)
 
 
@@ -543,11 +583,12 @@ def bilstm_layer_masked_int8(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
             h0f, c0f, h0b, c0b)
     T, B, H = _check_bi(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b,
                         c0b, w_scale_f, w_scale_b)
-    _check_mask(mask, T, B, x_proj_f.device)
+    _check_mask(mask, T, B, x_proj_f.device, x_proj_f.dtype)
     if x_proj_f.device.type == "cpu":
         return bilstm_layer_masked_int8_plain(*args, mask)
     (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
-        "bilstm_scan_masked_int8", [*args, mask], 2, T, B, H)
+        _int8_entry("bilstm_scan_masked", x_proj_f), [*args, mask], 2, T, B,
+        H)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 
@@ -559,9 +600,11 @@ def _project_timesteps(xs: torch.Tensor, p) -> torch.Tensor:
     """Input projection over all timesteps (lstm_pallas.py:571-578): float,
     both biases summed first and added after the product, in the weights'
     dtype (bf16 params give a bf16 x_proj, as in the JAX package); or W8A8
-    for an int8 direction, `int8_matmul` plus the pre-summed bias."""
+    for an int8 direction, `int8_matmul` plus the pre-summed bias in
+    float32, rounded once to the activations' dtype (a bf16 x_proj on bf16
+    activations)."""
     if is_quantized(p):
-        return int8_matmul(xs, p.w_ih, p.w_ih_scale) + p.b
+        return (int8_matmul(xs, p.w_ih, p.w_ih_scale) + p.b).to(xs.dtype)
     return torch.matmul(xs, p.w_ih) + (p.b_ih + p.b_hh)
 
 

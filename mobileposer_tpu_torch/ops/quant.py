@@ -5,14 +5,16 @@ The scheme is the JAX package's, dynamic-activation symmetric W8A8:
   * WEIGHTS: per-output-column symmetric int8 (`scale_j = amax|w[:, j]| /
     127`), quantized once on the host in numpy from the float32 weights
     (`quantize_weight_int8`, `quantize_lstm_direction`: copies of the JAX
-    package's numpy code, so both packages produce the same bytes).
+    package's numpy code, so both packages produce the same bytes; bf16
+    params are quantized from their bf16 values, widened exactly).
     Biases stay float32 and are pre-summed (`b = b_ih + b_hh`).
   * ACTIVATIONS: per-row dynamic symmetric int8 (`dynamic_quantize`),
     rounded half to even.
   * MATMUL: int8 x int8 -> int32, exact, dequantized by the outer product
     of the row and column scales; biases added in float32.
 
-Only the LSTM matmuls are quantized; linear1/linear2 stay float32.
+Only the LSTM matmuls are quantized; linear1/linear2 stay in the params'
+float dtype (float32, or bf16 for int8 on bf16 params).
 Quantized directions are `nn.lstm.LSTMDirectionInt8` modules (int8 w_ih /
 w_hh buffers), and every inference path dispatches on the dtype of w_ih:
 `ops.lstm_cuda._project_timesteps` runs the input projection through
@@ -92,12 +94,12 @@ def quantize_params_int8(params: nn.Module) -> nn.Module:
     """Quantize every LSTM direction of the port's modules: an
     `nn.ModuleDict` of `RNNBlock`s (the four modules) or one `RNNBlock`.
     Returns new modules on the same device; the input is left as it is.
-    The weights are quantized on the host from their float32 values;
-    linears (and anything else) are copied unchanged. bf16 params are
-    refused: the JAX package quantizes a bf16 cast (int8 on bf16 params),
-    which is not ported (ROADMAP.md queue A item 14b)."""
-    from mobileposer_tpu_torch.nn.lstm import (INT8_BF16_ERROR,
-                                               LSTMDirectionInt8, RNNBlock)
+    The weights are quantized on the host from their values widened to
+    float32 (exact for a bf16 cast: numpy has no bf16, and the JAX
+    package widens the same way), so int8 on bf16 params gets the JAX
+    package's bytes; `b` comes out float32. Linears (and anything else)
+    are copied unchanged, in their dtype."""
+    from mobileposer_tpu_torch.nn.lstm import LSTMDirectionInt8, RNNBlock
 
     def rec(mod):
         if isinstance(mod, RNNBlock):
@@ -107,9 +109,7 @@ def quantize_params_int8(params: nn.Module) -> nn.Module:
                     if is_quantized(d):
                         raise ValueError("quantize_params_int8: the params "
                                          "are quantized already")
-                    if d.w_ih.dtype != torch.float32:
-                        raise NotImplementedError(INT8_BF16_ERROR)
-                    arrays = {k: getattr(d, k).detach().cpu().numpy()
+                    arrays = {k: getattr(d, k).detach().float().cpu().numpy()
                               for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
                     layer[dname] = LSTMDirectionInt8(
                         **quantize_lstm_direction(arrays),
@@ -180,8 +180,10 @@ def lstm_cell_step_int8(p, x: torch.Tensor, h: torch.Tensor,
     ops/quant.py:177-188 of the JAX package), the route
     `nn.lstm.lstm_cell_step` takes for int8 w_ih: both products through
     `int8_matmul`, then the pre-summed bias, then the gate update.
-    x [B, D], h/c [B, H] float32; returns (h', c')."""
+    x [B, D], h/c [B, H] in one float dtype; the float32 gates are cast to
+    it before the nonlinearity, as in the JAX package, so a bf16 carry
+    stays bf16. Returns (h', c')."""
     from mobileposer_tpu_torch.nn.lstm import _gate_update
     gates = (int8_matmul(x, p.w_ih, p.w_ih_scale)
-             + int8_matmul(h, p.w_hh, p.w_hh_scale) + p.b)
+             + int8_matmul(h, p.w_hh, p.w_hh_scale) + p.b).to(h.dtype)
     return _gate_update(gates, c)

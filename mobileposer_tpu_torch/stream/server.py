@@ -66,18 +66,22 @@ REPLY_STRUCT_F16 = struct.Struct("<I72e3f2e")
 
 def _params_dtype(net, params) -> torch.dtype:
     """The dtype the server runs in: the params' float dtype, float32 or
-    bfloat16, as the JAX server's `self.dtype` is (int8 kernels and their
-    float32 scales aside). The params must sit on the net's device."""
-    from mobileposer_tpu_torch.nn.lstm import check_dtype
+    bfloat16, as the JAX server's `self.dtype` is. An int8 direction's
+    float32 scales and pre-summed `b` are left out: a tree quantized from
+    a bf16 cast holds them beside its bf16 linears. The params must sit
+    on the net's device."""
+    from mobileposer_tpu_torch.nn.lstm import LSTMDirectionInt8, check_dtype
     dtypes = set()
-    for name, t in list(params.named_parameters()) + list(
-            params.named_buffers()):
-        if t.device != net.device:
-            raise ValueError(f"params {name} is on {t.device}, the net on "
-                             f"{net.device}")
-        if t.dtype.is_floating_point and not name.endswith("_scale"):
-            check_dtype(t.dtype)
-            dtypes.add(t.dtype)
+    for mod_name, mod in params.named_modules():
+        int8 = isinstance(mod, LSTMDirectionInt8)
+        for name, t in list(mod.named_parameters(recurse=False)) + list(
+                mod.named_buffers(recurse=False)):
+            if t.device != net.device:
+                raise ValueError(f"params {mod_name}.{name} is on "
+                                 f"{t.device}, the net on {net.device}")
+            if t.dtype.is_floating_point and not int8:
+                check_dtype(t.dtype)
+                dtypes.add(t.dtype)
     if len(dtypes) > 1:
         raise ValueError(f"params mix the float dtypes {sorted(map(str, dtypes))}")
     return dtypes.pop() if dtypes else torch.float32
@@ -102,7 +106,9 @@ class PoseServer:
         kernel).
 
         quantize='int8' quantizes the LSTM matmuls to W8A8
-        (`ops.quant.quantize_params_int8`) once, here.
+        (`ops.quant.quantize_params_int8`) once, here, after the dtype is
+        taken: on bf16 params that is int8 on bf16 params (the JAX
+        server's order), the W8A8 kernels #4 and #6 with bf16 I/O.
 
         pipelined=True overlaps the reply copy and send with the next
         tick (see the module docstring); reply content is the

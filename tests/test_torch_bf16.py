@@ -462,8 +462,8 @@ def test_cli_evaluate_bf16_matches_jax_cli(cli_env, monkeypatch):
     Not on the jitter row there: jerk is the third difference of the
     positions times fps^3 = 27,000, so bf16's rounding of the outputs
     alone raises it (2.50 against 0.51 offline in the JAX package's own
-    tables on this data). `--int8 --bf16` raises naming its ROADMAP
-    row."""
+    tables on this data). `--int8 --bf16` casts, then quantizes, then
+    evaluates in bf16, in the JAX CLI's order."""
     captured = {}
     jax_evaluate_pose = jax_eval_cli.evaluate_pose
 
@@ -484,8 +484,16 @@ def test_cli_evaluate_bf16_matches_jax_cli(cli_env, monkeypatch):
             for row in rows:
                 assert abs(got[k][row, 0] - ref[k][row, 0]) < \
                     TABLE_BOUND[row], (k, row)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        eval_cli.main(argv + ["--int8", "--device", "cpu"])
+    handed = []
+    monkeypatch.setattr(eval_cli, "evaluate_pose",
+                        lambda net, params, seqs, **kw: handed.append(
+                            (params, kw)))
+    eval_cli.main(argv + ["--int8", "--device", "cpu"])
+    ((params, kw),) = handed
+    d = params["joints"].lstm[0]["fwd"]
+    assert kw["bf16"] is True and d.w_ih.dtype == torch.int8
+    assert d.b.dtype == d.w_hh_scale.dtype == torch.float32
+    assert params["joints"].linear1.weight.dtype == BF16
 
 
 def test_evaluate_pose_bf16_runs_the_masked_bf16_path(cli_env, nets,
@@ -516,26 +524,28 @@ def test_evaluate_pose_bf16_runs_the_masked_bf16_path(cli_env, nets,
 
 
 def test_unported_bf16_paths_raise_with_their_rows(weights, nets):
-    """int8 on bf16 params (quantizing a bf16 cast, the int8 kernels with
-    bf16 I/O, the int8 cell step on bf16) raises naming ROADMAP item 14b;
-    bf16 training names item 20 (the training kernels are float32)."""
+    """int8 on bf16 params runs (quantizing a bf16 cast, the forward and
+    the carry step on a quantized tree cast to bf16, the int8 kernels'
+    plain versions with bf16 I/O), in bf16; bf16 training still raises
+    naming ROADMAP item 20 (the training kernels are float32)."""
     _, tree16, params, p32 = weights
     _, net = nets
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        quantize_params_int8(params)
+    q = quantize_params_int8(params)
+    assert q["joints"].lstm[0]["fwd"].w_ih.dtype == torch.int8
+    assert q["joints"].lstm[0]["fwd"].b.dtype == torch.float32
     q16 = cast_params(quantize_params_int8(params_from_jax(
         jax.tree_util.tree_map(np.asarray, p32), device="cpu")), BF16)
     imu = torch.zeros(1, 4, 60, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        forward(q16, imu, net.body_model)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        net.forward_carry_batched(q16, net.init_carry_state_batched(1, BF16),
-                                  imu[0, :1])
+    out = forward(q16, imu, net.body_model)
+    assert out[1].dtype == BF16 and bool(torch.isfinite(out[1]).all())
+    (_, joints, _, _), st = net.forward_carry_batched(
+        q16, net.init_carry_state_batched(1, BF16), imu[0, :1])
+    assert joints.dtype == st.joints.f1_h.dtype == BF16
     x = torch.zeros(2, 1, 256, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        lstm_cuda.lstm_layer_int8(x, torch.zeros(64, 256, dtype=torch.int8),
-                                  torch.ones(256), x[0, :, :64],
-                                  x[0, :, :64])
+    ys, (h_t, c_t) = lstm_cuda.lstm_layer_int8(
+        x, torch.zeros(64, 256, dtype=torch.int8), torch.ones(256),
+        x[0, :, :64], x[0, :, :64])
+    assert ys.dtype == h_t.dtype == c_t.dtype == BF16
     block = params["velocity"]
     with pytest.raises(NotImplementedError, match="item 20"):
         block(torch.zeros(1, 3, 132, dtype=BF16), backend="auto_train")

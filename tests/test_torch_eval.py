@@ -306,10 +306,12 @@ def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
     for name in pose_eval.METRIC_NAMES:
         assert name in out
     assert res["offline"].shape == (8, 2) and "translation drift" in out
-    # --bf16 alone is ported (tests/test_torch_bf16.py); on int8 not yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",
-                       "--device", "cpu", "--int8", "--bf16"])
+    # --int8 --bf16 (int8 on bf16 params) evaluates too
+    # (tests/test_torch_int8_bf16.py holds it to the JAX CLI)
+    res = eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",
+                         "--device", "cpu", "--int8", "--bf16"])
+    assert res["offline"].shape == (8, 2)
+    assert np.all(np.isfinite(res["offline"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eval_cli.main(["--model", "model.pth", "--device", "cpu"])
 

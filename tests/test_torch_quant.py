@@ -444,15 +444,12 @@ def test_cli_evaluate_int8_matches_jax_cli(cli_env, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--bf16"], ["--online-mode", "carry"]])
 def test_cli_evaluate_int8_out_of_slice_raises(cli_env, flags):
-    """`--int8 --bf16` raises naming its ROADMAP row; `--int8
-    --online-mode carry` is ported (the int8 cell step) and evaluates,
-    its ONLINE table within the JAX package's bounds of the float32
-    carry table (tests/test_quant.py:328-361)."""
+    """`--int8` with `--bf16` (int8 on bf16 params: the int8 kernels' bf16
+    entries) and with `--online-mode carry` (the int8 cell step) are
+    ported and evaluate, each ONLINE table within the JAX package's bounds
+    of the same flags' table without `--int8` (tests/test_quant.py:
+    328-361)."""
     args = ["--model", _FIXTURE, "--dataset", "synthetic", "--device", "cpu"]
-    if "--bf16" in flags:
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            eval_cli.main(args + ["--int8", *flags])
-        return
     q = eval_cli.main(args + ["--int8", "--online", *flags])
     f = eval_cli.main(args + ["--online", *flags])
     assert np.all(np.isfinite(q["online"]))

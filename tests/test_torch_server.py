@@ -720,10 +720,24 @@ def test_cli_serve_runs_on_cpu(flags, capsys):
 
 
 def test_cli_serve_out_of_slice_options_raise(monkeypatch):
+    """A .pth and --data-parallel over more than one CUDA device raise
+    naming their ROADMAP rows; `--int8 --bf16` serves: the server takes
+    the bf16 cast and quantizes it (int8 on bf16 params)."""
     base = ["--model", _FIXTURE, "--port", "0", "--duration", "0.1",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue A item 14b"):
-        serve_cli.main(base + ["--int8", "--bf16"])
+    built = []
+
+    class Recorded(PoseServer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append((self.dtype,
+                          self.params["joints"].lstm[0]["fwd"].w_ih.dtype))
+
+    with monkeypatch.context() as mp:
+        mp.setattr(serve_cli, "PoseServer", Recorded)
+        stats = serve_cli.main(base + ["--int8", "--bf16"])
+    assert stats["quantize"] == "int8" and stats["frames_served"] == 0
+    assert built == [(torch.bfloat16, torch.int8)]
     with pytest.raises(NotImplementedError, match="queue A item 17"):
         serve_cli.main(["--model", "model.pth", "--device", "cpu"])
     # --data-parallel with one device serves on it, as the JAX CLI does
