@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's streaming, evaluation, training, fused
 single-window and serving paths on one CUDA card, in float32, W8A8,
-bfloat16 and W8A8 on bfloat16 params.
+bfloat16 and W8A8 on bfloat16 params, and training on bf16 residuals.
 
     python3 chip_smoke.py
 
@@ -84,6 +84,18 @@ then runs these phases, each printing JSON lines:
                instantiation's residency equal to the float32 one's;
                kernel, float32 int8 entry, float bf16 entry and plain
                times and the bound with bf16 bytes at the int8 rate;
+  3h. train bf16res — the bf16-residual entries of #7, #8's scan and #8's
+               dW at phase 3c's shapes, inputs and seeds: the forward's
+               ys, h_T and c_T equal to the f32 entry's and its acts, hseq
+               and cseq to the f32 entry's rounded to bf16, the backward
+               on the bf16 residuals equal to the f32 entry on them
+               widened (all exactly 0.0); against the plain bf16res
+               versions TRAIN_TOL / DW_REL_TOL (the residuals within 1
+               bf16 ulp on at most 1%); dW the same from run to run; each
+               bf16res instantiation's stack and spills those of its f32
+               twin, none in dW; residency equal to the f32 one's; times
+               beside the f32 entries', plain, cuDNN training mode and
+               `torch.matmul` times, the bound with 2-byte residuals;
   4. slice   — the trained fixture weights through
                `forward_online_sequence_batched` on the card in 'scan'
                and 'unfolded' modes, each continued from its final state,
@@ -108,10 +120,14 @@ then runs these phases, each printing JSON lines:
                `cli.train --concurrent --fast-dev-run --combine` on the
                card (two steps at B = 256, one validation batch): finite
                losses, the training counters at 14 launches per step, the
-               validation batch on the masked kernels only; the combined
+               validation batch on the masked kernels only; then
+               `--bf16-residuals` the same way (14 launches of each
+               bf16res entry per step, none of the f32 ones); the combined
                weights through `cli.evaluate`; one concurrent step on the
                card against the CPU port from identical params, batch and
-               draws;
+               draws, on float32 residuals and on bf16 ones (losses,
+               gradients and the updated params each within its argued
+               bound);
   4d. fused  — the trained fixture through `forward(backend='fused')` on
                the card at B = 8 and 256 windows of T = 45, held to the CPU
                port and to `forward(backend='auto')` on the card (exactly
@@ -169,12 +185,16 @@ then runs these phases, each printing JSON lines:
                64 x 512 ragged group (`bench.run_offline`), then one
                traced call;
   5c. train rate — training frames/s of the concurrent step at B = 256,
-               T = 125 (`bench.run_train`), then one traced step;
+               T = 125 (`bench.run_train`), then one traced step; then the
+               same on bf16 residuals (C9) beside it, with both steps'
+               peak device memory, and one traced bf16res step whose
+               training kernels are the bf16res ones;
   5d. forward rate — single-window forwards/s at B = 256, T = 45
                (`bench.run_forward`), 'fused' and 'auto' in turns (fused,
                auto, auto, fused), then one traced call of each;
   6. kernels — one line with every ported kernel's numbers; no TPU
-               kernel is left to port.
+               kernel is left to port, one dtype variant is (the bf16
+               I/O of #7 and #8, ROADMAP.md queue B.4).
 
 Any failure raises and exits non-zero before the last line, which is
 `{"ok": true, "device": {...}}` only when every phase passed. The script
@@ -238,6 +258,14 @@ TRAIN_TOL = 1e-5
 DW_REL_TOL = 1e-5
 LIB_TRAIN = ("torch.nn.LSTM 1 layer, training mode, full length (cuDNN, "
              "TF32 off; its input projection included), ")
+# Phase 3h: the bf16res forward's residuals against the plain bf16res
+# version's. The float32 values they round differ by the float32 rounding
+# of TRAIN_TOL; where one lands on the other side of a bf16 rounding
+# boundary the two stored values are one bf16 ulp apart, so at most 1 ulp
+# of the residual's largest magnitude, on at most 1% of the values (PR
+# 13's rule for the bf16 int8 entries, INT8_BF16_ULPS).
+BF16RES_ULPS = 1
+BF16RES_DIFFER_SHARE = 0.01
 # Phase 4c's synthetic training data: 20 sequences of 300 frames are 60
 # windows (the last of each 50 frames long) x 12 combos = 720 samples,
 # 648 in the 90% training split: two full batches of 256.
@@ -251,6 +279,26 @@ TRAIN_SEQUENCES = (20, 300)
 STEP_BATCH = 8
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-4
+# The same step on bf16 residuals ('auto_train_bf16res'). The losses:
+# STEP_LOSS_RTOL, since the forward's outputs do not depend on the
+# residual dtype. The gradients: each stored residual is the bf16 rounding
+# of a float32 value that the card and the CPU compute alike to about 1e-6
+# (the float32 step meets STEP_GRAD_RTOL with ~1e-6 to spare); where the
+# two land on opposite sides of a bf16 rounding boundary the stored values
+# are one bf16 ulp apart, at most 2^-7 of the value. To first order the
+# backward is linear in each residual's error, and each parameter
+# gradient entry is a sum over the batch's rows, steps and gates of terms
+# that each depend on one step's residuals (through the recurrence too,
+# which the forget gates shrink), so one such flip moves an entry by at
+# most 2^-7 of the terms it touches, under 2^-7 of the tensor's largest
+# entry; the float32 differences add STEP_GRAD_RTOL. The updated params:
+# one step of Adam (AdamW for joints) from fresh moments moves an entry by
+# lr * g / (|g| + eps), about +-lr, so where |g| exceeds the gradient
+# bound times the tensor's largest |g| both devices move it the same way,
+# equal to float32 rounding of the params (STEP_BF16RES_PARAM_ATOL); any
+# other entry may move the other way, at most 2 * lr apart.
+STEP_BF16RES_GRAD_RTOL = 2.0 ** -7 + STEP_GRAD_RTOL
+STEP_BF16RES_PARAM_ATOL = 1e-6
 # Phase 4b's sequence lengths: bucket 512 holds two ragged sequences,
 # 560 frames takes a 1024 bucket of its own.
 EVAL_LENGTHS = (300, 420, 560)
@@ -415,6 +463,14 @@ TPU_KERNELS = [
      "mobileposer_tpu/ops/lstm_pallas.py:354", "lstm_scan_masked_int8_bf16"),
     ("bilstm_layer_pallas_int8", "mobileposer_tpu/ops/lstm_pallas.py:523",
      "bilstm_scan_int8_bf16"),
+    # the residual_dtype=bfloat16 variant of the training kernels
+    # (lstm_train_pallas.py:79-82, :153-163)
+    ("_fwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:90",
+     "lstm_train_fwd_bf16res"),
+    ("_bwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:202",
+     "lstm_train_bwd_bf16res"),
+    ("_bwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:202",
+     "lstm_train_dw_bf16res"),
 ]
 
 
@@ -907,38 +963,45 @@ def phase_int8_kernels(torch, lstm_cuda):
     return results
 
 
-def train_bounds(T: int, B: int, H: int, valid_steps: int):
+def train_bounds(T: int, B: int, H: int, valid_steps: int,
+                 res_bytes: int = 4):
     """Least time (ms) the card needs for kernel #7, for kernel #8 with its
     dW reduction, for the dW reduction alone and for #8's scan alone, on
     one layer-direction: each input read once, each output written once,
     the products of this run's valid steps at the float32 rate (masked
     steps need no product, but every residual and gradient row is
-    written). "dw_all_rows" is the dW reduction over all T*B rows, which
+    written). The residuals (acts, hseq and cseq written by #7; acts,
+    c_new, h_prev and c_prev read by #8) take `res_bytes` bytes a value,
+    4 for float32 and 2 for the bf16res entries; everything else is
+    float32. "dw_all_rows" is the dW reduction over all T*B rows, which
     the kernel and torch.matmul both compute. Returns {"fwd", "bwd", "dw",
     "dw_all_rows", "scan"}, each (bound_ms, bound_by, flops, bytes)."""
     H4 = 4 * H
     seq, hc = T * B * H, B * H
     fwd_flops = 2.0 * valid_steps * H * H4
-    fwd_floats = (valid_steps * H4 + H * H4 + 2 * hc + T * B   # x_proj, w, h0c0, mask
-                  + seq * 3 + T * B * H4 + 2 * hc)            # ys/h/c seqs, acts, h_T c_T
-    bwd_flops = 2 * fwd_flops                                  # dh recurrence + dW
-    bwd_floats = (seq + 2 * hc + T * B * H4 + 3 * seq          # dy, dh_T dc_T, acts, c/h_prev/c_prev
-                  + H * H4 + T * B                             # w_hh, mask
-                  + T * B * H4 + H * H4 + 2 * hc)              # dx_proj, dw_hh, dh0 dc0
-    dw_floats = seq + T * B * H4 + H * H4                      # h_prev, dgates, dw_hh
-    scan_floats = bwd_floats - seq - H * H4                    # no h_prev, no dw_hh
+    # (float32 values, residual values) each moves
+    fwd_vals = (valid_steps * H4 + H * H4 + 2 * hc + T * B  # x_proj, w, h0c0, mask
+                + seq + 2 * hc,                            # ys, h_T c_T
+                2 * seq + T * B * H4)                      # hseq cseq, acts
+    bwd_flops = 2 * fwd_flops                              # dh recurrence + dW
+    bwd_vals = (seq + 2 * hc + H * H4 + T * B              # dy, dh_T dc_T, w_hh, mask
+                + T * B * H4 + H * H4 + 2 * hc,            # dx_proj, dw_hh, dh0 dc0
+                T * B * H4 + 3 * seq)                      # acts, c/h_prev/c_prev
+    dw_vals = (T * B * H4 + H * H4, seq)                   # dgates, dw_hh; h_prev
+    scan_vals = (bwd_vals[0] - H * H4,                     # no dw_hh
+                 bwd_vals[1] - seq)                        # no h_prev
     out = {}
-    for name, flops, floats in (("fwd", fwd_flops, fwd_floats),
-                                ("bwd", bwd_flops, bwd_floats),
-                                ("dw", fwd_flops, dw_floats),
-                                ("dw_all_rows", 2.0 * T * B * H * H4,
-                                 dw_floats),
-                                ("scan", fwd_flops, scan_floats)):
-        t_bytes = 4.0 * floats / HBM_BYTES_PER_S
+    for name, flops, (floats, res) in (
+            ("fwd", fwd_flops, fwd_vals), ("bwd", bwd_flops, bwd_vals),
+            ("dw", fwd_flops, dw_vals),
+            ("dw_all_rows", 2.0 * T * B * H * H4, dw_vals),
+            ("scan", fwd_flops, scan_vals)):
+        nbytes = 4 * floats + res_bytes * res
+        t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / F32_FLOPS_PER_S
         out[name] = (1e3 * max(t_bytes, t_ops),
                      "operations" if t_ops >= t_bytes else "bytes", flops,
-                     4 * floats)
+                     nbytes)
     return out
 
 
@@ -1087,6 +1150,218 @@ def phase_train_kernels(torch, train_cuda, ptxas):
             failures.append(f"{tag}: {masked_nonzero} masked ys not zero")
         if max(fwd_err.values()) > TRAIN_TOL:
             failures.append(f"{tag}: forward err {fwd_err} > {TRAIN_TOL}")
+        if max(v for k, v in bwd_err.items() if k != "dw_hh") > TRAIN_TOL:
+            failures.append(f"{tag}: backward err {bwd_err} > {TRAIN_TOL}")
+        if dw_rel > DW_REL_TOL:
+            failures.append(f"{tag}: dw_hh rel err {dw_rel} > {DW_REL_TOL}")
+        if not dw_repeatable:
+            failures.append(f"{tag}: dw_hh differs between two runs")
+    require(not failures, "; ".join(failures))
+    return results
+
+
+def train_stack_spill(bf16: bool) -> dict:
+    """The ptxas report of `lstm_train.cu`'s f32 (or, with `bf16`, its
+    bf16res) kernel instantiations: {"fwd<R>", "bwd<R>" or "dw<MI>":
+    [stack frame, spill stores, spill loads] in bytes}. The shared f32
+    body has a stack frame and spills at #7's R >= 12 and at #8's scan's
+    R = 18, as it had before the bf16res entries (PR 13's chip runs); a
+    bf16res instantiation, the same body with other loads and stores, is
+    held to its f32 twin's numbers."""
+    import re
+    out = {}
+    for fn, lines in ptxas_by_function("lstm_train.cu", "lstm_train_",
+                                       bf16=bf16).items():
+        m = re.search(r"lstm_train_(fwd|bwd|dw)_kernelILi(\d+)E", fn)
+        line = next((ln for ln in lines if "spill" in ln), None)
+        if m and line:
+            out[f"{m.group(1)}<{m.group(2)}>"] = [
+                int(x) for x in re.findall(r"(\d+) bytes", line)]
+    return out
+
+
+def phase_train_bf16res_kernels(torch, train_cuda):
+    """The bf16res entries of #7, #8's scan and #8's dW (residual_dtype
+    bf16) at phase 3c's shapes, inputs and seeds: the forward's ys, h_T
+    and c_T equal the f32 entry's, and its acts, hseq and cseq the f32
+    entry's rounded to bf16 (0.0); the backward on the bf16 residuals
+    equals the f32 entry on the same residuals widened (0.0, dx_proj, dW,
+    dh0, dc0); against the plain bf16res versions, the forward within
+    TRAIN_TOL (its residuals within BF16RES_ULPS on at most
+    BF16RES_DIFFER_SHARE of them) and the backward on the kernel's
+    residuals within TRAIN_TOL and DW_REL_TOL; dW the same from run to
+    run; each bf16res instantiation with the stack frame and spills of its
+    f32 twin (`train_stack_spill`), the dW reduction's without any, and
+    the residency equal to the f32 one's. Times beside the f32 entries' in
+    the same run, the bounds with 2-byte residuals."""
+    import numpy as np
+    bf16 = torch.bfloat16
+    results, failures = [], []
+    f32_spill = train_stack_spill(bf16=False)
+    bf16_spill = train_stack_spill(bf16=True)
+    added = {k: v for k, v in bf16_spill.items()
+             if v != f32_spill.get(k) or (k.startswith("dw") and any(v))}
+    emit({"phase": "train_bf16res_ptxas", "instantiations": len(bf16_spill),
+          "stack_spill_bytes_f32": {k: v for k, v in f32_spill.items()
+                                    if any(v)},
+          "stack_spill_bytes_bf16res": {k: v for k, v in bf16_spill.items()
+                                        if any(v)},
+          "bf16res_beyond_f32_twin": added})
+    if len(bf16_spill) != len(f32_spill) or len(bf16_spill) != 22 or added:
+        failures.append(f"bf16res instantiations with a stack frame or "
+                        f"spills their f32 twins lack: {added}")
+    for H, B in ((256, 256), (64, 256), (256, 37), (160, 37)):
+        T = 125
+        residency = {"f32": train_cuda.max_active_clusters(H, 0),
+                     "bf16res": train_cuda.max_active_clusters(H, 0, bf16)}
+        rng = np.random.RandomState(7 + H + B)  # phase 3c's inputs
+
+        def t(*shape, scale=1.0):
+            return torch.from_numpy(
+                (rng.randn(*shape) * scale).astype(np.float32)).cuda()
+
+        bound = 1.0 / math.sqrt(H)
+        x_proj = t(T, B, 4 * H)
+        w_hh = torch.from_numpy(rng.uniform(-bound, bound, (H, 4 * H))
+                                .astype(np.float32)).cuda()
+        h0, c0 = t(B, H, scale=0.5), t(B, H, scale=0.5)
+        lengths = rng.randint(1, T, size=B)
+        lengths[0], lengths[1] = 0, T
+        mask = (torch.arange(T)[:, None] < torch.from_numpy(lengths)[None, :]
+                ).float().cuda()
+        dy, dh_t, dc_t = t(T, B, H), t(B, H), t(B, H)
+
+        fwd_args = (x_proj, w_hh, h0, c0, mask)
+        g32 = train_cuda.lstm_train_fwd(*fwd_args)
+        g16 = train_cuda.lstm_train_fwd(*fwd_args, residual_dtype=bf16)
+        torch.cuda.synchronize()
+        want = train_cuda.lstm_train_fwd_plain(*fwd_args,
+                                               residual_dtype=bf16)
+        names = ("ys", "acts", "hseq", "cseq", "h_T", "c_T")
+        res = (1, 2, 3)
+        fwd_vs_f32 = {n: float((g.float() - (w.to(bf16).float() if i in res
+                                              else w)).abs().max())
+                      for i, (n, g, w) in enumerate(zip(names, g16, g32))}
+        fwd_err = {n: float((g - w).abs().max())
+                   for i, (n, g, w) in enumerate(zip(names, g16, want))
+                   if i not in res}
+        res_ulps = ulps_apart([g16[i] for i in res], [want[i] for i in res])
+        res_share = max(float((g16[i] != want[i]).float().mean())
+                        for i in res)
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in g16)
+
+        _, acts, hseq, cseq, _, _ = g16
+        h_prev = torch.cat([h0.to(bf16)[None], hseq[:-1]])
+        c_prev = torch.cat([c0.to(bf16)[None], cseq[:-1]])
+        bwd16 = (dy, dh_t, dc_t, acts, cseq, h_prev, c_prev, w_hh, mask)
+        bwd32 = (dy, dh_t, dc_t, acts.float(), cseq.float(), h_prev.float(),
+                 c_prev.float(), w_hh, mask)
+        gb = train_cuda.lstm_train_bwd(*bwd16, residual_dtype=bf16)
+        gb32 = train_cuda.lstm_train_bwd(*bwd32)
+        torch.cuda.synchronize()
+        wb = train_cuda.lstm_train_bwd_plain(*bwd16)
+        bnames = ("dx_proj", "dw_hh", "dh0", "dc0")
+        bwd_vs_f32 = {n: float((g - w).abs().max())
+                      for n, g, w in zip(bnames, gb, gb32)}
+        bwd_err = {n: float((g - w).abs().max())
+                   for n, g, w in zip(bnames, gb, wb)}
+        dw_rel = bwd_err["dw_hh"] / float(wb[1].abs().max())
+        finite = finite and all(bool(torch.isfinite(g).all()) for g in gb)
+        dw_repeatable = bool(torch.equal(train_cuda.lstm_train_bwd(
+            *bwd16, residual_dtype=bf16)[1], gb[1]))
+
+        # times: each bf16res entry beside the f32 one, in this run
+        n_slabs, rows = train_cuda._dw_slabs(T * B, H)
+        slabs = torch.empty((n_slabs, H, 4 * H), device="cuda")
+        dx = gb[0]
+        ms = {}
+        for rdt, suffix, bargs in ((torch.float32, "f32", bwd32),
+                                   (bf16, "bf16res", bwd16)):
+            ms[suffix] = {
+                "fwd": time_ms(lambda: train_cuda.lstm_train_fwd(
+                    *fwd_args, residual_dtype=rdt), 10),
+                "bwd": time_ms(lambda: train_cuda.lstm_train_bwd(
+                    *bargs, residual_dtype=rdt), 10),
+                "scan": time_ms(lambda: train_cuda._bwd_scan(
+                    *bargs[:5], bargs[6], w_hh, mask), 10),
+                "dw": time_ms(lambda: train_cuda._call(
+                    f"lstm_train_dw_{suffix}", bargs[5], dx, slabs, T * B,
+                    H, n_slabs, rows), 10)}
+        plain_ms = {
+            "fwd": time_ms(lambda: train_cuda.lstm_train_fwd_plain(
+                *fwd_args, residual_dtype=bf16), 1, warmup=1),
+            "bwd": time_ms(lambda: train_cuda.lstm_train_bwd_plain(*bwd16),
+                           1, warmup=1),
+            "dw": time_ms(lambda: train_cuda.lstm_train_dw_plain(h_prev, dx),
+                          1, warmup=1)}
+        # library yardsticks: cuDNN training mode (forward, backward), and
+        # torch.matmul on h_prev widened (the widening included) for dW
+        lstm = torch.nn.LSTM(H, H, num_layers=1).cuda().train()
+        x_lib = t(T, B, H).requires_grad_(True)
+        hc_lib = (t(1, B, H, scale=0.5), t(1, B, H, scale=0.5))
+        y_lib, _ = lstm(x_lib, hc_lib)
+        g_lib = torch.randn_like(y_lib)
+        lib_ms = {
+            "fwd": time_ms(lambda: lstm(x_lib, hc_lib), 10),
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                y_lib, [x_lib, *lstm.parameters()], g_lib,
+                retain_graph=True), 10),
+            "dw": time_ms(lambda: torch.matmul(
+                h_prev.reshape(-1, H).float().t(), dx.reshape(-1, 4 * H)),
+                10)}
+        bounds = train_bounds(T, B, H, int(lengths.sum()), res_bytes=2)
+        common = {"T": T, "B": B, "H": H,
+                  "lengths_min_max_sum": [int(lengths.min()),
+                                          int(lengths.max()),
+                                          int(lengths.sum())],
+                  "residency": residency}
+        for name, key, err, extra, lib in (
+                ("lstm_train_fwd_bf16res", "fwd", fwd_err,
+                 {"vs_f32_entry": fwd_vs_f32, "residual_ulps": res_ulps,
+                  "residual_differ_share": res_share},
+                 LIB_TRAIN + "forward"),
+                ("lstm_train_bwd_bf16res", "bwd", bwd_err,
+                 {"vs_f32_entry_on_widened": bwd_vs_f32,
+                  "includes": "the scan, the dW kernel, the slab sum",
+                  "scan_ms": ms["bf16res"]["scan"],
+                  "scan_f32_entry_ms": ms["f32"]["scan"],
+                  "scan_bound_ms": bounds["scan"][0],
+                  "dw_hh_rel_err": dw_rel, "dw_repeatable": dw_repeatable},
+                 LIB_TRAIN + "backward (autograd.grad)"),
+                ("lstm_train_dw_bf16res", "dw", {"dw_hh": bwd_err["dw_hh"]},
+                 {"dw_hh_rel_err": dw_rel,
+                  "vs_f32_entry_on_widened": bwd_vs_f32["dw_hh"],
+                  "note": "its time excludes the slab sum"},
+                 "torch.matmul(h_prev.float()^T, dgates) over the T*B rows "
+                 "(cuBLAS, TF32 off, the widening included)")):
+            b_ms, b_by, flops, nbytes = bounds[key]
+            rec = {"phase": "train_bf16res_kernel", "name": name, **common,
+                   "max_abs_err": err, **extra, "tol": TRAIN_TOL,
+                   "dw_rel_tol": DW_REL_TOL,
+                   "kernel_ms": ms["bf16res"][key],
+                   "f32_entry_ms": ms["f32"][key],
+                   "over_f32_entry": ms["bf16res"][key] / ms["f32"][key],
+                   "plain_ms": plain_ms[key], "library_ms": lib_ms[key],
+                   "library": lib, "bound_ms": b_ms, "bound_by": b_by,
+                   "flops": flops, "bytes": nbytes,
+                   "pct_of_bound": 100.0 * b_ms / ms["bf16res"][key]}
+            emit(rec)
+            results.append(rec)
+        tag = f"H={H} B={B}"
+        if not finite:
+            failures.append(f"{tag}: non-finite output")
+        if residency["bf16res"] != residency["f32"]:
+            failures.append(f"{tag}: residency {residency}")
+        if max(fwd_vs_f32.values()) != 0.0:
+            failures.append(f"{tag}: forward vs f32 entry {fwd_vs_f32}")
+        if max(bwd_vs_f32.values()) != 0.0:
+            failures.append(f"{tag}: backward vs f32 entry on the widened "
+                            f"residuals {bwd_vs_f32}")
+        if max(fwd_err.values()) > TRAIN_TOL:
+            failures.append(f"{tag}: forward err {fwd_err} > {TRAIN_TOL}")
+        if res_ulps > BF16RES_ULPS or res_share > BF16RES_DIFFER_SHARE:
+            failures.append(f"{tag}: residuals {res_ulps} ulps apart on "
+                            f"{res_share} of them")
         if max(v for k, v in bwd_err.items() if k != "dw_hh") > TRAIN_TOL:
             failures.append(f"{tag}: backward err {bwd_err} > {TRAIN_TOL}")
         if dw_rel > DW_REL_TOL:
@@ -2020,13 +2295,43 @@ def phase_eval(torch, lstm_cuda, cpu_evals, int8: bool = False,
     return offline, online, card
 
 
+def _card_vs_cpu_step(torch, body, batch, backend):
+    """One concurrent train step on `backend` on the CPU port and on the
+    card from identical params (the same seeded init on each device),
+    batch and draws (one CPU generator seeded alike for both runs):
+    {device: (losses, gradients, updated params, seconds)}."""
+    from mobileposer_tpu_torch import config as C
+    from mobileposer_tpu_torch.train.trainer import (
+        MODULE_NAMES, init_train_state, make_multi_train_step, to_device)
+    step = make_multi_train_step(body, backend=backend)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        states = {n: init_train_state(n, torch.Generator().manual_seed(3),
+                                      C.train_hypers.lr, dev)
+                  for n in MODULE_NAMES}
+        t0 = time.perf_counter()
+        states, losses = step(states, to_device(batch, dev),
+                              torch.Generator().manual_seed(4))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        outs[dev] = (
+            {n: float(v) for n, v in losses.items()},
+            {n: [p.grad.detach().cpu() for p in states[n].params.parameters()]
+             for n in MODULE_NAMES},
+            {n: [p.detach().cpu() for p in states[n].params.parameters()]
+             for n in MODULE_NAMES}, time.perf_counter() - t0)
+    return outs
+
+
 def phase_train(torch, lstm_cuda, train_cuda):
     """The training entry point on the card: `cli.train --concurrent
     --fast-dev-run --combine` on synthetic processed data (two steps at
-    B = 256, one validation batch, the checkpoints and the combine), the
-    combined weights through the evaluation CLI, then one concurrent step
-    on the card against the CPU port from identical params, batch and
-    draws. Returns the training run's launch counts."""
+    B = 256, one validation batch, the checkpoints and the combine), then
+    `--bf16-residuals` the same way, the combined weights through the
+    evaluation CLI, then one concurrent step on the card against the CPU
+    port from identical params, batch and draws, on backend 'auto_train'
+    and on 'auto_train_bf16res'. Returns the launch counts of the two
+    training runs."""
     import numpy as np
     from mobileposer_tpu_torch import config as C
     from mobileposer_tpu_torch.cli import evaluate as eval_cli
@@ -2036,9 +2341,8 @@ def phase_train(torch, lstm_cuda, train_cuda):
         make_synthetic_processed_dataset
     from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
     from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS
-    from mobileposer_tpu_torch.train.trainer import (
-        MODULE_NAMES, _train_val_split, init_train_state,
-        make_multi_train_step, to_device)
+    from mobileposer_tpu_torch.train.trainer import MODULE_NAMES, \
+        _train_val_split
 
     body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2065,6 +2369,22 @@ def phase_train(torch, lstm_cuda, train_cuda):
         n_ckpts = {m: len(list((ckpt / m).glob("epoch=*.npz")))
                    for m in MODULE_NAMES}
 
+        # the same on bf16 residuals (its run: the bf16res counters)
+        ckpt16 = Path(tmp) / "ckpt_bf16res"
+        lstm_cuda.reset_launches()
+        train_cuda.reset_launches()
+        t0 = time.perf_counter()
+        train_cli.main(["--concurrent", "--fast-dev-run", "--bf16-residuals",
+                        "--checkpoint-dir", str(ckpt16)])
+        torch.cuda.synchronize()
+        train16_s = time.perf_counter() - t0
+        train16_launches = dict(train_cuda.launches)
+        infer16_launches = dict(lstm_cuda.launches)
+        records16 = [json.loads(ln) for ln in
+                     (ckpt16 / "metrics.jsonl").read_text().splitlines()]
+        n_ckpts16 = {m: len(list((ckpt16 / m).glob("epoch=*.npz")))
+                     for m in MODULE_NAMES}
+
         # the combined weights through the slice-2 evaluation CLI
         (data / "synthetic_train.pt").rename(data / "synthetic.pt")
         table = eval_cli.main(["--model", str(combined), "--dataset",
@@ -2080,39 +2400,56 @@ def phase_train(torch, lstm_cuda, train_cuda):
         batch = ds._assemble(train_idx[:STEP_BATCH],
                              C.datasets.window_length)
         del os.environ["MP_PROCESSED"]
-    step = make_multi_train_step(body)
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        states = {n: init_train_state(n, torch.Generator().manual_seed(3),
-                                      C.train_hypers.lr, dev)
-                  for n in MODULE_NAMES}
-        t0 = time.perf_counter()
-        states, losses = step(states, to_device(batch, dev),
-                              torch.Generator().manual_seed(4))
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        outs[dev] = (
-            {n: float(v) for n, v in losses.items()},
-            {n: [p.grad.detach().cpu() for p in states[n].params.parameters()]
-             for n in MODULE_NAMES}, time.perf_counter() - t0)
-    loss_rel = {n: abs(outs["cuda"][0][n] - outs["cpu"][0][n])
+    steps_out = {b: _card_vs_cpu_step(torch, body, batch, b)
+                 for b in ("auto_train", "auto_train_bf16res")}
+
+    def rel(outs):
+        """(loss, gradient) errors of the card against the CPU, each
+        gradient tensor relative to its largest entry."""
+        loss = {n: abs(outs["cuda"][0][n] - outs["cpu"][0][n])
                 / abs(outs["cpu"][0][n]) for n in MODULE_NAMES}
-    grad_rel = {n: max(float((g - c).abs().max()) / float(c.abs().max())
-                       for g, c in zip(outs["cuda"][1][n], outs["cpu"][1][n]))
+        grad = {n: max(float((g - c).abs().max()) / float(c.abs().max())
+                       for g, c in zip(outs["cuda"][1][n],
+                                       outs["cpu"][1][n]))
                 for n in MODULE_NAMES}
+        return loss, grad
+
+    outs = steps_out["auto_train"]
+    loss_rel, grad_rel = rel(outs)
+    outs16 = steps_out["auto_train_bf16res"]
+    loss16_rel, grad16_rel = rel(outs16)
+    lr = C.train_hypers.lr
+    # the updated params: entries whose gradient lies above the gradient
+    # bound (relative to their tensor's largest) move alike; the rest at
+    # most 2 lr apart (STEP_BF16RES_GRAD_RTOL's note)
+    param16 = {"determined_max_abs": 0.0, "others_max_abs": 0.0}
+    for n in MODULE_NAMES:
+        for gc, pg, pc in zip(outs16["cpu"][1][n], outs16["cuda"][2][n],
+                              outs16["cpu"][2][n]):
+            big = gc.abs() > STEP_BF16RES_GRAD_RTOL * float(gc.abs().max())
+            d = (pg - pc).abs()
+            if bool(big.any()):
+                param16["determined_max_abs"] = max(
+                    param16["determined_max_abs"], float(d[big].max()))
+            if bool((~big).any()):
+                param16["others_max_abs"] = max(param16["others_max_abs"],
+                                                float(d[~big].max()))
 
     n_layer_dirs = sum((2 if cfg.bidirectional else 1) * cfg.n_layers
                        for cfg in MODULE_CONFIGS.values())
     steps = 2
-    expect_train = {"lstm_train_fwd_f32": n_layer_dirs * steps,
-                    "lstm_train_bwd_f32": n_layer_dirs * steps,
-                    "lstm_train_dw_f32": n_layer_dirs * steps}
+    expect_train = dict.fromkeys(train_cuda.launches, 0)
+    expect_train16 = dict(expect_train)
+    for k in expect_train:
+        (expect_train if k.endswith("f32") else expect_train16)[k] = (
+            n_layer_dirs * steps)
     # one validation batch on the inference route: the masked kernels,
     # 6 bidirectional layers and 2 velocity layers
     expect_infer = dict.fromkeys(lstm_cuda.launches, 0)
     expect_infer.update(bilstm_scan_masked_f32=6, lstm_scan_masked_f32=2)
     losses_ok = all(math.isfinite(r["train_loss"])
-                    and math.isfinite(r["val_loss"]) for r in records)
+                    and math.isfinite(r["val_loss"])
+                    for r in records + records16)
     emit({"phase": "train", "sequences": list(TRAIN_SEQUENCES),
           "samples": len(ds), "synth_seconds": synth_s,
           "train_cli_seconds": train_s, "records": records,
@@ -2125,15 +2462,34 @@ def phase_train(torch, lstm_cuda, train_cuda):
           "step_loss_rtol": STEP_LOSS_RTOL, "step_grad_rel_err": grad_rel,
           "step_grad_rtol": STEP_GRAD_RTOL,
           "step_losses_card": outs["cuda"][0],
-          "step_seconds": {d: outs[d][2] for d in outs}})
-    require(len(records) == 4 and losses_ok,
-            f"training records {records}: missing or non-finite losses")
-    require(all(n == 1 for n in n_ckpts.values()),
-            f"checkpoints per module {n_ckpts}, expected 1 each")
+          "step_seconds": {d: outs[d][3] for d in outs}})
+    emit({"phase": "train_bf16res", "train_cli_seconds": train16_s,
+          "records": records16, "checkpoints": n_ckpts16,
+          "train_launches": train16_launches,
+          "expected_train_launches": expect_train16,
+          "validation_launches": infer16_launches,
+          "step_loss_rel_err": loss16_rel, "step_loss_rtol": STEP_LOSS_RTOL,
+          "step_grad_rel_err": grad16_rel,
+          "step_grad_rtol": STEP_BF16RES_GRAD_RTOL,
+          "step_param_abs_err": param16,
+          "step_param_atol": STEP_BF16RES_PARAM_ATOL,
+          "step_param_others_bound": 2 * lr,
+          "step_losses_card": outs16["cuda"][0],
+          "step_seconds": {d: outs16[d][3] for d in outs16}})
+    require(len(records) == 4 and len(records16) == 4 and losses_ok,
+            f"training records {records}, {records16}: missing or "
+            "non-finite losses")
+    require(all(n == 1 for n in (*n_ckpts.values(), *n_ckpts16.values())),
+            f"checkpoints per module {n_ckpts}, {n_ckpts16}, expected 1 "
+            "each")
     require(train_launches == expect_train,
             f"training launches {train_launches}, expected {expect_train}")
-    require(infer_launches == expect_infer,
-            f"validation launches {infer_launches}, expected {expect_infer}")
+    require(train16_launches == expect_train16,
+            f"--bf16-residuals launches {train16_launches}, expected "
+            f"{expect_train16}")
+    require(infer_launches == expect_infer == infer16_launches,
+            f"validation launches {infer_launches}, {infer16_launches}, "
+            f"expected {expect_infer}")
     require(table["offline"].shape == (8, 2)
             and bool(np.isfinite(table["offline"]).all()),
             "evaluation of the trained weights: bad table")
@@ -2141,7 +2497,14 @@ def phase_train(torch, lstm_cuda, train_cuda):
             f"train step losses card vs CPU: {loss_rel}")
     require(max(grad_rel.values()) <= STEP_GRAD_RTOL,
             f"train step gradients card vs CPU: {grad_rel}")
-    return train_launches
+    require(max(loss16_rel.values()) <= STEP_LOSS_RTOL,
+            f"bf16res train step losses card vs CPU: {loss16_rel}")
+    require(max(grad16_rel.values()) <= STEP_BF16RES_GRAD_RTOL,
+            f"bf16res train step gradients card vs CPU: {grad16_rel}")
+    require(param16["determined_max_abs"] <= STEP_BF16RES_PARAM_ATOL
+            and param16["others_max_abs"] <= 2 * lr * (1 + 1e-3),
+            f"bf16res train step params card vs CPU: {param16}")
+    return train_launches, train16_launches
 
 
 def phase_slice(torch, lstm_cuda, int8: bool = False, bf16: bool = False):
@@ -2887,6 +3250,9 @@ def main() -> int:
     # 3c. the training kernels against their plain versions
     train_recs = phase_train_kernels(torch, train_cuda,
                                      ptxas["lstm_train.cu"])
+    # 3h. the bf16res entries of #7 and #8 against the f32 entries and
+    # their plain versions
+    train_recs += phase_train_bf16res_kernels(torch, train_cuda)
     # 3d. the int8 kernels against their plain versions
     kernel_recs += phase_int8_kernels(torch, lstm_cuda)
     # 3e. the multicell kernel against its plain version
@@ -2931,8 +3297,10 @@ def main() -> int:
             require(abs(v) < INT8_DELTA_BOUND[row],
                     f"{k} int8 - float32 row {row}: {v} beyond "
                     f"{INT8_DELTA_BOUND[row]}")
-    # 4c. the training entry point (its run: the training counters)
-    train_launches = phase_train(torch, lstm_cuda, train_cuda)
+    # 4c. the training entry point, float32 then bf16 residuals (their
+    # runs: the training counters)
+    train_launches, train16_launches = phase_train(torch, lstm_cuda,
+                                                   train_cuda)
     # the multicell kernel is `forward(backend='fused')`'s alone
     require(multicell_cuda.launches["multicell_scan_f32"] == 0,
             "the streaming, evaluation or training path launched the "
@@ -2986,7 +3354,9 @@ def main() -> int:
            if k.endswith("int8") and "masked" not in k},
         **{k: n for k, n in offline_int8_launches.items()
            if k.endswith("int8") and "masked" in k},
-        **train_launches,
+        **{k: n for k, n in train_launches.items() if k.endswith("f32")},
+        **{k: n for k, n in train16_launches.items()
+           if k.endswith("bf16res")},
         "multicell_scan_f32": fused_launches["multicell_scan_f32"],
         **{k: bf16_stream_launches[k] for k in ("bilstm_scan_bf16",
                                                 "lstm_scan_bf16")},
@@ -3072,6 +3442,26 @@ def main() -> int:
     emit({"phase": "train_breakdown", **trace})
     require(trace["device_busy_seconds"] > 0,
             "the traced train step shows no device time")
+    # C9: the same step on bf16 residuals, beside C4's rate and peak
+    # memory, then one traced step that must show the bf16res kernels
+    rec16 = bench.run_train(batch=256, window=125, bf16_residuals=True)
+    emit({"phase": "train_rate", **rec16, "f32_value_same_run": rec["value"],
+          "over_f32": rec16["value"] / rec["value"],
+          "f32_peak_memory_bytes": rec["peak_memory_bytes"],
+          "peak_memory_saved_bytes": rec["peak_memory_bytes"]
+          - rec16["peak_memory_bytes"]})
+    require(rec16["pct_of_f32_peak"] < 100.0,
+            "implied FLOP/s above the card's peak: the harness is wrong")
+    require(rec16["train_kernel_launches_per_step"]
+            == {k: n // 2 for k, n in train16_launches.items()},
+            f"bench bf16res step launches "
+            f"{rec16['train_kernel_launches_per_step']}")
+    trace = bench.breakdown_train(batch=256, window=125, bf16_residuals=True)
+    emit({"phase": "train_breakdown", **trace})
+    train_groups = [g for g in trace["groups"] if "lstm_train" in g]
+    require(len(train_groups) == 3
+            and all(g.endswith("bf16res") for g in train_groups),
+            f"the traced bf16res step's training kernels: {train_groups}")
 
     # 5d. single-window forwards/s at B=256, T=45, 'fused' and 'auto' in
     # turns, then one traced call of each
@@ -3114,6 +3504,7 @@ def main() -> int:
         extra = {k: main[k] for k in ("float_kernel_ms",
                                       "int8_f32_kernel_ms",
                                       "per_module_kernels_ms",
+                                      "f32_entry_ms",
                                       "max_err_ulps") if k in main}
         ported.append({
             "name": name, "route": "cuda",
@@ -3128,7 +3519,13 @@ def main() -> int:
     emit({"kernels": ported,
           "online_eval_launches": online_launches,
           "online_eval_int8_launches": online_int8_launches,
-          "not_ported": []})
+          "not_ported": [],
+          "variants_not_ported": [{
+              "variant": "bf16 I/O of _fwd_call and _bwd_call (training "
+                         "on bf16 params)",
+              "replaces": "mobileposer_tpu/ops/lstm_train_pallas.py:90, "
+                          ":202",
+              "row": "ROADMAP.md queue B.4"}]})
 
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

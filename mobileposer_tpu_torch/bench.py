@@ -36,7 +36,10 @@ bf16 frames), the JAX bench's `exact_int8` leg as it is written.
 #7 and #8, the four optimizers) on one batch of `TrainHypers.batch_size`
 full-length windows, the same chained way with the losses folded into the
 checksum; its rate is training frames/s, B x T valid frames per step over
-the step time.
+the step time, and it records the step's peak device memory.
+`run_train(..., bf16_residuals=True)` times the same step with the
+residuals stored in bf16 (backend 'auto_train_bf16res', the kernels'
+`*_bf16res` entries), the counterpart of `cli.train --bf16-residuals`.
 
 `run_forward` times one single-window `models.net.forward` (B windows of
 T frames, pose at every frame, the velocity carry threaded from call to
@@ -56,7 +59,7 @@ Run:  python -m mobileposer_tpu_torch.bench [--streams 256] [--frames 100]
       python -m mobileposer_tpu_torch.bench --bf16 [--streams 256]
       python -m mobileposer_tpu_torch.bench --int8 --bf16 [--streams 256]
       python -m mobileposer_tpu_torch.bench --offline
-      python -m mobileposer_tpu_torch.bench --train
+      python -m mobileposer_tpu_torch.bench --train [--bf16-residuals]
 Prints one JSON line.
 """
 
@@ -287,10 +290,12 @@ def run_offline(batch: int = 64, bucket: int = 512, seed: int = 0,
     }
 
 
-def _train_setup(batch: int, window: int, seed: int, device):
-    """Four fresh train states, the concurrent step, one full-length batch
-    on the card (numpy draws from the seed: IMU, joint, pose and velocity
-    targets, contacts) and the draws' generator."""
+def _train_setup(batch: int, window: int, seed: int, device,
+                 bf16_residuals: bool = False):
+    """Four fresh train states, the concurrent step (on backend
+    'auto_train', or 'auto_train_bf16res' with `bf16_residuals`), one
+    full-length batch on the card (numpy draws from the seed: IMU, joint,
+    pose and velocity targets, contacts) and the draws' generator."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("the bench times a CUDA device; a CPU run is not "
@@ -300,7 +305,9 @@ def _train_setup(batch: int, window: int, seed: int, device):
     init = torch.Generator().manual_seed(seed)
     states = {n: init_train_state(n, init, C.train_hypers.lr, device)
               for n in MODULE_NAMES}
-    step = make_multi_train_step(ParametricModel.synthetic())
+    step = make_multi_train_step(
+        ParametricModel.synthetic(),
+        backend="auto_train_bf16res" if bf16_residuals else "auto_train")
     rng = np.random.RandomState(seed)
     B, W = batch, window
 
@@ -317,19 +324,28 @@ def _train_setup(batch: int, window: int, seed: int, device):
 
 
 def run_train(batch: int = 256, window: int = 125, seed: int = 0,
-              reps: int = 3, trials: int = 3, device=None) -> dict:
-    """Measure training frames/s of the concurrent four-module step;
-    returns the JSON record. `trials` chained regions of `reps` steps,
-    the states threaded from step to step and every step's four losses
-    folded into the checksum; the record's value is the median rate."""
-    device, states, step, b, gen = _train_setup(batch, window, seed, device)
+              reps: int = 3, trials: int = 3, device=None,
+              bf16_residuals: bool = False) -> dict:
+    """Measure training frames/s of the concurrent four-module step (its
+    residuals in bf16 with `bf16_residuals`); returns the JSON record.
+    `trials` chained regions of `reps` steps, the states threaded from
+    step to step and every step's four losses folded into the checksum;
+    the record's value is the median rate. `peak_memory_bytes` is
+    `torch.cuda.max_memory_allocated` over one step (the states, the batch
+    and everything the step allocates), after a reset."""
+    device, states, step, b, gen = _train_setup(batch, window, seed, device,
+                                                bf16_residuals)
 
     def call(st):
         st, losses = step(st, b, gen)
         return list(losses.values()), st
 
     lstm_train_cuda.reset_launches()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
     step(states, b, gen)
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device)
     per_step = dict(lstm_train_cuda.launches)
     rates, t_single, checksum = _chained_rates(call, states, batch * window,
                                                reps, trials, device)
@@ -337,12 +353,15 @@ def run_train(batch: int = 256, window: int = 125, seed: int = 0,
     # forward + backward of every matmul: ~3x the forward FLOPs per frame
     flops = 3.0 * model_flops_per_frame()
     return {
-        "metric": "training_frames_per_sec",
+        "metric": ("training_bf16res_frames_per_sec" if bf16_residuals
+                   else "training_frames_per_sec"),
         "value": fps,
         "unit": "frames/s",
         "batch": batch,
         "window": window,
+        "bf16_residuals": bf16_residuals,
         "step_ms": 1e3 * batch * window / fps,
+        "peak_memory_bytes": peak,
         "reps": reps,
         "trials": trials,
         "rate_min": min(rates),
@@ -359,13 +378,16 @@ def run_train(batch: int = 256, window: int = 125, seed: int = 0,
 
 
 def breakdown_train(batch: int = 256, window: int = 125, seed: int = 0,
-                    device=None) -> dict:
-    """One concurrent train step under `torch.profiler`, reported as
-    `breakdown` reports: #7, #8's scan and #8's dW reduction are groups of
-    their own."""
-    device, states, step, b, gen = _train_setup(batch, window, seed, device)
+                    device=None, bf16_residuals: bool = False) -> dict:
+    """One concurrent train step (its residuals in bf16 with
+    `bf16_residuals`) under `torch.profiler`, reported as `breakdown`
+    reports: #7, #8's scan and #8's dW reduction are groups of their own,
+    their bf16res entries too."""
+    device, states, step, b, gen = _train_setup(batch, window, seed, device,
+                                                bf16_residuals)
     rec = _traced(lambda: step(states, b, gen), device)
-    return {"batch": batch, "window": window, **rec}
+    return {"batch": batch, "window": window,
+            "bf16_residuals": bf16_residuals, **rec}
 
 
 def _forward_setup(batch: int, window: int, seed: int, device):
@@ -439,6 +461,8 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "bfloat16" in low and "_scan_" in low:  # a bf16-I/O entry's kernel
         return _kernel_group(low.replace("bfloat16", "")) + " bf16"
+    if "bfloat16" in low and "lstm_train_" in low:  # a bf16res entry's
+        return _kernel_group(low.replace("bfloat16", "")) + " bf16res"
     if "multicell_scan_kernel" in low:
         return "#9 multicell_scan (ops/csrc/multicell_scan.cu)"
     if "lstm_train_fwd_kernel" in low:
@@ -545,9 +569,11 @@ def main() -> None:
                     help="stream on W8A8-quantized params")
     ap.add_argument("--bf16", action="store_true",
                     help="stream on bf16 params, state and frames")
+    ap.add_argument("--bf16-residuals", action="store_true",
+                    help="with --train: store the residuals in bf16")
     args = ap.parse_args()
     if args.train:
-        print(json.dumps(run_train()))
+        print(json.dumps(run_train(bf16_residuals=args.bf16_residuals)))
     else:
         print(json.dumps(run_offline() if args.offline
                          else run(args.streams, args.frames,

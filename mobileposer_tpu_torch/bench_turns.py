@@ -1,4 +1,4 @@
-"""Time cells C1 to C8 (PERF.md section 4) of two checkouts in turns on one
+"""Time cells C1 to C9 (PERF.md section 4) of two checkouts in turns on one
 card, so that a change is compared with its parent under the same clocks.
 
     python -m mobileposer_tpu_torch.bench_turns --other DIR [--out FILE]
@@ -14,8 +14,10 @@ then one line of medians per cell and tree with the change's relative
 difference; with --out, writes the lines to FILE as well; --cells runs
 only those cells (a noisy one again, for more turns). A cell whose
 bench function a tree does not take (C7's `bf16` before the port ran
-bf16) or refuses with NotImplementedError (C8's int8 on bf16 params
-before the port ran it) is skipped in that tree's turns. With --kernels
+bf16, C9's `bf16_residuals` before it stored bf16 residuals) or refuses
+with NotImplementedError (C8's int8 on bf16 params before the port ran
+it) is skipped in that tree's turns; a cell that records its peak device
+memory (C4, C9) prints it beside its rate. With --kernels
 each turn runs kernel phases of its tree's `chip_smoke.py` instead, LIST
 a comma-separated choice of `full` (phase 3, the full-length layer scans
 at the streaming shapes; the default), `masked` (phase 3b, the masked
@@ -23,14 +25,15 @@ scans at the evaluation shapes), `train` (phase 3c, the training kernels
 and the dW reduction), `int8` (phase 3d, the W8A8 scans at the
 streaming and evaluation shapes), `multicell` (phase 3e, the multicell
 scan at B = 256 and 8), `bf16` (phase 3f, the bf16-I/O entries of the
-float scans) and `int8_bf16` (phase 3g, the bf16-I/O entries of the W8A8
-scans; each skipped in a tree without it), and a cell is one kernel at
-one shape: its time
-in ms, with the yardstick's (cuDNN, or torch.matmul for dW; for an int8
-kernel, which has none, the float kernel's at the same shape, and for a
-bf16 int8 kernel also the float32 int8 entry's; for the multicell scan
-the per-module kernels' on the same cells) in the same turn. Needs a
-CUDA card.
+float scans), `int8_bf16` (phase 3g, the bf16-I/O entries of the W8A8
+scans) and `train_bf16res` (phase 3h, the bf16-residual entries of the
+training kernels; each skipped in a tree without it), and a cell is one
+kernel at one shape: its time in ms, with the yardstick's (cuDNN, or
+torch.matmul for dW; for an int8 kernel, which has none, the float
+kernel's at the same shape, and for a bf16 int8 kernel also the float32
+int8 entry's; for the multicell scan the per-module kernels' on the same
+cells; for a bf16res entry also the f32 entry's) in the same turn. Needs
+a CUDA card.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ CELLS = [
     # exact_int8 leg as it is written)
     ("C8", "run", {"n_streams": 256, "n_frames": 100, "mode": "scan",
                    "int8": True, "bf16": True}),
+    # C4 with the training kernels' residuals stored in bf16
+    ("C9", "run_train", {"batch": 256, "window": 125,
+                         "bf16_residuals": True}),
 ]
 
 # run inside the tree under test: its own package, TF32 off as in
@@ -82,14 +88,16 @@ for name, fn, kw in {cells!r}:
         continue
     print(json.dumps({{"cell": name, "value": rec["value"],
                       "unit": rec.get("unit"), "rate_min": rec.get("rate_min"),
-                      "rate_max": rec.get("rate_max")}}), flush=True)
+                      "rate_max": rec.get("rate_max"),
+                      "peak_memory_bytes": rec.get("peak_memory_bytes")}}),
+          flush=True)
 """
 
 # the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked'),
-# 3c ('train'), 3d ('int8'), 3e ('multicell'), 3f ('bf16') and 3g
-# ('int8_bf16') of the tree's chip_smoke.py
+# 3c ('train'), 3d ('int8'), 3e ('multicell'), 3f ('bf16'), 3g
+# ('int8_bf16') and 3h ('train_bf16res') of the tree's chip_smoke.py
 KERNEL_PHASES = ("full", "masked", "train", "int8", "multicell", "bf16",
-                 "int8_bf16")
+                 "int8_bf16", "train_bf16res")
 _KERNEL_TURN = """
 import json, sys
 sys.path.insert(0, {tree!r})
@@ -123,6 +131,11 @@ for phase in {phases!r}:
             continue
         lstm_cuda.build()
         recs += chip_smoke.phase_int8_bf16_kernels(torch, lstm_cuda)
+    elif phase == "train_bf16res":
+        if not hasattr(chip_smoke, "phase_train_bf16res_kernels"):
+            continue
+        train_cuda.build()
+        recs += chip_smoke.phase_train_bf16res_kernels(torch, train_cuda)
     else:
         lstm_cuda.build()
         fn = {{"full": chip_smoke.phase_kernels,
@@ -139,6 +152,7 @@ for rec in recs:
                       "int8_f32_kernel_ms": rec.get("int8_f32_kernel_ms"),
                       "per_module_kernels_ms":
                           rec.get("per_module_kernels_ms"),
+                      "f32_entry_ms": rec.get("f32_entry_ms"),
                       "bound_ms": rec["bound_ms"]}}), flush=True)
 """
 

@@ -3,15 +3,17 @@
 
     python -m mobileposer_tpu_torch.cli.train [--module poser] [--concurrent]
         [--init-from weights.npz] [--fast-dev-run] [--checkpoint-dir D]
-        [--combine] [--resume] [--metrics jsonl:p,csv:p] [--device cpu]
+        [--combine] [--resume] [--metrics jsonl:p,csv:p] [--bf16-residuals]
+        [--device cpu]
 
 Reads every processed file under $MP_PROCESSED (the train fold), writes
 per-module checkpoints in the JAX package's `.npz` layout and a
 `metrics.jsonl` under the checkpoint dir. Runs on the CUDA card unless
 `--device` names another device (`cpu` runs the kernels' plain versions).
-`--finetune`, `--bf16-residuals` and the tensorboard/wandb sinks are
-accepted as the JAX CLI accepts them and raise NotImplementedError naming
-the ROADMAP row that adds them.
+`--bf16-residuals` stores the training kernels' residuals in bf16
+(backend 'auto_train_bf16res', as the JAX CLI maps it). `--finetune` and
+the tensorboard/wandb sinks are accepted as the JAX CLI accepts them and
+raise NotImplementedError naming the ROADMAP row that adds them.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def main(argv=None) -> Path:
                              "jsonl:<path>, csv:<path> (JSONL in the "
                              "checkpoint dir is always written)")
     parser.add_argument("--bf16-residuals", action="store_true",
-                        help="not ported (ROADMAP.md queue A item 20)")
+                        help="store the training kernels' residuals in "
+                             "bf16 (backend 'auto_train_bf16res')")
     parser.add_argument("--concurrent", action="store_true",
                         help="advance all modules on each batch in one "
                              "step (TrainingManager.train_all; same "
@@ -63,11 +66,10 @@ def main(argv=None) -> Path:
         raise NotImplementedError(
             "--finetune (the finetune recipe, cli/finetune.py) is not "
             "ported (ROADMAP.md queue A item 24)")
-    if args.bf16_residuals:
-        raise NotImplementedError(
-            "--bf16-residuals is not ported (ROADMAP.md queue A item 20)")
 
     mgr = TrainingManager(fast_dev_run=args.fast_dev_run,
+                          backend=("auto_train_bf16res" if args.bf16_residuals
+                                   else "auto_train"),
                           device=args.device)
     body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
     dataset = PoseDataset(fold="train", body_model=body, device=mgr.device)

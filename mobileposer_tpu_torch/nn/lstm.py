@@ -25,8 +25,9 @@ Dtypes: float32, or bfloat16 for inference (params cast with
 take bf16 I/O and keep their carry in float32, as the TPU kernels do
 (`_lstm_scan` below is their plain version); the carry-mode cell step
 (`lstm_cell_step`) runs wholly in bf16, as the JAX package's does, the
-int8 cell's gates too. bf16 training is not ported (ROADMAP.md queue A
-item 20).
+int8 cell's gates too. Training takes float32 params; its residuals may
+be stored in bf16 ('auto_train_bf16res' below). Training on bf16 params
+is not ported (ROADMAP.md queue B.4).
 
 Backends:
 
@@ -39,10 +40,14 @@ Backends:
     launches exactly what 'auto' does, as in the JAX package;
   * 'auto_train' (synonym 'pallas_train'): the training kernels of
     `ops/lstm_train_cuda.py` behind a `torch.autograd.Function`
-    (forward #7, BPTT backward #8), for every layer of every module.
+    (forward #7, BPTT backward #8), for every layer of every module;
+  * 'auto_train_bf16res' (synonym 'pallas_train_bf16res'): the same with
+    the residuals (gate activations, held h and c) stored in bf16, the
+    kernels' `*_bf16res` entries. On the CPU it runs their plain versions
+    with the residuals rounded; the JAX package resolves it to its float32
+    XLA path off the TPU.
 
-Other backends raise NotImplementedError naming the ROADMAP row that adds
-them.
+Other backends raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -71,31 +76,24 @@ class LSTMConfig(NamedTuple):
 
 #: backends that run the inference kernels
 INFERENCE_BACKENDS = ("auto", "fused")
-#: backends that run the training kernels
-TRAIN_BACKENDS = ("auto_train", "pallas_train")
-
-_BACKEND_ROWS = {
-    "pallas_train_bf16res": "bf16 training residuals, ROADMAP.md queue A "
-                            "item 20",
-    "auto_train_bf16res": "bf16 training residuals, ROADMAP.md queue A "
-                          "item 20",
-}
+#: backends that run the training kernels: float32 residuals, then bf16
+TRAIN_BACKENDS = ("auto_train", "pallas_train", "auto_train_bf16res",
+                  "pallas_train_bf16res")
 
 
 def check_backend(backend: str = "auto", allow_train: bool = True) -> None:
-    """Reject a backend the port does not run yet, naming the ROADMAP row
-    that adds it; with allow_train=False (the inference entry points of
-    `models/net.py`) also the training backends."""
+    """Reject a backend the port does not run; with allow_train=False (the
+    inference entry points of `models/net.py`) also the training
+    backends."""
     if backend in TRAIN_BACKENDS and not allow_train:
         raise NotImplementedError(
             f"backend={backend!r} runs the training kernels; this inference "
             "entry point runs backend='auto' or 'fused'")
     if backend not in INFERENCE_BACKENDS + TRAIN_BACKENDS:
-        row = _BACKEND_ROWS.get(
-            backend, "no row: the port runs 'auto' and 'fused' (the "
-            "inference kernels) and 'auto_train' (the training kernels)")
-        raise NotImplementedError(f"backend={backend!r} is not ported "
-                                  f"({row})")
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported (no row: the port runs "
+            "'auto' and 'fused' (the inference kernels) and 'auto_train' "
+            "and 'auto_train_bf16res' (the training kernels))")
 
 
 #: the float dtypes the port runs: float32, and bfloat16 for inference
@@ -360,8 +358,10 @@ def _needs_grad(layers, x: torch.Tensor) -> bool:
 _INT8_TRAIN_ERROR = ("int8-quantized params are inference-only (rounding "
                      "has no gradient); use float params for training")
 _BF16_TRAIN_ERROR = ("bf16 params are inference-only here: the training "
-                     "kernels #7 and #8 take float32 (their bf16 residuals "
-                     "are ROADMAP.md queue A item 20); train in float32")
+                     "kernels #7 and #8 take float32 inputs (their bf16-I/O "
+                     "variant is ROADMAP.md queue B.4); train in float32, "
+                     "with backend='auto_train_bf16res' for bf16 "
+                     "residuals")
 
 
 def _quantized(layers) -> bool:
@@ -389,7 +389,8 @@ def lstm_forward(layers, x: torch.Tensor,
     backend: 'auto' or 'fused' (the inference kernels, the same for
              both here; raises when autograd would need a gradient
              through them) or 'auto_train' / 'pallas_train' (the
-             training kernels, differentiable).
+             training kernels, differentiable), or 'auto_train_bf16res' /
+             'pallas_train_bf16res' (the same, residuals stored in bf16).
 
     Returns (y [B, T, H*n_dir] (or [T, B, ...] if time_major),
     (h_T, c_T) stacked like h0c0). On CPU tensors every layer runs the
@@ -407,9 +408,13 @@ def lstm_forward(layers, x: torch.Tensor,
             raise NotImplementedError(_BF16_TRAIN_ERROR)
         from mobileposer_tpu_torch.ops.lstm_train_cuda import \
             lstm_forward_train
+        # the '*_bf16res' backends store bf16 residuals, as the JAX
+        # package maps them
+        rdt = (torch.bfloat16 if backend.endswith("bf16res")
+               else torch.float32)
         return lstm_forward_train(layers, x, lengths, h0c0,
                                   bidirectional=bidirectional,
-                                  time_major=time_major)
+                                  time_major=time_major, residual_dtype=rdt)
     if _needs_grad(layers, x):
         raise RuntimeError(
             "backend='auto' runs the inference kernels, which carry no "

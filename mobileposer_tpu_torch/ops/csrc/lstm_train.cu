@@ -1,4 +1,5 @@
-// LSTM layer scans for TRAINING on Hopper (sm_90a), float32.
+// LSTM layer scans for TRAINING on Hopper (sm_90a), float32, with the
+// residuals in float32 or bf16.
 //
 // Replaces the two TPU kernels of mobileposer_tpu/ops/lstm_train_pallas.py:
 //   lstm_train_fwd_f32  <- _fwd_call (_fwd_kernel): one layer-direction
@@ -11,6 +12,20 @@
 //                          gate gradients and a second kernel, launched
 //                          right after by the same wrapper, reduces
 //                          h_prev^T @ dgates over the T*B rows.
+// and their residual_dtype=bfloat16 variant (backend='auto_train_bf16res',
+// lstm_train_pallas.py:79-82, :153-163, :184-186), the same kernels
+// instantiated on a bf16 residual type Res:
+//   lstm_train_fwd_bf16res, lstm_train_bwd_bf16res, lstm_train_dw_bf16res.
+// The arithmetic is the float32 one: the forward stores acts, hseq and
+// cseq rounded to bf16 (nearest even, as XLA's astype) and leaves ys, h_T,
+// c_T and its float32 carry as they are; the backward scan reads acts,
+// c_new and c_prev as bf16 and widens each where it is used (widening it
+// right after the load, which the next step's prefetch issues early, would
+// make the step wait for the load); the dW kernel takes h_prev in bf16
+// through its copy ring and widens each stage once, in shared memory.
+// Widening is exact, so a bf16res entry gives the f32 entry's bits on the
+// widened residuals. The scans' shared memory, the w_hh slice included,
+// stays float32: their geometry and residency are the f32 entries'.
 //
 // Contract (the Pallas kernels'): x_proj [T, B, 4H] already holds
 // x @ w_ih + b_ih + b_hh; w_hh is [H, 4H] row-major (input-major, the JAX
@@ -150,15 +165,15 @@ constexpr size_t bwd_smem_bytes(int H) {
 // #7 forward
 // ---------------------------------------------------------------------------
 
-template <int R>
+template <int R, class Res>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_train_fwd_kernel(const float* __restrict__ x_proj,
                       const float* __restrict__ w_hh,
                       const float* __restrict__ h0,
                       const float* __restrict__ c0,
                       const float* __restrict__ mask,
-                      float* __restrict__ ys, float* __restrict__ acts,
-                      float* __restrict__ hseq, float* __restrict__ cseq,
+                      float* __restrict__ ys, Res* __restrict__ acts,
+                      Res* __restrict__ hseq, Res* __restrict__ cseq,
                       float* __restrict__ h_t, float* __restrict__ c_t,
                       int T, int B, int H) {
   using S = Shape<R>;
@@ -290,14 +305,14 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
       const float h_keep = blend(m[p], h_new, h_cur[r * H + unit0 + u]);
       if (b < B) {
         const size_t row = row0 + b;
-        float* a = acts + row * H4 + unit0 + u;
-        a[0] = i;
-        a[H] = f;
-        a[2 * H] = g;
-        a[3 * H] = o;
+        Res* a = acts + row * H4 + unit0 + u;
+        a[0] = from_f32<Res>(i);
+        a[H] = from_f32<Res>(f);
+        a[2 * H] = from_f32<Res>(g);
+        a[3 * H] = from_f32<Res>(o);
         ys[row * H + unit0 + u] = __fmul_rn(m[p], h_new);
-        hseq[row * H + unit0 + u] = h_keep;
-        cseq[row * H + unit0 + u] = c[p];
+        hseq[row * H + unit0 + u] = from_f32<Res>(h_keep);
+        cseq[row * H + unit0 + u] = from_f32<Res>(c[p]);
       }
       // the new h of this unit, into the next h buffer of every CTA
       for (int q = 0; q < n_cta; ++q)
@@ -325,17 +340,21 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
 // #8 backward scan
 // ---------------------------------------------------------------------------
 
-// One (row, unit)'s residuals of one step: i, f, g, o, c_new, c_prev, dy, m.
+// One (row, unit)'s residuals of one step: i, f, g, o, c_new, c_prev as
+// stored (Res: widened where they are used), dy, m.
+template <class Res>
 struct Residuals {
-  float a[4], c_new, c_prev, dy, m;
+  Res a[4], c_new, c_prev;
+  float dy, m;
 };
 
+template <class Res>
 __device__ __forceinline__ void load_residuals(
-    Residuals& v, const float* __restrict__ acts,
-    const float* __restrict__ c_new_seq, const float* __restrict__ c_prev_seq,
+    Residuals<Res>& v, const Res* __restrict__ acts,
+    const Res* __restrict__ c_new_seq, const Res* __restrict__ c_prev_seq,
     const float* __restrict__ dy, const float* __restrict__ mask, size_t row,
     int H, int unit) {
-  const float* a = acts + row * 4 * H + unit;
+  const Res* a = acts + row * 4 * H + unit;
 #pragma unroll
   for (int g = 0; g < 4; ++g) v.a[g] = __ldg(a + g * H);
   v.c_new = __ldg(c_new_seq + row * H + unit);
@@ -344,14 +363,14 @@ __device__ __forceinline__ void load_residuals(
   v.m = __ldg(mask + row);
 }
 
-template <int R>
+template <int R, class Res>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_train_bwd_kernel(const float* __restrict__ dy,
                       const float* __restrict__ dh_T,
                       const float* __restrict__ dc_T,
-                      const float* __restrict__ acts,
-                      const float* __restrict__ c_new_seq,
-                      const float* __restrict__ c_prev_seq,
+                      const Res* __restrict__ acts,
+                      const Res* __restrict__ c_new_seq,
+                      const Res* __restrict__ c_prev_seq,
                       const float* __restrict__ w_hh,
                       const float* __restrict__ mask,
                       float* __restrict__ dx_proj,
@@ -375,7 +394,7 @@ lstm_train_bwd_kernel(const float* __restrict__ dy,
 
   load_w_slice(w_hh, w_s, H, cta);
   float dh[CPT], dc[CPT];
-  Residuals v[CPT];
+  Residuals<Res> v[CPT];
 #pragma unroll
   for (int p = 0; p < CPT; ++p) {
     const int item = tid + p * kThreads;
@@ -406,15 +425,16 @@ lstm_train_bwd_kernel(const float* __restrict__ dy,
         continue;
       }
       const float m = v[p].m;
-      const float i = v[p].a[0], f = v[p].a[1], g = v[p].a[2], o = v[p].a[3];
-      const float tc = tanhf(v[p].c_new);
+      const float i = to_f32(v[p].a[0]), f = to_f32(v[p].a[1]);
+      const float g = to_f32(v[p].a[2]), o = to_f32(v[p].a[3]);
+      const float tc = tanhf(to_f32(v[p].c_new));
       const float dh_new = m * (dh[p] + v[p].dy);
       const float dc_new = m * dc[p];
       const float d_o = dh_new * tc;
       const float dc_cur = dc_new + dh_new * o * (1.0f - tc * tc);
       const float di = dc_cur * g;
       const float dg = dc_cur * i;
-      const float df = dc_cur * v[p].c_prev;
+      const float df = dc_cur * to_f32(v[p].c_prev);
       dcp[p] = dc_cur * f;
       keep[p] = 1.0f - m;
       const float gi = di * i * (1.0f - i);
@@ -505,31 +525,44 @@ constexpr int kDwK = 16;       // rows of h_prev and dgates per stage
 constexpr int kDwStages = 3;   // stages in the cp.async ring
 
 // A block's tile is MI x 64 rows of dw_hh (hidden inputs) by kDwTileN
-// gate columns; its ring of stages in shared memory.
-template <int MI>
+// gate columns; its ring of stages in shared memory, the h_prev stages
+// [kDwK][64 * MI] in the residual type Res, the dgates ones [kDwK][128]
+// float32; with bf16 residuals one more h_prev stage, widened.
+template <int MI, class Res>
 constexpr size_t dw_smem_bytes() {
-  return sizeof(float) * kDwStages * kDwK * (64 * MI + kDwTileN);
+  constexpr bool kWiden = !std::is_same_v<Res, float>;
+  return kDwStages * kDwK
+             * (sizeof(Res) * 64 * MI + sizeof(float) * kDwTileN)
+         + (kWiden ? sizeof(float) * kDwK * 64 * MI : 0);
 }
 
 // Start the copies of one stage into ring buffer `buf`: rows k0 .. k0 +
 // kDwK - 1 of the block's columns, zeros for rows from k_end on and for
-// columns past H.
-template <int MI>
+// columns past H. A copy moves 16 bytes: 4 float32 or 8 bf16 values of
+// h_prev, so that a bf16 stage [16][64] (MI = 1) is 128 copies, one for
+// half the threads. H % 8 == 0, so a copy is all in or all past H, and
+// every row starts on a 64-byte boundary (a bf16 row at H = 160 is 320
+// bytes, at H = 32 64).
+template <int MI, class Res>
 __device__ __forceinline__ void dw_load_stage(
-    const float* __restrict__ h_prev, const float* __restrict__ dgates,
-    float* a_s, float* b_s, int k0, int k_end, int m0, int n0, int H,
+    const Res* __restrict__ h_prev, const float* __restrict__ dgates,
+    Res* a_s, float* b_s, int k0, int k_end, int m0, int n0, int H,
     int buf) {
   constexpr int BM = 64 * MI;
-  float* a = a_s + buf * kDwK * BM;
+  constexpr int kPer = 16 / sizeof(Res);             // values per copy
+  constexpr int kCopies = kDwK * BM / kPer;          // copies per stage
+  Res* a = a_s + buf * kDwK * BM;
   float* b = b_s + buf * kDwK * kDwTileN;
-  static_assert(kDwK * BM / 4 % kDwThreads == 0, "whole float4s a thread");
+  static_assert(kCopies % kDwThreads == 0 || kCopies < kDwThreads,
+                "whole rounds of copies, or one partial round");
   static_assert(kDwK * kDwTileN / 4 % kDwThreads == 0, "whole float4s");
 #pragma unroll
-  for (int j = 0; j < kDwK * BM / 4 / kDwThreads; ++j) {
+  for (int j = 0; j < (kCopies + kDwThreads - 1) / kDwThreads; ++j) {
     const int i = threadIdx.x + j * kDwThreads;
-    const int kk = i / (BM / 4), c = 4 * (i % (BM / 4));
+    if (kCopies < kDwThreads && i >= kCopies) break;
+    const int kk = i / (BM / kPer), c = kPer * (i % (BM / kPer));
     const int k = k0 + kk, m = m0 + c;
-    const bool ok = k < k_end && m < H;  // H % 4 == 0: a float4 is all in
+    const bool ok = k < k_end && m < H;
     cp_async16(a + kk * BM + c,
                ok ? h_prev + static_cast<size_t>(k) * H + m : h_prev, ok);
   }
@@ -545,19 +578,52 @@ __device__ __forceinline__ void dw_load_stage(
   }
 }
 
+// A bf16 h_prev stage [kDwK][64 * MI] widened (exactly) into float32
+// [kDwK][64 * MI], once for the block. Every value of a stage is read by
+// the 16 threads of its ty: widening it at each read costs one integer
+// instruction for every eight products. Measured by phase 3h on the H100
+// against the f32 entry, at the four shapes: widened at each read 1.10x
+// to 1.24x; each warp widening the slice it reads (a __syncwarp, no
+// second block barrier) 1.07x to 1.19x, with its rows swizzled over the
+// banks 1.02x to 1.10x (1.10x at H = 256); this, one block-wide widening
+// and a second __syncthreads a stage, 1.04x to 1.07x. Four values a
+// thread a round: one 8-byte read, one 16-byte store, consecutive threads
+// on consecutive addresses (no bank is shared).
+struct alignas(8) Bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+
+template <int MI>
+__device__ __forceinline__ void widen_stage(const __nv_bfloat16* src,
+                                            float* dst) {
+  constexpr int kQuads = kDwK * 64 * MI / 4;
+  static_assert(kQuads % kDwThreads == 0, "whole rounds");
+#pragma unroll
+  for (int j = 0; j < kQuads / kDwThreads; ++j) {
+    const int i = threadIdx.x + j * kDwThreads;
+    const Bf16x4 q = reinterpret_cast<const Bf16x4*>(src)[i];
+    reinterpret_cast<float4*>(dst)[i] =
+        make_float4(__low2float(q.lo), __high2float(q.lo),
+                    __low2float(q.hi), __high2float(q.hi));
+  }
+}
+
 // Thread (ty, tx) = (tid / 16, tid % 16) owns the outputs at rows
 // mi*64 + 4*ty + p and columns ni*64 + 4*tx + q of the block's tile
 // (mi < MI, ni < 2, p, q < 4).
-template <int MI>
+template <int MI, class Res>
 __global__ void __launch_bounds__(kDwThreads, 2)
-lstm_train_dw_kernel(const float* __restrict__ h_prev,   // [N, H]
+lstm_train_dw_kernel(const Res* __restrict__ h_prev,     // [N, H]
                      const float* __restrict__ dgates,   // [N, 4H]
                      float* __restrict__ slabs,          // [S, H, 4H]
                      int N, int H, int rows_per_slab) {
   constexpr int BM = 64 * MI;
+  constexpr bool kWiden = !std::is_same_v<Res, float>;
   extern __shared__ float4 smem[];
-  float* a_s = reinterpret_cast<float*>(smem);       // [stages][kDwK][BM]
-  float* b_s = a_s + kDwStages * kDwK * BM;          // [stages][kDwK][128]
+  Res* a_s = reinterpret_cast<Res*>(smem);           // [stages][kDwK][BM]
+  float* b_s = reinterpret_cast<float*>(a_s + kDwStages * kDwK * BM);
+                                                     // [stages][kDwK][128]
+  float* a_w = b_s + kDwStages * kDwK * kDwTileN;    // [kDwK][BM], kWiden
   const int H4 = 4 * H;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kDwTileN;
   const int s = blockIdx.z;
@@ -572,8 +638,8 @@ lstm_train_dw_kernel(const float* __restrict__ h_prev,   // [N, H]
 #pragma unroll
   for (int st = 0; st < kDwStages - 1; ++st) {
     if (st < n_stages)
-      dw_load_stage<MI>(h_prev, dgates, a_s, b_s, k_begin + st * kDwK, k_end,
-                        m0, n0, H, st);
+      dw_load_stage<MI, Res>(h_prev, dgates, a_s, b_s, k_begin + st * kDwK,
+                             k_end, m0, n0, H, st);
     cp_async_commit();
   }
   for (int st = 0; st < n_stages; ++st) {
@@ -583,11 +649,20 @@ lstm_train_dw_kernel(const float* __restrict__ h_prev,   // [N, H]
     __syncthreads();
     const int next = st + kDwStages - 1;
     if (next < n_stages)
-      dw_load_stage<MI>(h_prev, dgates, a_s, b_s, k_begin + next * kDwK,
-                        k_end, m0, n0, H, next % kDwStages);
+      dw_load_stage<MI, Res>(h_prev, dgates, a_s, b_s, k_begin + next * kDwK,
+                             k_end, m0, n0, H, next % kDwStages);
     cp_async_commit();
 
-    const float* a = a_s + (st % kDwStages) * kDwK * BM;
+    const float* a;
+    if constexpr (kWiden) {
+      // every thread is done with the last stage's a_w (the barrier
+      // above); the widened stage is complete after this one
+      widen_stage<MI>(a_s + (st % kDwStages) * kDwK * BM, a_w);
+      __syncthreads();
+      a = a_w;
+    } else {
+      a = a_s + (st % kDwStages) * kDwK * BM;
+    }
     const float* b = b_s + (st % kDwStages) * kDwK * kDwTileN;
 #pragma unroll
     for (int kk = 0; kk < kDwK; ++kk) {
@@ -631,46 +706,61 @@ lstm_train_dw_kernel(const float* __restrict__ h_prev,   // [N, H]
   }
 }
 
-template <int MI>
-cudaError_t dw_tiles(const float* h_prev, const float* dgates, float* slabs,
+template <int MI, class Res>
+cudaError_t dw_tiles(const Res* h_prev, const float* dgates, float* slabs,
                      int N, int H, int n_slabs, int rows_per_slab,
                      cudaStream_t stream) {
   const dim3 grid(4 * H / kDwTileN, (H + 64 * MI - 1) / (64 * MI), n_slabs);
-  const size_t smem = dw_smem_bytes<MI>();  // <= 48 KiB: no opt-in
-  auto* kernel = lstm_train_dw_kernel<MI>;
+  const size_t smem = dw_smem_bytes<MI, Res>();  // <= 48 KiB: no opt-in
+  auto* kernel = lstm_train_dw_kernel<MI, Res>;
   kernel<<<grid, kDwThreads, smem, stream>>>(h_prev, dgates, slabs, N, H,
                                              rows_per_slab);
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t fwd_rows(const float* x_proj, const float* w_hh, const float* h0,
-                     const float* c0, const float* mask, float* ys,
-                     float* acts, float* hseq, float* cseq, float* h_t,
-                     float* c_t, int T, int B, int H, cudaStream_t stream) {
-  return launch_clusters(lstm_train_fwd_kernel<R>, fwd_smem_bytes<R>(H), B, H,
-                         R, 1, stream, x_proj, w_hh, h0, c0, mask, ys, acts,
-                         hseq, cseq, h_t, c_t, T, B, H);
+// Tiles of 64 rows of dw_hh where H % 128 is in (0, 64] (H = 64, 160:
+// fewer rows idle), else of 128 (lstm_train_cuda._dw_tile_rows).
+template <class Res>
+cudaError_t dw_slabs(const Res* h_prev, const float* dgates, float* slabs,
+                     int N, int H, int n_slabs, int rows_per_slab,
+                     cudaStream_t stream) {
+  const int rem = H % 128;
+  if (rem != 0 && rem <= 64)
+    return dw_tiles<1, Res>(h_prev, dgates, slabs, N, H, n_slabs,
+                            rows_per_slab, stream);
+  return dw_tiles<2, Res>(h_prev, dgates, slabs, N, H, n_slabs,
+                          rows_per_slab, stream);
 }
 
-template <int R>
+template <int R, class Res>
+cudaError_t fwd_rows(const float* x_proj, const float* w_hh, const float* h0,
+                     const float* c0, const float* mask, float* ys,
+                     Res* acts, Res* hseq, Res* cseq, float* h_t,
+                     float* c_t, int T, int B, int H, cudaStream_t stream) {
+  return launch_clusters(lstm_train_fwd_kernel<R, Res>, fwd_smem_bytes<R>(H),
+                         B, H, R, 1, stream, x_proj, w_hh, h0, c0, mask, ys,
+                         acts, hseq, cseq, h_t, c_t, T, B, H);
+}
+
+template <int R, class Res>
 cudaError_t bwd_rows(const float* dy, const float* dh_T, const float* dc_T,
-                     const float* acts, const float* c_new_seq,
-                     const float* c_prev_seq, const float* w_hh,
+                     const Res* acts, const Res* c_new_seq,
+                     const Res* c_prev_seq, const float* w_hh,
                      const float* mask, float* dx_proj, float* dh0,
                      float* dc0, int T, int B, int H, cudaStream_t stream) {
-  return launch_clusters(lstm_train_bwd_kernel<R>, bwd_smem_bytes<R>(H), B, H,
-                         R, 1, stream, dy, dh_T, dc_T, acts, c_new_seq,
+  return launch_clusters(lstm_train_bwd_kernel<R, Res>, bwd_smem_bytes<R>(H),
+                         B, H, R, 1, stream, dy, dh_T, dc_T, acts, c_new_seq,
                          c_prev_seq, w_hh, mask, dx_proj, dh0, dc0, T, B, H);
 }
 
-template <int R>
+template <int R, class Res>
 cudaError_t max_clusters_rows(int H, int* out) {
   int fwd = 0, bwd = 0;
-  cudaError_t err = max_clusters(lstm_train_fwd_kernel<R>,
+  cudaError_t err = max_clusters(lstm_train_fwd_kernel<R, Res>,
                                  fwd_smem_bytes<R>(H), H, &fwd);
   if (err != cudaSuccess) return err;
-  err = max_clusters(lstm_train_bwd_kernel<R>, bwd_smem_bytes<R>(H), H, &bwd);
+  err = max_clusters(lstm_train_bwd_kernel<R, Res>, bwd_smem_bytes<R>(H), H,
+                     &bwd);
   *out = fwd < bwd ? fwd : bwd;
   return err;
 }
@@ -696,20 +786,34 @@ cudaError_t max_clusters_rows(int H, int* out) {
 
 extern "C" {
 
-// The caller guarantees: float32, contiguous, T >= 1, B >= 1, H a multiple
-// of 32 in [32, 256], all pointers on the current device. `rows` is the
-// batch rows per cluster (the wrapper's `_train_geometry`).
+// The caller guarantees: float32 (the *_bf16res entries: acts, hseq,
+// cseq, c_new_seq, c_prev_seq and h_prev bf16), contiguous, T >= 1,
+// B >= 1, H a multiple of 32 in [32, 256], all pointers on the current
+// device. `rows` is the batch rows per cluster (the wrapper's
+// `_train_geometry`).
+
+#define FWD(R)                                                             \
+  fwd_rows<R>(x_proj, w_hh, h0, c0, mask, ys, acts, hseq, cseq, h_t, c_t, \
+              T, B, H, static_cast<cudaStream_t>(stream))
+#define BWD(R)                                                           \
+  bwd_rows<R>(dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq, w_hh, mask,   \
+              dx_proj, dh0, dc0, T, B, H, static_cast<cudaStream_t>(stream))
 
 int lstm_train_fwd_f32(const float* x_proj, const float* w_hh,
                        const float* h0, const float* c0, const float* mask,
                        float* ys, float* acts, float* hseq, float* cseq,
                        float* h_t, float* c_t, int T, int B, int H, int rows,
                        void* stream) {
-#define FWD(R)                                                       \
-  fwd_rows<R>(x_proj, w_hh, h0, c0, mask, ys, acts, hseq, cseq, h_t, \
-              c_t, T, B, H, static_cast<cudaStream_t>(stream))
   LSTM_TRAIN_ROWS(rows, FWD)
-#undef FWD
+}
+
+int lstm_train_fwd_bf16res(const float* x_proj, const float* w_hh,
+                           const float* h0, const float* c0,
+                           const float* mask, float* ys, __nv_bfloat16* acts,
+                           __nv_bfloat16* hseq, __nv_bfloat16* cseq,
+                           float* h_t, float* c_t, int T, int B, int H,
+                           int rows, void* stream) {
+  LSTM_TRAIN_ROWS(rows, FWD)
 }
 
 // w_hh is [H, 4H], the forward's layout.
@@ -719,35 +823,53 @@ int lstm_train_bwd_f32(const float* dy, const float* dh_T, const float* dc_T,
                        const float* mask, float* dx_proj, float* dh0,
                        float* dc0, int T, int B, int H, int rows,
                        void* stream) {
-#define BWD(R)                                                           \
-  bwd_rows<R>(dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq, w_hh, mask,   \
-              dx_proj, dh0, dc0, T, B, H, static_cast<cudaStream_t>(stream))
   LSTM_TRAIN_ROWS(rows, BWD)
-#undef BWD
 }
 
+int lstm_train_bwd_bf16res(const float* dy, const float* dh_T,
+                           const float* dc_T, const __nv_bfloat16* acts,
+                           const __nv_bfloat16* c_new_seq,
+                           const __nv_bfloat16* c_prev_seq,
+                           const float* w_hh, const float* mask,
+                           float* dx_proj, float* dh0, float* dc0, int T,
+                           int B, int H, int rows, void* stream) {
+  LSTM_TRAIN_ROWS(rows, BWD)
+}
+
+#undef FWD
+#undef BWD
+
 // The clusters of #7 and of #8's scan at (H, rows) that the current device
-// holds at once (the fewer of the two), into *out.
+// holds at once (the fewer of the two), into *out; of the bf16res
+// instantiations for the second entry.
 int lstm_train_max_clusters(int H, int rows, int* out) {
-#define MAXC(R) max_clusters_rows<R>(H, out)
+#define MAXC(R) max_clusters_rows<R, float>(H, out)
+  LSTM_TRAIN_ROWS(rows, MAXC)
+#undef MAXC
+}
+
+int lstm_train_max_clusters_bf16res(int H, int rows, int* out) {
+#define MAXC(R) max_clusters_rows<R, __nv_bfloat16>(H, out)
   LSTM_TRAIN_ROWS(rows, MAXC)
 #undef MAXC
 }
 
 // h_prev [N, H], dgates [N, 4H] with N = T*B; slabs [n_slabs, H, 4H],
-// slab s summing rows [s*rows_per_slab, (s+1)*rows_per_slab). Tiles of
-// 64 rows of dw_hh where H % 128 is in (0, 64] (H = 64, 160: fewer rows
-// idle), else of 128 (lstm_train_cuda._dw_tile_rows).
+// slab s summing rows [s*rows_per_slab, (s+1)*rows_per_slab).
 int lstm_train_dw_f32(const float* h_prev, const float* dgates, float* slabs,
                       int N, int H, int n_slabs, int rows_per_slab,
                       void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rem = H % 128;
-  if (rem != 0 && rem <= 64)
-    return static_cast<int>(dw_tiles<1>(h_prev, dgates, slabs, N, H,
-                                         n_slabs, rows_per_slab, st));
-  return static_cast<int>(dw_tiles<2>(h_prev, dgates, slabs, N, H, n_slabs,
-                                      rows_per_slab, st));
+  return static_cast<int>(dw_slabs(h_prev, dgates, slabs, N, H, n_slabs,
+                                   rows_per_slab,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+int lstm_train_dw_bf16res(const __nv_bfloat16* h_prev, const float* dgates,
+                          float* slabs, int N, int H, int n_slabs,
+                          int rows_per_slab, void* stream) {
+  return static_cast<int>(dw_slabs(h_prev, dgates, slabs, N, H, n_slabs,
+                                   rows_per_slab,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 const char* lstm_train_error_string(int code) {

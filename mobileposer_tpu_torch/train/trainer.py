@@ -9,7 +9,8 @@ footcontact.py:100, velocity.py:121) and Lightning's ModelCheckpoint top-3
 by validation loss (train.py:48-58).
 
 Every LSTM layer of a train step runs the training kernels (#7 forward,
-#8 backward, `ops/lstm_train_cuda.py`) through `backend='auto_train'`;
+#8 backward, `ops/lstm_train_cuda.py`) through `backend='auto_train'`, or
+with the residuals stored in bf16 through 'auto_train_bf16res';
 validation runs under `torch.no_grad()` on the inference route (the masked
 kernels #3), the counterpart of the JAX package's `backend='xla'`
 validation. Random draws come from explicit `torch.Generator`s, so the
@@ -343,9 +344,12 @@ class TrainingManager:
                  hypers: Optional[C.TrainHypers] = None,
                  dp_impl: str = "gspmd", backend: str = "auto_train",
                  device=None):
-        """backend: 'auto_train' (the training kernels). The JAX package's
-        'auto_train_bf16res' raises NotImplementedError naming its ROADMAP
-        row; its 'xla' has no counterpart here. `mesh` and
+        """backend: 'auto_train' (the training kernels) or
+        'auto_train_bf16res' (the same, residuals stored in bf16; the JAX
+        package runs it on the TPU and resolves it to its float32 XLA path
+        elsewhere, the port's CPU path runs the plain versions with the
+        residuals rounded), used by `train_module` and `train_all` alike.
+        The JAX package's 'xla' has no counterpart here. `mesh` and
         dp_impl='shard_map' are multi-device options and raise."""
         if mesh is not None or dp_impl != "gspmd":
             raise NotImplementedError(

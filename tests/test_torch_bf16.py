@@ -526,8 +526,9 @@ def test_evaluate_pose_bf16_runs_the_masked_bf16_path(cli_env, nets,
 def test_unported_bf16_paths_raise_with_their_rows(weights, nets):
     """int8 on bf16 params runs (quantizing a bf16 cast, the forward and
     the carry step on a quantized tree cast to bf16, the int8 kernels'
-    plain versions with bf16 I/O), in bf16; bf16 training still raises
-    naming ROADMAP item 20 (the training kernels are float32)."""
+    plain versions with bf16 I/O), in bf16; training on bf16 params still
+    raises, under either training backend, naming ROADMAP queue B.4 (the
+    training kernels' bf16-I/O variant)."""
     _, tree16, params, p32 = weights
     _, net = nets
     q = quantize_params_int8(params)
@@ -547,8 +548,8 @@ def test_unported_bf16_paths_raise_with_their_rows(weights, nets):
         x[0, :, :64], x[0, :, :64])
     assert ys.dtype == h_t.dtype == c_t.dtype == BF16
     block = params["velocity"]
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(NotImplementedError, match="B.4"):
         block(torch.zeros(1, 3, 132, dtype=BF16), backend="auto_train")
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(NotImplementedError, match="B.4"):
         block(torch.zeros(1, 3, 132, dtype=BF16),
               backend="auto_train_bf16res")

@@ -188,7 +188,9 @@ def test_auto_mode_and_bad_options(nets, weights):
     frames = torch.zeros(1, 2, 60)
     with pytest.raises(ValueError, match="unknown streaming mode"):
         net.forward_online_sequence_batched(params, st, frames, mode="x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a training backend, bf16 residuals too, is refused by this
+    # inference entry point
+    with pytest.raises(NotImplementedError, match="inference entry point"):
         net.forward_online_sequence_batched(params, st, frames,
                                             backend="auto_train_bf16res")
     # float32 and bfloat16 are the dtypes the port runs

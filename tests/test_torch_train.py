@@ -377,18 +377,22 @@ def test_cli_train_and_combine_run_on_cpu(trained, tmp_path, monkeypatch):
     out = combine_cli.main(["--checkpoint-dir", str(root / "ckpt"),
                             "--out", str(tmp_path / "combined.npz")])
     assert set(load_from_npz(str(out))) == set(trainer.MODULE_NAMES)
-    for flags in (["--finetune", "dip"], ["--bf16-residuals"],
-                  ["--metrics", "tensorboard:tb"]):
+    for flags in (["--finetune", "dip"], ["--metrics", "tensorboard:tb"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_cli.main(["--fast-dev-run", "--device", "cpu",
                             "--checkpoint-dir", str(ckpt), *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         combine_cli.main(["--checkpoint-dir", str(root / "ckpt"),
                           "--export-torch", "x.pth"])
-    for kw in ({"mesh": object()}, {"dp_impl": "shard_map"},
-               {"backend": "auto_train_bf16res"}):
+    for kw in ({"mesh": object()}, {"dp_impl": "shard_map"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trainer.TrainingManager(device="cpu", **kw)
+    # bf16 residuals are ported: the manager takes them, an unknown
+    # backend is refused
+    mgr = trainer.TrainingManager(device="cpu", backend="auto_train_bf16res")
+    assert mgr.backend == "auto_train_bf16res"
+    with pytest.raises(NotImplementedError, match="not ported"):
+        trainer.TrainingManager(device="cpu", backend="xla")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sinks("wandb:proj")
     for cli in (finetune_cli, overfit_cli, process_cli):

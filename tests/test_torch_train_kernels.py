@@ -218,9 +218,9 @@ def test_backward_takes_cotangents_autograd_leaves_out():
     fwd = train_cuda.lstm_train_fwd(*args)
     ctx.saved_tensors = (fwd[1], fwd[2], fwd[3], args[2], args[3], args[1],
                          args[4])
-    dx, dw, dh0, dc0, dmask = train_cuda.LSTMLayerTrain.backward(
+    dx, dw, dh0, dc0, dmask, drdt = train_cuda.LSTMLayerTrain.backward(
         ctx, 2 * fwd[0], None, None)
-    assert dmask is None
+    assert dmask is None and drdt is None
     for a, g in zip(leaves, (dx, dw, dh0, dc0)):
         np.testing.assert_allclose(g.numpy(), a.grad.numpy(), atol=1e-5)
 
@@ -264,7 +264,10 @@ def test_training_wrappers_check_their_inputs():
                                   cseq, hseq, cseq, w_hh, mask)
     assert train_cuda.launches == {"lstm_train_fwd_f32": 0,
                                    "lstm_train_bwd_f32": 0,
-                                   "lstm_train_dw_f32": 0}
+                                   "lstm_train_dw_f32": 0,
+                                   "lstm_train_fwd_bf16res": 0,
+                                   "lstm_train_bwd_bf16res": 0,
+                                   "lstm_train_dw_bf16res": 0}
     # the dW reduction's slabs depend on the shapes only
     assert train_cuda._dw_slabs(125 * 256, 256) == (16, 2000)
     assert train_cuda._dw_slabs(125 * 256, 64) == (125, 256)
