@@ -172,6 +172,20 @@ then runs these phases, each printing JSON lines:
                direct step on the quantized cast, exactly), exact and
                carry, its paced 30 Hz runs at 64 streams, and
                `cli.serve --int8 --bf16` (exact and carry);
+  4h. bundle — the AOT serving bundle (`serving.py`: `torch.export` with
+               the layer kernels as custom ops) of the full model (random
+               weights from seed 0) written to a temporary directory and
+               loaded back: exact float32, int8 and bf16 at 256 streams and
+               carry at 64 over 10 frames against the eager step on the
+               loaded weights (outputs and state, 1e-5; int8 and bf16 at
+               phase 4's gates), the loaded step launching the variant's
+               kernels as often as the eager step (6 bi + 2 uni a frame,
+               none in carry mode); the offline program, float32 and
+               int8, on C3's 64 x 512 group against the eager
+               `forward_offline_batched` (6 + 2 masked launches); export +
+               save, load and first-step seconds, the steady step loaded
+               against eager in turns, the weight archives' sizes (int8
+               under 0.45x float32) and the phase's seconds;
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan; there also on bf16 params, beside the
                float32 rate) and 8 streams (unfolded), then one traced call
@@ -390,6 +404,19 @@ BF16_ULPS = 2
 # on every output, all of magnitude ~1: the JAX package's own bf16 bound
 # on joints (tests/test_extras.py:87-101).
 BF16_SLICE_TOL = 0.05
+# The bundle phase: the loaded program against the eager step on the same
+# weights, state and frames. The graph keeps the eager path's ops
+# (`aten.linear`, the same custom ops' kernels), so 0.0 is expected; the
+# float32 gate is a kernel's (KERNEL_TOL), int8 and bf16 take phase 4's
+# gates. BUNDLE_FRAMES frames a streaming variant, each timed over
+# BUNDLE_TIMED_STEPS steps a turn.
+BUNDLE_TOL = 1e-5
+BUNDLE_FRAMES = 10
+BUNDLE_TIMED_STEPS = 20
+BUNDLE_VARIANTS = (("exact", 256, "float32", None, BUNDLE_TOL),
+                   ("exact", 256, "float32", "int8", INT8_SLICE_TOL),
+                   ("exact", 256, "bfloat16", None, BF16_SLICE_TOL),
+                   ("carry", 64, "float32", None, BUNDLE_TOL))
 # Phase 4f's bf16 evaluation, card against the CPU port (both bf16), on
 # every entry of both tables and every drift window: absolute bounds a
 # few times the largest difference measured on the synthetic fixture
@@ -3194,6 +3221,188 @@ def phase_bf16_serving(torch, lstm_cuda, smi, quantize=None):
     return serving_launches
 
 
+def _tree_max_abs(torch, a, b) -> float:
+    """Max abs difference over every tensor leaf of two output/state
+    trees of the same structure."""
+    from torch.utils import _pytree as pytree
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    require(len(la) == len(lb), "trees of different structure")
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(la, lb))
+
+
+def phase_bundle(torch, lstm_cuda):
+    """The AOT serving bundle (`serving.py`) on the card, written to a
+    temporary directory and loaded back, with the full model (random
+    weights from seed 0): exact float32, int8 and bf16 at 256 streams and
+    carry at 64 over BUNDLE_FRAMES frames against the eager step on the
+    loaded weights (outputs and state), the loaded step's launches equal
+    to the eager step's and to the expected counts of the variant's own
+    entries; export + save, load and first-step seconds, and the steady
+    step in ms, loaded against eager in turns (CUDA events); then the
+    offline program, float32 and int8, on C3's 64 x 512 ragged group
+    against the eager `forward_offline_batched`; the archive sizes.
+    Returns {kernel: launches in the loaded runs}."""
+    import numpy as np
+    from mobileposer_tpu_torch import bench, serving
+    from mobileposer_tpu_torch.evaluation.pose_eval import \
+        forward_offline_batched
+    from mobileposer_tpu_torch.nn.convert import cast_params
+
+    _, net, params = bench._net(0, "cuda")
+    N, BF = BUNDLE_FRAMES, torch.bfloat16
+    launches = dict.fromkeys(lstm_cuda.launches, 0)
+    sizes = {}
+    tmp = tempfile.TemporaryDirectory(prefix="bundle_")
+    try:
+        for mode, S, dtype_name, quantize, tol in BUNDLE_VARIANTS:
+            name = f"{mode}_{dtype_name}_{quantize or 'float'}"
+            dtype = getattr(torch, dtype_name)
+            p_in = params if dtype == torch.float32 else \
+                cast_params(params, dtype)
+            t0 = time.perf_counter()
+            out_dir = serving.save_bundle(
+                Path(tmp.name) / name, net, p_in, n_streams=S, mode=mode,
+                dtype=dtype, quantize=quantize)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            step, p, st0, meta = serving.load_bundle(out_dir)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            require(meta["device"] == "cuda" and p["joints"].linear1.weight
+                    .is_cuda, f"bundle {name} loaded off the card")
+            sizes[name] = os.path.getsize(out_dir / serving._WEIGHTS_FILE)
+            frames = torch.from_numpy((np.random.RandomState(31).randn(
+                N, S, 60) * 0.1).astype(np.float32)).to(net.device, dtype)
+            eager_fn = (net.forward_carry_batched if mode == "carry"
+                        else net.forward_online_batched)
+            runs = {}
+            with torch.no_grad():
+                for which, fn in (("loaded", step), ("eager", eager_fn)):
+                    st = serving._fresh_state(net, S, mode, dtype)
+                    outs = []
+                    lstm_cuda.reset_launches()
+                    t0 = time.perf_counter()
+                    for i in range(N):
+                        out, st = fn(p, st, frames[i])
+                        outs.append((out, st))
+                        if i == 0:
+                            torch.cuda.synchronize()
+                            first_s = time.perf_counter() - t0
+                    torch.cuda.synchronize()
+                    runs[which] = (outs, dict(lstm_cuda.launches), first_s)
+                diff = max(_tree_max_abs(torch, a, b) for a, b in
+                           zip(runs["loaded"][0], runs["eager"][0]))
+                moved = runs["loaded"][1]
+                expect = dict.fromkeys(lstm_cuda.launches, 0)
+                if mode == "exact":
+                    sfx = ("_int8" + ("_bf16" if dtype == BF else "")
+                           if quantize else
+                           "_bf16" if dtype == BF else "_f32")
+                    expect[f"bilstm_scan{sfx}"] = 6 * N
+                    expect[f"lstm_scan{sfx}"] = 2 * N
+                for k, n in moved.items():
+                    launches[k] += n
+                # the steady step, loaded and eager in turns, on a fixed
+                # state and frame
+                st = serving._fresh_state(net, S, mode, dtype)
+                times = {"loaded": [], "eager": []}
+                for which in ("loaded", "eager", "eager", "loaded"):
+                    fn = step if which == "loaded" else eager_fn
+                    times[which].append(time_ms(
+                        lambda: fn(p, st, frames[0]), BUNDLE_TIMED_STEPS))
+            loaded_ms = min(times["loaded"])
+            eager_ms = min(times["eager"])
+            emit({"phase": "bundle", "name": name, "mode": mode,
+                  "streams": S, "dtype": dtype_name,
+                  "quantize": quantize, "frames": N,
+                  "export_save_s": export_s, "load_s": load_s,
+                  "first_step_s": runs["loaded"][2],
+                  "eager_first_step_s": runs["eager"][2],
+                  "max_abs_vs_eager": diff, "gate": tol,
+                  "launches": {k: n for k, n in moved.items() if n},
+                  "eager_launches": {k: n for k, n in
+                                     runs["eager"][1].items() if n},
+                  "step_ms_loaded": times["loaded"],
+                  "step_ms_eager": times["eager"],
+                  "loaded_over_eager": loaded_ms / eager_ms,
+                  "weights_bytes": sizes[name]})
+            require(diff <= tol, f"bundle {name}: loaded step {diff} from "
+                                 f"the eager step (gate {tol})")
+            require(moved == runs["eager"][1] == expect,
+                    f"bundle {name}: launches {moved}, eager "
+                    f"{runs['eager'][1]}, expected {expect}")
+
+        # the offline program on C3's group, float32 and int8
+        _, net, params, imu, lengths, _ = bench._offline_setup(64, 512, 0,
+                                                               "cuda")
+        B, T = imu.shape[:2]
+        for quantize in (None, "int8"):
+            name = f"offline_float32_{quantize or 'float'}"
+            t0 = time.perf_counter()
+            out_dir = serving.save_bundle(
+                Path(tmp.name) / name, net, params, n_streams=B,
+                mode="offline", seq_len=T, quantize=quantize)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            step, p, _, meta = serving.load_bundle(out_dir)
+            load_s = time.perf_counter() - t0
+            sizes[name] = os.path.getsize(out_dir / serving._WEIGHTS_FILE)
+            runs = {}
+            with torch.no_grad():
+                for which, fn in (
+                        ("loaded", lambda: step(p, imu, lengths)),
+                        ("eager", lambda: forward_offline_batched(
+                            net, p, imu, lengths))):
+                    lstm_cuda.reset_launches()
+                    t0 = time.perf_counter()
+                    out = fn()
+                    torch.cuda.synchronize()
+                    runs[which] = (out, dict(lstm_cuda.launches),
+                                   time.perf_counter() - t0)
+                diff = _tree_max_abs(torch, runs["loaded"][0],
+                                     runs["eager"][0])
+                times = {"loaded": [], "eager": []}
+                for which in ("loaded", "eager", "eager", "loaded"):
+                    f = (lambda: step(p, imu, lengths)) \
+                        if which == "loaded" else \
+                        (lambda: forward_offline_batched(net, p, imu,
+                                                         lengths))
+                    times[which].append(time_ms(f, 3, warmup=1))
+            moved = runs["loaded"][1]
+            sfx = "_int8" if quantize else "_f32"
+            expect = dict.fromkeys(lstm_cuda.launches, 0)
+            expect[f"bilstm_scan_masked{sfx}"] = 6
+            expect[f"lstm_scan_masked{sfx}"] = 2
+            for k, n in moved.items():
+                launches[k] += n
+            emit({"phase": "bundle", "name": name, "mode": "offline",
+                  "batch": B, "seq_len": T, "quantize": quantize,
+                  "export_save_s": export_s, "load_s": load_s,
+                  "first_call_s": runs["loaded"][2],
+                  "max_abs_vs_eager": diff, "gate": BUNDLE_TOL,
+                  "launches": {k: n for k, n in moved.items() if n},
+                  "eager_launches": {k: n for k, n in
+                                     runs["eager"][1].items() if n},
+                  "call_ms_loaded": times["loaded"],
+                  "call_ms_eager": times["eager"],
+                  "loaded_over_eager": min(times["loaded"])
+                  / min(times["eager"]),
+                  "weights_bytes": sizes[name]})
+            require(diff <= BUNDLE_TOL, f"bundle {name}: {diff} from the "
+                                        "eager forward")
+            require(moved == runs["eager"][1] == expect,
+                    f"bundle {name}: launches {moved}, eager "
+                    f"{runs['eager'][1]}, expected {expect}")
+    finally:
+        tmp.cleanup()
+    ratio = sizes["exact_float32_int8"] / sizes["exact_float32_float"]
+    emit({"phase": "bundle_sizes", "weights_bytes": sizes,
+          "int8_over_float32": ratio})
+    require(ratio < 0.45, f"the int8 archive is {ratio} of the float32 one")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3345,6 +3554,11 @@ def main() -> int:
         serving_by_kernel[name] = int8_bf16_serving[name]
         require(int8_bf16_serving[name] > 0,
                 f"{name} was never launched by the int8 bf16 server")
+    # 4h. the AOT serving bundle: exported, saved, loaded and run (its
+    # loaded runs: the bundle counters)
+    t0 = time.perf_counter()
+    bundle_launches = phase_bundle(torch, lstm_cuda)
+    emit({"phase": "bundle_seconds", "seconds": time.perf_counter() - t0})
     main_launches = {
         **{k: n for k, n in stream_launches.items() if k.endswith("f32")
            and "masked" not in k},
@@ -3515,6 +3729,7 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], **extra,
             "serving_launches": serving_by_kernel.get(name, 0),
+            "bundle_launches": bundle_launches.get(name, 0),
             "shape": {"T": T, "B": B, "H": main["H"]}})
     emit({"kernels": ported,
           "online_eval_launches": online_launches,

@@ -3,10 +3,11 @@ of `mobileposer_tpu/cli/combine_weights.py`; reference CLI:
 mobileposer/combine_weights.py).
 
     python -m mobileposer_tpu_torch.cli.combine_weights --checkpoint-dir D
+        [--export-torch model.pth]
 
-Reads and writes the JAX package's `.npz` layout. `--export-torch` (a
-reference-format `.pth`) raises NotImplementedError naming its ROADMAP
-row.
+Reads and writes the JAX package's `.npz` layout; `--export-torch` also
+writes the combined weights as a reference-format torch state_dict
+(`nn.torch_convert.save_torch_checkpoint`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from mobileposer_tpu_torch.nn.convert import load_npz
+from mobileposer_tpu_torch.nn.torch_convert import save_torch_checkpoint
 from mobileposer_tpu_torch.train import combine_weights
 
 
@@ -24,15 +27,19 @@ def main(argv=None) -> Path:
     parser.add_argument("--finetune", default=None,
                         help="take joints/poser from finetuned_<dataset>")
     parser.add_argument("--export-torch", default=None, metavar="PATH",
-                        help="not ported (ROADMAP.md queue A item 17)")
+                        help="also write the combined weights as a "
+                             "reference-format torch state_dict "
+                             "(combine_weights.py:41-56 layout) so the "
+                             "reference implementation can evaluate a "
+                             "checkpoint trained here")
     args = parser.parse_args(argv)
-    if args.export_torch:
-        raise NotImplementedError(
-            "--export-torch (reference-format .pth) is not ported "
-            "(ROADMAP.md queue A item 17)")
     out = combine_weights(args.checkpoint_dir, args.out,
                           finetune=args.finetune)
     print(f"Model written to {out}.")
+    if args.export_torch:
+        save_torch_checkpoint(load_npz(out), args.export_torch)
+        print(f"Reference-format torch checkpoint written to "
+              f"{args.export_torch}.")
     return out
 
 

@@ -5,7 +5,8 @@
         --dataset {dip,totalcapture,imuposer,synthetic} [--combo lw_rp] \\
         [--online] [--tran] [--int8 | --bf16] [--device cpu]
 
-Weights are the JAX package's `.npz` archives. Runs on the CUDA card
+Weights are the JAX package's `.npz` archives or the reference's torch
+checkpoints (`.pth`, `models.utils.load_model`). Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
 versions). `--int8` quantizes the LSTM matmuls to W8A8 after loading, as
 the JAX CLI does (`ops.quant.quantize_params_int8`; every LSTM layer on
@@ -26,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import os
-from pathlib import Path
 
 import torch
 
@@ -36,7 +36,8 @@ from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.evaluation import evaluate_pose
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
-from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+from mobileposer_tpu_torch.models.utils import load_model
+from mobileposer_tpu_torch.nn.convert import params_from_jax
 from mobileposer_tpu_torch.nn.lstm import cast_params
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 
@@ -58,7 +59,8 @@ def main(argv=None) -> dict:
     result dict."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", required=True,
-                        help="combined weights (.npz from the JAX package)")
+                        help="combined weights (.npz from the JAX package, "
+                             "or the reference's .pth)")
     parser.add_argument("--dataset", default="dip",
                         choices=list(C.datasets.test_datasets.keys())
                         + ["synthetic"],
@@ -94,11 +96,6 @@ def main(argv=None) -> dict:
                              "--bf16 and both --online-mode values")
     args = parser.parse_args(argv)
 
-    if Path(args.model).suffix != ".npz":
-        raise NotImplementedError(
-            f"{args.model}: only the JAX package's .npz archives load; a "
-            "torch checkpoint loader is not ported (ROADMAP.md queue A "
-            "item 17)")
     device = resolve_device(args.device)
     # the JAX CLI builds a mesh only over more than one device
     if (args.data_parallel and device.type == "cuda"
@@ -108,7 +105,7 @@ def main(argv=None) -> dict:
             "(ROADMAP.md queue A item 16)")
     net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
         C.paths.smpl_file), device=device)
-    params = params_from_jax(load_npz(args.model), device=net.device)
+    params = params_from_jax(load_model(args.model), device=net.device)
     if args.int8:
         if args.bf16:
             # the JAX CLI's order: cast first, so the scales stay float32

@@ -5,7 +5,8 @@
         [--port 9000] [--max-streams 64] [--tick-hz 30] [--carry] \\
         [--int8 | --bf16] [--wire f16] [--no-pipeline] [--device cpu]
 
-Weights are the JAX package's `.npz` archives. Runs on the CUDA card
+Weights are the JAX package's `.npz` archives or the reference's torch
+checkpoints (`.pth`, `models.utils.load_model`). Runs on the CUDA card
 unless `--device` names another device (`cpu` runs the kernels' plain
 versions). `--bf16` casts the loaded params to bfloat16
 (`nn.convert.cast_params`, as the JAX CLI does): the server then runs its
@@ -13,17 +14,15 @@ state, frames and step in bf16, exact and carry mode. `--int8 --bf16`
 casts first and hands `quantize="int8"` to the server, which quantizes
 the bf16 cast (int8 on bf16 params, the JAX package's serving
 configuration). `--data-parallel` serves on the one device when one is
-visible, as the JAX CLI does with one device. A `.pth` checkpoint and
-`--data-parallel` over more than one CUDA device are accepted as the JAX
-CLI accepts them and raise NotImplementedError naming the ROADMAP row
-that adds them.
+visible, as the JAX CLI does with one device; over more than one CUDA
+device it is accepted as the JAX CLI accepts it and raises
+NotImplementedError naming the ROADMAP row that adds it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-from pathlib import Path
 
 import torch
 
@@ -31,18 +30,13 @@ from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
-from mobileposer_tpu_torch.nn.convert import (cast_params, load_npz,
-                                              params_from_jax)
+from mobileposer_tpu_torch.models.utils import load_model
+from mobileposer_tpu_torch.nn.convert import cast_params, params_from_jax
 from mobileposer_tpu_torch.stream import PoseServer
 
 
 def build_server(args) -> PoseServer:
     """The server the parsed arguments describe (bound, not running)."""
-    if Path(args.model).suffix != ".npz":
-        raise NotImplementedError(
-            f"{args.model}: only the JAX package's .npz archives load; a "
-            "torch checkpoint loader is not ported (ROADMAP.md queue A "
-            "item 17)")
     device = resolve_device(args.device)
     # the JAX CLI builds a mesh only over more than one device
     if (args.data_parallel and device.type == "cuda"
@@ -52,7 +46,7 @@ def build_server(args) -> PoseServer:
             "(ROADMAP.md queue A item 16)")
     net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
         C.paths.smpl_file), device=device)
-    params = params_from_jax(load_npz(args.model), device=net.device)
+    params = params_from_jax(load_model(args.model), device=net.device)
     if args.bf16:
         params = cast_params(params, torch.bfloat16)
     return PoseServer(net, params, host=args.host, port=args.port,
@@ -68,7 +62,8 @@ def main(argv=None) -> dict:
     server's `stats()`."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", required=True,
-                        help="combined weights (.npz from the JAX package)")
+                        help="combined weights (.npz from the JAX package, "
+                             "or the reference's .pth)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=9000)
     parser.add_argument("--max-streams", type=int, default=64)

@@ -2,7 +2,7 @@
 `mobileposer_tpu/cli/train.py`; reference CLI: mobileposer/train.py:116-154).
 
     python -m mobileposer_tpu_torch.cli.train [--module poser] [--concurrent]
-        [--init-from weights.npz] [--fast-dev-run] [--checkpoint-dir D]
+        [--init-from weights.npz|model.pth] [--fast-dev-run] [--checkpoint-dir D]
         [--combine] [--resume] [--metrics jsonl:p,csv:p] [--bf16-residuals]
         [--device cpu]
 
@@ -24,7 +24,7 @@ from pathlib import Path
 from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.data import PoseDataset
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
-from mobileposer_tpu_torch.nn.convert import load_npz
+from mobileposer_tpu_torch.models.utils import load_model
 from mobileposer_tpu_torch.train import (MODULE_NAMES, TrainingManager,
                                          combine_weights, get_checkpoint_path)
 
@@ -37,7 +37,8 @@ def main(argv=None) -> Path:
     parser.add_argument("--finetune", default=None,
                         help="not ported (ROADMAP.md queue A item 24)")
     parser.add_argument("--init-from", default=None,
-                        help="combined weights .npz to initialize from")
+                        help="combined weights (.npz, or the reference's "
+                             ".pth) to initialize from")
     parser.add_argument("--fast-dev-run", action="store_true")
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--combine", action="store_true",
@@ -78,7 +79,7 @@ def main(argv=None) -> Path:
                          f"{C.paths.processed_datasets}")
     ckpt_path = (Path(args.checkpoint_dir) if args.checkpoint_dir
                  else get_checkpoint_path())
-    init_params = load_npz(args.init_from) if args.init_from else None
+    init_params = load_model(args.init_from) if args.init_from else None
 
     if args.concurrent:
         print("-" * 50)

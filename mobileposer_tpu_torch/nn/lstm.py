@@ -231,14 +231,18 @@ def check_lengths(lengths, B: int, T: int, device) -> torch.Tensor:
 
     Host values (a list, an array, a CPU tensor) must lie in [0, T]. A
     tensor already on the card is taken as it is: reading its values
-    would wait for the device at every layer.
+    would wait for the device at every layer. While `torch.export`
+    traces, the values are not known and only the dtype and shape are
+    checked: the exported program's caller checks the values
+    (`serving.load_bundle`).
     """
     lengths = torch.as_tensor(lengths)
     if lengths.dtype.is_floating_point or lengths.shape != (B,):
         raise ValueError(f"lengths must be integers of shape ({B},), got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")
-    if lengths.device.type == "cpu" and not bool(
-            ((lengths >= 0) & (lengths <= T)).all()):
+    if (lengths.device.type == "cpu" and not torch.compiler.is_compiling()
+            and not bool(
+            ((lengths >= 0) & (lengths <= T)).all())):
         raise ValueError(f"lengths must lie in [0, {T}], got "
                          f"{lengths.tolist()}")
     return lengths.to(device=device, dtype=torch.int64)

@@ -57,6 +57,12 @@ the mask in the activations' dtype, the backward direction
 pre-reversed in time (per length, with `lengths`) and its outputs
 un-reversed after the kernel. The dtype of w_ih picks the float or the
 int8 kernels, layer by layer.
+
+The eight wrappers are also `torch.library` custom ops
+(`mobileposer_tpu_torch::lstm_layer`, ...; `OPS`) with fake
+implementations, so an exported program (`serving.py`) holds each layer
+scan as one node that launches the same kernel. Importing this module
+registers them; it builds nothing.
 """
 
 from __future__ import annotations
@@ -593,6 +599,165 @@ def bilstm_layer_masked_int8(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The eight wrappers as torch.library custom ops, for `torch.export`
+# (`serving.py`): a ctypes launch is opaque to tracing, an op is a node of
+# the exported graph. Each op calls its wrapper, so it picks the entry by
+# the I/O dtype, launches the kernel (counted in `launches`) on CUDA
+# tensors and runs the plain version on CPU tensors, as the wrapper does;
+# its fake implementation gives the outputs' shapes and dtype. The outputs
+# are flat: ys per direction, then h_T and c_T per direction, all in
+# x_proj's dtype. Eager code calls the wrappers directly (no dispatcher on
+# the per-frame path); `lstm_forward_cuda` takes the ops only while
+# tracing.
+# ---------------------------------------------------------------------------
+
+_OP_NAMESPACE = "mobileposer_tpu_torch"
+Tensor = torch.Tensor
+
+
+def _fake_outputs(x_proj: Tensor, n_dir: int):
+    T, B, H4 = x_proj.shape
+    ys = [x_proj.new_empty((T, B, H4 // 4)) for _ in range(n_dir)]
+    return (*ys, *(x_proj.new_empty((B, H4 // 4)) for _ in range(2 * n_dir)))
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::lstm_layer", mutates_args=())
+def lstm_layer_op(x_proj: Tensor, w_hh: Tensor, h0: Tensor,
+                  c0: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """`lstm_layer` (kernel #2) as an op: (ys, h_T, c_T)."""
+    ys, hc = lstm_layer(x_proj, w_hh, h0, c0)
+    return ys, *hc
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::bilstm_layer", mutates_args=())
+def bilstm_layer_op(x_proj_f: Tensor, x_proj_b: Tensor, w_hh_f: Tensor,
+                    w_hh_b: Tensor, h0f: Tensor, c0f: Tensor, h0b: Tensor,
+                    c0b: Tensor
+                    ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """`bilstm_layer` (kernel #1) as an op: (ys_f, ys_b, h_f, c_f, h_b,
+    c_b)."""
+    ys_f, ys_b, hc_f, hc_b = bilstm_layer(x_proj_f, x_proj_b, w_hh_f,
+                                          w_hh_b, h0f, c0f, h0b, c0b)
+    return ys_f, ys_b, *hc_f, *hc_b
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::lstm_layer_masked",
+                         mutates_args=())
+def lstm_layer_masked_op(x_proj: Tensor, w_hh: Tensor, h0: Tensor,
+                         c0: Tensor, mask: Tensor
+                         ) -> tuple[Tensor, Tensor, Tensor]:
+    """`lstm_layer_masked` (kernel #3) as an op."""
+    ys, hc = lstm_layer_masked(x_proj, w_hh, h0, c0, mask)
+    return ys, *hc
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::bilstm_layer_masked",
+                         mutates_args=())
+def bilstm_layer_masked_op(x_proj_f: Tensor, x_proj_b: Tensor,
+                           w_hh_f: Tensor, w_hh_b: Tensor, h0f: Tensor,
+                           c0f: Tensor, h0b: Tensor, c0b: Tensor,
+                           mask: Tensor) -> tuple[Tensor, Tensor, Tensor,
+                                                  Tensor, Tensor, Tensor]:
+    """`bilstm_layer_masked` (kernel #3, both directions) as an op."""
+    ys_f, ys_b, hc_f, hc_b = bilstm_layer_masked(
+        x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b, mask)
+    return ys_f, ys_b, *hc_f, *hc_b
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::lstm_layer_int8",
+                         mutates_args=())
+def lstm_layer_int8_op(x_proj: Tensor, w_hh: Tensor, w_scale: Tensor,
+                       h0: Tensor, c0: Tensor
+                       ) -> tuple[Tensor, Tensor, Tensor]:
+    """`lstm_layer_int8` (kernel #4) as an op."""
+    ys, hc = lstm_layer_int8(x_proj, w_hh, w_scale, h0, c0)
+    return ys, *hc
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::bilstm_layer_int8",
+                         mutates_args=())
+def bilstm_layer_int8_op(x_proj_f: Tensor, x_proj_b: Tensor, w_hh_f: Tensor,
+                         w_hh_b: Tensor, w_scale_f: Tensor, w_scale_b: Tensor,
+                         h0f: Tensor, c0f: Tensor, h0b: Tensor, c0b: Tensor
+                         ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor,
+                                    Tensor]:
+    """`bilstm_layer_int8` (kernel #6) as an op."""
+    ys_f, ys_b, hc_f, hc_b = bilstm_layer_int8(
+        x_proj_f, x_proj_b, w_hh_f, w_hh_b, w_scale_f, w_scale_b, h0f, c0f,
+        h0b, c0b)
+    return ys_f, ys_b, *hc_f, *hc_b
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::lstm_layer_masked_int8",
+                         mutates_args=())
+def lstm_layer_masked_int8_op(x_proj: Tensor, w_hh: Tensor, w_scale: Tensor,
+                              h0: Tensor, c0: Tensor, mask: Tensor
+                              ) -> tuple[Tensor, Tensor, Tensor]:
+    """`lstm_layer_masked_int8` (kernel #5) as an op."""
+    ys, hc = lstm_layer_masked_int8(x_proj, w_hh, w_scale, h0, c0, mask)
+    return ys, *hc
+
+
+@torch.library.custom_op(f"{_OP_NAMESPACE}::bilstm_layer_masked_int8",
+                         mutates_args=())
+def bilstm_layer_masked_int8_op(x_proj_f: Tensor, x_proj_b: Tensor,
+                                w_hh_f: Tensor, w_hh_b: Tensor,
+                                w_scale_f: Tensor, w_scale_b: Tensor,
+                                h0f: Tensor, c0f: Tensor, h0b: Tensor,
+                                c0b: Tensor, mask: Tensor
+                                ) -> tuple[Tensor, Tensor, Tensor, Tensor,
+                                           Tensor, Tensor]:
+    """`bilstm_layer_masked_int8` (kernel #5, both directions) as an op."""
+    ys_f, ys_b, hc_f, hc_b = bilstm_layer_masked_int8(
+        x_proj_f, x_proj_b, w_hh_f, w_hh_b, w_scale_f, w_scale_b, h0f, c0f,
+        h0b, c0b, mask)
+    return ys_f, ys_b, *hc_f, *hc_b
+
+
+#: every op, with its number of directions
+OPS = {lstm_layer_op: 1, bilstm_layer_op: 2, lstm_layer_masked_op: 1,
+       bilstm_layer_masked_op: 2, lstm_layer_int8_op: 1,
+       bilstm_layer_int8_op: 2, lstm_layer_masked_int8_op: 1,
+       bilstm_layer_masked_int8_op: 2}
+for _op, _n_dir in OPS.items():
+    _op.register_fake(lambda x_proj, *args, _n_dir=_n_dir:
+                      _fake_outputs(x_proj, _n_dir))
+
+
+def _bi_via(op):
+    """A bidirectional layer function with the wrappers' return layout
+    that calls `op`."""
+    def layer(*args):
+        ys_f, ys_b, h_f, c_f, h_b, c_b = op(*args)
+        return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
+    return layer
+
+
+def _uni_via(op):
+    """The same for a unidirectional layer."""
+    def layer(*args):
+        ys, h_t, c_t = op(*args)
+        return ys, (h_t, c_t)
+    return layer
+
+
+#: (bi, uni) layer functions by (masked, int8): the wrappers, eager
+_ROUTES = {(False, False): (bilstm_layer, lstm_layer),
+           (True, False): (bilstm_layer_masked, lstm_layer_masked),
+           (False, True): (bilstm_layer_int8, lstm_layer_int8),
+           (True, True): (bilstm_layer_masked_int8, lstm_layer_masked_int8)}
+#: the same through the ops, while tracing
+_OP_ROUTES = {
+    (False, False): (_bi_via(bilstm_layer_op), _uni_via(lstm_layer_op)),
+    (True, False): (_bi_via(bilstm_layer_masked_op),
+                    _uni_via(lstm_layer_masked_op)),
+    (False, True): (_bi_via(bilstm_layer_int8_op),
+                    _uni_via(lstm_layer_int8_op)),
+    (True, True): (_bi_via(bilstm_layer_masked_int8_op),
+                   _uni_via(lstm_layer_masked_int8_op))}
+
+
+# ---------------------------------------------------------------------------
 # Multi-layer forward
 # ---------------------------------------------------------------------------
 
@@ -623,6 +788,8 @@ def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
     of each kernel: #4 and #6 full-length (the JAX package sends its
     unidirectional full-length layers to an XLA scan; #4 computes the
     same), #5 masked. See `nn.lstm.lstm_forward` for the argument layout.
+    Under `torch.export` (`torch.compiler.is_compiling()`) each layer
+    calls its wrapper's custom op instead, the same computation.
     """
     if time_major:
         T, B, _ = x.shape
@@ -638,12 +805,7 @@ def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
         h0_all, c0_all = (t.contiguous() for t in h0c0)
 
     xs = x if time_major else x.transpose(0, 1)        # [T, B, D]
-    # (bi, uni) layer functions by (masked, int8)
-    routes = {(False, False): (bilstm_layer, lstm_layer),
-              (True, False): (bilstm_layer_masked, lstm_layer_masked),
-              (False, True): (bilstm_layer_int8, lstm_layer_int8),
-              (True, True): (bilstm_layer_masked_int8,
-                             lstm_layer_masked_int8)}
+    routes = _OP_ROUTES if torch.compiler.is_compiling() else _ROUTES
     extra = () if lengths is None else (length_mask(lengths, T, x.dtype),)
     h_finals, c_finals = [], []
     for li, layer in enumerate(layers):

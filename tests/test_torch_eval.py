@@ -41,7 +41,8 @@ from mobileposer_tpu_torch.evaluation import pose_eval
 from mobileposer_tpu_torch.kinematics import ParametricModel
 from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.models import MobilePoserNet
-from mobileposer_tpu_torch.nn.convert import params_from_jax
+from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+from mobileposer_tpu_torch.nn.torch_convert import save_torch_checkpoint
 
 _FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                         "demo_checkpoint_f16.npz")
@@ -306,14 +307,20 @@ def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
     for name in pose_eval.METRIC_NAMES:
         assert name in out
     assert res["offline"].shape == (8, 2) and "translation drift" in out
+    table = res["offline"]
     # --int8 --bf16 (int8 on bf16 params) evaluates too
     # (tests/test_torch_int8_bf16.py holds it to the JAX CLI)
     res = eval_cli.main(["--model", _FIXTURE, "--dataset", "synthetic",
                          "--device", "cpu", "--int8", "--bf16"])
     assert res["offline"].shape == (8, 2)
     assert np.all(np.isfinite(res["offline"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eval_cli.main(["--model", "model.pth", "--device", "cpu"])
+    # the reference's .pth of the same weights evaluates to the same table
+    # (tests/test_torch_torch_convert.py holds the loader to the JAX one)
+    pth = eval_files[0].parent / "model.pth"
+    save_torch_checkpoint(load_npz(_FIXTURE), pth)
+    res_pth = eval_cli.main(["--model", str(pth), "--dataset", "synthetic",
+                             "--tran", "--device", "cpu"])
+    np.testing.assert_array_equal(res_pth["offline"], table)
 
 
 def test_cli_evaluate_data_parallel_on_one_device(eval_files, bodies,

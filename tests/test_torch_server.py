@@ -36,7 +36,8 @@ from mobileposer_tpu_torch.kinematics import ParametricModel
 from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
 from mobileposer_tpu_torch.native import ServingUDP, parse_packet
-from mobileposer_tpu_torch.nn.convert import params_from_jax
+from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+from mobileposer_tpu_torch.nn.torch_convert import save_torch_checkpoint
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
 from mobileposer_tpu_torch.stream import (REPLY_STRUCT, REPLY_STRUCT_F16,
                                           REQUEST_STRUCT, Pacer, PoseClient,
@@ -719,10 +720,11 @@ def test_cli_serve_runs_on_cpu(flags, capsys):
     assert stats.get("pipelined", False) == ("--no-pipeline" not in flags)
 
 
-def test_cli_serve_out_of_slice_options_raise(monkeypatch):
-    """A .pth and --data-parallel over more than one CUDA device raise
-    naming their ROADMAP rows; `--int8 --bf16` serves: the server takes
-    the bf16 cast and quantizes it (int8 on bf16 params)."""
+def test_cli_serve_out_of_slice_options_raise(monkeypatch, tmp_path):
+    """--data-parallel over more than one CUDA device raises naming its
+    ROADMAP row; a .pth (the reference's checkpoint) serves the weights
+    it holds; `--int8 --bf16` serves: the server takes the bf16 cast and
+    quantizes it (int8 on bf16 params)."""
     base = ["--model", _FIXTURE, "--port", "0", "--duration", "0.1",
             "--device", "cpu"]
     built = []
@@ -738,8 +740,14 @@ def test_cli_serve_out_of_slice_options_raise(monkeypatch):
         stats = serve_cli.main(base + ["--int8", "--bf16"])
     assert stats["quantize"] == "int8" and stats["frames_served"] == 0
     assert built == [(torch.bfloat16, torch.int8)]
-    with pytest.raises(NotImplementedError, match="queue A item 17"):
-        serve_cli.main(["--model", "model.pth", "--device", "cpu"])
+    pth = tmp_path / "model.pth"
+    save_torch_checkpoint(load_npz(_FIXTURE), pth)
+    with monkeypatch.context() as mp:
+        mp.setattr(serve_cli, "PoseServer", Recorded)
+        served = serve_cli.main(["--model", str(pth), "--port", "0",
+                                 "--duration", "0.1", "--device", "cpu"])
+    assert served["frames_served"] == 0
+    assert built[-1] == (torch.float32, torch.float32)
     # --data-parallel with one device serves on it, as the JAX CLI does
     assert serve_cli.main(base + ["--data-parallel"])["frames_served"] == 0
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)

@@ -364,8 +364,8 @@ def test_train_all_checkpoints_load_in_jax_and_resume(trained, bodies):
 def test_cli_train_and_combine_run_on_cpu(trained, tmp_path, monkeypatch):
     """`cli.train --module footcontact --fast-dev-run` (train_module) and
     `cli.combine_weights` run; the combined file loads in the JAX
-    package; the options this slice leaves out raise naming their
-    ROADMAP row."""
+    package, and `--export-torch` writes its reference-format .pth; the
+    options this slice leaves out raise naming their ROADMAP row."""
     root = trained[0]
     monkeypatch.setenv("MP_PROCESSED", str(root / "data"))
     ckpt = tmp_path / "ckpt"
@@ -381,9 +381,15 @@ def test_cli_train_and_combine_run_on_cpu(trained, tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_cli.main(["--fast-dev-run", "--device", "cpu",
                             "--checkpoint-dir", str(ckpt), *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        combine_cli.main(["--checkpoint-dir", str(root / "ckpt"),
-                          "--export-torch", "x.pth"])
+    # --export-torch writes the reference-format .pth of the combined
+    # weights (tests/test_torch_torch_convert.py holds it to the JAX CLI)
+    combine_cli.main(["--checkpoint-dir", str(root / "ckpt"), "--out",
+                      str(tmp_path / "combined2.npz"), "--export-torch",
+                      str(tmp_path / "x.pth")])
+    sd = torch.load(tmp_path / "x.pth", weights_only=True)
+    np.testing.assert_array_equal(
+        sd["pose.pose.linear1.weight"].numpy(),
+        load_from_npz(str(out))["poser"]["linear1"]["w"].T)
     for kw in ({"mesh": object()}, {"dp_impl": "shard_map"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             trainer.TrainingManager(device="cpu", **kw)
