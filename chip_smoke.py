@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's streaming, evaluation, training, fused
 single-window and serving paths on one CUDA card, in float32, W8A8,
-bfloat16 and W8A8 on bfloat16 params, and training on bf16 residuals.
+bfloat16 and W8A8 on bfloat16 params, training on bf16 residuals, and
+the offline recipe (raw-data processing, finetune, example, overfit).
 
     python3 chip_smoke.py
 
@@ -186,6 +187,33 @@ then runs these phases, each printing JSON lines:
                save, load and first-step seconds, the steady step loaded
                against eager in turns, the weight archives' sizes (int8
                under 0.45x float32) and the phase's seconds;
+  4i. recipe — the offline recipe at full width (the 6,890-vertex body,
+               the full model): raw-format fixtures at the public
+               datasets' sizes (AMASS 8 x 2,400 frames at 120 Hz, 2 at
+               60 Hz, one at 100 Hz that is skipped; DIP-IMU 6 motions of
+               3,600 frames with NaN bursts; TotalCapture 2 motions of
+               3,600 frames and one without AMASS poses; IMUPoser 2 x
+               1,800) through `cli.process` for every dataset (output
+               frames/s, peak memory), the first sequence of each again on
+               the CPU port and the card's files held to it (pose, ori,
+               joint, tran 1e-5, acc 1e-5 of its largest magnitude,
+               contact exact outside the threshold band); every processed
+               file through `PoseDataset`; a base `cli.train --concurrent
+               --fast-dev-run` on the processed AMASS files, then
+               `cli.finetune --dataset dip` sequential and `--concurrent`
+               (training kernels at 8 layer directions x 2 steps, the
+               validation batch on the masked kernels), `--dataset
+               imuposer` chained off `finetuned_dip`,
+               `combine_weights(finetune='dip')` through `cli.evaluate`
+               on dip_test, `cli.example` offline (6 bi + 2 uni launches)
+               and `--online` (that per frame) with their frame rates,
+               both on the trained fixture's weights held to the CPU port
+               at SLICE_TOL (offline the whole sequence, online its first
+               240 frames), #1 and #2 against
+               their plain versions at the example's B = 1 shapes,
+               `cli.overfit --module poser` (its loss must fall), and one
+               finetune step card against CPU at phase 4c's tolerances
+               (losses, gradients and the updated params);
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan; there also on bf16 params, beside the
                float32 rate) and 8 streams (unfolded), then one traced call
@@ -309,13 +337,51 @@ STEP_GRAD_RTOL = 1e-4
 # one step of Adam (AdamW for joints) from fresh moments moves an entry by
 # lr * g / (|g| + eps), about +-lr, so where |g| exceeds the gradient
 # bound times the tensor's largest |g| both devices move it the same way,
-# equal to float32 rounding of the params (STEP_BF16RES_PARAM_ATOL); any
-# other entry may move the other way, at most 2 * lr apart.
+# equal to float32 rounding of the params (STEP_PARAM_ATOL); any other
+# entry may move the other way, at most 2 * lr apart. Phase 4i holds its
+# float32 finetune step's update by the same rule with STEP_GRAD_RTOL as
+# the gradient bound.
 STEP_BF16RES_GRAD_RTOL = 2.0 ** -7 + STEP_GRAD_RTOL
-STEP_BF16RES_PARAM_ATOL = 1e-6
+STEP_PARAM_ATOL = 1e-6
 # Phase 4b's sequence lengths: bucket 512 holds two ragged sequences,
 # 560 frames takes a 1024 bucket of its own.
 EVAL_LENGTHS = (300, 420, 560)
+# Phase 4i: raw-format fixtures at the sizes of the public datasets, each
+# made with numpy from a seed. AMASS: (sequences, frames, mocap Hz) of one
+# dataset folder, the 100 Hz sequence skipped by the processor; DIP-IMU:
+# frames at 60 Hz of each motion (two per subject), a 3-frame NaN burst
+# in each; TotalCapture: frames of each motion (two with AMASS poses, one
+# without); IMUPoser: frames of the one sequence of P1 and of P9.
+RAW_AMASS = ((8, 2400, 120), (2, 2400, 60), (1, 2400, 100))
+RAW_DIP_FRAMES = 3600
+RAW_TC_FRAMES = 3600
+RAW_IMUPOSER_FRAMES = 1800
+# Phase 4i: processed files, card against the CPU port. pose, ori, joint,
+# tran within PROCESS_ATOL; acc, second differences of vertex positions
+# times fps^2 = 900, within PROCESS_ACC_RTOL of its largest magnitude;
+# contact exact on every frame whose foot displacement is more than
+# CONTACT_BAND from the 0.008 threshold (the CPU tests' tolerances).
+PROCESS_ATOL = 1e-5
+PROCESS_ACC_RTOL = 1e-5
+CONTACT_BAND = 1e-6
+# Phase 4i's overfit run: steps of one repeated batch of poser windows.
+OVERFIT_STEPS = 30
+# Phase 4i's `cli.example` on the card against the CPU port, on the
+# trained fixture's weights (FIXTURE) and the processed dip_test file:
+# offline over the whole sequence, online over its first
+# EXAMPLE_ONLINE_CPU_FRAMES frames (the CPU's plain scans take ~50 ms a
+# frame, so all 1,794 would take ~90 s; the online path is causal, so the
+# card's first frames are those of a run this long), both at SLICE_TOL.
+# Not on the finetuned weights the recipe's example runs on: two steps
+# from a random init leave the poser's r6d outputs ~0.01 long and near
+# parallel, and the Gram-Schmidt decode divides by those lengths, so
+# differences in r6d near float32 rounding reach ~1e-4 in the pose
+# (1.3e-4 card against CPU on an H100; tran 1.9e-6), where the trained
+# weights' r6d (lengths >= 0.2) passes them on about as it gets them. The
+# scan kernels are also held to their plain versions at the example's own
+# shapes, B = 1: T = the sequence offline, the 45-frame window (#1) and
+# one frame (#2) online.
+EXAMPLE_ONLINE_CPU_FRAMES = 240
 # The full-length kernels' times at T=45, H=256, B=256 recorded in
 # PERF.md section 6 for slice 1's one-block kernel, printed beside this
 # run's.
@@ -569,6 +635,42 @@ def ptxas_by_function(source: str, needle: str, bf16: bool = False):
     return out
 
 
+def _scan_case(torch, lstm_cuda, rng, bi: bool, T: int, B: int, H: int):
+    """(kernel, plain version, arguments) of the full-length scan #1
+    (`bi`) or #2 at [T, B, H] on inputs drawn from `rng`: projections
+    N(0, 1), w_hh U(+-1/sqrt(H)), h0 and c0 N(0, 0.25)."""
+    import numpy as np
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).cuda()
+
+    bound = 1.0 / math.sqrt(H)
+    dirs = [(t(T, B, 4 * H),
+             torch.from_numpy(rng.uniform(-bound, bound, (H, 4 * H))
+                              .astype(np.float32)).cuda(),
+             t(B, H, scale=0.5), t(B, H, scale=0.5))
+            for _ in range(2 if bi else 1)]
+    if bi:
+        (xf, wf, h0f, c0f), (xb, wb, h0b, c0b) = dirs
+        return (lstm_cuda.bilstm_layer, lstm_cuda.bilstm_layer_plain,
+                (xf, xb, wf, wb, h0f, c0f, h0b, c0b))
+    return lstm_cuda.lstm_layer, lstm_cuda.lstm_layer_plain, dirs[0]
+
+
+def _scan_vs_plain(torch, kern, plain, args):
+    """(max abs error of every output of `kern` against `plain` on
+    `args`, whether the kernel's outputs are finite)."""
+    def flat(out):
+        return [x for o in out for x in (o if isinstance(o, tuple) else (o,))]
+
+    got = flat(kern(*args))
+    torch.cuda.synchronize()
+    want = flat(plain(*args))
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            all(bool(torch.isfinite(g).all()) for g in got))
+
+
 def phase_kernels(torch, lstm_cuda):
     """Each kernel vs its plain version at the streaming path's shapes:
     B=256 is the scan mode at 256 streams, B=200 the unfolded mode's
@@ -604,28 +706,8 @@ def phase_kernels(torch, lstm_cuda):
             return torch.from_numpy(
                 (rng.randn(*shape) * scale).astype(np.float32)).cuda()
 
-        bound = 1.0 / math.sqrt(H)
-        dirs = [(t(T, B, 4 * H),
-                 torch.from_numpy(rng.uniform(-bound, bound, (H, 4 * H))
-                                  .astype(np.float32)).cuda(),
-                 t(B, H, scale=0.5), t(B, H, scale=0.5))
-                for _ in range(n_dir)]
-        if bi:
-            (xf, wf, h0f, c0f), (xb, wb, h0b, c0b) = dirs
-            args = (xf, xb, wf, wb, h0f, c0f, h0b, c0b)
-            kern, plain = lstm_cuda.bilstm_layer, lstm_cuda.bilstm_layer_plain
-        else:
-            args = dirs[0]
-            kern, plain = lstm_cuda.lstm_layer, lstm_cuda.lstm_layer_plain
-
-        def flat(out):
-            return [x for o in out for x in (o if isinstance(o, tuple) else (o,))]
-
-        got = flat(kern(*args))
-        torch.cuda.synchronize()
-        want = flat(plain(*args))
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        kern, plain, args = _scan_case(torch, lstm_cuda, rng, bi, T, B, H)
+        err, finite = _scan_vs_plain(torch, kern, plain, args)
 
         lstm = torch.nn.LSTM(H, H, num_layers=1, bidirectional=bi).cuda()
         x_lib = t(T, B, H)
@@ -2322,20 +2404,28 @@ def phase_eval(torch, lstm_cuda, cpu_evals, int8: bool = False,
     return offline, online, card
 
 
-def _card_vs_cpu_step(torch, body, batch, backend):
+def _card_vs_cpu_step(torch, body, batch, backend, init=None):
     """One concurrent train step on `backend` on the CPU port and on the
-    card from identical params (the same seeded init on each device),
-    batch and draws (one CPU generator seeded alike for both runs):
-    {device: (losses, gradients, updated params, seconds)}."""
+    card from identical params (the same seeded init on each device, or
+    with `init` the modules it names warm-started from its JAX-layout
+    trees at the finetune lr), batch and draws (one CPU generator seeded
+    alike for both runs): {device: (losses, gradients, updated params,
+    seconds)}."""
     from mobileposer_tpu_torch import config as C
     from mobileposer_tpu_torch.train.trainer import (
-        MODULE_NAMES, init_train_state, make_multi_train_step, to_device)
-    step = make_multi_train_step(body, backend=backend)
+        MODULE_NAMES, _state_from_tree, init_train_state,
+        make_multi_train_step, to_device)
+    names = tuple(init) if init else MODULE_NAMES
+    step = make_multi_train_step(body, backend=backend, module_names=names)
     outs = {}
     for dev in ("cpu", "cuda"):
-        states = {n: init_train_state(n, torch.Generator().manual_seed(3),
-                                      C.train_hypers.lr, dev)
-                  for n in MODULE_NAMES}
+        if init:
+            states = {n: _state_from_tree(n, init[n], C.finetune_hypers.lr,
+                                          dev) for n in names}
+        else:
+            states = {n: init_train_state(
+                n, torch.Generator().manual_seed(3), C.train_hypers.lr, dev)
+                for n in names}
         t0 = time.perf_counter()
         states, losses = step(states, to_device(batch, dev),
                               torch.Generator().manual_seed(4))
@@ -2344,10 +2434,42 @@ def _card_vs_cpu_step(torch, body, batch, backend):
         outs[dev] = (
             {n: float(v) for n, v in losses.items()},
             {n: [p.grad.detach().cpu() for p in states[n].params.parameters()]
-             for n in MODULE_NAMES},
+             for n in names},
             {n: [p.detach().cpu() for p in states[n].params.parameters()]
-             for n in MODULE_NAMES}, time.perf_counter() - t0)
+             for n in names}, time.perf_counter() - t0)
     return outs
+
+
+def _step_rel_errors(outs):
+    """(loss, gradient) errors of the card against the CPU in a
+    `_card_vs_cpu_step` result, losses relative, each gradient tensor
+    relative to its largest entry."""
+    loss = {n: abs(outs["cuda"][0][n] - c) / abs(c)
+            for n, c in outs["cpu"][0].items()}
+    grad = {n: max(float((g - c).abs().max()) / float(c.abs().max())
+                   for g, c in zip(outs["cuda"][1][n], cs))
+            for n, cs in outs["cpu"][1].items()}
+    return loss, grad
+
+
+def _step_param_errors(outs, grad_rtol):
+    """Max abs differences of the updated params, card against CPU, in a
+    `_card_vs_cpu_step` result: over the entries whose CPU gradient
+    exceeds `grad_rtol` of its tensor's largest (both devices move them
+    alike) and over the others (which may move the other way, at most
+    2 lr apart)."""
+    errs = {"determined_max_abs": 0.0, "others_max_abs": 0.0}
+    for n, grads in outs["cpu"][1].items():
+        for gc, pg, pc in zip(grads, outs["cuda"][2][n], outs["cpu"][2][n]):
+            big = gc.abs() > grad_rtol * float(gc.abs().max())
+            d = (pg - pc).abs()
+            if bool(big.any()):
+                errs["determined_max_abs"] = max(errs["determined_max_abs"],
+                                                 float(d[big].max()))
+            if bool((~big).any()):
+                errs["others_max_abs"] = max(errs["others_max_abs"],
+                                             float(d[~big].max()))
+    return errs
 
 
 def phase_train(torch, lstm_cuda, train_cuda):
@@ -2430,37 +2552,15 @@ def phase_train(torch, lstm_cuda, train_cuda):
     steps_out = {b: _card_vs_cpu_step(torch, body, batch, b)
                  for b in ("auto_train", "auto_train_bf16res")}
 
-    def rel(outs):
-        """(loss, gradient) errors of the card against the CPU, each
-        gradient tensor relative to its largest entry."""
-        loss = {n: abs(outs["cuda"][0][n] - outs["cpu"][0][n])
-                / abs(outs["cpu"][0][n]) for n in MODULE_NAMES}
-        grad = {n: max(float((g - c).abs().max()) / float(c.abs().max())
-                       for g, c in zip(outs["cuda"][1][n],
-                                       outs["cpu"][1][n]))
-                for n in MODULE_NAMES}
-        return loss, grad
-
     outs = steps_out["auto_train"]
-    loss_rel, grad_rel = rel(outs)
+    loss_rel, grad_rel = _step_rel_errors(outs)
     outs16 = steps_out["auto_train_bf16res"]
-    loss16_rel, grad16_rel = rel(outs16)
+    loss16_rel, grad16_rel = _step_rel_errors(outs16)
     lr = C.train_hypers.lr
     # the updated params: entries whose gradient lies above the gradient
     # bound (relative to their tensor's largest) move alike; the rest at
     # most 2 lr apart (STEP_BF16RES_GRAD_RTOL's note)
-    param16 = {"determined_max_abs": 0.0, "others_max_abs": 0.0}
-    for n in MODULE_NAMES:
-        for gc, pg, pc in zip(outs16["cpu"][1][n], outs16["cuda"][2][n],
-                              outs16["cpu"][2][n]):
-            big = gc.abs() > STEP_BF16RES_GRAD_RTOL * float(gc.abs().max())
-            d = (pg - pc).abs()
-            if bool(big.any()):
-                param16["determined_max_abs"] = max(
-                    param16["determined_max_abs"], float(d[big].max()))
-            if bool((~big).any()):
-                param16["others_max_abs"] = max(param16["others_max_abs"],
-                                                float(d[~big].max()))
+    param16 = _step_param_errors(outs16, STEP_BF16RES_GRAD_RTOL)
 
     n_layer_dirs = sum((2 if cfg.bidirectional else 1) * cfg.n_layers
                        for cfg in MODULE_CONFIGS.values())
@@ -2499,7 +2599,7 @@ def phase_train(torch, lstm_cuda, train_cuda):
           "step_grad_rel_err": grad16_rel,
           "step_grad_rtol": STEP_BF16RES_GRAD_RTOL,
           "step_param_abs_err": param16,
-          "step_param_atol": STEP_BF16RES_PARAM_ATOL,
+          "step_param_atol": STEP_PARAM_ATOL,
           "step_param_others_bound": 2 * lr,
           "step_losses_card": outs16["cuda"][0],
           "step_seconds": {d: outs16[d][3] for d in outs16}})
@@ -2528,7 +2628,7 @@ def phase_train(torch, lstm_cuda, train_cuda):
             f"bf16res train step losses card vs CPU: {loss16_rel}")
     require(max(grad16_rel.values()) <= STEP_BF16RES_GRAD_RTOL,
             f"bf16res train step gradients card vs CPU: {grad16_rel}")
-    require(param16["determined_max_abs"] <= STEP_BF16RES_PARAM_ATOL
+    require(param16["determined_max_abs"] <= STEP_PARAM_ATOL
             and param16["others_max_abs"] <= 2 * lr * (1 + 1e-3),
             f"bf16res train step params card vs CPU: {param16}")
     return train_launches, train16_launches
@@ -3403,6 +3503,509 @@ def phase_bundle(torch, lstm_cuda):
     return launches
 
 
+def _smooth_aa(rng, T: int, joints: int, step: float = 0.01):
+    """[T, joints * 3] axis-angle trajectories: integrated small twists."""
+    import numpy as np
+    return np.cumsum(rng.normal(0.0, step, (T, joints * 3)),
+                     axis=0).astype(np.float32)
+
+
+def write_raw_datasets(root: Path, seed: int = 16) -> dict:
+    """The four raw datasets in their public layouts under `root` (AMASS
+    `*_poses.npz`, DIP-IMU and TotalCapture pickles, TotalCapture's
+    `gt_skel_gbl_pos.txt`, IMUPoser pickles of tensors) at the sizes of
+    RAW_*; returns the environment that points the processors at them
+    and, under "one" and "one_amass", at copies holding the first
+    sequence of each (CMU's first one has roots turned near pi)."""
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    amass, dip = root / "AMASS", root / "DIP_IMU"
+    tc_imu, tc_raw, imup = root / "TC_IMU", root / "TC_raw", root / "IMUPoser"
+
+    def amass_npz(path, T, fps, near_pi=False):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        poses = _smooth_aa(rng, T, 52, 0.6 / fps)
+        if near_pi:      # roots turned by 3.0 to 3.1 rad
+            axis = np.array([0.6, 0.0, 0.8], np.float32)
+            poses[:, :3] = axis * np.linspace(3.0, 3.1, T, dtype=np.float32
+                                              )[:, None]
+        np.savez(path, poses=poses,
+                 trans=np.cumsum(rng.normal(0, 0.1 / fps, (T, 3)),
+                                 axis=0).astype(np.float32),
+                 betas=rng.normal(0, 0.5, 16).astype(np.float32),
+                 mocap_framerate=np.float64(fps))
+
+    i = 0
+    for n, T, fps in RAW_AMASS:
+        for _ in range(n):
+            amass_npz(amass / "CMU" / f"{i:02d}" / f"motion_poses.npz", T,
+                      fps, near_pi=(i == 0))
+            i += 1
+    for subject in ("s_01", "s_09", "s_10"):
+        for motion in ("01.pkl", "02.pkl"):
+            T = RAW_DIP_FRAMES
+            acc = rng.normal(0, 3.0, (T, 17, 3))
+            acc[1000:1003, 7] = np.nan
+            ori = rng.normal(0, 0.5, (T, 17, 3, 3))
+            (dip / subject).mkdir(parents=True, exist_ok=True)
+            with open(dip / subject / motion, "wb") as f:
+                pickle.dump({"imu_acc": acc, "imu_ori": ori,
+                             "gt": _smooth_aa(rng, T, 24, 0.01)}, f)
+    T = RAW_TC_FRAMES
+    tc_imu.mkdir(parents=True)
+    for motion in ("acting1", "freestyle1", "walking1"):
+        with open(tc_imu / f"s1_{motion}.pkl", "wb") as f:
+            pickle.dump({"ori": rng.normal(0, 0.5, (T, 6, 3, 3)),
+                         "acc": rng.normal(0, 3.0, (T, 6, 3))}, f)
+        if motion != "freestyle1":      # no AMASS poses: failed_to_process
+            amass_npz(amass / "TotalCapture" / "S1" / f"{motion}_poses.npz",
+                      T, 60)
+        path = np.cumsum(rng.normal(0, 0.2, (T, 4, 3)), axis=0)   # inches
+        (tc_raw / "S1" / motion).mkdir(parents=True)
+        with open(tc_raw / "S1" / motion / "gt_skel_gbl_pos.txt", "w") as f:
+            f.write("LeftFoot\tRightFoot\tSpine\tHead\t\n")
+            for row in path:
+                f.write("\t".join(" ".join("%.4f" % v for v in p)
+                                  for p in row) + "\t\n")
+    for pid in ("P1", "P9"):
+        T = RAW_IMUPOSER_FRAMES
+        (imup / pid).mkdir(parents=True)
+        with open(imup / pid / "seq0.pkl", "wb") as f:
+            pickle.dump({"imu": torch.from_numpy(rng.normal(
+                0, 1, (T, 60)).astype(np.float32)),
+                "pose": torch.from_numpy(_smooth_aa(rng, T, 24, 0.01)),
+                "trans": torch.from_numpy(np.cumsum(rng.normal(
+                    0, 0.003, (T, 3)), axis=0).astype(np.float32))}, f)
+
+    # the first sequence of each dataset, for the CPU port's reference:
+    # AMASS's CMU folder alone under "one_amass", the rest under "one"
+    # (its AMASS folder holds the TotalCapture poses only)
+    one = root / "one"
+    for src, dst in (
+            (amass / "CMU" / "00", one / "AMASS" / "CMU" / "00"),
+            (amass / "TotalCapture" / "S1" / "acting1_poses.npz",
+             one / "AMASS_TC" / "TotalCapture" / "S1" / "acting1_poses.npz"),
+            (dip / "s_09" / "01.pkl", one / "DIP_IMU" / "s_09" / "01.pkl"),
+            (tc_imu / "s1_acting1.pkl", one / "TC_IMU" / "s1_acting1.pkl"),
+            (tc_raw / "S1" / "acting1", one / "TC_raw" / "S1" / "acting1"),
+            (imup / "P9" / "seq0.pkl", one / "IMUPoser" / "P9" / "seq0.pkl")):
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        (shutil.copytree if src.is_dir() else shutil.copy)(src, dst)
+    env = {"MP_RAW_AMASS": amass, "MP_RAW_DIP": dip, "MP_RAW_TC": tc_raw,
+           "MP_CALIB_TC": tc_imu, "MP_RAW_IMUPOSER": imup}
+    return {"env": {k: str(v) for k, v in env.items()},
+            "one": {"MP_RAW_AMASS": str(one / "AMASS_TC"),
+                    "MP_RAW_DIP": str(one / "DIP_IMU"),
+                    "MP_RAW_TC": str(one / "TC_raw"),
+                    "MP_CALIB_TC": str(one / "TC_IMU"),
+                    "MP_RAW_IMUPOSER": str(one / "IMUPoser")},
+            "one_amass": {"MP_RAW_AMASS": str(one / "AMASS")}}
+
+
+def _contact_band(joint):
+    """[T, 2] True where a foot's displacement lies within CONTACT_BAND of
+    the 0.008 threshold."""
+    import numpy as np
+    band = np.zeros((joint.shape[0], 2), bool)
+    for i, j in enumerate((10, 11)):
+        disp = np.linalg.norm(joint[1:, j] - joint[:-1, j], axis=1)
+        band[1:, i] = np.abs(disp - 0.008) <= CONTACT_BAND
+    return band
+
+
+def _processed_errors(torch, card_path, cpu_path) -> dict:
+    """Max errors of the card's processed file against the CPU port's on
+    the sequences both hold (the CPU file holds the card's first ones):
+    per key, acc relative to its largest magnitude, contact mismatches
+    outside the threshold band and the frames left out."""
+    import numpy as np
+    a = torch.load(card_path, map_location="cpu", weights_only=True)
+    b = torch.load(cpu_path, map_location="cpu", weights_only=True)
+    require(sorted(a) == sorted(b), f"{card_path}: keys {sorted(a)} vs "
+                                    f"{sorted(b)}")
+    errs = {"sequences_compared": len(b["acc"]), "contact_mismatch": 0,
+            "contact_band_frames": 0}
+    for k in b:
+        for i, (x, y) in enumerate(zip(a[k], b[k])):
+            x, y = x.numpy(), y.numpy()
+            require(x.shape == y.shape and x.dtype == y.dtype,
+                    f"{card_path} {k}: {x.shape} {x.dtype} vs {y.shape} "
+                    f"{y.dtype}")
+            if k == "contact":
+                band = _contact_band(b["joint"][i].numpy())
+                errs["contact_band_frames"] += int(band.sum())
+                errs["contact_mismatch"] += int((x != y)[~band].sum())
+                continue
+            err = float(np.abs(x - y).max())
+            if k == "acc":
+                err /= max(float(np.abs(y).max()), 1e-30)
+            errs[k] = max(errs.get(k, 0.0), err)
+    return errs
+
+
+def phase_recipe(torch, lstm_cuda, train_cuda):
+    """The offline recipe on the card, at full width (the 6,890-vertex
+    body, the full model): raw-format fixtures at the public datasets'
+    sizes processed by `cli.process` for every dataset (frames/s and
+    peak memory), the first sequence of each processed again on the CPU
+    port and held to the card's files; every processed file read by
+    `PoseDataset`; a base `cli.train --concurrent --fast-dev-run` on the
+    processed AMASS data; `cli.finetune --dataset dip` sequential and
+    `--concurrent`, `--dataset imuposer` chained off `finetuned_dip`;
+    `combine_weights(finetune='dip')` and `cli.evaluate` on dip_test;
+    `cli.example` offline and `--online`, on the trained fixture's
+    weights held to the CPU port, and the scan kernels against their
+    plain versions at its shapes;
+    `cli.overfit --module poser`; one finetune step card against CPU.
+    Returns the launch counts of the finetune, example and overfit runs,
+    summed."""
+    import shutil
+    import numpy as np
+    from mobileposer_tpu_torch import config as C
+    from mobileposer_tpu_torch.cli import evaluate as eval_cli
+    from mobileposer_tpu_torch.cli import example as example_cli
+    from mobileposer_tpu_torch.cli import finetune as finetune_cli
+    from mobileposer_tpu_torch.cli import overfit as overfit_cli
+    from mobileposer_tpu_torch.cli import process as process_cli
+    from mobileposer_tpu_torch.cli import train as train_cli
+    from mobileposer_tpu_torch.data import EvalSequence, PoseDataset
+    from mobileposer_tpu_torch.data.process import fk_mesh_chunk
+    from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+    from mobileposer_tpu_torch.models import MobilePoserNet
+    from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS
+    from mobileposer_tpu_torch.models.net import NUM_TOTAL
+    from mobileposer_tpu_torch.models.utils import load_model
+    from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+    from mobileposer_tpu_torch.train import combine_weights, \
+        get_best_checkpoint
+    from mobileposer_tpu_torch.train.trainer import _train_val_split
+
+    body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
+    saved_env = {k: os.environ.get(k) for k in (
+        "MP_PROCESSED", "MP_RAW_AMASS", "MP_RAW_DIP", "MP_RAW_TC",
+        "MP_CALIB_TC", "MP_RAW_IMUPOSER")}
+
+    def layer_dirs(names):
+        return sum((2 if MODULE_CONFIGS[n].bidirectional else 1)
+                   * MODULE_CONFIGS[n].n_layers for n in names)
+
+    def reset():
+        lstm_cuda.reset_launches()
+        train_cuda.reset_launches()
+
+    def counts():
+        return {**{k: n for k, n in lstm_cuda.launches.items() if n},
+                **{k: n for k, n in train_cuda.launches.items() if n}}
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        root = Path(tmp.name)
+        t0 = time.perf_counter()
+        raw = write_raw_datasets(root / "raw")
+        write_s = time.perf_counter() - t0
+        card, cpu = root / "processed", root / "processed_cpu"
+
+        # 1. every dataset on the card, timed, with its peak memory
+        os.environ.update(raw["env"])
+        os.environ["MP_PROCESSED"] = str(card)
+        rates = {}
+        for ds in ("amass", "dip", "totalcapture", "imuposer"):
+            before = set(card.rglob("*.pt")) if card.exists() else set()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            process_cli.main(["--dataset", ds])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            files = sorted(set(card.rglob("*.pt")) - before)
+            frames = sum(int(sum(x.shape[0] for x in torch.load(
+                f, weights_only=True)["acc"])) for f in files)
+            rates[ds] = {"files": [str(f.relative_to(card)) for f in files],
+                         "output_frames": frames, "seconds": dt,
+                         "frames_per_s": frames / dt,
+                         "peak_memory_bytes":
+                             torch.cuda.max_memory_allocated() - held}
+        emit({"phase": "recipe_process", "raw_write_seconds": write_s,
+              "fk_mesh_chunk_frames": fk_mesh_chunk(body.num_vertices),
+              "num_vertices": body.num_vertices, "datasets": rates})
+        expect_files = {
+            "amass": ["CMU.pt", "TotalCapture.pt"],
+            "dip": ["eval/dip_test.pt", "eval/dip_train.pt"],
+            "totalcapture": ["eval/totalcapture.pt"],
+            "imuposer": ["eval/imuposer_test.pt", "eval/imuposer_train.pt"]}
+        for ds, want in expect_files.items():
+            require(sorted(rates[ds]["files"]) == want,
+                    f"cli.process --dataset {ds} wrote {rates[ds]['files']}")
+        n_dip = len(range(6, RAW_DIP_FRAMES - 6, 2))
+        require(rates["amass"]["output_frames"]
+                == sum(n * T // (fps // 30) for n, T, fps in RAW_AMASS[:2])
+                + 2 * RAW_TC_FRAMES // 2
+                and rates["dip"]["output_frames"] == 6 * n_dip
+                and rates["totalcapture"]["output_frames"] == 2 * RAW_TC_FRAMES
+                and rates["imuposer"]["output_frames"]
+                == 2 * RAW_IMUPOSER_FRAMES,
+                f"processed frames {rates}")
+
+        # 2. the first sequence of each dataset on the CPU port, held to
+        # the card's files
+        os.environ["MP_PROCESSED"] = str(cpu)
+        for ds, extra, env in (
+                ("amass", [], raw["one_amass"]),
+                ("dip", ["--split", "test"], raw["one"]),
+                ("totalcapture", [], raw["one"]),
+                ("imuposer", ["--split", "test"], raw["one"])):
+            os.environ.update(env)
+            process_cli.main(["--dataset", ds, "--device", "cpu", *extra])
+        errs = {}
+        for rel in ("CMU.pt", "eval/dip_test.pt", "eval/totalcapture.pt",
+                    "eval/imuposer_test.pt"):
+            errs[rel] = _processed_errors(torch, card / rel, cpu / rel)
+        emit({"phase": "recipe_process_vs_cpu", "errors": errs,
+              "atol": PROCESS_ATOL, "acc_rtol": PROCESS_ACC_RTOL,
+              "contact_band": CONTACT_BAND})
+        for rel, e in errs.items():
+            require(e["sequences_compared"] == 1
+                    and e["contact_mismatch"] == 0
+                    and e.get("acc", 0.0) <= PROCESS_ACC_RTOL
+                    and all(v <= PROCESS_ATOL for k, v in e.items()
+                            if k in ("pose", "ori", "joint", "tran",
+                                     "shape")),
+                    f"{rel} card vs CPU: {e}")
+
+        # 3. every processed file through the dataset
+        os.environ["MP_PROCESSED"] = str(card)
+        sizes = {"train": len(PoseDataset(fold="train", body_model=body))}
+        for ft in ("dip", "imuposer"):
+            sizes[f"finetune_{ft}"] = len(PoseDataset(
+                fold="train", finetune=ft, body_model=body))
+        for ev in ("dip", "totalcapture", "imuposer"):
+            sizes[f"evaluate_{ev}"] = len(PoseDataset(
+                fold="test", evaluate=ev, body_model=body).windows)
+        emit({"phase": "recipe_datasets", "samples_or_sequences": sizes})
+        require(sizes["evaluate_dip"] == 4 and sizes["evaluate_totalcapture"]
+                == 2 and sizes["evaluate_imuposer"] == 1
+                and min(sizes.values()) > 0, f"datasets {sizes}")
+
+        # 4. base training, the finetunes, combine, evaluate, example,
+        # overfit
+        ckpt = root / "ckpt"
+        t0 = time.perf_counter()
+        train_cli.main(["--concurrent", "--fast-dev-run",
+                        "--checkpoint-dir", str(ckpt)])
+        torch.cuda.synchronize()
+        secs = {"base_train": time.perf_counter() - t0}
+        shutil.copytree(ckpt, root / "ckpt_concurrent")
+        reset()
+        t0 = time.perf_counter()
+        finetune_cli.main(["--dataset", "dip", "--fast-dev-run",
+                           "--checkpoint-dir", str(ckpt)])
+        torch.cuda.synchronize()
+        secs["finetune_dip"] = time.perf_counter() - t0
+        finetune_launches = counts()
+        reset()
+        t0 = time.perf_counter()
+        finetune_cli.main(["--dataset", "dip", "--fast-dev-run",
+                           "--concurrent", "--checkpoint-dir",
+                           str(root / "ckpt_concurrent")])
+        torch.cuda.synchronize()
+        secs["finetune_dip_concurrent"] = time.perf_counter() - t0
+        concurrent_launches = counts()
+        t0 = time.perf_counter()
+        finetune_cli.main(["--dataset", "imuposer", "--fast-dev-run",
+                           "--checkpoint-dir", str(ckpt)])
+        torch.cuda.synchronize()
+        secs["finetune_imuposer"] = time.perf_counter() - t0
+        records = {sub: [json.loads(ln) for ln in (
+            ckpt / sub / "metrics.jsonl").read_text().splitlines()]
+            for sub in ("finetuned_dip", "finetuned_imuposer")}
+        records["concurrent"] = [json.loads(ln) for ln in (
+            root / "ckpt_concurrent" / "finetuned_dip" / "metrics.jsonl"
+        ).read_text().splitlines()]
+        combined = combine_weights(ckpt, finetune="dip")
+        t0 = time.perf_counter()
+        table = eval_cli.main(["--model", str(combined), "--dataset", "dip"])
+        torch.cuda.synchronize()
+        secs["evaluate_dip"] = time.perf_counter() - t0
+        example = {}
+        for mode, extra in (("offline", []), ("online", ["--online"])):
+            reset()
+            t0 = time.perf_counter()
+            path = example_cli.main(["--model", str(combined), "--dataset",
+                                     "dip", "--out",
+                                     str(root / f"motion_{mode}"), *extra])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            z = np.load(path)
+            example[mode] = {"seconds": dt, "frames": int(z["pose_p"].shape[0]),
+                             "frames_per_s": z["pose_p"].shape[0] / dt,
+                             "launches": counts(),
+                             "finite": bool(np.isfinite(z["pose_p"]).all()
+                                            and np.isfinite(z["tran_p"]).all())}
+
+        # `cli.example` on the trained fixture's weights, card against
+        # CPU (EXAMPLE_ONLINE_CPU_FRAMES' note): offline through the CLI
+        # on each device, online the card's CLI run against the CPU port
+        # frame by frame over a prefix
+        fixture_argv = ["--model", str(FIXTURE), "--dataset", "dip"]
+        motions = {mode: dict(np.load(example_cli.main(
+            [*fixture_argv, "--out", str(root / f"fixture_{mode}"), *extra])))
+            for mode, extra in (("offline", []), ("online", ["--online"]))}
+        t0 = time.perf_counter()
+        cpu_path = example_cli.main(fixture_argv + [
+            "--out", str(root / "fixture_offline_cpu"), "--device", "cpu"])
+        secs["example_offline_cpu"] = time.perf_counter() - t0
+        want = {"offline": dict(np.load(cpu_path))}
+        t0 = time.perf_counter()
+        net = MobilePoserNet(body, device="cpu")
+        params = params_from_jax(load_model(str(FIXTURE)), device="cpu")
+        imu = torch.as_tensor(EvalSequence(PoseDataset(
+            fold="test", evaluate="dip", body_model=body, device="cpu"))[0][0])
+        state, poses, trans = net.init_online_state(), [], []
+        with torch.no_grad():
+            for frame in imu[:EXAMPLE_ONLINE_CPU_FRAMES]:
+                (p, _, tr, _), state = net.forward_online(params, state,
+                                                          frame)
+                poses.append(p)
+                trans.append(tr)
+        want["online"] = {"pose_p": torch.stack(poses).numpy(),
+                          "tran_p": torch.stack(trans).numpy()}
+        secs["example_online_cpu"] = time.perf_counter() - t0
+        example_errs = {
+            mode: {k: float(np.abs(motions[mode][k][:len(w[k])]
+                                   - w[k]).max()) for k in w}
+            for mode, w in want.items()}
+        example_shapes_ok = all(
+            motions["offline"][k].shape == w.shape
+            for k, w in want["offline"].items())
+
+        # the scan kernels against their plain versions at the example's
+        # shapes (not counted: the counts above were read already)
+        T_seq = example["offline"]["frames"]
+        scan_errs = []
+        for bi, T, H in ((True, T_seq, 256), (True, T_seq, 64),
+                         (False, T_seq, 256), (True, NUM_TOTAL, 256),
+                         (True, NUM_TOTAL, 64), (False, 1, 256)):
+            err, finite = _scan_vs_plain(torch, *_scan_case(
+                torch, lstm_cuda, np.random.RandomState(T + H), bi, T, 1, H))
+            scan_errs.append({"name": "bilstm_scan_f32" if bi
+                              else "lstm_scan_f32", "T": T, "B": 1, "H": H,
+                              "max_abs_err": err, "finite": finite})
+        reset()
+        t0 = time.perf_counter()
+        losses = overfit_cli.main(["--module", "poser", "--steps",
+                                   str(OVERFIT_STEPS)])
+        torch.cuda.synchronize()
+        secs["overfit"] = time.perf_counter() - t0
+        overfit_launches = counts()
+
+        # 5. one finetune step, card against CPU
+        ds = PoseDataset(fold="train", finetune="dip", body_model=body,
+                         device="cpu")
+        _, train_idx, _ = _train_val_split(len(ds), 0, 0.1)
+        batch = ds._assemble(train_idx[:C.finetune_hypers.batch_size],
+                             C.datasets.window_length)
+        init = {n: load_npz(get_best_checkpoint(ckpt / n))
+                for n in ("joints", "poser")}
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+    step_outs = _card_vs_cpu_step(torch, body, batch, "auto_train", init)
+    loss_rel, grad_rel = _step_rel_errors(step_outs)
+    param_err = _step_param_errors(step_outs, STEP_GRAD_RTOL)
+    lr = C.finetune_hypers.lr
+
+    steps = 2
+    ft = ("joints", "poser")
+    expect_ft = {k: layer_dirs(ft) * steps for k in (
+        "lstm_train_fwd_f32", "lstm_train_bwd_f32", "lstm_train_dw_f32")}
+    expect_ft["bilstm_scan_masked_f32"] = sum(
+        MODULE_CONFIGS[n].n_layers for n in ft)
+    expect_overfit = {k: layer_dirs(["poser"]) * OVERFIT_STEPS for k in (
+        "lstm_train_fwd_f32", "lstm_train_bwd_f32", "lstm_train_dw_f32")}
+    expect_offline = {"bilstm_scan_f32": 6, "lstm_scan_f32": 2}
+    n_online = example["online"]["frames"]
+    emit({"phase": "recipe", "seconds": secs, "records": records,
+          "eval_offline_table": table["offline"].tolist(),
+          "example": example, "overfit_losses": losses,
+          "example_vs_cpu_max_abs_err": example_errs,
+          "example_online_cpu_frames": EXAMPLE_ONLINE_CPU_FRAMES,
+          "example_tol": SLICE_TOL, "example_scan_vs_plain": scan_errs,
+          "scan_tol": KERNEL_TOL,
+          "finetune_launches": finetune_launches,
+          "expected_finetune_launches": expect_ft,
+          "finetune_concurrent_launches": concurrent_launches,
+          "overfit_launches": overfit_launches,
+          "expected_overfit_launches": expect_overfit,
+          "finetune_step_batch": C.finetune_hypers.batch_size,
+          "finetune_step_lr": C.finetune_hypers.lr,
+          "finetune_step_loss_rel_err": loss_rel,
+          "finetune_step_grad_rel_err": grad_rel,
+          "step_loss_rtol": STEP_LOSS_RTOL, "step_grad_rtol": STEP_GRAD_RTOL,
+          "finetune_step_param_abs_err": param_err,
+          "step_param_atol": STEP_PARAM_ATOL,
+          "step_param_others_bound": 2 * lr,
+          "finetune_step_losses_card": step_outs["cuda"][0],
+          "finetune_step_seconds": {d: o[3] for d, o in step_outs.items()}})
+    require(all(math.isfinite(r["train_loss"]) for rs in records.values()
+                for r in rs)
+            and [r["module"] for r in records["finetuned_dip"]]
+            == ["joints", "poser"]
+            and all(r.get("concurrent") for r in records["concurrent"]),
+            f"finetune records {records}")
+    require(table["offline"].shape == (8, 2)
+            and bool(np.isfinite(table["offline"]).all()),
+            "evaluation of the finetuned weights: bad table")
+    require(finetune_launches == expect_ft == concurrent_launches,
+            f"finetune launches {finetune_launches}, concurrent "
+            f"{concurrent_launches}, expected {expect_ft}")
+    require(example["offline"]["launches"] == expect_offline,
+            f"example offline launches {example['offline']['launches']}")
+    require(example["online"]["launches"] == {
+        k: n * n_online for k, n in expect_offline.items()},
+        f"example online launches {example['online']['launches']} over "
+        f"{n_online} frames")
+    require(all(e["finite"] for e in example.values()),
+            "cli.example exported non-finite values")
+    require(example_shapes_ok and all(
+        e <= SLICE_TOL for errs in example_errs.values()
+        for e in errs.values()),
+        f"cli.example card vs CPU: {example_errs} (tol {SLICE_TOL})")
+    require(all(r["finite"] and r["max_abs_err"] <= KERNEL_TOL
+                for r in scan_errs),
+            f"scan kernels at the example's shapes: {scan_errs}")
+    require(overfit_launches == expect_overfit,
+            f"overfit launches {overfit_launches}, expected "
+            f"{expect_overfit}")
+    require(len(losses) == OVERFIT_STEPS and losses[-1] < losses[0],
+            f"overfit losses did not fall: {losses}")
+    require(max(loss_rel.values()) <= STEP_LOSS_RTOL,
+            f"finetune step losses card vs CPU: {loss_rel}")
+    require(max(grad_rel.values()) <= STEP_GRAD_RTOL,
+            f"finetune step gradients card vs CPU: {grad_rel}")
+    require(param_err["determined_max_abs"] <= STEP_PARAM_ATOL
+            and param_err["others_max_abs"] <= 2 * lr * (1 + 1e-3),
+            f"finetune step params card vs CPU: {param_err}")
+    total = {}
+    for run in (finetune_launches, example["offline"]["launches"],
+                example["online"]["launches"], overfit_launches):
+        for k, n in run.items():
+            total[k] = total.get(k, 0) + n
+    for name in ("bilstm_scan_f32", "lstm_scan_f32", "bilstm_scan_masked_f32",
+                 "lstm_train_fwd_f32", "lstm_train_bwd_f32",
+                 "lstm_train_dw_f32"):
+        require(total.get(name, 0) > 0,
+                f"{name} was never launched by the offline recipe")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3559,6 +4162,11 @@ def main() -> int:
     t0 = time.perf_counter()
     bundle_launches = phase_bundle(torch, lstm_cuda)
     emit({"phase": "bundle_seconds", "seconds": time.perf_counter() - t0})
+    # 4i. the offline recipe: raw-data processing, finetune, example,
+    # overfit (their runs: the recipe counters)
+    t0 = time.perf_counter()
+    recipe_launches = phase_recipe(torch, lstm_cuda, train_cuda)
+    emit({"phase": "recipe_seconds", "seconds": time.perf_counter() - t0})
     main_launches = {
         **{k: n for k, n in stream_launches.items() if k.endswith("f32")
            and "masked" not in k},
@@ -3730,6 +4338,7 @@ def main() -> int:
             "library_ms": main["library_ms"], **extra,
             "serving_launches": serving_by_kernel.get(name, 0),
             "bundle_launches": bundle_launches.get(name, 0),
+            "recipe_launches": recipe_launches.get(name, 0),
             "shape": {"T": T, "B": B, "H": main["H"]}})
     emit({"kernels": ported,
           "online_eval_launches": online_launches,

@@ -2,18 +2,19 @@
 `mobileposer_tpu/cli/train.py`; reference CLI: mobileposer/train.py:116-154).
 
     python -m mobileposer_tpu_torch.cli.train [--module poser] [--concurrent]
-        [--init-from weights.npz|model.pth] [--fast-dev-run] [--checkpoint-dir D]
-        [--combine] [--resume] [--metrics jsonl:p,csv:p] [--bf16-residuals]
-        [--device cpu]
+        [--finetune dip|imuposer] [--init-from weights.npz|model.pth]
+        [--fast-dev-run] [--checkpoint-dir D] [--combine] [--resume]
+        [--metrics jsonl:p,csv:p,tensorboard:dir,wandb:project]
+        [--bf16-residuals] [--device cpu]
 
-Reads every processed file under $MP_PROCESSED (the train fold), writes
+Reads every processed file under $MP_PROCESSED (the train fold), or with
+`--finetune` the finetune set's file under $MP_PROCESSED/eval with the
+finetune hyperparameters (batch 32, lr 5e-5, 15 epochs); writes
 per-module checkpoints in the JAX package's `.npz` layout and a
 `metrics.jsonl` under the checkpoint dir. Runs on the CUDA card unless
 `--device` names another device (`cpu` runs the kernels' plain versions).
 `--bf16-residuals` stores the training kernels' residuals in bf16
-(backend 'auto_train_bf16res', as the JAX CLI maps it). `--finetune` and
-the tensorboard/wandb sinks are accepted as the JAX CLI accepts them and
-raise NotImplementedError naming the ROADMAP row that adds them.
+(backend 'auto_train_bf16res', as the JAX CLI maps it).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def main(argv=None) -> Path:
     parser.add_argument("--module", default=None, choices=MODULE_NAMES,
                         help="train a single module (default: all)")
     parser.add_argument("--finetune", default=None,
-                        help="not ported (ROADMAP.md queue A item 24)")
+                        help="finetune dataset key (dip / imuposer)")
     parser.add_argument("--init-from", default=None,
                         help="combined weights (.npz, or the reference's "
                              ".pth) to initialize from")
@@ -49,8 +50,9 @@ def main(argv=None) -> Path:
                              "epoch)")
     parser.add_argument("--metrics", default=None,
                         help="extra metric sinks, comma-separated: "
-                             "jsonl:<path>, csv:<path> (JSONL in the "
-                             "checkpoint dir is always written)")
+                             "jsonl:<path>, csv:<path>, tensorboard:<dir>, "
+                             "wandb:<project> (JSONL in the checkpoint dir "
+                             "is always written)")
     parser.add_argument("--bf16-residuals", action="store_true",
                         help="store the training kernels' residuals in "
                              "bf16 (backend 'auto_train_bf16res')")
@@ -63,17 +65,15 @@ def main(argv=None) -> Path:
     args = parser.parse_args(argv)
     if args.concurrent and args.module:
         parser.error("--concurrent trains all modules; drop --module")
-    if args.finetune:
-        raise NotImplementedError(
-            "--finetune (the finetune recipe, cli/finetune.py) is not "
-            "ported (ROADMAP.md queue A item 24)")
 
-    mgr = TrainingManager(fast_dev_run=args.fast_dev_run,
+    mgr = TrainingManager(finetune=args.finetune,
+                          fast_dev_run=args.fast_dev_run,
                           backend=("auto_train_bf16res" if args.bf16_residuals
                                    else "auto_train"),
                           device=args.device)
     body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
-    dataset = PoseDataset(fold="train", body_model=body, device=mgr.device)
+    dataset = PoseDataset(fold="train", finetune=args.finetune,
+                          body_model=body, device=mgr.device)
     if len(dataset) == 0:
         raise SystemExit("no training data found under "
                          f"{C.paths.processed_datasets}")

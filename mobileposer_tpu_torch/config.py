@@ -41,7 +41,8 @@ class FinetuneHypers(TrainHypers):
 class Paths:
     """Filesystem layout (reference: config.py:26-38), with the JAX
     package's environment overrides: MP_ROOT (read once, when this module
-    is imported), MP_SMPL_FILE and MP_PROCESSED (read at each access)."""
+    is imported), MP_SMPL_FILE, MP_PROCESSED, MP_RAW_AMASS, MP_RAW_DIP,
+    MP_RAW_IMUPOSER, MP_RAW_TC and MP_CALIB_TC (read at each access)."""
     root_dir: Path = dataclasses.field(
         default_factory=lambda: Path(os.environ.get("MP_ROOT", ".")).absolute())
 
@@ -55,6 +56,29 @@ class Paths:
                          str(self.root_dir / "smpl/basicmodel_m.pkl"))
 
     @property
+    def raw_amass(self) -> Path:
+        return _env_path("MP_RAW_AMASS", str(self.root_dir / "data/raw/AMASS"))
+
+    @property
+    def raw_dip(self) -> Path:
+        return _env_path("MP_RAW_DIP", str(self.root_dir / "data/raw/DIP_IMU"))
+
+    @property
+    def raw_imuposer(self) -> Path:
+        return _env_path("MP_RAW_IMUPOSER",
+                         str(self.root_dir / "data/raw/IMUPoser"))
+
+    @property
+    def raw_totalcapture_official(self) -> Path:
+        return _env_path("MP_RAW_TC",
+                         str(self.root_dir / "data/raw/TotalCapture/raw"))
+
+    @property
+    def calibrated_totalcapture(self) -> Path:
+        return _env_path("MP_CALIB_TC",
+                         str(self.root_dir / "data/raw/TotalCapture/IMU"))
+
+    @property
     def processed_datasets(self) -> Path:
         return _env_path("MP_PROCESSED",
                          str(self.root_dir / "data/processed_datasets"))
@@ -62,6 +86,12 @@ class Paths:
     @property
     def eval_dir(self) -> Path:
         return self.processed_datasets / "eval"
+
+    @property
+    def dev_data(self) -> Path:
+        """Recorded dev sessions (the reference reads `paths.dev_data`
+        without defining it)."""
+        return self.root_dir / "data/dev"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +145,13 @@ class Datasets:
     totalcapture: str = "totalcapture.pt"
     imuposer_train: str = "imuposer_train.pt"
     imuposer_test: str = "imuposer_test.pt"
+
+    amass_datasets: Tuple[str, ...] = (
+        "ACCAD", "BioMotionLab_NTroje", "BMLhandball", "BMLmovi", "CMU",
+        "DanceDB", "DFaust_67", "EKUT", "Eyes_Japan_Dataset", "HUMAN4D",
+        "HumanEva", "KIT", "MPI_HDM05", "MPI_Limits", "MPI_mosh", "SFU",
+        "SSM_synced", "TCD_handMocap", "TotalCapture", "Transitions_mocap",
+    )
 
     @property
     def test_datasets(self) -> Dict[str, str]:

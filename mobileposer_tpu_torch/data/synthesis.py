@@ -1,11 +1,12 @@
-"""Virtual-IMU synthesis (counterpart of the synthesis ops of
-`mobileposer_tpu/data/synthesis.py`; reference `mobileposer/process.py`).
+"""Virtual-IMU synthesis (counterpart of `mobileposer_tpu/data/synthesis.py`;
+reference `mobileposer/process.py`).
 
 The whole-sequence math of the reference's per-frame loops
 (`_syn_acc`, process.py:23-35; `_foot_ground_probs`, process.py:38-46) as
-batched tensor ops on the port's FK and skinning, on any device. What the
-synthetic training data needs is carried; the raw-dataset alignment and
-cleanup helpers arrive with `data/process.py` (ROADMAP.md queue A item 23).
+batched tensor ops on the port's FK and skinning, and the raw datasets'
+frame alignment and cleanup that `data/process.py` applies (AMASS and
+IMUPoser to the DIP frame, the DIP NaN fill, TotalCapture's accelerometer
+bias). Every op takes tensors on any device.
 """
 
 from __future__ import annotations
@@ -16,8 +17,19 @@ import numpy as np
 import torch
 
 from mobileposer_tpu_torch import config as C
+from mobileposer_tpu_torch.kinematics import rotation as R
 
 TARGET_FPS = C.datasets.fps  # 30
+
+# Fixed global-frame alignment AMASS -> DIP (reference: process.py:92).
+AMASS_ROT = np.array([[1.0, 0.0, 0.0],
+                      [0.0, 0.0, 1.0],
+                      [0.0, -1.0, 0.0]])
+
+# IMUPoser global-frame alignment (reference: process.py:320).
+IMUPOSER_ROT = np.array([[-1.0, 0.0, 0.0],
+                         [0.0, 0.0, 1.0],
+                         [0.0, 1.0, 0.0]])
 
 VI_MASK = np.asarray(C.VI_MASK)
 JI_MASK = np.asarray(C.JI_MASK)
@@ -87,3 +99,64 @@ def synthesize_virtual_imu(body_model, pose_rot: torch.Tensor,
         "vrot": grot.index_select(1, ji),
         "contact": foot_ground_probs(joint),
     }
+
+
+def _rot(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(m, dtype=like.dtype, device=like.device)
+
+
+def align_amass_to_dip(pose_aa: torch.Tensor, tran: torch.Tensor):
+    """Rotate the AMASS world frame into the DIP convention
+    (process.py:92-95).
+
+    pose_aa: [T, 24, 3] axis-angle (root in channel 0); tran: [T, 3].
+    The root goes axis-angle -> matrix -> AMASS_ROT @ matrix -> axis-angle
+    (the log map's angle in [0, pi]).
+    """
+    rot = _rot(AMASS_ROT, tran)
+    tran = (rot @ tran[..., None])[..., 0]
+    root = R.axis_angle_to_rotation_matrix(pose_aa[:, 0])
+    root = R.rotation_matrix_to_axis_angle(rot @ root)
+    pose_aa = torch.cat([root[:, None], pose_aa[:, 1:]], dim=1)
+    return pose_aa, tran
+
+
+def align_imuposer_to_dip(pose_rot: torch.Tensor, tran: torch.Tensor):
+    """IMUPoser frame alignment (process.py:320-323).
+
+    pose_rot: [T, 24, 3, 3]; tran: [T, 3].
+    """
+    rot = _rot(IMUPOSER_ROT, tran)
+    pose_rot = torch.cat([(rot @ pose_rot[:, 0])[:, None], pose_rot[:, 1:]],
+                         dim=1)
+    return pose_rot, tran @ rot
+
+
+def nan_fill_nearest(x: torch.Tensor, iters: int = 4) -> torch.Tensor:
+    """Fill NaNs from temporal neighbours (DIP cleanup, process.py:253-258).
+
+    Each of `iters` passes copies the previous frame's value into NaN
+    slots, then the next frame's value into the slots still NaN, as the
+    reference's forward/backward masked_scatter loop does. A NaN run longer
+    than the passes reach stays NaN.
+    """
+    for _ in range(iters):
+        fwd = torch.cat([x[:1], x[:-1]])
+        x = torch.where(torch.isnan(x), fwd, x)
+        bwd = torch.cat([x[1:], x[-1:]])
+        x = torch.where(torch.isnan(x), bwd, x)
+    return x
+
+
+def downsample_step(framerate: float, target_fps: int = TARGET_FPS) -> int:
+    """Integer decimation step (process.py:70-72)."""
+    return max(1, round(framerate / target_fps))
+
+
+def remove_acceleration_bias(real_acc: torch.Tensor,
+                             virtual_acc: torch.Tensor) -> torch.Tensor:
+    """Shift each (imu, axis) channel of the real accelerometer so that its
+    mean matches the synthetic acceleration's (TotalCapture,
+    process.py:207-214)."""
+    d = virtual_acc.mean(dim=0) - real_acc.mean(dim=0)
+    return real_acc + d

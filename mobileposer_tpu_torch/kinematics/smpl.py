@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.kinematics import spatial as S
 from mobileposer_tpu_torch.precision import f32_matmuls
 
@@ -154,6 +155,12 @@ def synthetic_smpl_arrays(num_vertices: int = NUM_VERTICES, seed: int = 0) -> di
                 parents=SMPL_PARENTS)
 
 
+def _fk_dtype(x: torch.Tensor) -> torch.dtype:
+    """The body's tensors' dtype for inputs `x`: float64 for float64,
+    else float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 class ParametricModel:
     """SMPL body model (reference: model.py:16). Holds the rest-pose
     joints `_J` [24, 3], the vertex template, the skinning weights, the
@@ -189,17 +196,18 @@ class ParametricModel:
             return cls(str(model_file), **kw)
         return cls.synthetic(**kw)
 
-    def _host_tensors(self, device: torch.device):
+    def _host_tensors(self, device: torch.device,
+                      dtype: torch.dtype = torch.float32):
         """(J_regressor [24, V], shapedirs [V, 3, 10], v_template [V, 3],
-        posedirs [V, 3, 207]) as float32 tensors on `device`, built once
-        per device: the shape and pose blend-shape bases."""
+        posedirs [V, 3, 207]) as `dtype` tensors on `device`, built once
+        per device and dtype: the shape and pose blend-shape bases."""
         cache = self.__dict__.setdefault("_blend_tensors", {})
-        if device not in cache:
-            cache[device] = tuple(
-                torch.as_tensor(a, device=device)
+        if (device, dtype) not in cache:
+            cache[device, dtype] = tuple(
+                torch.as_tensor(a, device=device, dtype=dtype)
                 for a in (self._J_regressor, self._shapedirs,
                           self._v_template, self._posedirs))
-        return cache[device]
+        return cache[device, dtype]
 
     @f32_matmuls
     def get_zero_pose_joint_and_vertex(
@@ -207,32 +215,35 @@ class ParametricModel:
         """Zero-pose joints/vertices with the root at the origin
         (reference: model.py:77-92). With shape=None, host numpy
         ([24, 3], [V, 3]); with shape parameters [N, 10] (or [10]),
-        float32 tensors [N, 24, 3] and [N, V, 3] on the shape's device.
+        tensors [N, 24, 3] and [N, V, 3] on the shape's device, float64
+        for float64 parameters and float32 otherwise.
         """
         if shape is None:
             j = self._J - self._J[:1]
             v = self._v_template - self._J[:1]
             return j, v
-        J_reg, shapedirs, v_template, _ = self._host_tensors(shape.device)
-        shape = shape.reshape(-1, 10).float()
+        dtype = _fk_dtype(shape)
+        J_reg, shapedirs, v_template, _ = self._host_tensors(shape.device,
+                                                             dtype)
+        shape = shape.reshape(-1, 10).to(dtype)
         v = torch.tensordot(shape, shapedirs, dims=([1], [2])) + v_template
         j = torch.einsum("jv,nvc->njc", J_reg, v)
         return j - j[:, :1], v - j[:, :1]
 
-    def _device_arrays(self, device: torch.device):
+    def _device_arrays(self, device: torch.device,
+                       dtype: torch.dtype = torch.float32):
         """(zero-pose joints [24,3], vertices [V,3], bone vectors [1,24,3],
-        skinning weights [V,24]) as float32 tensors on `device`, built
-        once per device."""
+        skinning weights [V,24]) as `dtype` tensors on `device`, built
+        once per device and dtype."""
         cache = self.__dict__.setdefault("_tensors", {})
-        if device not in cache:
-            j, v = (torch.as_tensor(a, device=device)
+        if (device, dtype) not in cache:
+            j, v = (torch.as_tensor(a, device=device, dtype=dtype)
                     for a in self.get_zero_pose_joint_and_vertex())
-            cache[device] = (j, v,
-                             S.joint_position_to_bone_vector(j[None],
-                                                             self.parent),
-                             torch.as_tensor(self._skinning_weights,
-                                             device=device))
-        return cache[device]
+            cache[device, dtype] = (
+                j, v, S.joint_position_to_bone_vector(j[None], self.parent),
+                torch.as_tensor(self._skinning_weights, device=device,
+                                dtype=dtype))
+        return cache[device, dtype]
 
     @f32_matmuls
     def forward_kinematics(self, pose: torch.Tensor,
@@ -241,7 +252,9 @@ class ParametricModel:
                            calc_mesh: bool = False):
         """Global rotations, joint positions and, with calc_mesh, the
         linear-blend-skinned mesh vertices (reference: model.py:208-240),
-        in full float32.
+        in full float32, or in float64 for a float64 pose (the raw-data
+        processing, whose acceleration stencil multiplies the vertices'
+        rounding by up to 4 * fps^2).
 
         pose [N, 24, 3, 3] local rotations; shape [N, 10] (or one [10] /
         [1, 10] vector for the whole batch) or None; tran [N, 3] or None.
@@ -250,12 +263,13 @@ class ParametricModel:
         """
         pose = pose.reshape(pose.shape[0], -1, 3, 3)
         n = pose.shape[0]
-        _, _, bone, W = self._device_arrays(pose.device)
+        dtype = _fk_dtype(pose)
+        j, v, bone, W = self._device_arrays(pose.device, dtype)
         if shape is None:
-            j, v, _, _ = self._device_arrays(pose.device)
             bone = bone.expand(n, -1, -1)
         else:
-            j, v = self.get_zero_pose_joint_and_vertex(shape.to(pose.device))
+            j, v = self.get_zero_pose_joint_and_vertex(
+                shape.to(device=pose.device, dtype=dtype))
             if j.shape[0] == 1 and n > 1:
                 # one shape vector shared by the whole pose batch
                 j = j.expand(n, -1, -1)
@@ -277,7 +291,7 @@ class ParametricModel:
         # and t_v = sum_j w[v,j] p_adj[n,j].
         p_adj = joint_global - (pose_global @ j[..., None])[..., 0]
         if self.use_pose_blendshape:
-            posedirs = self._host_tensors(pose.device)[3]
+            posedirs = self._host_tensors(pose.device, dtype)[3]
             eye = torch.eye(3, dtype=pose.dtype, device=pose.device)
             r = (pose[:, 1:] - eye).reshape(n, -1)
             v = v + torch.tensordot(r, posedirs, dims=([1], [2]))
@@ -285,3 +299,23 @@ class ParametricModel:
         t_v = torch.einsum("vj,njc->nvc", W, p_adj)
         vertex_global = (R_v @ v[..., None])[..., 0] + t_v
         return pose_global, add_tran(joint_global), add_tran(vertex_global)
+
+    # -- host-side export (reference: model.py:41-75) ----------------------
+    @staticmethod
+    def save_unity_motion(pose=None, tran=None, output_dir="saved_motions/"):
+        """Write `pose.txt` (one frame a line: the local rotations [T, 24,
+        3, 3] as 72 axis-angle values, %.4f) and `tran.txt` (the root
+        translation [T, 3], %.5f), comma-separated, as Unity reads them."""
+        os.makedirs(output_dir, exist_ok=True)
+        if pose is not None:
+            pose = torch.as_tensor(pose).cpu()
+            pose = R.rotation_matrix_to_axis_angle(pose).reshape(
+                pose.shape[0], -1).numpy()
+            with open(os.path.join(output_dir, "pose.txt"), "w") as f:
+                f.write("\n".join(
+                    ",".join("%.4f" % x for x in p) for p in pose))
+        if tran is not None:
+            tran = torch.as_tensor(tran).cpu().reshape(-1, 3).numpy()
+            with open(os.path.join(output_dir, "tran.txt"), "w") as f:
+                f.write("\n".join(
+                    ",".join("%.5f" % x for x in t) for t in tran))

@@ -1,20 +1,20 @@
 """Experiment-metric sinks (counterpart of `mobileposer_tpu/utils/metrics.py`).
 
-Sinks receive flat dict records ({"module": ..., "epoch": ...,
-"train_loss": ..., ...}). Spec strings (CLI `--metrics`, comma-separated):
-`jsonl:<path>` and `csv:<path>`. The JAX package's `tensorboard:<logdir>`
-and `wandb:<project>` sinks raise NotImplementedError naming their ROADMAP
-row.
+The reference logs training to wandb through Lightning's WandbLogger
+(reference train.py:40-46). Sinks receive flat dict records ({"module":
+..., "epoch": ..., "train_loss": ..., ...}); numeric values go to the
+structured backends, whole records to the stream ones. Spec strings (CLI
+`--metrics`, comma-separated):
+    jsonl:<path>  csv:<path>  tensorboard:<logdir>  wandb:<project>
 """
 
 from __future__ import annotations
 
 import csv
 import json
+import numbers
 from pathlib import Path
 from typing import Dict, List, Optional
-
-_SINK_ROW = "ROADMAP.md queue A item 21"
 
 
 class MetricsSink:
@@ -76,6 +76,47 @@ class CSVSink(MetricsSink):
             self._f.close()
 
 
+class TensorBoardSink(MetricsSink):
+    """Scalar curves through `torch.utils.tensorboard`: each numeric value
+    as `<module>/<key>` at step `epoch` (a running count without one)."""
+
+    def __init__(self, logdir):
+        from torch.utils.tensorboard import SummaryWriter
+        self._w = SummaryWriter(str(logdir))
+        self._step = 0
+
+    def log(self, record: Dict) -> None:
+        step = record.get("epoch", self._step)
+        prefix = record.get("module", "train")
+        for k, v in record.items():
+            if k in ("epoch", "module"):
+                continue
+            if isinstance(v, numbers.Number):
+                self._w.add_scalar(f"{prefix}/{k}", float(v), int(step))
+        self._step += 1
+
+    def close(self) -> None:
+        self._w.close()
+
+
+class WandbSink(MetricsSink):
+    """wandb, when the package is importable (reference train.py:40-46).
+    Raises ImportError at construction otherwise: the caller chose this
+    sink, so a silent no-op would hide a misconfiguration."""
+
+    def __init__(self, project: str, run_name: Optional[str] = None):
+        import wandb
+        self._run = wandb.init(project=project, name=run_name)
+
+    def log(self, record: Dict) -> None:
+        self._run.log({k: v for k, v in record.items()
+                       if isinstance(v, numbers.Number)},
+                      step=record.get("epoch"))
+
+    def close(self) -> None:
+        self._run.finish()
+
+
 class MultiSink(MetricsSink):
     def __init__(self, sinks: List[MetricsSink]):
         self.sinks = list(sinks)
@@ -101,9 +142,10 @@ def make_sinks(spec: Optional[str]) -> MetricsSink:
             sinks.append(JSONLSink(arg))
         elif kind == "csv":
             sinks.append(CSVSink(arg))
-        elif kind in ("tensorboard", "wandb"):
-            raise NotImplementedError(
-                f"the {kind} metrics sink is not ported ({_SINK_ROW})")
+        elif kind == "tensorboard":
+            sinks.append(TensorBoardSink(arg))
+        elif kind == "wandb":
+            sinks.append(WandbSink(arg or "mobileposer_tpu"))
         else:
             raise ValueError(f"unknown metrics sink {kind!r} "
                              "(expected jsonl|csv|tensorboard|wandb)")

@@ -44,6 +44,12 @@ def test_importing_the_port_loads_no_jax():
             "import mobileposer_tpu_torch.cli.train\n"
             "import mobileposer_tpu_torch.cli.combine_weights\n"
             "import mobileposer_tpu_torch.cli.serve\n"
+            "import mobileposer_tpu_torch.cli.process\n"
+            "import mobileposer_tpu_torch.cli.finetune\n"
+            "import mobileposer_tpu_torch.cli.overfit\n"
+            "import mobileposer_tpu_torch.cli.example\n"
+            "import mobileposer_tpu_torch.cli.combiner\n"
+            "import mobileposer_tpu_torch.utils.metrics\n"
             "import mobileposer_tpu_torch.evaluation.drift\n"
             "import mobileposer_tpu_torch.models.streaming\n"
             "import mobileposer_tpu_torch.native\n"

@@ -364,8 +364,11 @@ def test_train_all_checkpoints_load_in_jax_and_resume(trained, bodies):
 def test_cli_train_and_combine_run_on_cpu(trained, tmp_path, monkeypatch):
     """`cli.train --module footcontact --fast-dev-run` (train_module) and
     `cli.combine_weights` run; the combined file loads in the JAX
-    package, and `--export-torch` writes its reference-format .pth; the
-    options this slice leaves out raise naming their ROADMAP row."""
+    package, and `--export-torch` writes its reference-format .pth;
+    `--finetune dip` with a TensorBoard sink, `cli.finetune`,
+    `cli.overfit` and `cli.process` run; the multi-device options raise
+    naming their ROADMAP row; the wandb sink raises ImportError while
+    wandb is not installed."""
     root = trained[0]
     monkeypatch.setenv("MP_PROCESSED", str(root / "data"))
     ckpt = tmp_path / "ckpt"
@@ -377,10 +380,19 @@ def test_cli_train_and_combine_run_on_cpu(trained, tmp_path, monkeypatch):
     out = combine_cli.main(["--checkpoint-dir", str(root / "ckpt"),
                             "--out", str(tmp_path / "combined.npz")])
     assert set(load_from_npz(str(out))) == set(trainer.MODULE_NAMES)
-    for flags in (["--finetune", "dip"], ["--metrics", "tensorboard:tb"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_cli.main(["--fast-dev-run", "--device", "cpu",
-                            "--checkpoint-dir", str(ckpt), *flags])
+    # --finetune reads $MP_PROCESSED/eval/dip_train.pt, with the finetune
+    # hyperparameters; the TensorBoard sink writes its event file
+    proc = tmp_path / "proc"
+    (proc / "eval").mkdir(parents=True)
+    (proc / "eval" / "dip_train.pt").write_bytes(
+        (root / "data" / "t.pt").read_bytes())
+    monkeypatch.setenv("MP_PROCESSED", str(proc))
+    train_cli.main(["--fast-dev-run", "--device", "cpu", "--module",
+                    "joints", "--checkpoint-dir", str(tmp_path / "ft"),
+                    "--finetune", "dip", "--metrics",
+                    f"tensorboard:{tmp_path / 'tb'}"])
+    assert trainer.get_best_checkpoint(tmp_path / "ft" / "joints")
+    assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
     # --export-torch writes the reference-format .pth of the combined
     # weights (tests/test_torch_torch_convert.py holds it to the JAX CLI)
     combine_cli.main(["--checkpoint-dir", str(root / "ckpt"), "--out",
@@ -399,11 +411,25 @@ def test_cli_train_and_combine_run_on_cpu(trained, tmp_path, monkeypatch):
     assert mgr.backend == "auto_train_bf16res"
     with pytest.raises(NotImplementedError, match="not ported"):
         trainer.TrainingManager(device="cpu", backend="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ImportError):
         make_sinks("wandb:proj")
-    for cli in (finetune_cli, overfit_cli, process_cli):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([])
+    # the finetune, overfit and process CLIs run (held to the JAX CLIs in
+    # tests/test_torch_recipes.py and tests/test_torch_process.py)
+    base = tmp_path / "base"
+    import shutil
+    shutil.copytree(root / "ckpt", base)
+    out = finetune_cli.main(["--dataset", "dip", "--checkpoint-dir",
+                             str(base), "--fast-dev-run", "--concurrent",
+                             "--device", "cpu"])
+    for n in ("joints", "poser"):
+        assert trainer.get_best_checkpoint(out / n) is not None
+    losses = overfit_cli.main(["--module", "footcontact", "--steps", "2",
+                               "--synthetic", "--batch-size", "2",
+                               "--device", "cpu"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    process_cli.main(["--dataset", "synthetic", "--device", "cpu"])
+    assert len(PoseDataset(data_files=[proc / "synthetic.pt"],
+                           device="cpu").windows) == 8 * 4
 
 
 def test_prefetcher_delivers_in_order_and_surfaces_errors():
