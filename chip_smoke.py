@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's streaming, evaluation, training, fused
 single-window and serving paths on one CUDA card, in float32, W8A8,
-bfloat16 and W8A8 on bfloat16 params, training on bf16 residuals, and
-the offline recipe (raw-data processing, finetune, example, overfit).
+bfloat16 and W8A8 on bfloat16 params, training on bf16 residuals, the
+offline recipe (raw-data processing, finetune, example, overfit) and the
+live runtime (sensor ingest, calibration, `LivePoser`, `cli.live_demo`).
 
     python3 chip_smoke.py
 
@@ -210,10 +211,27 @@ then runs these phases, each printing JSON lines:
                both on the trained fixture's weights held to the CPU port
                at SLICE_TOL (offline the whole sequence, online its first
                240 frames), #1 and #2 against
-               their plain versions at the example's B = 1 shapes,
+               their plain versions at the example's offline B = 1
+               shapes (its online shapes are the live step's, phase 4j),
                `cli.overfit --module poser` (its loss must fall), and one
                finetune step card against CPU at phase 4c's tolerances
                (losses, gradients and the updated params);
+  4j. live   — the live runtime at full width on the trained fixture's
+               weights: #1 at (45, 1, 256) and (45, 1, 64) and #2 at
+               (45, 1, 256), the live step's shapes, against their plain
+               versions (kernel, plain, cuDNN times and the bound); a
+               calibration from synthetic body-frame and T-pose holds,
+               then 120 recorded raw frames through `LivePoser.step_frame`
+               on the card (each step timed, 6 + 2 launches a frame) and
+               on the CPU port (SLICE_TOL on pose, joints, tran,
+               contact); with a replayer and the sensor frontend
+               (`cli.calibration --native`) as processes of their own,
+               `cli.live_demo --save` in a third (its session must load
+               with the reference's schema), then the loop in this
+               process over loopback sockets, calibrated over them, 5 s
+               at 30 Hz pipelined and synchronous: frames, output and
+               sensor frames/s, step and fetch p50/p99 against 33.3 ms,
+               6 + 2 launches a frame, the recording's schema;
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan; there also on bf16 params, beside the
                float32 rate) and 8 streams (unfolded), then one traced call
@@ -378,10 +396,25 @@ OVERFIT_STEPS = 30
 # differences in r6d near float32 rounding reach ~1e-4 in the pose
 # (1.3e-4 card against CPU on an H100; tran 1.9e-6), where the trained
 # weights' r6d (lengths >= 0.2) passes them on about as it gets them. The
-# scan kernels are also held to their plain versions at the example's own
-# shapes, B = 1: T = the sequence offline, the 45-frame window (#1) and
-# one frame (#2) online.
+# scan kernels are also held to their plain versions at the example's
+# offline shapes, B = 1 and T = the sequence; online it runs
+# `forward_online`, the live step, whose shapes phase 4j holds and times.
 EXAMPLE_ONLINE_CPU_FRAMES = 240
+# Phase 4j, the live runtime: the single-stream step's layer shapes (#1 at
+# H = 256 and 64, #2 at 256, over the 45-frame window of one stream);
+# LIVE_FRAMES recorded raw frames through `LivePoser.step_frame` card
+# against CPU port (SLICE_TOL; the trained fixture's weights, see
+# EXAMPLE_ONLINE_CPU_FRAMES' note); the loopback loop of LIVE_SECONDS at
+# LIVE_FPS, pipelined then synchronous, after LIVE_CALIBRATE_S of each
+# socket calibration step; `cli.live_demo` for LIVE_CLI_SECONDS in a
+# process of its own. LIVE_BUDGET_MS is a 30 Hz frame.
+LIVE_SHAPES = ((True, 45, 1, 256), (True, 45, 1, 64), (False, 45, 1, 256))
+LIVE_FRAMES = 120
+LIVE_SECONDS = 5.0
+LIVE_FPS = 30
+LIVE_CALIBRATE_S = 0.5
+LIVE_CLI_SECONDS = 3.0
+LIVE_BUDGET_MS = 1000.0 / 30
 # The full-length kernels' times at T=45, H=256, B=256 recorded in
 # PERF.md section 6 for slice 1's one-block kernel, printed beside this
 # run's.
@@ -3676,7 +3709,6 @@ def phase_recipe(torch, lstm_cuda, train_cuda):
     from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
     from mobileposer_tpu_torch.models import MobilePoserNet
     from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS
-    from mobileposer_tpu_torch.models.net import NUM_TOTAL
     from mobileposer_tpu_torch.models.utils import load_model
     from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
     from mobileposer_tpu_torch.train import combine_weights, \
@@ -3883,12 +3915,11 @@ def phase_recipe(torch, lstm_cuda, train_cuda):
             for k, w in want["offline"].items())
 
         # the scan kernels against their plain versions at the example's
-        # shapes (not counted: the counts above were read already)
+        # offline shapes (not counted: the counts above were read already)
         T_seq = example["offline"]["frames"]
         scan_errs = []
         for bi, T, H in ((True, T_seq, 256), (True, T_seq, 64),
-                         (False, T_seq, 256), (True, NUM_TOTAL, 256),
-                         (True, NUM_TOTAL, 64), (False, 1, 256)):
+                         (False, T_seq, 256)):
             err, finite = _scan_vs_plain(torch, *_scan_case(
                 torch, lstm_cuda, np.random.RandomState(T + H), bi, T, 1, H))
             scan_errs.append({"name": "bilstm_scan_f32" if bi
@@ -4004,6 +4035,250 @@ def phase_recipe(torch, lstm_cuda, train_cuda):
         require(total.get(name, 0) > 0,
                 f"{name} was never launched by the offline recipe")
     return total
+
+
+def _walk_frames(rng, quats0, T: int, step: float):
+    """T raw frames (quats wxyz [T,5,4]) of five devices whose orientations
+    take a random walk of `step` rad from quats0 (wxyz [5,4])."""
+    import numpy as np
+    from mobileposer_tpu_torch.stream import quat_np as Q
+    cur, out = np.array(quats0, np.float64), np.zeros((T, 5, 4))
+    for t in range(T):
+        for d in range(5):
+            m = Q.quat_to_matrix(Q.quat_from_euler_xyz(
+                rng.normal(0, step, 3))) @ Q.quat_to_matrix(cur[d, [1, 2, 3, 0]])
+            cur[d] = Q.matrix_to_quat(m)[[3, 0, 1, 2]]
+        out[t] = cur
+    return out
+
+
+def live_kernel_records(torch, lstm_cuda):
+    """#1 and #2 at the live step's shapes (LIVE_SHAPES) against their
+    plain versions, with kernel, plain and cuDNN times and the bound (not
+    counted: the counters are reset before each main-path run)."""
+    import numpy as np
+    recs = []
+    for bi, T, B, H in LIVE_SHAPES:
+        kern, plain, args = _scan_case(torch, lstm_cuda,
+                                       np.random.RandomState(T + B + H), bi,
+                                       T, B, H)
+        err, finite = _scan_vs_plain(torch, kern, plain, args)
+        with torch.no_grad():
+            kernel_ms = time_ms(lambda: kern(*args), 50)
+            plain_ms = time_ms(lambda: plain(*args), 5, warmup=1)
+        library_ms, _ = _lstm_library_ms(torch, H, B, T, bi, torch.float32)
+        bound_ms, bound_by, flops, nbytes = layer_bound(2 if bi else 1, T, B,
+                                                        H)
+        rec = {"phase": "live_kernel", "name": "bilstm_scan_f32" if bi
+               else "lstm_scan_f32", "T": T, "B": B, "H": H,
+               "max_abs_err": err, "tol": KERNEL_TOL, "finite": finite,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "torch.nn.LSTM 1 layer (cuDNN, TF32 off; includes "
+                          "its input projection)",
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+        emit(rec)
+        require(finite and err <= KERNEL_TOL,
+                f"{rec['name']} at the live shape {(T, B, H)}: max abs err "
+                f"{err} (tol {KERNEL_TOL}), finite {finite}")
+        recs.append(rec)
+    return recs
+
+
+_LIVE_REPLAYER = """
+import sys
+from mobileposer_tpu_torch.stream import DeviceReplayer, synthetic_device_stream
+DeviceReplayer().replay(synthetic_device_stream(int(sys.argv[1]), seed=3),
+                        fps=float(sys.argv[2]))
+"""
+
+
+def phase_live(torch, lstm_cuda):
+    """The live runtime on the card at full width (the official or the
+    synthetic 6,890-vertex body, the full model on the trained fixture's
+    weights), fed as deployed: a replayer process sends the five devices'
+    raw packets (`DeviceReplayer(synthetic_device_stream)`) to the sensor
+    frontend's process (`cli.calibration --native`: the native ingest,
+    the rebroadcast to :7777), and the live process reads :7777
+    (`IMUSet`). Here: #1 and #2 at the live step's shapes; a calibration
+    from synthetic body-frame and T-pose holds, then LIVE_FRAMES recorded
+    raw frames through `LivePoser.step_frame` on the card (6 + 2
+    launches a frame, each step timed) and on the CPU port; meanwhile
+    `cli.live_demo --save` runs as a process of its own, started once the
+    card's part is timed; then the loop in this process, socket
+    calibration and `run(record=True)`, pipelined and synchronous:
+    frames, their rates and timings, the recording's schema. Returns
+    (the kernel records, the launches of the two loop runs, summed)."""
+    import shutil
+    import numpy as np
+    from mobileposer_tpu_torch import config as C
+    from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+    from mobileposer_tpu_torch.models import MobilePoserNet
+    from mobileposer_tpu_torch.models.utils import load_model
+    from mobileposer_tpu_torch.nn.convert import params_from_jax
+    from mobileposer_tpu_torch.stream import (
+        IMUSet, LivePoser, compute_device_calibration, compute_smpl2imu)
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(17)
+    mount = rng.randn(5, 4)
+    mount /= np.linalg.norm(mount, axis=1, keepdims=True)
+    bias = rng.randn(5, 3)
+    body_hold = _walk_frames(rng, mount, 90, 0.002)
+    tpose_hold = _walk_frames(rng, mount, 90, 0.002)
+    cal = compute_device_calibration(
+        compute_smpl2imu(body_hold[:, 0].mean(axis=0)),
+        tpose_hold.mean(axis=0),
+        bias + rng.randn(90, 5, 3).mean(axis=0) * 0.1)
+    quats = _walk_frames(rng, tpose_hold[-1], LIVE_FRAMES, 0.05)
+    accs = bias[None] + rng.randn(LIVE_FRAMES, 5, 3) * 0.5
+
+    tmp = Path(tempfile.mkdtemp())
+    env = dict(os.environ, MP_ROOT=str(tmp), PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT)] + [x for x in [os.environ.get("PYTHONPATH")]
+                                  if x]))
+    cal.save(tmp / "cal.npz")
+    procs = {}
+
+    def start(name, argv):
+        procs[name] = subprocess.Popen(
+            [sys.executable, *argv], cwd=tmp, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+    try:
+        # the sensor side, each a process of its own
+        start("replayer", ["-c", _LIVE_REPLAYER, str(300 * LIVE_FPS),
+                           str(LIVE_FPS)])
+        start("frontend", ["-m", "mobileposer_tpu_torch.cli.calibration",
+                           "--native", "--duration", "300"])
+
+        # 1. the kernels at the live shapes; the step card against CPU
+        # (the CLI's process starts once the card's part is timed)
+        recs = live_kernel_records(torch, lstm_cuda)
+        body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
+        tree = load_model(str(FIXTURE))
+        nets = {d: MobilePoserNet(body, device=d) for d in ("cuda", "cpu")}
+
+        def poser(device, imu_set=None):
+            return LivePoser(nets[device], params_from_jax(tree,
+                                                           device=device),
+                             imu_set=imu_set)
+
+        def counts():
+            return {k: n for k, n in lstm_cuda.launches.items() if n}
+
+        outs, step_ms = {}, []
+        for device in ("cuda", "cpu"):
+            p = poser(device)
+            p.set_calibration(cal)
+            lstm_cuda.reset_launches()
+            frames = []
+            for q, a in zip(quats, accs):
+                t0 = time.perf_counter()
+                res = p.step_frame(q, a)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                frames.append([x.cpu().numpy() for x in res])
+            if device == "cuda":
+                step_launches = counts()
+                t_cli = time.perf_counter()
+                start("cli", ["-m", "mobileposer_tpu_torch.cli.live_demo",
+                              "--model", str(FIXTURE), "--calibration",
+                              str(tmp / "cal.npz"), "--duration",
+                              str(LIVE_CLI_SECONDS), "--save"])
+            outs[device] = [np.stack(x) for x in zip(*frames)]
+        names = ("pose", "joints", "tran", "contact")
+        errs = {k: float(np.abs(g - w).max()) for k, g, w in zip(
+            names, outs["cuda"], outs["cpu"])}
+        finite = all(bool(np.isfinite(x).all()) for x in outs["cuda"])
+        expect = {"bilstm_scan_f32": 6 * LIVE_FRAMES,
+                  "lstm_scan_f32": 2 * LIVE_FRAMES}
+        emit({"phase": "live_vs_cpu", "frames": LIVE_FRAMES,
+              "max_abs_err": errs, "tol": SLICE_TOL,
+              "launches": step_launches, "expected_launches": expect,
+              "step_sync_ms_p50": float(np.percentile(step_ms, 50)),
+              "step_sync_ms_p99": float(np.percentile(step_ms, 99)),
+              "budget_ms": LIVE_BUDGET_MS, "finite": finite})
+        require(finite, "the live step on the card gave non-finite values")
+        require(all(e <= SLICE_TOL for e in errs.values()),
+                f"live step card vs CPU: {errs} (tol {SLICE_TOL})")
+        require(step_launches == expect,
+                f"live step launches {step_launches}, expected {expect}")
+
+        # 2. the CLI's session (the process frees :7777 when it exits)
+        cli_out, _ = procs["cli"].communicate(timeout=300)
+        cli_s = time.perf_counter() - t_cli
+        saved = [ln.split("Session saved to ", 1)[1].strip()
+                 for ln in cli_out.splitlines() if "Session saved to " in ln]
+        z = dict(np.load(saved[0])) if saved else {}
+        emit({"phase": "live_cli", "returncode": procs["cli"].returncode,
+              "seconds": cli_s,
+              "session": {k: list(v.shape) for k, v in z.items()},
+              "output_tail": cli_out.splitlines()[-3:]})
+        schema = {"acc": (5, 3), "ori": (5, 3, 3), "raw_acc": (5, 3),
+                  "raw_ori": (5, 4), "pose": (24, 3, 3), "tran": (3,)}
+        require(procs["cli"].returncode == 0 and saved,
+                f"cli.live_demo exited {procs['cli'].returncode}: "
+                f"{cli_out[-2000:]}")
+        require(z["pose"].shape[0] > 0
+                and all(bool(np.isfinite(z[k]).all()) for k in schema)
+                and set(schema) | {"smpl2imu", "device2bone",
+                                   "acc_offsets"} == set(z),
+                f"cli.live_demo session {sorted(z)}")
+
+        # 3. the loop in this process, pipelined then synchronous
+        loop_launches = {}
+        for pipelined in (True, False):
+            p = poser("cuda", IMUSet(buffer_len=1))
+            p.calibrate_body_frame(LIVE_CALIBRATE_S)
+            loop_cal = p.calibrate_tpose(LIVE_CALIBRATE_S)
+            lstm_cuda.reset_launches()
+            rec = p.run(duration=LIVE_SECONDS, fps=LIVE_FPS, record=True,
+                        pipelined=pipelined)
+            launches = counts()
+            n = int(rec["pose"].shape[0]) if rec["pose"].size else 0
+            st = p.stats()
+            mode = "pipelined" if pipelined else "synchronous"
+            emit({"phase": "live_loop", "mode": mode, "frames": n,
+                  "seconds": st["seconds"], "output_fps": st["output_fps"],
+                  "target_fps": LIVE_FPS, "step_ms": st["step_ms"],
+                  "fetch_ms": st["fetch_ms"], "budget_ms": LIVE_BUDGET_MS,
+                  "sensor_fps": p.imu_set.clock.get_fps(),
+                  "launches": launches,
+                  "recording": {k: list(v.shape) for k, v in rec.items()},
+                  "calibration_finite": bool(
+                      np.isfinite(loop_cal.device2bone).all()
+                      and np.isfinite(loop_cal.acc_offsets).all())})
+            require(n > 0 and loop_cal is not None,
+                    f"live loop ({mode}): no frames")
+            require(all(rec[k].shape == (n, *sh) for k, sh in schema.items())
+                    and all(bool(np.isfinite(v).all()) for v in rec.values()),
+                    f"live loop ({mode}) recording: "
+                    f"{ {k: v.shape for k, v in rec.items()} }")
+            require(launches == {"bilstm_scan_f32": 6 * n,
+                                 "lstm_scan_f32": 2 * n},
+                    f"live loop ({mode}) launches {launches} over {n} frames")
+            for k, v in launches.items():
+                loop_launches[k] = loop_launches.get(k, 0) + v
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        side = {name: proc.communicate(timeout=60)[0]
+                for name, proc in procs.items() if name != "cli"}
+        shutil.rmtree(tmp, ignore_errors=True)
+    native = ("native ingest unavailable" not in side["frontend"]
+              and "listening" in side["frontend"])
+    emit({"phase": "live_sensor_side", "native_ingest": native,
+          "frontend_output_tail": side["frontend"].splitlines()[-3:],
+          "replayer_output_tail": side["replayer"].splitlines()[-3:]})
+    require(native, "the frontend process did not run the native ingest: "
+                    f"{side['frontend'][-1000:]}")
+    emit({"phase": "live_seconds", "seconds": time.perf_counter() - t_phase})
+    return recs, loop_launches
 
 
 def main() -> int:
@@ -4167,6 +4442,10 @@ def main() -> int:
     t0 = time.perf_counter()
     recipe_launches = phase_recipe(torch, lstm_cuda, train_cuda)
     emit({"phase": "recipe_seconds", "seconds": time.perf_counter() - t0})
+    # 4j. the live runtime: the step card against CPU, the loopback loop,
+    # the live demo CLI (its loop runs: the live counters)
+    live_recs, live_launches = phase_live(torch, lstm_cuda)
+    kernel_recs += live_recs
     main_launches = {
         **{k: n for k, n in stream_launches.items() if k.endswith("f32")
            and "masked" not in k},
@@ -4191,6 +4470,9 @@ def main() -> int:
             "bilstm_scan_masked_int8_bf16", "lstm_scan_masked_int8_bf16")}}
     for name, n in main_launches.items():
         require(n > 0, f"{name} was never launched on its main path")
+    for name in ("bilstm_scan_f32", "lstm_scan_f32"):
+        require(live_launches.get(name, 0) > 0,
+                f"{name} was never launched by the live loop")
 
     # 5. exact-path streamed frames/s (tracing off), then one traced call;
     # at 256 streams (C1's shape) the same on bf16 params beside it
@@ -4339,6 +4621,7 @@ def main() -> int:
             "serving_launches": serving_by_kernel.get(name, 0),
             "bundle_launches": bundle_launches.get(name, 0),
             "recipe_launches": recipe_launches.get(name, 0),
+            "live_launches": live_launches.get(name, 0),
             "shape": {"T": T, "B": B, "H": main["H"]}})
     emit({"kernels": ported,
           "online_eval_launches": online_launches,

@@ -176,6 +176,22 @@ class JointSet:
         return len(self.reduced)
 
 
+@dataclasses.dataclass(frozen=True)
+class Sensor:
+    """Sensor device ids (reference: config.py:145-153)."""
+    device_ids: Tuple[Tuple[str, int], ...] = (
+        ("Left_phone", 0),
+        ("Left_watch", 1),
+        ("Left_headphone", 2),
+        ("Right_phone", 3),
+        ("Right_watch", 4),
+    )
+
+    @property
+    def id_map(self) -> Dict[str, int]:
+        return dict(self.device_ids)
+
+
 train_hypers = TrainHypers()
 finetune_hypers = FinetuneHypers()
 paths = Paths()
@@ -183,6 +199,7 @@ model_config = ModelConfig()
 amass = Amass()
 datasets = Datasets()
 joint_set = JointSet()
+sensor = Sensor()
 
 # Evaluation joint mask for SIP-style errors (reference: evaluate.py:18).
 EVAL_JOINT_MASK: Tuple[int, ...] = (2, 5, 16, 20)

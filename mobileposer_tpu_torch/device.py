@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -28,3 +29,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "by default. Pass device='cpu' to run the plain PyTorch "
             "versions of the kernels on the CPU.")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def device_context(device: torch.device):
+    """`device` as the current CUDA device (a no-op for another device),
+    so the streams, events and pinned copies of the code under it are the
+    device's; a thread other than the one that made a device's tensors
+    starts on device 0."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -44,7 +44,6 @@ it yet must not change what that fetcher sends.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import queue
 import socket
@@ -56,6 +55,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mobileposer_tpu_torch.device import device_context
 from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.stream.pacing import Pacer
 
@@ -243,13 +243,6 @@ class PoseServer:
             self._start_fetcher()
 
     # -- device helpers -----------------------------------------------------
-    def _device_ctx(self):
-        """The server's CUDA device as the current one (a no-op on the
-        CPU): threads other than the constructor's start on device 0."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
-
     def _post(self, pose, root, contact):
         """Reply post step on the device: rotation matrices to axis-angle
         (in the server's dtype, as the JAX server computes it), and the
@@ -318,7 +311,7 @@ class PoseServer:
         A failed fetch must not kill the thread (every later reply would
         be a silent drop while tick stats stay green): its replies are
         dropped and counted, and the loop keeps serving."""
-        with self._device_ctx():
+        with device_context(self.device):
             stop_seen = None
             while True:
                 if self._stop.is_set():
@@ -455,7 +448,7 @@ class PoseServer:
         tensors replace the state's fields, and a tick's outputs that
         alias the old ones (its `root` is the old `last_root_pos`) keep
         their values until a fetcher has copied them."""
-        with self._device_ctx():
+        with device_context(self.device):
             st = self.states
             idx = torch.tensor([slot], device=self.device)
             fields = dict(
@@ -556,7 +549,7 @@ class PoseServer:
         active = np.nonzero(self.has_frame)[0]
         if active.size == 0:
             return 0
-        with self._device_ctx(), torch.no_grad():
+        with device_context(self.device), torch.no_grad():
             frames = self._upload(self.pending)
             (pose, _, root, contact), self.states = self._step(
                 self.params, self.states, frames)

@@ -49,6 +49,9 @@ def test_importing_the_port_loads_no_jax():
             "import mobileposer_tpu_torch.cli.overfit\n"
             "import mobileposer_tpu_torch.cli.example\n"
             "import mobileposer_tpu_torch.cli.combiner\n"
+            "import mobileposer_tpu_torch.cli.live_demo\n"
+            "import mobileposer_tpu_torch.cli.calibration\n"
+            "import mobileposer_tpu_torch.viz\n"
             "import mobileposer_tpu_torch.utils.metrics\n"
             "import mobileposer_tpu_torch.evaluation.drift\n"
             "import mobileposer_tpu_torch.models.streaming\n"
@@ -74,6 +77,7 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     from mobileposer_tpu_torch import bench
+    from mobileposer_tpu_torch.cli import live_demo
     from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
     from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
 
@@ -81,6 +85,7 @@ def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     fixture = ROOT / "tests" / "fixtures" / "demo_checkpoint_f16.npz"
     for call in (MobilePoserNet, init_all_modules,
                  lambda: params_from_jax(load_npz(fixture)), bench.run,
+                 lambda: live_demo.main(["--model", str(fixture)]),
                  lambda: bench.run(int8=True),
                  lambda: bench.run_forward(backend="fused")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
