@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port's streaming, evaluation, training, fused
 single-window and serving paths on one CUDA card, in float32, W8A8,
 bfloat16 and W8A8 on bfloat16 params, training on bf16 residuals, the
-offline recipe (raw-data processing, finetune, example, overfit) and the
-live runtime (sensor ingest, calibration, `LivePoser`, `cli.live_demo`).
+offline recipe (raw-data processing, finetune, example, overfit), the
+live runtime (sensor ingest, calibration, `LivePoser`, `cli.live_demo`)
+and data parallelism (sharded evaluation and serving, two-rank
+training).
 
     python3 chip_smoke.py
 
@@ -232,6 +234,34 @@ then runs these phases, each printing JSON lines:
                at 30 Hz pipelined and synchronous: frames, output and
                sensor frames/s, step and fetch p50/p99 against 33.3 ms,
                6 + 2 launches a frame, the recording's schema;
+  4k. parallel — data parallelism (`parallel/`): #1 and #2 at the
+               per-shard shapes of 256 streams over 4 shards (45, 64, H),
+               #7 and #8 at a rank's half of a 256 batch (125, 128, H),
+               against their plain versions with kernel, plain, library
+               times and the bound; the card split into 4 shards (a mesh
+               naming cuda:0 four times): phase 4b's fixture and sequences
+               through `evaluate_pose(mesh=...)`, float32 and int8, the
+               tables and drift windows held to one device's (PARALLEL_TOL;
+               int8 at the int8 pins), exactly shards x the per-shard
+               launches offline (masked) and ONLINE; the offline pass's
+               seconds at C3's group (64 x 512, `bench.run_offline_sharded`)
+               on one device and sharded, traced (each card's busy share);
+               `PoseServer(mesh=...)`
+               at S256 exact float32 and int8 and S64 carry in lockstep
+               against the unsharded server (replies PARALLEL_TOL, int8
+               INT8_SLICE_TOL, shards x 6 bi + 2 uni launches a tick), a
+               synchronous tick of each traced (wall, host, each card's
+               busy share), then paced at 30 Hz (tick p50 / p90 / p99,
+               ticks/s, reply rate); two ranks on the card over gloo
+               (`parallel.spawn`, `bench.run_train_dp`; the ranks load the
+               kernels phase 2 built) in one concurrent step at B = 256 x
+               125 from the trained fixture's weights under 'gspmd'
+               (losses DP_LOSS_RTOL, each gradient tensor DP_GRAD_TOL of
+               its largest entry, against the one-process step on the
+               whole ragged batch) and 'shard_map' (the mean of the ranks' own losses),
+               14 launches of each training kernel per rank, each rank's
+               step, all-reduce and peak memory; with more than one card
+               the same over every card, the training over NCCL;
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan; there also on bf16 params, beside the
                float32 rate) and 8 streams (unfolded), then one traced call
@@ -252,9 +282,11 @@ then runs these phases, each printing JSON lines:
   5d. forward rate — single-window forwards/s at B = 256, T = 45
                (`bench.run_forward`), 'fused' and 'auto' in turns (fused,
                auto, auto, fused), then one traced call of each;
-  6. kernels — one line with every ported kernel's numbers; no TPU
-               kernel is left to port, one dtype variant is (the bf16
-               I/O of #7 and #8, ROADMAP.md queue B.4).
+  6. kernels — one line with every ported kernel's numbers (with
+               `parallel_launches`, phase 4k's count, and for #1, #2, #7
+               and #8 `per_shard`, their numbers at the per-shard shape);
+               no TPU kernel is left to port, one dtype variant is (the
+               bf16 I/O of #7 and #8, ROADMAP.md queue B.4).
 
 Any failure raises and exits non-zero before the last line, which is
 `{"ok": true, "device": {...}}` only when every phase passed. The script
@@ -400,6 +432,36 @@ OVERFIT_STEPS = 30
 # offline shapes, B = 1 and T = the sequence; online it runs
 # `forward_online`, the live step, whose shapes phase 4j holds and times.
 EXAMPLE_ONLINE_CPU_FRAMES = 240
+# Phase 4k, data parallelism: the card split into PARALLEL_SHARDS shards
+# (a mesh naming cuda:0 that many times; with more than one card, every
+# card as well). Sharded tables and float32 replies are held to one
+# device's at PARALLEL_TOL. int8 ones at the int8 pins above: cuBLAS may
+# pick another kernel for the float input projection at a quarter of the
+# rows, and a last bit there can move a re-quantized h by an int8 level
+# (a flip), as on the CPU (tests/test_torch_parallel_serve.py).
+# PARALLEL_SERVE: (mode, streams, quantize) of the sharded server, in
+# lockstep for PARALLEL_SERVE_TICKS ticks, then paced at 30 Hz. Training:
+# two ranks on one card over gloo (NCCL refuses two ranks on one card),
+# and one rank per card over NCCL when there are several, one concurrent
+# step at B = 256 x 125 on a ragged batch under each rule; 'gspmd' held
+# to the one-process step on the whole batch: losses at DP_LOSS_RTOL,
+# each gradient tensor relative to its largest entry at DP_GRAD_TOL (the
+# same step summed in another order: dW and the weight products over a
+# rank's rows, then the sum of the ranks'; 2.5e-6 on an H100 80GB HBM3 at
+# 700 W). The states are the trained fixture's: at random weights the
+# r6d decode of the poser's position loss divides by r6d lengths near 0
+# and magnifies that rounding, as it does card against CPU:
+# poser.linear1's gradient came out 1.57e-4 of its largest entry there
+# (normwise 1.2e-4, the same card). 'shard_map' is held to the mean of the
+# ranks' own losses (DP_MEAN_RTOL: one float32 division).
+PARALLEL_SHARDS = 4
+PARALLEL_TOL = 1e-4
+PARALLEL_SERVE = (("exact", 256, None), ("exact", 256, "int8"),
+                  ("carry", 64, None))
+PARALLEL_SERVE_TICKS = 6
+DP_LOSS_RTOL = 1e-5
+DP_GRAD_TOL = 1e-5
+DP_MEAN_RTOL = 1e-6
 # Phase 4j, the live runtime: the single-stream step's layer shapes (#1 at
 # H = 256 and 64, #2 at 256, over the 45-frame window of one stream);
 # LIVE_FRAMES recorded raw frames through `LivePoser.step_frame` card
@@ -704,18 +766,20 @@ def _scan_vs_plain(torch, kern, plain, args):
             all(bool(torch.isfinite(g).all()) for g in got))
 
 
-def phase_kernels(torch, lstm_cuda):
+def phase_kernels(torch, lstm_cuda, cases=None):
     """Each kernel vs its plain version at the streaming path's shapes:
     B=256 is the scan mode at 256 streams, B=200 the unfolded mode's
     chunk of 25 windows x 8 streams, B=8 its velocity layers (and ONLINE
     evaluation's under 32 streams); then B=1 and an odd B=37 at H=160,
-    a cluster of five CTAs."""
+    a cluster of five CTAs. `cases` ((name, H, B), ...) replaces them
+    (phase 4k's per-shard shapes)."""
     import numpy as np
     T = 45
-    cases = [("bilstm_scan_f32", 256, 256), ("bilstm_scan_f32", 64, 256),
-             ("lstm_scan_f32", 256, 256), ("bilstm_scan_f32", 256, 200),
-             ("bilstm_scan_f32", 64, 200), ("lstm_scan_f32", 256, 8),
-             ("lstm_scan_f32", 160, 1), ("bilstm_scan_f32", 160, 37)]
+    cases = cases or [
+        ("bilstm_scan_f32", 256, 256), ("bilstm_scan_f32", 64, 256),
+        ("lstm_scan_f32", 256, 256), ("bilstm_scan_f32", 256, 200),
+        ("bilstm_scan_f32", 64, 200), ("lstm_scan_f32", 256, 8),
+        ("lstm_scan_f32", 160, 1), ("bilstm_scan_f32", 160, 37)]
     results = []
     for name, H, B in cases:
         bi = name == "bilstm_scan_f32"
@@ -1147,11 +1211,13 @@ def train_bounds(T: int, B: int, H: int, valid_steps: int,
     return out
 
 
-def phase_train_kernels(torch, train_cuda, ptxas):
+def phase_train_kernels(torch, train_cuda, ptxas,
+                        shapes=((256, 256), (64, 256), (256, 37), (160, 37))):
     """Kernels #7 and #8 (with the dW kernel) against their plain versions
     at the training shape, T = 125 and B = 256 (a batch of `TrainHypers`),
     at H = 256 and 64, plus a ragged batch edge (B = 37) at H = 256 and at
-    H = 160 (a cluster of five CTAs). Nonzero h0/c0, random dy/dh_T/dc_T,
+    H = 160 (a cluster of five CTAs); `shapes` ((H, B), ...) replaces them
+    (phase 4k's per-rank shapes). Nonzero h0/c0, random dy/dh_T/dc_T,
     and a seeded ragged mask with an empty row, a full row and rows in
     between. The plain backward gets the same residuals as the kernel (the
     kernel's forward outputs). `ptxas` is the build log's report of
@@ -1159,7 +1225,7 @@ def phase_train_kernels(torch, train_cuda, ptxas):
     import numpy as np
     results = []
     failures = []
-    for H, B in ((256, 256), (64, 256), (256, 37), (160, 37)):
+    for H, B in shapes:
         T = 125
         geo = train_cuda.train_geometry(B, H, torch.device("cuda", 0))
         emit({"phase": "train_geometry", "T": T, "B": B, "H": H,
@@ -2836,12 +2902,13 @@ def _serve_direct(torch, net, params, mode, frames, slots, dtype=None):
 
 
 def _serve_paced(torch, net, params, smi, streams, mode, quantize,
-                 pipelined):
+                 pipelined, mesh=None):
     """The server at 30 Hz in its own thread (`run`), driven by a load
     generator that sends every stream's request each period from one
     socket and counts replies, both through the native batched UDP
     calls; after SERVE_WARMUP_S, a window of SERVE_SECONDS. Returns the
-    window's rates and the server's percentiles over its ticks."""
+    window's rates and the server's percentiles over its ticks. With a
+    `mesh`, the slots are sharded over it (phase 4k)."""
     import socket
     import threading
 
@@ -2851,7 +2918,7 @@ def _serve_paced(torch, net, params, smi, streams, mode, quantize,
 
     srv = PoseServer(net, params, host="127.0.0.1", port=0,
                      max_streams=streams, tick_hz=30.0, mode=mode,
-                     quantize=quantize, pipelined=pipelined)
+                     quantize=quantize, pipelined=pipelined, mesh=mesh)
     require(srv.stats()["native_udp"], "the server has no native UDP")
     thread = threading.Thread(target=srv.run, daemon=True)
     thread.start()
@@ -2902,6 +2969,7 @@ def _serve_paced(torch, net, params, smi, streams, mode, quantize,
     tick = np.percentile(srv._tick_ms[n0:n1] if n1 > n0 else np.zeros(1),
                          [50, 90, 99])
     rec = {"phase": "serving_rate", "nvidia_smi": smi, "streams": streams,
+           "shards": stats["shards"],
            "mode": mode, "int8": quantize == "int8",
            "pipelined": pipelined, "seconds": elapsed,
            "sustained_tick_hz": (n1 - n0) / elapsed,
@@ -4281,6 +4349,371 @@ def phase_live(torch, lstm_cuda):
     return recs, loop_launches
 
 
+def _parallel_meshes(torch):
+    """{name: mesh} of phase 4k: the card split into PARALLEL_SHARDS
+    shards, and with more than one card every card."""
+    from mobileposer_tpu_torch.parallel import make_mesh
+    meshes = {"one_card": make_mesh(devices=["cuda:0"] * PARALLEL_SHARDS)}
+    if torch.cuda.device_count() > 1:
+        meshes["all_cards"] = make_mesh()
+    return meshes
+
+
+def _table_errors(got, want, int8: bool):
+    """(max abs differences of the tables and the drift windows, the
+    worst ratio to each entry's bound): PARALLEL_TOL in float32, the int8
+    pins for int8 (INT8_EVAL_RTOL, the jitter row INT8_JITTER_ATOL, drift
+    INT8_DRIFT_RTOL)."""
+    import numpy as np
+    diffs, worst = {}, 0.0
+    for k in ("offline", "online"):
+        d = np.abs(got[k] - want[k])
+        tol = np.full(d.shape, PARALLEL_TOL)
+        if int8:
+            tol = EVAL_ATOL + INT8_EVAL_RTOL * np.abs(want[k])
+            tol[6] = INT8_JITTER_ATOL
+        diffs[k] = float(d.max())
+        worst = max(worst, float((d / tol).max()))
+    require(got["tran_errors"].keys() == want["tran_errors"].keys(),
+            "sharded drift windows differ from one device's")
+    for w, v in want["tran_errors"].items():
+        d = abs(got["tran_errors"][w] - v)
+        diffs[f"drift_{w}"] = d
+        worst = max(worst, d / (EVAL_ATOL + INT8_DRIFT_RTOL * abs(v) if int8
+                                else PARALLEL_TOL))
+    return diffs, worst
+
+
+def _parallel_eval(torch, lstm_cuda, meshes, smi):
+    """Phase 4b's fixture and sequences through `evaluate_pose(mesh=...)`,
+    float32 and int8: offline alone (the masked counters: shards x 6 bi +
+    2 uni per bucket group), then offline + ONLINE + drift (ONLINE: each
+    shard streams its rows of every group unfolded, 6 bi a 25-frame chunk
+    and 2 uni a frame), the tables held to one device's. Returns the
+    launch counts of the one-card mesh's runs."""
+    from mobileposer_tpu_torch import config as Cfg
+    from mobileposer_tpu_torch.data import EvalSequence, PoseDataset
+    from mobileposer_tpu_torch.evaluation import evaluate_pose
+    from mobileposer_tpu_torch.evaluation.pose_eval import _BUCKET, _groups
+    from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+    from mobileposer_tpu_torch.models import MobilePoserNet
+    from mobileposer_tpu_torch.models.utils import load_model
+    from mobileposer_tpu_torch.nn.convert import params_from_jax
+    from mobileposer_tpu_torch.ops.quant import quantize_params_int8
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        write_eval_sequences(torch, Path(tmp.name) / "synthetic.pt")
+        net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
+            Cfg.paths.smpl_file), device="cuda")
+        base = params_from_jax(load_model(str(FIXTURE)), device=net.device)
+        ds = PoseDataset(fold="test", evaluate="dip",
+                         body_model=net.body_model,
+                         data_files=[Path(tmp.name) / "synthetic.pt"],
+                         device=net.device)
+        view = EvalSequence(ds)
+        n_groups = len(_groups(EVAL_LENGTHS, _BUCKET, 64))
+        frames = [max(EVAL_LENGTHS[i] + 5 for i in chunk)
+                  for _, chunk in _groups([n + 5 for n in EVAL_LENGTHS],
+                                          _BUCKET, 64)]
+        launches = {}
+        for int8 in (False, True):
+            suffix = "int8" if int8 else "f32"
+            params = quantize_params_int8(base) if int8 else base
+            one = evaluate_pose(net, params, view, online=True,
+                                evaluate_tran=True, verbose=False)
+            for name, mesh in meshes.items():
+                n = mesh.size
+                lstm_cuda.reset_launches()
+                evaluate_pose(net, params, view, verbose=False, mesh=mesh)
+                torch.cuda.synchronize()
+                offline = dict(lstm_cuda.launches)
+                expect = dict.fromkeys(offline, 0)
+                expect[f"bilstm_scan_masked_{suffix}"] = n * 6 * n_groups
+                expect[f"lstm_scan_masked_{suffix}"] = n * 2 * n_groups
+                lstm_cuda.reset_launches()
+                got = evaluate_pose(net, params, view, online=True,
+                                    evaluate_tran=True, verbose=False,
+                                    mesh=mesh)
+                torch.cuda.synchronize()
+                both = dict(lstm_cuda.launches)
+                online = {k: both[k] - offline[k] for k in both}
+                expect_online = dict.fromkeys(offline, 0)
+                expect_online[f"bilstm_scan_{suffix}"] = n * sum(
+                    6 * -(-f // 25) for f in frames)
+                expect_online[f"lstm_scan_{suffix}"] = n * sum(
+                    2 * f for f in frames)
+                diffs, worst = _table_errors(got, one, int8)
+                # no seconds: three sequences are a correctness fixture,
+                # not a size to time (_parallel_eval_rate times C3's group)
+                emit({"phase": "parallel_eval", "nvidia_smi": smi,
+                      "mesh": name, "shards": n,
+                      "devices": sorted({str(d) for d in mesh.devices}),
+                      "int8": int8, "lengths": EVAL_LENGTHS,
+                      "max_abs_diff_vs_one_device": diffs,
+                      "worst_diff_over_tol": worst,
+                      "tol": "int8 pins" if int8 else PARALLEL_TOL,
+                      "offline_launches": offline,
+                      "expected_offline_launches": expect,
+                      "online_launches": online,
+                      "expected_online_launches": expect_online})
+                require(offline == expect, f"sharded offline launches "
+                                           f"{offline}, expected {expect}")
+                require(online == expect_online,
+                        f"sharded online launches {online}, expected "
+                        f"{expect_online}")
+                require(worst <= 1.0, f"{name} int8={int8}: sharded tables "
+                                      f"differ from one device's: {diffs}")
+                if name == "one_card":
+                    for k in both:
+                        launches[k] = launches.get(k, 0) + both[k]
+    finally:
+        tmp.cleanup()
+    return launches
+
+
+def _parallel_eval_rate(torch, meshes, smi):
+    """The offline pass's seconds at C3's group (64 x 512, random weights
+    from seed 0) on one device and over each mesh, each traced
+    (`bench.run_offline_sharded`); the sharded predictions' checksum held
+    to one device's at PARALLEL_TOL (relative)."""
+    from mobileposer_tpu_torch import bench
+    one = bench.run_offline_sharded()
+    emit({"phase": "parallel_eval_rate", "nvidia_smi": smi, "mesh": None,
+          **one})
+    for name, mesh in meshes.items():
+        rec = bench.run_offline_sharded(mesh)
+        rel = abs(rec["checksum"] - one["checksum"]) / abs(one["checksum"])
+        emit({"phase": "parallel_eval_rate", "nvidia_smi": smi,
+              "mesh": name, "checksum_rel_diff_vs_one_device": rel,
+              "seconds_over_one_device": rec["value"] / one["value"], **rec})
+        require(rel <= PARALLEL_TOL, f"{name}: sharded C3 predictions' "
+                                     f"checksum {rel} from one device's")
+
+
+def _parallel_serving(torch, lstm_cuda, meshes, smi):
+    """`PoseServer(mesh=...)` with the full model (random weights from
+    seed 0): each PARALLEL_SERVE variant in lockstep for
+    PARALLEL_SERVE_TICKS ticks against the unsharded server on the same
+    frames (replies within PARALLEL_TOL, int8 INT8_SLICE_TOL; shards x 6 bi
+    + 2 uni launches a tick in exact mode, none in carry mode) and one
+    synchronous tick of each traced, then paced at 30 Hz, pipelined.
+    Returns the one-card mesh's lockstep launches."""
+    import numpy as np
+    from mobileposer_tpu_torch import bench
+    from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+    from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
+    from mobileposer_tpu_torch.stream import PoseClient, PoseServer
+
+    net = MobilePoserNet(ParametricModel.synthetic(), device="cuda")
+    params = init_all_modules(torch.Generator().manual_seed(0),
+                              device=net.device)
+    launches = {}
+    for mode, streams, quantize in PARALLEL_SERVE:
+        suffix = "int8" if quantize else "f32"
+        rng = np.random.RandomState(streams)
+        frames = (rng.randn(PARALLEL_SERVE_TICKS, streams, 60) * 0.1
+                  ).astype(np.float32)
+        for name, mesh in meshes.items():
+            replies, counts, traces = {}, {}, {}
+            for which, m in (("one", None), ("sharded", mesh)):
+                srv = PoseServer(net, params, host="127.0.0.1", port=0,
+                                 max_streams=streams, mode=mode,
+                                 quantize=quantize, mesh=m)
+                clients = [PoseClient(stream_id=s, port=srv.port)
+                           for s in range(streams)]
+                try:
+                    lstm_cuda.reset_launches()
+                    replies[which] = _serve_lockstep(srv, clients, frames)
+                    torch.cuda.synchronize()
+                    counts[which] = dict(lstm_cuda.launches)
+
+                    def one_tick():
+                        srv.has_frame[:] = True
+                        srv.tick()
+                    # one synchronous tick, every slot fed, traced: its
+                    # wall time, host time and each card's busy share
+                    traces[which] = bench._traced(
+                        one_tick, m.distinct if m else [net.device])
+                finally:
+                    for c in clients:
+                        c.close()
+                    srv.stop()
+                    srv.close()
+            diff = float(np.abs(replies["sharded"] - replies["one"]).max())
+            tol = INT8_SLICE_TOL if quantize else PARALLEL_TOL
+            n = mesh.size
+            expect = dict.fromkeys(counts["one"], 0)
+            if mode == "exact":
+                expect[f"bilstm_scan_{suffix}"] = n * 6 * PARALLEL_SERVE_TICKS
+                expect[f"lstm_scan_{suffix}"] = n * 2 * PARALLEL_SERVE_TICKS
+            emit({"phase": "parallel_serving_lockstep", "nvidia_smi": smi,
+                  "mesh": name, "shards": n, "mode": mode,
+                  "streams": streams, "int8": quantize == "int8",
+                  "ticks": PARALLEL_SERVE_TICKS,
+                  "replies_max_abs_diff_vs_one_device": diff, "tol": tol,
+                  "launches": counts["sharded"],
+                  "expected_launches": expect,
+                  "one_device_launches": counts["one"],
+                  "traced_tick": traces["sharded"],
+                  "one_device_traced_tick": traces["one"]})
+            require(diff <= tol, f"{name} {mode} {quantize}: sharded replies "
+                                 f"differ from one device's by {diff}")
+            require(counts["sharded"] == expect,
+                    f"{name} {mode} {quantize}: launches "
+                    f"{counts['sharded']}, expected {expect}")
+            rec = _serve_paced(torch, net, params, smi, streams, mode,
+                               quantize, True, mesh=mesh)
+            emit({**rec, "phase": "parallel_serving_rate", "mesh": name})
+            require(rec["replies_received"] > 0,
+                    f"{name} {mode} {quantize}: no paced reply")
+            if name == "one_card":
+                for k, v in counts["sharded"].items():
+                    launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _parallel_train(torch, train_cuda, smi, runs=None):
+    """The data-parallel concurrent train step (`bench.run_train_dp`) from
+    the trained fixture's weights: two ranks on card 0 over gloo, and one
+    rank per card over NCCL when there are several (or `runs`, {backend:
+    devices}), against the one-process step on the whole ragged batch from
+    the same seed. Returns the launches of one rank's step."""
+    import numpy as np
+    from mobileposer_tpu_torch import bench
+    from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+    from mobileposer_tpu_torch.parallel import spawn
+    from mobileposer_tpu_torch.train.trainer import (MODULE_NAMES,
+                                                     make_multi_train_step,
+                                                     to_device)
+
+    states = bench._dp_states(str(FIXTURE), 0, "cuda")
+    step = make_multi_train_step(ParametricModel.synthetic())
+    batch = to_device(bench.train_batch(256, 125, 0, ragged=True), "cuda")
+    train_cuda.reset_launches()
+    states, want = step(states, batch,
+                        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    want_launches = dict(train_cuda.launches)
+    want = {n: float(v) for n, v in want.items()}
+    want_g = bench._flat_grads(states)
+    # where each gradient tensor lies in the flat vector
+    names = [f"{n}.{k}" for n in MODULE_NAMES
+             for k, _ in states[n].params.named_parameters()]
+    sizes = [p.numel() for n in MODULE_NAMES
+             for p in states[n].params.parameters()]
+    bounds = np.cumsum([0] + sizes)
+    del states, batch
+    if runs is None:
+        runs = {"gloo": ["cuda:0"] * 2}
+        if torch.cuda.device_count() > 1:
+            runs["nccl"] = [f"cuda:{i}"
+                            for i in range(torch.cuda.device_count())]
+    launches = {}
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        for backend, devices in runs.items():
+            t0 = time.perf_counter()
+            ranks = spawn(bench.run_train_dp, devices, tmp.name, 256, 125,
+                          0, 3, str(FIXTURE), backend=backend)
+            seconds = time.perf_counter() - t0
+            for impl in ("gspmd", "shard_map"):
+                recs = [r[impl] for r in ranks]
+                grads = [np.load(r["grads"]) for r in recs]
+                same = all(np.array_equal(g, grads[0]) for g in grads[1:])
+                if impl == "gspmd":
+                    loss_err = max(abs(r["losses"][n] - want[n])
+                                   / abs(want[n])
+                                   for r in recs for n in MODULE_NAMES)
+                    d = np.abs(grads[0] - want_g)
+                    global_err = float(d.max() / np.abs(want_g).max())
+                    per = sorted(
+                        ((float(d[a:b].max() / max(np.abs(want_g[a:b]).max(),
+                                                   1e-30)),
+                          float(np.linalg.norm(d[a:b]) / max(np.linalg.norm(
+                              want_g[a:b]), 1e-30)),
+                          float(np.abs(want_g[a:b]).max()), nm)
+                         for a, b, nm in zip(bounds[:-1], bounds[1:], names)),
+                        reverse=True)
+                    grad_err = per[0][0]
+                    ok = loss_err <= DP_LOSS_RTOL and grad_err <= DP_GRAD_TOL
+                else:
+                    loss_err = max(
+                        abs(r["losses"][n] - np.mean([q["own_losses"][n]
+                                                      for q in recs]))
+                        / abs(r["losses"][n])
+                        for r in recs for n in MODULE_NAMES)
+                    grad_err = global_err = None
+                    ok = loss_err <= DP_MEAN_RTOL
+                emit({"phase": "parallel_train", "nvidia_smi": smi,
+                      "backend": backend, "dp_impl": impl,
+                      "ranks": len(devices), "devices": devices,
+                      "batch": 256, "window": 125,
+                      "rows_per_rank": recs[0]["rows"],
+                      "loss_rel_err": loss_err,
+                      "loss_rtol": DP_LOSS_RTOL if impl == "gspmd"
+                      else DP_MEAN_RTOL,
+                      "grad_err_per_tensor_over_its_max_abs": grad_err,
+                      "grad_err_over_global_max_abs": global_err,
+                      "worst_tensors": per[:6] if impl == "gspmd" else None,
+                      "grad_tol": DP_GRAD_TOL,
+                      "ranks_reduced_equal_grads": same,
+                      "losses": recs[0]["losses"],
+                      "one_process_losses": want,
+                      "own_losses": [r["own_losses"] for r in recs],
+                      "step_ms": [r["step_ms"] for r in recs],
+                      "reduce_ms": [r["reduce_ms"] for r in recs],
+                      "reduce_floats": recs[0]["reduce_floats"],
+                      "peak_memory_bytes": [r["peak_memory_bytes"]
+                                            for r in recs],
+                      "launches": [r["launches"] for r in recs],
+                      "one_process_launches": want_launches,
+                      "spawn_seconds": seconds})
+                require(ok, f"{backend} {impl}: losses {loss_err} / "
+                            f"gradients {grad_err} beyond the bounds")
+                require(same, f"{backend} {impl}: the ranks' reduced "
+                              "gradients differ")
+                for r in recs:
+                    require(r["launches"] == want_launches,
+                            f"{backend} {impl} rank {r['rank']}: launches "
+                            f"{r['launches']}, one process "
+                            f"{want_launches}")
+                if impl == "gspmd" and not launches:
+                    launches = dict(recs[0]["launches"])
+    finally:
+        tmp.cleanup()
+    return launches
+
+
+def phase_parallel(torch, lstm_cuda, train_cuda, smi, ptxas):
+    """Phase 4k: data parallelism. The kernels at the per-shard shapes
+    against their plain versions (#1 and #2 at 256 streams over 4 shards,
+    B = 64; #7 and #8 at B = 256 over 2 ranks, B = 128); then sharded
+    evaluation, serving and two-rank training, each against one device.
+    Returns (the per-shard kernel records, the main-path launches of the
+    sharded runs)."""
+    t0 = time.perf_counter()
+    recs = phase_kernels(torch, lstm_cuda, cases=[
+        ("bilstm_scan_f32", 256, 256 // PARALLEL_SHARDS),
+        ("bilstm_scan_f32", 64, 256 // PARALLEL_SHARDS),
+        ("lstm_scan_f32", 256, 256 // PARALLEL_SHARDS)])
+    recs += phase_train_kernels(torch, train_cuda, ptxas,
+                                shapes=((256, 128), (64, 128)))
+    meshes = _parallel_meshes(torch)
+    launches = {}
+    eval_launches = _parallel_eval(torch, lstm_cuda, meshes, smi)
+    _parallel_eval_rate(torch, meshes, smi)
+    for part in (eval_launches,
+                 _parallel_serving(torch, lstm_cuda, meshes, smi),
+                 _parallel_train(torch, train_cuda, smi)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t0,
+          "meshes": {k: [str(d) for d in m.devices]
+                     for k, m in meshes.items()}})
+    return recs, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4473,6 +4906,18 @@ def main() -> int:
     for name in ("bilstm_scan_f32", "lstm_scan_f32"):
         require(live_launches.get(name, 0) > 0,
                 f"{name} was never launched by the live loop")
+    # 4k. data parallelism: sharded evaluation and serving, two-rank
+    # training, each against one device (their runs: the parallel
+    # counters), and the kernels at the per-shard shapes
+    shard_recs, parallel_launches = phase_parallel(
+        torch, lstm_cuda, train_cuda, smi, ptxas["lstm_train.cu"])
+    for name in ("bilstm_scan_f32", "lstm_scan_f32", "bilstm_scan_masked_f32",
+                 "lstm_scan_masked_f32", "lstm_scan_int8", "bilstm_scan_int8",
+                 "bilstm_scan_masked_int8", "lstm_scan_masked_int8",
+                 "lstm_train_fwd_f32", "lstm_train_bwd_f32",
+                 "lstm_train_dw_f32"):
+        require(parallel_launches.get(name, 0) > 0,
+                f"{name} was never launched on the sharded paths")
 
     # 5. exact-path streamed frames/s (tracing off), then one traced call;
     # at 256 streams (C1's shape) the same on bf16 params beside it
@@ -4622,7 +5067,15 @@ def main() -> int:
             "bundle_launches": bundle_launches.get(name, 0),
             "recipe_launches": recipe_launches.get(name, 0),
             "live_launches": live_launches.get(name, 0),
+            "parallel_launches": parallel_launches.get(name, 0),
             "shape": {"T": T, "B": B, "H": main["H"]}})
+        shard = next((r for r in shard_recs if r["name"] == name
+                      and r["H"] == 256), None)
+        if shard is not None:
+            ported[-1]["per_shard"] = {
+                k: shard[k] for k in ("T", "B", "H", "max_abs_err",
+                                      "kernel_ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
     emit({"kernels": ported,
           "online_eval_launches": online_launches,
           "online_eval_int8_launches": online_int8_launches,

@@ -5,9 +5,11 @@ path (`models.net.MobilePoserNet.forward_online_sequence_batched`) and
 carry-mode streaming (`models.streaming`), the multi-stream pose server
 (`cli.serve`, `stream.PoseServer`), the pose evaluation (`cli.evaluate`,
 `evaluation.evaluate_pose`: offline ragged batches and the ONLINE
-protocol) and single-device training (`cli.train`,
-`train.TrainingManager`) with hand-written CUDA kernels for the LSTM
-layer scans and their training forward and backward (`ops/csrc/`). It imports neither JAX nor the
+protocol) and training (`cli.train`, `train.TrainingManager`), on one
+card or data-parallel over several (`parallel/`: sharded evaluation,
+streaming and serving in one process, training one process per card),
+with hand-written CUDA kernels for the LSTM layer scans and their
+training forward and backward (`ops/csrc/`). It imports neither JAX nor the
 JAX package; the layout mirrors `mobileposer_tpu` module for module so
 each counterpart is easy to find.
 

@@ -41,6 +41,12 @@ the step time, and it records the step's peak device memory.
 residuals stored in bf16 (backend 'auto_train_bf16res', the kernels'
 `*_bf16res` entries), the counterpart of `cli.train --bf16-residuals`.
 
+`run_train_dp` is one rank of the data-parallel concurrent step (run
+under `parallel.spawn`, one process per rank): from the seed's states,
+one step on the rank's rows of a ragged global batch under each rule,
+with its launches, peak memory and gradients, then the steady step time
+and the time of the gradient all-reduce alone.
+
 `run_forward` times one single-window `models.net.forward` (B windows of
 T frames, pose at every frame, the velocity carry threaded from call to
 call) with `backend='fused'` (the trio on the multicell kernel) or
@@ -308,19 +314,131 @@ def _train_setup(batch: int, window: int, seed: int, device,
     step = make_multi_train_step(
         ParametricModel.synthetic(),
         backend="auto_train_bf16res" if bf16_residuals else "auto_train")
+    batch_np = train_batch(batch, window, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return device, states, step, to_device(batch_np, device), gen
+
+
+def train_batch(batch: int, window: int, seed: int,
+                ragged: bool = False) -> dict:
+    """A numpy training batch from the seed: IMU, joint, pose and velocity
+    targets, contacts; every window full length, or with `ragged` of
+    lengths drawn between half the window and all of it."""
     rng = np.random.RandomState(seed)
     B, W = batch, window
 
     def f32(*shape, scale=1.0):
         return (rng.randn(*shape) * scale).astype(np.float32)
 
-    batch_np = {"imu": f32(B, W, 60, scale=0.3), "joints": f32(B, W, 72),
-                "pose_r6d": f32(B, W, 24, 6), "vels": f32(B, W, 72),
-                "tran": f32(B, W, 3),
-                "contacts": (rng.rand(B, W, 2) > 0.5).astype(np.float32),
-                "lengths": np.full((B,), W, np.int32)}
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return device, states, step, to_device(batch_np, device), gen
+    out = {"imu": f32(B, W, 60, scale=0.3), "joints": f32(B, W, 72),
+           "pose_r6d": f32(B, W, 24, 6), "vels": f32(B, W, 72),
+           "tran": f32(B, W, 3),
+           "contacts": (rng.rand(B, W, 2) > 0.5).astype(np.float32),
+           "lengths": np.full((B,), W, np.int32)}
+    if ragged:
+        out["lengths"] = rng.randint(W // 2, W + 1, size=B).astype(np.int32)
+    return out
+
+
+def _flat_grads(states) -> np.ndarray:
+    return np.concatenate([p.grad.reshape(-1).cpu().numpy()
+                           for n in MODULE_NAMES
+                           for p in states[n].params.parameters()])
+
+
+def _dp_states(weights, seed: int, device):
+    """Four train states: the modules of the combined weights file
+    `weights` with fresh optimizers, or without one the seed's init."""
+    from mobileposer_tpu_torch.models.utils import load_model
+    from mobileposer_tpu_torch.train.trainer import _state_from_tree
+    if weights is not None:
+        tree = load_model(weights)
+        return {n: _state_from_tree(n, tree[n], C.train_hypers.lr, device)
+                for n in MODULE_NAMES}
+    init = torch.Generator().manual_seed(seed)
+    return {n: init_train_state(n, init, C.train_hypers.lr, device)
+            for n in MODULE_NAMES}
+
+
+def run_train_dp(rank: int, device, out_dir: str, batch: int = 256,
+                 window: int = 125, seed: int = 0, reps: int = 3,
+                 weights=None) -> dict:
+    """One rank of the data-parallel concurrent train step, in a process
+    group `parallel.spawn` started (one process per rank). For each rule
+    ('gspmd', 'shard_map'): from the seed's states (or those of the
+    combined weights file `weights`, fresh optimizers), this rank's own loss
+    before any reduction (the rule's draws), then one step on its rows of
+    the seed's ragged global batch of `batch` windows (its launches of #7
+    and #8, its peak memory, the reduced losses, the reduced gradients
+    saved to `out_dir`), then the steady step time over `reps` steps and
+    the time of the all-reduce of as many floats alone. Returns {rule:
+    record}. On a CPU device (a gloo rehearsal) there is no peak memory."""
+    import torch.distributed as dist
+
+    from mobileposer_tpu_torch.parallel import distributed as D
+    from mobileposer_tpu_torch.train.trainer import (_rank_losses,
+                                                     local_rows, loss_fn_for)
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = D.process_mesh(device)
+    world = mesh.size
+    body = ParametricModel.synthetic()
+    global_np = train_batch(batch, window, seed, ragged=True)
+    local = to_device(local_rows(global_np, rank, world), device)
+    out = {}
+    for impl in ("gspmd", "shard_map"):
+        states = _dp_states(weights, seed, device)
+        step = make_multi_train_step(body, mesh=mesh, dp_impl=impl)
+        with torch.no_grad():
+            own = _rank_losses(
+                {n: loss_fn_for(n, body) for n in MODULE_NAMES},
+                {n: states[n].params for n in MODULE_NAMES}, local,
+                torch.Generator(device=device).manual_seed(seed),
+                (rank, world), impl, True)
+        own = {n: float(v) for n, v in own.items()}
+        lstm_train_cuda.reset_launches()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        states, losses = step(states, local,
+                              torch.Generator(device=device).manual_seed(seed))
+        sync()
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        launches = dict(lstm_train_cuda.launches)
+        grads = _flat_grads(states)
+        path = f"{out_dir}/grads_{impl}_{rank}.npy"
+        np.save(path, grads)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            states, _ = step(states, local, gen)
+        sync()
+        step_ms = 1e3 * (time.perf_counter() - t0) / reps
+        flat = torch.zeros(grads.size + len(MODULE_NAMES), device=device)
+        dist.all_reduce(flat)
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dist.all_reduce(flat)
+        sync()
+        reduce_ms = 1e3 * (time.perf_counter() - t0) / reps
+        out[impl] = {"rank": rank, "device": str(device), "world": world,
+                     "backend": dist.get_backend(),
+                     "rows": batch // world, "window": window,
+                     "own_losses": own,
+                     "losses": {n: float(v) for n, v in losses.items()},
+                     "launches": launches, "peak_memory_bytes": peak,
+                     "step_ms": step_ms, "reduce_ms": reduce_ms,
+                     "reduce_floats": int(flat.numel()), "grads": path}
+    return out
 
 
 def run_train(batch: int = 256, window: int = 125, seed: int = 0,
@@ -516,18 +634,85 @@ def breakdown_offline(batch: int = 64, bucket: int = 512, seed: int = 0,
     return {"batch": batch, "bucket": bucket, "valid_frames": n_valid, **rec}
 
 
+def run_offline_sharded(mesh=None, batch: int = 64, bucket: int = 512,
+                        seed: int = 0, calls: int = 5, device=None) -> dict:
+    """The evaluation's offline pass over the `run_offline` group (the
+    same seeded rows, as [n_i, 60] host sequences), as `evaluate_pose`
+    runs it: `pose_eval._predict_offline_batched`, from the host
+    sequences to the host predictions, on one device or sharded over
+    `mesh` (`parallel.Mesh`; the params replicated once, outside the
+    timing, as `evaluate_pose` replicates them once). Seconds of a call,
+    each ended by the fetch to the host: the median of `calls` after a
+    warm-up, then one call under `torch.profiler` with each card's busy
+    share. `checksum` sums the predictions (finite, and equal to one
+    device's up to the per-shard tiling)."""
+    from mobileposer_tpu_torch.evaluation.pose_eval import (
+        _predict_offline_batched)
+    from mobileposer_tpu_torch.parallel import replicate_params
+    device, net, params = _net(seed, device)
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(bucket // 2 + 1, bucket + 1, size=batch)
+    imu = rng.randn(batch, bucket, 60).astype(np.float32) * 0.1
+    imus = [imu[b, :n] for b, n in enumerate(lengths)]
+    if mesh is not None:
+        params = replicate_params(params, mesh)
+
+    def call():
+        return _predict_offline_batched(net, params, imus, bucket, batch,
+                                        mesh=mesh)
+    call()
+    secs = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        preds = call()
+        secs.append(time.perf_counter() - t0)
+    checksum = float(sum(p.sum(dtype=np.float64) + t.sum(dtype=np.float64)
+                         for p, t in preds))
+    if not math.isfinite(checksum):
+        raise RuntimeError(f"non-finite predictions (checksum {checksum})")
+    devices = mesh.distinct if mesh is not None else (device,)
+    return {
+        "metric": "offline_eval_group_seconds",
+        "value": float(np.median(secs)),
+        "unit": "s",
+        "batch": batch, "bucket": bucket,
+        "valid_frames": int(lengths.sum()),
+        "shards": mesh.size if mesh is not None else 1,
+        "devices": [str(d) for d in devices],
+        "seconds": secs,
+        "valid_frames_per_sec": float(lengths.sum() / np.median(secs)),
+        "checksum": checksum,
+        "trace": _traced(call, devices),
+        "device_kind": torch.cuda.get_device_name(device),
+    }
+
+
 def _traced(call, device) -> dict:
-    """Warm `call` up, then run it once under `torch.profiler`."""
+    """Warm `call` up, then run it once under `torch.profiler`. `device`
+    may be a sequence of devices: each is synchronized, and the record
+    gives each one's busy seconds and share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    devices = [device] if isinstance(device, (str, torch.device)) \
+        else list(device)
+
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
     call()
-    torch.cuda.synchronize(device)
+    sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         call()
-        torch.cuda.synchronize(device)
+        sync()
         wall = time.perf_counter() - t0
+    by_device: dict = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = f"cuda:{ev.device_index}"
+            by_device[k] = by_device.get(k, 0.0) + (
+                ev.time_range.elapsed_us() / 1e6)
     groups: dict = {}
     kernels, host = [], []
     for ev in prof.key_averages():
@@ -546,6 +731,8 @@ def _traced(call, device) -> dict:
     return {
         "wall_seconds": wall, "device_busy_seconds": busy,
         "device_busy_share": busy / wall,
+        "busy_seconds_by_device": by_device,
+        "busy_share_by_device": {k: v / wall for k, v in by_device.items()},
         "groups": groups,
         "top_kernels": [{"name": n, "seconds": s, "launches": c}
                         for s, c, n in sorted(kernels, reverse=True)[:6]],

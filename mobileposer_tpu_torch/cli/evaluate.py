@@ -16,11 +16,14 @@ without `--int8`. `--bf16` evaluates on bf16-cast params, both
 protocols in bf16 (`evaluate_pose(bf16=True)`; the metrics in float32 on
 the cast-back outputs). `--int8 --bf16` does what the JAX CLI does:
 casts to bf16, then quantizes, then evaluates in bf16 (the int8 kernels'
-bf16-I/O entries). `--data-parallel` evaluates on the one device when
-one is visible (the card, or `--device cpu`), as the JAX CLI does with
-one device; over more than one CUDA device it is accepted as the JAX
-CLI accepts it and raises NotImplementedError naming the ROADMAP row
-that adds it.
+bf16-I/O entries). `--data-parallel` shards the evaluation over every
+local card when there is more than one (`parallel.make_mesh()`; each
+card runs the single-card forward on its rows), as the JAX CLI shards it
+over `jax.devices()`; with one card, or `--device cpu`, it evaluates on
+that device without a mesh, as the JAX CLI does with one device. It is
+slower than one card: one thread issues every card's host-bound forward,
+and over four H100s (80GB HBM3, 700 W) the offline pass at 64 x 512
+took about 2.5x one card's time (PERF.md).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from mobileposer_tpu_torch.models.utils import load_model
 from mobileposer_tpu_torch.nn.convert import params_from_jax
 from mobileposer_tpu_torch.nn.lstm import cast_params
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
+from mobileposer_tpu_torch.parallel import data_parallel_mesh
 
 
 def _env_flag(name: str) -> bool:
@@ -76,9 +80,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="evaluates on the one device; over more "
-                             "than one CUDA device not ported (ROADMAP.md "
-                             "queue A item 16)")
+                        help="shard the evaluation over every local card "
+                             "when there is more than one; slower than "
+                             "one card (one thread issues every card's "
+                             "forward)")
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 inference dtype (weights, state, "
                              "frames); metrics computed in float32 on the "
@@ -98,11 +103,9 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     # the JAX CLI builds a mesh only over more than one device
-    if (args.data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "--data-parallel over more than one CUDA device is not ported "
-            "(ROADMAP.md queue A item 16)")
+    mesh = data_parallel_mesh(device) if args.data_parallel else None
+    if mesh is not None:
+        print(f"data-parallel evaluation over {mesh.size} devices")
     net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
         C.paths.smpl_file), device=device)
     params = params_from_jax(load_model(args.model), device=net.device)
@@ -124,7 +127,8 @@ def main(argv=None) -> dict:
     return evaluate_pose(net, params, EvalSequence(ds, combo=args.combo),
                          online=args.online or _env_flag("ONLINE"),
                          evaluate_tran=args.tran,
-                         online_mode=args.online_mode, bf16=args.bf16)
+                         online_mode=args.online_mode, bf16=args.bf16,
+                         mesh=mesh)
 
 
 if __name__ == "__main__":

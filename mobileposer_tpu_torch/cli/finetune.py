@@ -13,25 +13,35 @@ data in finetune mode). Each starts from its best checkpoint with a fresh
 optimizer and the finetune hyperparameters; the output lands in
 `<checkpoint-dir>/finetuned_<dataset>/`, where
 `combine_weights(finetune=...)` reads it. Runs on the CUDA card unless
-`--device` names another device.
+`--device` names another device; with more than one card and no
+`--device`, data-parallel over every card, or under torchrun, as
+`cli.train` runs.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 
 from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.data import PoseDataset
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.nn.convert import load_npz
+from mobileposer_tpu_torch.parallel import distributed as D
 from mobileposer_tpu_torch.train import TrainingManager, get_best_checkpoint
 
 FINETUNE_MODULES = ("joints", "poser")
 
 
+def rank_main(rank: int, device, argv) -> str:
+    """One spawned rank: this CLI on the rank's device."""
+    return str(main(list(argv) + ["--device", str(device)]))
+
+
 def main(argv=None) -> Path:
     """Finetune; returns the output dir."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dataset", required=True,
                         choices=list(C.datasets.finetune_datasets.keys()))
@@ -45,6 +55,11 @@ def main(argv=None) -> Path:
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     args = parser.parse_args(argv)
+    spawned = D.join_or_spawn(rank_main, argv, args.device)
+    if spawned is not None:
+        return Path(spawned[0])
+    args.device = D.rank_device(args.device)
+    say = print if D.rank() == 0 else (lambda *a, **k: None)
 
     ckpt_dir = Path(args.checkpoint_dir)
     # the IMUPoser finetune chains off the DIP finetune (finetune.sh:10-13)
@@ -68,7 +83,7 @@ def main(argv=None) -> Path:
             raise SystemExit(f"no init checkpoint for {name} in "
                              f"{init_dir / name}")
         init[name] = load_npz(best)
-        print(f"Finetuning {name} from {best}")
+        say(f"Finetuning {name} from {best}")
     if args.concurrent:
         mgr.train_all(dataset, out_dir, body_model=body,
                       module_names=FINETUNE_MODULES, init_params=init,
@@ -79,7 +94,7 @@ def main(argv=None) -> Path:
                              init_params=init[name],
                              body_model=body if name == "poser" else None,
                              log_file=str(out_dir / "metrics.jsonl"))
-    print(f"Finetuned checkpoints in {out_dir}")
+    say(f"Finetuned checkpoints in {out_dir}")
     return out_dir
 
 

@@ -13,10 +13,15 @@ versions). `--bf16` casts the loaded params to bfloat16
 state, frames and step in bf16, exact and carry mode. `--int8 --bf16`
 casts first and hands `quantize="int8"` to the server, which quantizes
 the bf16 cast (int8 on bf16 params, the JAX package's serving
-configuration). `--data-parallel` serves on the one device when one is
-visible, as the JAX CLI does with one device; over more than one CUDA
-device it is accepted as the JAX CLI accepts it and raises
-NotImplementedError naming the ROADMAP row that adds it.
+configuration). `--data-parallel` shards the stream slots over every
+local card when there is more than one (a serving fleet,
+`PoseServer(mesh=parallel.make_mesh())`; `--max-streams` must divide
+over the cards), as the JAX CLI does over `jax.devices()`; with one card,
+or `--device cpu`, it serves on that device without a mesh. It is slower
+than one card at the same streams: one thread issues every card's
+host-bound step, and over four H100s (80GB HBM3, 700 W) an S256 tick
+took 32 ms against one card's 7.9, and int8 and carry mode missed 30 Hz
+(PERF.md).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models import MobilePoserNet
 from mobileposer_tpu_torch.models.utils import load_model
 from mobileposer_tpu_torch.nn.convert import cast_params, params_from_jax
+from mobileposer_tpu_torch.parallel import data_parallel_mesh
 from mobileposer_tpu_torch.stream import PoseServer
 
 
@@ -39,11 +45,10 @@ def build_server(args) -> PoseServer:
     """The server the parsed arguments describe (bound, not running)."""
     device = resolve_device(args.device)
     # the JAX CLI builds a mesh only over more than one device
-    if (args.data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "--data-parallel over more than one CUDA device is not ported "
-            "(ROADMAP.md queue A item 16)")
+    mesh = data_parallel_mesh(device) if args.data_parallel else None
+    if mesh is not None and args.max_streams % mesh.size:
+        raise SystemExit(f"--max-streams {args.max_streams} must divide "
+                         f"over {mesh.size} devices")
     net = MobilePoserNet(ParametricModel.from_file_or_synthetic(
         C.paths.smpl_file), device=device)
     params = params_from_jax(load_model(args.model), device=net.device)
@@ -51,7 +56,7 @@ def build_server(args) -> PoseServer:
         params = cast_params(params, torch.bfloat16)
     return PoseServer(net, params, host=args.host, port=args.port,
                       max_streams=args.max_streams, tick_hz=args.tick_hz,
-                      mode="carry" if args.carry else "exact",
+                      mode="carry" if args.carry else "exact", mesh=mesh,
                       pipelined=not args.no_pipeline,
                       quantize="int8" if args.int8 else None,
                       wire=args.wire, fetch_workers=args.fetch_workers)
@@ -78,9 +83,11 @@ def main(argv=None) -> dict:
                              "with --int8 the server quantizes the bf16 "
                              "cast")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="serves on the one device; over more than "
-                             "one CUDA device not ported (ROADMAP.md "
-                             "queue A item 16)")
+                        help="shard the stream slots over every local "
+                             "card when there is more than one; slower "
+                             "than one card (one thread issues every "
+                             "card's step), and under 30 Hz in int8 and "
+                             "carry mode over four cards")
     parser.add_argument("--carry", action="store_true",
                         help="carry-mode streaming (models/streaming.py): "
                              "approximate window semantics, no LSTM "
@@ -111,7 +118,8 @@ def main(argv=None) -> dict:
           + (", bf16" if args.bf16 else "")
           + (", f16 wire" if args.wire == "f16" else "")
           + (", pipelined" if server.pipelined else ", synchronous")
-          + "). Ctrl-C to stop.", flush=True)
+          + (f", {server.mesh.size}-device fleet" if server.mesh is not None
+             else "") + "). Ctrl-C to stop.", flush=True)
     try:
         server.run(duration=args.duration)
     except KeyboardInterrupt:

@@ -15,23 +15,41 @@ per-module checkpoints in the JAX package's `.npz` layout and a
 `--device` names another device (`cpu` runs the kernels' plain versions).
 `--bf16-residuals` stores the training kernels' residuals in bf16
 (backend 'auto_train_bf16res', as the JAX CLI maps it).
+
+On a host with more than one card and no `--device`, training is
+data-parallel over every card, as the JAX CLI's default mesh spans every
+device: one rank per card is spawned (`parallel.join_or_spawn`), each
+runs this CLI on its card, and rank 0 writes the checkpoints. Under
+torchrun (`torchrun --nproc-per-node N -m mobileposer_tpu_torch.cli.train
+...`) each process joins the group as its rank instead, on
+cuda:LOCAL_RANK (or `--device`; `--device cpu` trains over gloo). The
+rule is `TrainingManager`'s default, 'gspmd': the same step as one card
+on the whole batch.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 
 from mobileposer_tpu_torch import config as C
 from mobileposer_tpu_torch.data import PoseDataset
 from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
 from mobileposer_tpu_torch.models.utils import load_model
+from mobileposer_tpu_torch.parallel import distributed as D
 from mobileposer_tpu_torch.train import (MODULE_NAMES, TrainingManager,
                                          combine_weights, get_checkpoint_path)
 
 
+def rank_main(rank: int, device, argv) -> str:
+    """One spawned rank: this CLI on the rank's device."""
+    return str(main(list(argv) + ["--device", str(device)]))
+
+
 def main(argv=None) -> Path:
     """Train; returns the checkpoint dir."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--module", default=None, choices=MODULE_NAMES,
                         help="train a single module (default: all)")
@@ -65,6 +83,11 @@ def main(argv=None) -> Path:
     args = parser.parse_args(argv)
     if args.concurrent and args.module:
         parser.error("--concurrent trains all modules; drop --module")
+    spawned = D.join_or_spawn(rank_main, argv, args.device)
+    if spawned is not None:
+        return Path(spawned[0])
+    args.device = D.rank_device(args.device)
+    say = print if D.rank() == 0 else (lambda *a, **k: None)
 
     mgr = TrainingManager(finetune=args.finetune,
                           fast_dev_run=args.fast_dev_run,
@@ -77,34 +100,39 @@ def main(argv=None) -> Path:
     if len(dataset) == 0:
         raise SystemExit("no training data found under "
                          f"{C.paths.processed_datasets}")
-    ckpt_path = (Path(args.checkpoint_dir) if args.checkpoint_dir
-                 else get_checkpoint_path())
+    # rank 0 numbers the run dir, the other ranks take its choice
+    ckpt_path = args.checkpoint_dir
+    if ckpt_path is None and mgr.writer:
+        ckpt_path = get_checkpoint_path()
+    ckpt_path = Path(D.broadcast_from_rank0(str(ckpt_path)))
     init_params = load_model(args.init_from) if args.init_from else None
 
     if args.concurrent:
-        print("-" * 50)
-        print(f"Training all modules concurrently: {MODULE_NAMES}")
-        print("-" * 50)
+        say("-" * 50)
+        say(f"Training all modules concurrently: {MODULE_NAMES}")
+        say("-" * 50)
         mgr.train_all(dataset, ckpt_path, body_model=body,
                       log_file=str(ckpt_path / "metrics.jsonl"),
                       metrics=args.metrics, resume=args.resume,
                       init_params=init_params)
     else:
         for name in [args.module] if args.module else list(MODULE_NAMES):
-            print("-" * 50)
-            print(f"Training module: {name}")
-            print("-" * 50)
+            say("-" * 50)
+            say(f"Training module: {name}")
+            say("-" * 50)
             resume_from = None
             if args.resume:
+                # rank 0 decides: the other ranks may not see its files
                 ts = ckpt_path / name / "train_state.pt"
-                resume_from = ts if ts.exists() else None
+                resume_from = ts if D.broadcast_from_rank0(ts.exists()) \
+                    else None
             mgr.train_module(
                 name, dataset, ckpt_path,
                 init_params=init_params[name] if init_params else None,
                 body_model=body if name == "poser" else None,
                 log_file=str(ckpt_path / "metrics.jsonl"),
                 metrics=args.metrics, resume_from=resume_from)
-    if args.combine:
+    if args.combine and mgr.writer:
         out = combine_weights(ckpt_path)
         print(f"Combined weights written to {out}")
     return ckpt_path

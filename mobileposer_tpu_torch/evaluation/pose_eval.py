@@ -19,6 +19,11 @@ streaming (`forward_carry_sequence_batched`, no LSTM kernel); a group's
 streams run to the group's longest sequence rather than to the bucket,
 since an output at frame t depends only on frames up to t in both modes.
 
+With `mesh=` (a `parallel.Mesh`) both protocols are data-parallel: each
+group's rows (offline) or streams (ONLINE) are padded to a multiple of
+the mesh and split over it, and each shard runs the one-device path on
+its device (`parallel.shard_map`, `parallel.stream_sequence_sharded`).
+
 `bf16=True` casts the params to bfloat16 and runs both protocols in bf16
 (frames and state; the offline groups through the masked kernels' bf16
 entries); the metrics are computed in float32 on the cast-back outputs,
@@ -143,20 +148,51 @@ def _groups(ns: Sequence[int], bucket: int, max_batch: int):
             for c0 in range(0, len(idxs), max_batch)]
 
 
+def _sharding_helpers(net, params, mesh):
+    """(mesh, params, rows_multiple) for the batched protocols: without a
+    mesh, a one-entry mesh on the net's device holding the params as they
+    are (no padding, no copy); with one, the params replicated once per
+    distinct device and every batch padded to a multiple of the mesh, at
+    least one row per shard (pose_eval.py:102-134, 160-161 of the JAX
+    package). Sharded rows run the single-device forward on their device
+    (`parallel.shard_map`), so each shard launches the kernels on its own
+    rows."""
+    from mobileposer_tpu_torch.parallel import (Mesh, Replicated,
+                                                replicate_params)
+    if mesh is None:
+        return Mesh((net.device,)), Replicated({net.device: params}), 1
+    return mesh, replicate_params(params, mesh), mesh.size
+
+
 def _predict_offline_batched(net, params, imus, bucket, max_batch,
-                             dtype=torch.float32):
+                             dtype=torch.float32, mesh=None):
     """Offline predictions for a list of [T_i, 60] sequences, one ragged
-    batch per bucket group, the IMU in `dtype`. Returns [(pose
+    batch per bucket group, the IMU in `dtype`, the rows sharded over
+    `mesh` when given (padded rows: zero IMU, length 0). Returns [(pose
     [T_i,24,3,3], tran [T_i,3]) float32, ...] in the order of `imus`."""
+    from mobileposer_tpu_torch.parallel import (Sharded, gather,
+                                                replicate_params, shard_batch,
+                                                shard_map)
+    mesh, params, multiple = _sharding_helpers(net, params, mesh)
     ns = [x.shape[0] for x in imus]
     out: List = [None] * len(imus)
+
+    def run(n, p, x, lengths):
+        return forward_offline_batched(n, p, x.to(dtype), lengths)
     for P, chunk in _groups(ns, bucket, max_batch):
-        batch = np.stack([_pad_to_bucket(imus[i], P) for i in chunk])
-        lengths = torch.as_tensor([ns[i] for i in chunk])
-        pose, _, tran, _ = forward_offline_batched(
-            net, params, torch.as_tensor(batch, device=net.device).to(dtype),
-            lengths)
-        pose, tran = pose.float().cpu().numpy(), tran.float().cpu().numpy()
+        rows = -(-len(chunk) // multiple) * multiple
+        batch = np.zeros((rows, P, imus[0].shape[-1]), np.float32)
+        lengths = torch.zeros(rows, dtype=torch.int64)
+        for k, i in enumerate(chunk):
+            batch[k] = _pad_to_bucket(imus[i], P)
+            lengths[k] = ns[i]
+        # each shard's lengths stay on the host, as one device's do, so
+        # that `check_lengths` checks their range there before the masked
+        # kernels read them
+        pose, _, tran, _ = gather(shard_map(run, mesh)(
+            replicate_params(net, mesh), params, shard_batch(batch, mesh),
+            Sharded(torch.chunk(lengths, mesh.size))), (0, None, 0, None))
+        pose, tran = pose.float().numpy(), tran.float().numpy()
         for k, i in enumerate(chunk):
             out[i] = (pose[k, :ns[i]], tran[k, :ns[i]])
     return out
@@ -164,34 +200,33 @@ def _predict_offline_batched(net, params, imus, bucket, max_batch,
 
 def _predict_online_batched(net, params, imus, num_future_frames, bucket,
                             max_batch, mode: str = "exact",
-                            dtype=torch.float32):
+                            dtype=torch.float32, mesh=None):
     """ONLINE-protocol predictions for a list of sequences, batched as
     independent streams with fresh state (reference protocol:
     evaluate.py:62-64, per-frame streaming with `num_future_frames` of
     last-frame padding). Each sequence is padded with its last frame to
     its group's longest sequence; outputs at frame t depend only on frames
-    up to t, so the padding cannot reach the sliced-off prefix.
+    up to t, so the padding cannot reach the sliced-off prefix. With a
+    mesh the streams are sharded over it (`parallel.stream_sequence_sharded`),
+    padded with zero streams to a multiple of the mesh.
 
     mode='carry' runs the same protocol through carry-mode streaming,
     whose emission timing is the exact path's, so the metrics measure
     the approximation's accuracy cost. Frames and state in `dtype`;
     outputs returned as float32."""
-    if mode == "carry":
-        init_state = net.init_carry_state_batched
-        run = net.forward_carry_sequence_batched
-    else:
-        init_state = net.init_online_state_batched
-        run = net.forward_online_sequence_batched
+    from mobileposer_tpu_torch.parallel import stream_sequence_sharded
+    mesh, params, multiple = _sharding_helpers(net, params, mesh)
     ns = [x.shape[0] + num_future_frames for x in imus]
     out: List = [None] * len(imus)
     for _, chunk in _groups(ns, bucket, max_batch):
         n_max = max(ns[i] for i in chunk)
-        frames = np.stack([_pad_to_bucket(imus[i], n_max) for i in chunk],
-                          axis=1)                          # [n_max, S, 60]
-        (poses, _, trans, _), _ = run(
-            params, init_state(len(chunk), dtype),
-            torch.as_tensor(frames, device=net.device).to(dtype))
-        poses, trans = poses.float().cpu().numpy(), trans.float().cpu().numpy()
+        rows = -(-len(chunk) // multiple) * multiple
+        frames = np.zeros((n_max, rows, imus[0].shape[-1]), np.float32)
+        for k, i in enumerate(chunk):
+            frames[:, k] = _pad_to_bucket(imus[i], n_max)
+        (poses, _, trans, _), _ = stream_sequence_sharded(
+            net, params, frames, mesh, mode, dtype)
+        poses, trans = poses.float().numpy(), trans.float().numpy()
         for k, i in enumerate(chunk):
             out[i] = (poses[num_future_frames:ns[i], k],
                       trans[num_future_frames:ns[i], k])
@@ -206,10 +241,8 @@ def _check_scope(online_mode: str, bf16: bool, batch_sequences: bool,
                          f"got {online_mode!r}")
     if bf16 and not batch_sequences:
         raise ValueError("bf16=True requires batch_sequences=True")
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel evaluation is not ported (ROADMAP.md queue A "
-            "item 16)")
+    if mesh is not None and not batch_sequences:
+        raise ValueError("mesh sharding requires batch_sequences=True")
 
 
 def evaluate_pose(net: MobilePoserNet, params, dataset,
@@ -238,6 +271,13 @@ def evaluate_pose(net: MobilePoserNet, params, dataset,
     casts the params to bfloat16 (`nn.convert.cast_params`) and runs both
     protocols with bf16 frames and state; the metric math stays float32
     on the cast-back outputs.
+
+    mesh (a `parallel.Mesh`; requires batch_sequences=True): data-parallel
+    evaluation. The params are replicated once per distinct device and
+    every prediction batch is sharded over the mesh, padded to at least
+    one row per shard; each shard runs the single-device forward on its
+    device. The forward has no cross-row operation, so the tables agree
+    with one device's to within the per-shard tiling (1e-4, tested).
     """
     _check_scope(online_mode, bf16, batch_sequences, mesh)
     if online_mode != "exact" and not batch_sequences:
@@ -255,11 +295,15 @@ def evaluate_pose(net: MobilePoserNet, params, dataset,
         if bf16:
             params = cast_params(params, torch.bfloat16)
             dtype = torch.bfloat16
+        if mesh is not None:
+            from mobileposer_tpu_torch.parallel import replicate_params
+            params = replicate_params(params, mesh)
         offline_preds = _predict_offline_batched(net, params, imus, _BUCKET,
-                                                 max_batch, dtype)
+                                                 max_batch, dtype, mesh)
         online_preds = (_predict_online_batched(net, params, imus,
                                                 num_future_frames, _BUCKET,
-                                                max_batch, online_mode, dtype)
+                                                max_batch, online_mode, dtype,
+                                                mesh)
                         if online else none)
     else:
         offline_preds = []

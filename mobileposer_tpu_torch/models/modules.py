@@ -15,6 +15,14 @@ is deterministic given those draws. The parity tests feed the JAX
 package's own draws to the deterministic part. As in the JAX package, the
 joint-input noise is added whether or not `train` is set; dropout applies
 only when it is.
+
+Data parallelism. Under the trainer's 'gspmd' rule each process holds
+some rows of a global batch, and its losses must add up, over the
+processes, to the loss of the whole batch. So every loss takes
+`count_lengths`, the whole batch's lengths: the numerators sum this
+process's rows, the normalizers count the whole batch's valid entries
+(and its rows, for the batch means). `draw(..., rows=)` draws the whole
+batch's noise and masks and keeps this process's rows.
 """
 
 from __future__ import annotations
@@ -93,21 +101,30 @@ def _length_mask(x: torch.Tensor, lengths,
     return m.to(x.dtype)[..., None]
 
 
+def _count_mask(x: torch.Tensor, lengths, count_lengths, time_major: bool):
+    """The mask the normalizer counts: of `count_lengths` (the whole
+    batch's, under data parallelism) when given, else of `lengths`."""
+    return _length_mask(x, lengths if count_lengths is None
+                        else count_lengths, time_major)
+
+
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, lengths=None,
-               time_major: bool = False) -> torch.Tensor:
+               time_major: bool = False,
+               count_lengths=None) -> torch.Tensor:
     """MSE over valid positions (reference: plain nn.MSELoss)."""
     err = (pred - target) ** 2
     m = _length_mask(pred, lengths, time_major)
     if m is None:
         return torch.mean(err)
+    cm = _count_mask(pred, lengths, count_lengths, time_major)
     # a fully padded (sub)batch yields loss 0, not 0/0
     return torch.sum(err * m) / torch.clamp_min(
-        torch.sum(m) * err.shape[-1], 1.0)
+        torch.sum(cm) * err.shape[-1], 1.0)
 
 
 def temporal_smoothness_loss(pred: torch.Tensor, order: int = 2,
-                             lengths=None,
-                             time_major: bool = False) -> torch.Tensor:
+                             lengths=None, time_major: bool = False,
+                             count_lengths=None) -> torch.Tensor:
     """L1 norm of the `order`-th finite time difference, summed over time,
     averaged over the batch (reference: joints.py:71-75 for order=2, the
     "temporal" loss; poser.py:100-103 for order=3, the "jerk" loss)."""
@@ -120,11 +137,15 @@ def temporal_smoothness_loss(pred: torch.Tensor, order: int = 2,
         valid = (idx[:, None] < lengths[None, :] if time_major
                  else idx[None, :] < lengths[:, None])
         l1 = l1 * valid.to(l1.dtype)
+    if count_lengths is not None:
+        # the mean over the whole batch's rows
+        return torch.sum(l1) / count_lengths.shape[0]
     return torch.mean(torch.sum(l1, dim=t_ax))
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
-                    lengths=None, time_major: bool = False) -> torch.Tensor:
+                    lengths=None, time_major: bool = False,
+                    count_lengths=None) -> torch.Tensor:
     """Binary cross-entropy on logits (reference: footcontact.py loss),
     the explicit formula of the JAX package."""
     per = (torch.maximum(logits, logits.new_zeros(())) - logits * labels
@@ -132,13 +153,14 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
     m = _length_mask(logits, lengths, time_major)
     if m is None:
         return torch.mean(per)
+    cm = _count_mask(logits, lengths, count_lengths, time_major)
     return torch.sum(per * m) / torch.clamp_min(
-        torch.sum(m) * per.shape[-1], 1.0)
+        torch.sum(cm) * per.shape[-1], 1.0)
 
 
 def multiscale_velocity_loss(pred: torch.Tensor, target: torch.Tensor,
-                             lengths=None,
-                             time_major: bool = False) -> torch.Tensor:
+                             lengths=None, time_major: bool = False,
+                             count_lengths=None) -> torch.Tensor:
     """Sum of per-chunk MSEs over chunk sizes n in {1, 3, 9}
     (reference: velocity.py:74-86): for chunk size n, T // n chunks (the
     partial tail chunk is dropped), each the mean over its valid (batch,
@@ -153,18 +175,20 @@ def multiscale_velocity_loss(pred: torch.Tensor, target: torch.Tensor,
     m = _length_mask(pred, lengths, time_major)
     if m is not None:
         err = err * m
+        m = _count_mask(pred, lengths, count_lengths, time_major)
+    Bc = B if m is None else m.shape[1 if time_major else 0]
     for n in (1, 3, 9):
         n_chunks = T // n
         if time_major:
             e = err[:n_chunks * n].reshape(n_chunks, n, B, D)
             sum_dims = (1, 2, 3)
             mm = (None if m is None
-                  else m[:n_chunks * n].reshape(n_chunks, n, B, 1))
+                  else m[:n_chunks * n].reshape(n_chunks, n, Bc, 1))
         else:
             e = err[:, :n_chunks * n].reshape(B, n_chunks, n, D)
             sum_dims = (0, 2, 3)
             mm = (None if m is None
-                  else m[:, :n_chunks * n].reshape(B, n_chunks, n, 1))
+                  else m[:, :n_chunks * n].reshape(Bc, n_chunks, n, 1))
         if mm is None:
             counts = torch.full((n_chunks,), float(B * n * D),
                                 dtype=err.dtype, device=err.device)
@@ -189,24 +213,35 @@ class Draws(NamedTuple):
 
 
 def draw(name: str, batch: dict, generator: torch.Generator,
-         train: bool = True) -> Draws:
+         train: bool = True, rows=None) -> Draws:
     """Draw one module's loss randomness from `generator`: the noise
     first, then the dropout mask. The batch layout (batch- or time-major)
     sets the shapes. The draws are made on the generator's device and
     land on the batch's (the trainer keeps both on the card; a CPU
     generator gives the same draws to a run on the card and one on the
-    CPU)."""
+    CPU).
+
+    rows=(start, total): the batch (batch-major) is rows start.. of a
+    batch of `total` rows; the draws are the whole batch's, of which this
+    batch's rows are kept, so every process of a data-parallel step draws
+    what one process would draw for the whole batch."""
     cfg = MODULE_CONFIGS[name]
     device = batch["imu"].device
+    B = batch["imu"].shape[0]
+    start, total = (0, B) if rows is None else rows
+
+    def whole(shape):
+        return (total,) + tuple(shape[1:])
     noise = None
     if name in NOISE_STD:
-        noise = torch.randn(tuple(batch["joints"].shape), generator=generator,
-                            device=generator.device).to(device)
+        noise = torch.randn(whole(batch["joints"].shape), generator=generator,
+                            device=generator.device)[start:start + B]
+        noise = noise.to(device)
     keep = None
     if train and cfg.dropout > 0.0:
         keep = draw_dropout_keep(
-            cfg, tuple(batch["imu"].shape[:2]) + (cfg.n_hidden,),
-            generator).to(device)
+            cfg, whole(tuple(batch["imu"].shape[:2]) + (cfg.n_hidden,)),
+            generator)[start:start + B].to(device)
     return Draws(noise, keep)
 
 
@@ -215,21 +250,22 @@ def draw(name: str, batch: dict, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def joints_loss(params, batch, draws: Draws, train: bool = True,
-                backend: str = "auto_train", time_major: bool = False):
+                backend: str = "auto_train", time_major: bool = False,
+                count_lengths=None):
     """MSE + 1e-5 * 2nd-diff temporal L1 (reference: joints.py:54-75)."""
     imu, lengths = batch["imu"], batch.get("lengths")
     pred, _ = module_apply("joints", params, imu, lengths, backend=backend,
                            time_major=time_major, train=train,
                            dropout_keep=draws.keep)
     tgt = batch["joints"].reshape(pred.shape)
-    return (masked_mse(pred, tgt, lengths, time_major)
+    return (masked_mse(pred, tgt, lengths, time_major, count_lengths)
             + T_WEIGHT * temporal_smoothness_loss(pred, 2, lengths,
-                                                  time_major))
+                                                  time_major, count_lengths))
 
 
 def poser_loss(params, batch, draws: Draws, body_model=None,
                train: bool = True, backend: str = "auto_train",
-               time_major: bool = False):
+               time_major: bool = False, count_lengths=None):
     """r6d MSE + 1e-5 * jerk L1 + FK joint-position MSE
     (reference: poser.py:65-98). `body_model` enables the position loss."""
     imu, lengths = batch["imu"], batch.get("lengths")
@@ -244,9 +280,10 @@ def poser_loss(params, batch, draws: Draws, body_model=None,
                            dropout_keep=draws.keep)
     tgt = target_pose.reshape(A0, A1, 24, 6)[:, :, list(C.joint_set.reduced)]
     tgt = tgt.reshape(A0, A1, -1)
-    loss = masked_mse(pred, tgt, lengths, time_major)
+    loss = masked_mse(pred, tgt, lengths, time_major, count_lengths)
     loss = loss + T_WEIGHT * temporal_smoothness_loss(pred, 3, lengths,
-                                                      time_major)
+                                                      time_major,
+                                                      count_lengths)
     if body_model is not None:
         # positions straight from the predicted global rotations through
         # the bone basis (net.joint_positions_from_r6d_soa)
@@ -256,12 +293,13 @@ def poser_loss(params, batch, draws: Draws, body_model=None,
                                                 body_model)
         joints_p = joints_p.reshape(A0, A1, -1)
         loss = loss + masked_mse(joints_p, target_joints.reshape(A0, A1, -1),
-                                 lengths, time_major)
+                                 lengths, time_major, count_lengths)
     return loss
 
 
 def footcontact_loss(params, batch, draws: Draws, train: bool = True,
-                     backend: str = "auto_train", time_major: bool = False):
+                     backend: str = "auto_train", time_major: bool = False,
+                     count_lengths=None):
     """BCE-with-logits on [L, R] contact (reference: footcontact.py:43-72)."""
     imu, lengths = batch["imu"], batch.get("lengths")
     target_joints = batch["joints"].reshape(imu.shape[0], imu.shape[1], -1)
@@ -271,11 +309,12 @@ def footcontact_loss(params, batch, draws: Draws, train: bool = True,
                            backend=backend, time_major=time_major,
                            train=train, dropout_keep=draws.keep)
     return bce_with_logits(pred, batch["contacts"].reshape(pred.shape),
-                           lengths, time_major)
+                           lengths, time_major, count_lengths)
 
 
 def velocity_loss(params, batch, draws: Draws, train: bool = True,
-                  backend: str = "auto_train", time_major: bool = False):
+                  backend: str = "auto_train", time_major: bool = False,
+                  count_lengths=None):
     """Multi-scale chunked MSE (reference: velocity.py:51-86)."""
     imu, lengths = batch["imu"], batch.get("lengths")
     target_joints = batch["joints"].reshape(imu.shape[0], imu.shape[1], -1)
@@ -285,7 +324,8 @@ def velocity_loss(params, batch, draws: Draws, train: bool = True,
     pred, _ = module_apply("velocity", params, x, lengths, backend=backend,
                            time_major=time_major, train=train,
                            dropout_keep=draws.keep)
-    return multiscale_velocity_loss(pred, target_vel, lengths, time_major)
+    return multiscale_velocity_loss(pred, target_vel, lengths, time_major,
+                                    count_lengths)
 
 
 LOSSES = {"joints": joints_loss, "poser": poser_loss,

@@ -48,6 +48,7 @@ state always float32.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -356,6 +357,15 @@ class OnlineState(NamedTuple):
     last_root_pos: torch.Tensor   # [S, 3]
 
 
+# Stream-axis index per field of a BATCHED state, read by
+# `parallel.shard_stream_state` so that sharding the slots never guesses
+# from shapes (a stream count equal to the layer stack's 2 or the
+# window's 45 would defeat the guess).
+OnlineState.STREAM_AXES = OnlineState(
+    imu=0, initialized=0, vel_h=1, vel_c=1, last_lfoot=0, last_rfoot=0,
+    current_root_y=0, last_root_pos=0)
+
+
 class MobilePoserNet:
     """Binds the SMPL body constants and a device; the methods take the
     module parameters explicitly, like the JAX package's (reference class:
@@ -390,6 +400,18 @@ class MobilePoserNet:
         self.online_sigmoid = online_sigmoid
         self._gravity = torch.tensor(GRAVITY_VELOCITY, dtype=torch.float32,
                                      device=self.device)
+
+    def on(self, device) -> "MobilePoserNet":
+        """This net bound to `device` (itself when it is there already):
+        the body and its constants are shared, only the device-resident
+        ones are moved. The sharded paths run one per mesh device."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        other = copy.copy(self)
+        other.device = device
+        other._gravity = self._gravity.to(device)
+        return other
 
     def forward_offline(self, params, imu: torch.Tensor, vel_h0c0=None,
                         length=None):

@@ -40,6 +40,19 @@ its transfers on ticks that are still sent.
 Slot resets are out of place: the reply of a tick holds the step's
 `last_root_pos` itself, and a reset made while a fetcher has not copied
 it yet must not change what that fetcher sends.
+
+A serving fleet over several devices (`mesh=`) shards the slots: slot s
+belongs to shard s // (max_streams / mesh.size), whose state lives on
+that shard's device (`parallel.shard_stream_state`). Each tick uploads
+every shard's frames to its device, runs the step and the post step
+there on its own slots (the layer kernels see only local tensors;
+`parallel.shard_map`), and copies the replies to the host with one
+pinned copy per tensor and one event per device; a tick's replies are
+complete when every device's event has fired. One thread issues every
+shard's step, and each step is bound by the host's launches, so a
+sharded tick costs about the shards' host times added up: over four
+H100s it is slower than one card's tick at the same streams, and misses
+30 Hz in int8 and carry mode (PERF.md).
 """
 
 from __future__ import annotations
@@ -57,6 +70,10 @@ import torch
 
 from mobileposer_tpu_torch.device import device_context
 from mobileposer_tpu_torch.kinematics import rotation as R
+from mobileposer_tpu_torch.parallel.mesh import (Mesh, Replicated, Sharded,
+                                                 copy_to_host, gather,
+                                                 replicate_params, shard_map,
+                                                 shard_stream_state)
 from mobileposer_tpu_torch.stream.pacing import Pacer
 
 REQUEST_STRUCT = struct.Struct("<I60f")
@@ -122,12 +139,15 @@ class PoseServer:
         stream under reordering: a tick whose fetch completes after a
         newer tick was sent is dropped whole and counted.
 
-        mesh: sharding the slots over several devices is not ported
-        (ROADMAP.md queue A item 16); pass None."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a device mesh is not ported (data-parallel "
-                "serving, ROADMAP.md queue A item 16)")
+        mesh: a `parallel.Mesh` to shard the stream slots over (a serving
+        fleet, the JAX server's `mesh=`): the params replicated once per
+        distinct device, each shard's slots stepped on its device with
+        the single-device step; `max_streams` must divide over the mesh.
+        The per-stream forward has no cross-stream operation, so replies
+        agree with one device's to within the per-shard tiling."""
+        if mesh is not None and max_streams % mesh.size:
+            raise ValueError(f"max_streams={max_streams} does not divide "
+                             f"over the {mesh.size}-device mesh")
         if wire not in ("f32", "f16"):
             raise ValueError(f"unknown wire format {wire!r}")
         if quantize not in (None, "int8"):
@@ -146,6 +166,13 @@ class PoseServer:
         self.net = net
         self.device = net.device
         self.params = params
+        self.mesh = mesh
+        # without a mesh, one shard on the net's device, params as given
+        self._mesh = mesh if mesh is not None else Mesh((net.device,))
+        self._params = (replicate_params(params, mesh) if mesh is not None
+                        else Replicated({net.device: params}))
+        self._nets = replicate_params(net, self._mesh)
+        self._per_shard = max_streams // self._mesh.size
         self.wire = wire
         self.quantize = quantize
         self.mode = mode
@@ -190,17 +217,19 @@ class PoseServer:
         self.pending = np.zeros((max_streams, 60), np.float32)
         self.has_frame = np.zeros(max_streams, bool)
 
-        self._feet = torch.as_tensor(np.asarray(net.feet_pos, np.float32),
-                                     device=self.device)
-        self._stage = None               # pinned frame staging (card only)
+        feet = torch.as_tensor(np.asarray(net.feet_pos, np.float32))
+        self._feet = replicate_params(feet, self._mesh)
+        # pinned frame staging per shard (card only)
+        self._stage = [None] * self._mesh.size
+        self._stage_done = [None] * self._mesh.size
         if mode == "carry":
-            self.states = net.init_carry_state_batched(max_streams,
-                                                       self.dtype)
-            self._step = net.forward_carry_batched
+            states = net.init_carry_state_batched(max_streams, self.dtype)
+            self._step_name = "forward_carry_batched"
         else:
-            self.states = net.init_online_state_batched(max_streams,
-                                                        self.dtype)
-            self._step = net.forward_online_batched
+            states = net.init_online_state_batched(max_streams, self.dtype)
+            self._step_name = "forward_online_batched"
+        self._states = (shard_stream_state(states, max_streams, mesh)
+                        if mesh is not None else [states])
         self._reply_struct = (REPLY_STRUCT if wire == "f32"
                               else REPLY_STRUCT_F16)
         self._reply_dtype = (self._REPLY_DTYPE if wire == "f32"
@@ -242,6 +271,12 @@ class PoseServer:
         if pipelined:
             self._start_fetcher()
 
+    @property
+    def states(self):
+        """The slots' streaming state: one state without a mesh, the
+        `Sharded` per-shard states with one."""
+        return self._states[0] if self.mesh is None else Sharded(self._states)
+
     # -- device helpers -----------------------------------------------------
     def _post(self, pose, root, contact):
         """Reply post step on the device: rotation matrices to axis-angle
@@ -254,46 +289,39 @@ class PoseServer:
             return aa.half(), root.float(), contact.half()
         return aa.float(), root.float(), contact.float()
 
-    def _upload(self, frames: np.ndarray) -> torch.Tensor:
-        """Frames to the device. On the card through a pinned staging
-        buffer, so the copy is queued behind the previous tick's work
-        instead of waiting for it (a copy from pageable memory may
-        synchronize); the buffer is rewritten only once the previous
+    def _upload(self, shard: int, device: torch.device,
+                frames: np.ndarray) -> torch.Tensor:
+        """A shard's frames to its device. On the card through the shard's
+        pinned staging buffer, so the copy is queued behind the previous
+        tick's work instead of waiting for it (a copy from pageable memory
+        may synchronize); the buffer is rewritten only once the previous
         tick's copy out of it has completed (its event)."""
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return torch.from_numpy(frames.copy()).to(self.dtype)
-        if self._stage is None:
-            self._stage = torch.empty(frames.shape, dtype=torch.float32,
-                                      pin_memory=True)
-            self._stage_done = torch.cuda.Event()
+        if self._stage[shard] is None:
+            self._stage[shard] = torch.empty(
+                frames.shape, dtype=torch.float32, pin_memory=True)
+            self._stage_done[shard] = torch.cuda.Event()
         else:
-            self._stage_done.synchronize()
-        self._stage.numpy()[:] = frames
-        out = self._stage.to(self.device, non_blocking=True)
-        self._stage_done.record()
+            self._stage_done[shard].synchronize()
+        self._stage[shard].numpy()[:] = frames
+        out = self._stage[shard].to(device, non_blocking=True)
+        self._stage_done[shard].record()
         return out.to(self.dtype)
 
-    def _issue_copy(self, outs):
-        """Start the tick's device-to-host copy: (host tensors, the CUDA
-        event that marks them complete, or None on the CPU)."""
-        if self.device.type != "cuda":
-            return [o.clone() for o in outs], None
-        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                for o in outs]
-        for h, o in zip(host, outs):
-            h.copy_(o, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+    def _fetch(self, outs, copies):
+        """The tick's replies as host numpy arrays, the shards' rows in
+        slot order: wait for the copies the tick issued
+        (`parallel.copy_to_host`), or copy now when it issued none."""
+        return [t.numpy() for t in gather(outs, 0, copies)]
 
-    def _fetch(self, outs, host, event):
-        """The tick's replies as host numpy arrays: wait for the copy the
-        tick issued, or copy now when it issued none."""
-        if host is None:
-            host = [o.to("cpu", copy=True) for o in outs]
-        elif event is not None:
-            event.synchronize()
-        return [h.numpy() for h in host]
+    def _shard_step(self, shard: int, net, params, state, frames):
+        """One shard's step on its device: its frames uploaded, its slots
+        advanced, the reply post step. Returns (replies, next state)."""
+        frames = self._upload(shard, self._mesh.devices[shard], frames)
+        (pose, _, root, contact), state = getattr(net, self._step_name)(
+            params, state, frames)
+        return self._post(pose, root, contact), state
 
     # -- reply pipeline -----------------------------------------------------
     def _start_fetcher(self) -> None:
@@ -329,13 +357,13 @@ class PoseServer:
                                 self.dropped_replies += 1
                         break
                 try:
-                    seq, (outs, host, event), snapshot = self._fetch_q.get(
+                    seq, (outs, copies), snapshot = self._fetch_q.get(
                         timeout=0.05)
                 except queue.Empty:
                     continue
                 try:
                     t0 = time.perf_counter()
-                    host_np = self._fetch(outs, host, event)
+                    host_np = self._fetch(outs, copies)
                     fetch_ms = (time.perf_counter() - t0) * 1e3
                     # the fetch runs outside the lock (it is what workers
                     # exist to overlap); the gate and the send serialize
@@ -448,13 +476,16 @@ class PoseServer:
         tensors replace the state's fields, and a tick's outputs that
         alias the old ones (its `root` is the old `last_root_pos`) keep
         their values until a fetcher has copied them."""
-        with device_context(self.device):
-            st = self.states
-            idx = torch.tensor([slot], device=self.device)
+        shard, local = divmod(slot, self._per_shard)
+        device = self._mesh.devices[shard]
+        feet = self._feet[device]
+        with device_context(device):
+            st = self._states[shard]
+            idx = torch.tensor([local], device=device)
             fields = dict(
                 initialized=st.initialized.index_fill(0, idx, False),
-                last_lfoot=st.last_lfoot.index_copy(0, idx, self._feet[:1]),
-                last_rfoot=st.last_rfoot.index_copy(0, idx, self._feet[1:]),
+                last_lfoot=st.last_lfoot.index_copy(0, idx, feet[:1]),
+                last_rfoot=st.last_rfoot.index_copy(0, idx, feet[1:]),
                 current_root_y=st.current_root_y.index_fill(0, idx, 0.0),
                 last_root_pos=st.last_root_pos.index_fill(0, idx, 0.0))
             if self.mode == "exact":
@@ -464,7 +495,7 @@ class PoseServer:
                 fields.update(imu=st.imu.index_fill(0, idx, 0.0),
                               vel_h=st.vel_h.index_fill(1, idx, 0.0),
                               vel_c=st.vel_c.index_fill(1, idx, 0.0))
-            self.states = st._replace(**fields)
+            self._states[shard] = st._replace(**fields)
 
     # -- main loop ----------------------------------------------------------
     def _drain_requests_native(self) -> int:
@@ -549,11 +580,16 @@ class PoseServer:
         active = np.nonzero(self.has_frame)[0]
         if active.size == 0:
             return 0
-        with device_context(self.device), torch.no_grad():
-            frames = self._upload(self.pending)
-            (pose, _, root, contact), self.states = self._step(
-                self.params, self.states, frames)
-            outs = self._post(pose, root, contact)
+        with torch.no_grad():
+            # every shard's step issued before any reply is fetched
+            per, n = self._per_shard, self._mesh.size
+            res = shard_map(self._shard_step, self._mesh)(
+                Sharded(range(n)), self._nets, self._params,
+                Sharded(self._states),
+                Sharded(self.pending[i * per:(i + 1) * per]
+                        for i in range(n)))
+            outs = [r[0] for r in res]
+            self._states = [r[1] for r in res]
             # dispatch-time snapshot: slot ownership can change before the
             # (possibly deferred) fetch
             snapshot = ([(int(s), self.id_of[int(s)], self.addr_of[int(s)])
@@ -568,14 +604,14 @@ class PoseServer:
                 # of a tick or two is a blip, and deferring its copies
                 # would lengthen it.
                 if self._fetch_q.qsize() < self._fetch_q.maxsize // 2:
-                    host, event = self._issue_copy(outs)
+                    copies = copy_to_host(outs)
                 else:
-                    host, event = None, None
+                    copies = None
                     self.deferred_copies += 1
-                self._enqueue_replies((outs, host, event), snapshot)
+                self._enqueue_replies((outs, copies), snapshot)
                 sent = len(snapshot[0])
             else:
-                host_np = self._fetch(outs, None, None)
+                host_np = self._fetch(outs, None)
                 with self._send_lock:
                     sent = self._send_replies(host_np, snapshot)
         self.has_frame[active] = False
@@ -602,6 +638,7 @@ class PoseServer:
             "quantize": self.quantize,
             "wire": self.wire,
             "device": str(self.device),
+            "shards": self._mesh.size,
             "native_udp": self._native_udp is not None,
             "rejected_frames": self.rejected_frames,
             "active_streams": active,

@@ -1,6 +1,7 @@
-"""Training loop on one CUDA device (counterpart of
-`mobileposer_tpu/train/trainer.py`): per-module optimizers, the concurrent
-four-module step, top-k checkpointing and resume.
+"""Training loop on one CUDA device or data-parallel over several
+(counterpart of `mobileposer_tpu/train/trainer.py`): per-module
+optimizers, the concurrent four-module step, top-k checkpointing and
+resume.
 
 Behavioral parity target: reference `mobileposer/train.py`
 (TrainingManager, train.py:33-97), per-module `configure_optimizers`
@@ -18,13 +19,33 @@ numbers differ from the JAX package's `jax.random` streams; the recipe
 (splits, shuffles, batches) is the same numpy code and gives the same
 batches.
 
-Single device only: a `mesh`, `dp_impl='shard_map'` or more than one
-device raise NotImplementedError (ROADMAP.md queue A item 22).
+Data parallelism runs one process per device over `torch.distributed`
+(`parallel.distributed`; `cli.train` spawns the ranks or runs under
+torchrun), where the JAX package runs one program over a device mesh.
+Every rank assembles the same global batch, keeps its own rows and runs
+the training kernels on them; the losses and gradients are reduced
+across the ranks in one collective before the non-finite guard, so every
+rank updates (or skips) the same way. Two rules, as in the JAX package:
+
+  * 'gspmd' (the default) equals the one-device step on the whole batch
+    up to the order of the sums: every rank draws the whole batch's noise
+    and dropout masks from the same generator and keeps its rows, each
+    masked loss is normalized by the whole batch's valid frames
+    (`models.modules`, `count_lengths`), and the parts are summed. The
+    JAX package's gspmd route gives up its Pallas kernels on more than
+    one device; the port's keeps #7 and #8.
+  * 'shard_map' (`make_shard_map_train_step`, and
+    `make_multi_train_step(mesh=...)` by default): each rank folds its
+    rank into the draw (`parallel.fold_in`) and normalizes by its own
+    rows, and the losses and gradients are averaged across the ranks.
+
+Only rank 0 writes checkpoints, `train_state.pt`, metrics and records.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import re
 import time
@@ -44,13 +65,14 @@ from mobileposer_tpu_torch.nn.convert import (export_npz, load_npz,
                                               rnn_block_to_jax)
 from mobileposer_tpu_torch.nn.lstm import (TRAIN_BACKENDS, LSTMDirectionInt8,
                                            RNNBlock, check_backend)
+from mobileposer_tpu_torch.parallel import distributed as D
+from mobileposer_tpu_torch.parallel.mesh import Mesh, pad_batch_to_multiple
 from mobileposer_tpu_torch.utils.metrics import (JSONLSink, MultiSink,
                                                  make_sinks)
 
 MODULE_NAMES = ("poser", "joints", "footcontact", "velocity")
 
-_PARALLEL_ROW = ("data-parallel training over torch.distributed, "
-                 "ROADMAP.md queue A item 22")
+DP_IMPLS = ("gspmd", "shard_map")
 
 
 @dataclasses.dataclass
@@ -84,17 +106,20 @@ def make_optimizer(module_name: str, lr: float,
 def loss_fn_for(module_name: str, body_model=None,
                 backend: str = "auto_train") -> Callable:
     """Loss for one module: (params, batch, generator, train=True,
-    time_major=False) -> scalar. Draws the module's noise and dropout mask
-    from `generator` (`models.modules.draw`), then runs its deterministic
-    loss. Only poser reads `body_model`."""
+    time_major=False, rows=None, count_lengths=None) -> scalar. Draws the
+    module's noise and dropout mask from `generator`
+    (`models.modules.draw`), then runs its deterministic loss. Only poser
+    reads `body_model`. `rows` and `count_lengths` make it this rank's
+    part of the whole batch's loss (the 'gspmd' rule)."""
     loss = M.LOSSES[module_name]
     extra = {"body_model": body_model} if module_name == "poser" else {}
 
     def fn(params, batch, generator, train: bool = True,
-           time_major: bool = False):
-        draws = M.draw(module_name, batch, generator, train)
+           time_major: bool = False, rows=None, count_lengths=None):
+        draws = M.draw(module_name, batch, generator, train, rows)
         return loss(params, batch, draws, train=train, backend=backend,
-                    time_major=time_major, **extra)
+                    time_major=time_major, count_lengths=count_lengths,
+                    **extra)
     return fn
 
 
@@ -145,78 +170,213 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on `device`; lengths as int64."""
     out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
            for k, v in batch.items()}
-    if "lengths" in out:
-        out["lengths"] = out["lengths"].long()
+    for k in ("lengths", "global_lengths"):
+        if k in out:
+            out[k] = out[k].long()
     return out
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism across processes
+# ---------------------------------------------------------------------------
+
+def _data_parallel(mesh: Optional[Mesh]):
+    """(rank, world) of a step over `mesh`, or None on one device. A mesh
+    of more than one entry trains one process per entry: the process
+    group must hold exactly that many ranks."""
+    if mesh is None or mesh.size == 1:
+        return None
+    world = D.world_size()
+    if world != mesh.size:
+        raise RuntimeError(
+            f"a {mesh.size}-entry mesh trains one process per entry; this "
+            f"process group holds {world} (initialize_distributed, "
+            "torchrun, or cli.train's spawn)")
+    return D.rank(), world
+
+
+def local_rows(batch: Dict[str, np.ndarray], rank: int, world: int
+               ) -> Dict[str, np.ndarray]:
+    """This rank's rows of a global numpy batch, padded to a multiple of
+    the ranks (padded rows have length 0), with the whole batch's
+    lengths as `global_lengths`, which the 'gspmd' normalizers count."""
+    batch = pad_batch_to_multiple(batch, world)
+    local = D.host_local_batch(batch, rank, world)
+    local["global_lengths"] = batch["lengths"]
+    return local
+
+
+def _rank_losses(loss_fns, params, batch, generator, dp, dp_impl: str,
+                 train: bool, time_major: bool = False):
+    """Each module's loss on this process's rows: the whole loss on one
+    device; under 'shard_map' the rank's own loss, its draws folded with
+    its rank; under 'gspmd' the rank's part of the whole batch's loss."""
+    kw = {}
+    if dp is not None:
+        rank, world = dp
+        if dp_impl == "shard_map":
+            generator = D.fold_in(generator, rank)
+        else:
+            B = batch["imu"].shape[0]
+            kw = dict(rows=(rank * B, world * B),
+                      count_lengths=batch["global_lengths"])
+    return {n: fn(params[n], batch, generator, train=train,
+                  time_major=time_major, **kw)
+            for n, fn in loss_fns.items()}
+
+
+def all_reduce_step(losses: Dict[str, torch.Tensor], modules: Dict[str, nn.Module],
+                    world: int, mean: bool) -> Dict[str, torch.Tensor]:
+    """The losses and every gradient summed across the ranks ('gspmd':
+    the parts of the whole batch's loss) or averaged ('shard_map'), in
+    one collective on one flat buffer; the gradients are written back.
+    Returns the reduced losses."""
+    names = list(losses)
+    params = [p for n in names for p in modules[n].parameters()
+              if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) for p in params]
+                     + [torch.stack([losses[n].detach() for n in names])])
+    torch.distributed.all_reduce(flat)
+    if mean:
+        flat /= world
+    offset = 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return {n: flat[offset + i] for i, n in enumerate(names)}
+
+
+def _broadcast_params(modules) -> None:
+    """Rank 0's parameters on every rank: the ranks start equal and stay
+    equal (the same reduced gradients through the same optimizer)."""
+    with torch.no_grad():
+        for m in modules:
+            for t in list(m.parameters()) + list(m.buffers()):
+                torch.distributed.broadcast(t, 0)
+
+
+def _check_dp(dp, dp_impl: str, time_major: bool) -> None:
+    if dp_impl not in DP_IMPLS:
+        raise ValueError(f"dp_impl must be one of {DP_IMPLS}, got "
+                         f"{dp_impl!r}")
+    if dp is not None and time_major:
+        raise ValueError("data-parallel steps take batch-major batches")
+
+
 def make_train_step(module_name: str, body_model=None,
-                    time_major: bool = False, backend: str = "auto_train"):
+                    time_major: bool = False, backend: str = "auto_train",
+                    mesh: Optional[Mesh] = None, dp_impl: str = "gspmd"):
     """(state, batch, generator) -> (state, loss) for one module: the
     loss and its gradients through the training kernels, then the
     optimizer update unless something is not finite. `batch` holds
     tensors on the state's device, [T, B, ...] when time_major (lengths
     stays [B]). The optimizer, and so the learning rate, is the state's
-    own (`init_train_state`)."""
-    loss_fn = loss_fn_for(module_name, body_model, backend=backend)
+    own (`init_train_state`).
+
+    With a mesh of more than one entry, each rank of the process group
+    calls the step on its rows (`local_rows`) under `dp_impl` (see the
+    module docstring); the returned loss is the reduced one."""
+    loss_fns = {module_name: loss_fn_for(module_name, body_model,
+                                         backend=backend)}
+    dp = _data_parallel(mesh)
+    _check_dp(dp, dp_impl, time_major)
 
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         state.opt.zero_grad(set_to_none=True)
-        loss = loss_fn(state.params, batch, generator, train=True,
-                       time_major=time_major)
-        loss.backward()
-        _apply_updates({module_name: state}, {module_name: loss})
-        return state, loss.detach()
+        losses = _rank_losses(loss_fns, {module_name: state.params}, batch,
+                              generator, dp, dp_impl, True, time_major)
+        losses[module_name].backward()
+        if dp is not None:
+            losses = all_reduce_step(losses, {module_name: state.params},
+                                     dp[1], mean=dp_impl == "shard_map")
+        _apply_updates({module_name: state}, losses)
+        return state, losses[module_name].detach()
 
     return step
 
 
+def make_shard_map_train_step(module_name: str, mesh: Mesh, body_model=None,
+                              backend: str = "auto_train"):
+    """The 'shard_map' data-parallel step of one module: each rank runs
+    the training kernels on its rows with its own draws, and the loss and
+    gradients are averaged across the ranks (trainer.py:117-176 of the
+    JAX package)."""
+    return make_train_step(module_name, body_model, backend=backend,
+                           mesh=mesh, dp_impl="shard_map")
+
+
 def make_multi_train_step(body_model=None, backend: str = "auto_train",
-                          module_names=MODULE_NAMES):
+                          module_names=MODULE_NAMES,
+                          mesh: Optional[Mesh] = None,
+                          dp_impl: str = "shard_map"):
     """One step advancing all modules on one batch: the sum of their
     losses differentiated once (the parameter sets are disjoint, so each
     module gets its own gradient), then each module's own optimizer and
     its own non-finite containment. Returns (states, {module: loss}).
-    Draws are taken from the one generator in `module_names` order."""
+    Draws are taken from the one generator in `module_names` order.
+
+    With a mesh of more than one entry the step is data-parallel over the
+    process group, 'shard_map' unless `dp_impl` says 'gspmd' (the JAX
+    package's `make_multi_train_step(mesh=...)` is its shard_map step);
+    all modules' losses and gradients go in one collective."""
     loss_fns = {n: loss_fn_for(n, body_model, backend=backend)
                 for n in module_names}
+    dp = _data_parallel(mesh)
+    _check_dp(dp, dp_impl, False)
 
     def step(states: Dict[str, TrainState], batch: dict,
              generator: torch.Generator):
         for n in module_names:
             states[n].opt.zero_grad(set_to_none=True)
-        losses = {n: loss_fns[n](states[n].params, batch, generator,
-                                 train=True)
-                  for n in module_names}
+        losses = _rank_losses(loss_fns, {n: states[n].params
+                                         for n in module_names},
+                              batch, generator, dp, dp_impl, True)
         sum(losses.values()).backward()
+        if dp is not None:
+            losses = all_reduce_step(
+                losses, {n: states[n].params for n in module_names}, dp[1],
+                mean=dp_impl == "shard_map")
         _apply_updates(states, losses)
         return states, {n: v.detach() for n, v in losses.items()}
 
     return step
 
 
-def make_eval_step(module_name: str, body_model=None,
-                   time_major: bool = False):
-    """Validation loss of one module: no gradients, the inference route
-    (train=False, the masked kernels), as the JAX package validates on
-    XLA without the training kernels' residual writes."""
-    loss_fn = loss_fn_for(module_name, body_model, backend="auto")
+def make_multi_eval_step(body_model=None, module_names=MODULE_NAMES,
+                         time_major: bool = False,
+                         mesh: Optional[Mesh] = None):
+    """All modules' validation losses on one batch: no gradients, the
+    inference route (train=False, the masked kernels), as the JAX package
+    validates on XLA without the training kernels' residual writes. With
+    a mesh of more than one entry, each rank computes its part of the
+    whole batch's losses (the 'gspmd' rule, as the JAX package validates
+    on the sharded batch under either rule) and the parts are summed
+    across the ranks."""
+    loss_fns = {n: loss_fn_for(n, body_model, backend="auto")
+                for n in module_names}
+    dp = _data_parallel(mesh)
+    _check_dp(dp, "gspmd", time_major)
 
     @torch.no_grad()
-    def step(params, batch, generator):
-        return loss_fn(params, batch, generator, train=False,
-                       time_major=time_major)
-    return step
-
-
-def make_multi_eval_step(body_model=None, module_names=MODULE_NAMES):
-    """All modules' validation losses on one batch."""
-    steps = {n: make_eval_step(n, body_model) for n in module_names}
-
     def step(params: Dict[str, RNNBlock], batch: dict, generator):
-        return {n: steps[n](params[n], batch, generator)
-                for n in module_names}
+        losses = _rank_losses(loss_fns, params, batch, generator, dp,
+                              "gspmd", False, time_major)
+        if dp is not None:
+            flat = torch.stack([losses[n] for n in module_names])
+            torch.distributed.all_reduce(flat)
+            losses = {n: flat[i] for i, n in enumerate(module_names)}
+        return losses
     return step
+
+
+def make_eval_step(module_name: str, body_model=None,
+                   time_major: bool = False, mesh: Optional[Mesh] = None):
+    """Validation loss of one module (`make_multi_eval_step`)."""
+    step = make_multi_eval_step(body_model, (module_name,), time_major, mesh)
+
+    def one(params, batch, generator):
+        return step({module_name: params}, batch, generator)[module_name]
+    return one
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +448,8 @@ def save_training_state(path, module_name: str, state: TrainState,
 
 def restore_training_state(path, lr: float, device=None):
     """Restore (TrainState, module_name, next_epoch) from
-    `save_training_state`'s file."""
+    `save_training_state`'s file (a path, or a file object holding its
+    bytes)."""
     device = resolve_device(device)
     z = torch.load(path, map_location=device, weights_only=True)
     state = init_train_state(z["module"], torch.Generator(), lr, device)
@@ -337,7 +498,8 @@ def _mean(values) -> float:
 # ---------------------------------------------------------------------------
 
 class TrainingManager:
-    """Per-module or concurrent training on one device."""
+    """Per-module or concurrent training on one device, or data-parallel
+    with one process per device."""
 
     def __init__(self, finetune: Optional[str] = None,
                  fast_dev_run: bool = False, mesh=None,
@@ -349,12 +511,18 @@ class TrainingManager:
         package runs it on the TPU and resolves it to its float32 XLA path
         elsewhere, the port's CPU path runs the plain versions with the
         residuals rounded), used by `train_module` and `train_all` alike.
-        The JAX package's 'xla' has no counterpart here. `mesh` and
-        dp_impl='shard_map' are multi-device options and raise."""
-        if mesh is not None or dp_impl != "gspmd":
-            raise NotImplementedError(
-                f"mesh / dp_impl={dp_impl!r}: one device only "
-                f"({_PARALLEL_ROW})")
+        The JAX package's 'xla' has no counterpart here.
+
+        mesh: one entry per rank of the process group (`parallel.Mesh`);
+        this process trains on entry `rank`. Without one, an initialized
+        process group of more than one rank trains data-parallel over its
+        ranks' devices (the JAX manager's default mesh over every
+        device), and no group means one device. dp_impl: 'gspmd' (equal
+        to one device on the whole batch) or 'shard_map' (per-rank draws
+        and normalization, averaged); see the module docstring."""
+        if dp_impl not in DP_IMPLS:
+            raise ValueError(f"dp_impl must be one of {DP_IMPLS}, got "
+                             f"{dp_impl!r}")
         check_backend(backend)
         if backend not in TRAIN_BACKENDS:
             raise ValueError(f"backend must be a training backend "
@@ -364,7 +532,50 @@ class TrainingManager:
         self.hypers = hypers or (C.finetune_hypers if finetune
                                  else C.train_hypers)
         self.backend = backend
+        if mesh is None and D.world_size() > 1:
+            mesh = D.process_mesh(device)
+        dp = _data_parallel(mesh)
+        self.rank, self.world = dp if dp is not None else (0, 1)
+        if mesh is not None:
+            own = mesh.devices[self.rank]
+            if device is not None and resolve_device(device) != own:
+                raise ValueError(f"device {device} is not this rank's mesh "
+                                 f"entry {own}")
+            device = own
+        self.mesh = mesh
+        self.dp_impl = dp_impl
         self.device = resolve_device(device)
+
+    @property
+    def writer(self) -> bool:
+        """Only rank 0 writes checkpoints, train state, metrics, records."""
+        return self.rank == 0
+
+    def _device_batch(self, batch: Dict[str, np.ndarray]) -> dict:
+        """A numpy batch on this process's device: the whole batch on one
+        device, this rank's rows (`local_rows`) under data parallelism."""
+        if self.world > 1:
+            batch = local_rows(batch, self.rank, self.world)
+        return to_device(batch, self.device)
+
+    def _share_params(self, modules) -> None:
+        if self.world > 1:
+            _broadcast_params(modules)
+
+    def _restore(self, path):
+        """`restore_training_state` of `path` as rank 0 sees it, on every
+        rank, or None when rank 0 has no such file. Rank 0 alone reads
+        the file and sends its bytes to the others, so that every rank
+        resumes, or starts fresh, at the same epoch with the same
+        optimizer state, whatever file system the others see."""
+        path = Path(path)
+        raw = path.read_bytes() if self.rank == 0 and path.exists() else None
+        if self.world > 1:
+            raw = D.broadcast_from_rank0(raw)
+        if raw is None:
+            return None
+        return restore_training_state(io.BytesIO(raw), self.hypers.lr,
+                                      self.device)
 
     def _generators(self, seed: int):
         """(CPU generator for weight init, generator on the device for the
@@ -373,6 +584,8 @@ class TrainingManager:
                 torch.Generator(device=self.device).manual_seed(seed))
 
     def _sink(self, metrics, log_file):
+        if not self.writer:
+            return MultiSink([])
         sink = make_sinks(metrics)
         if log_file:
             sink = MultiSink(sink.sinks + [JSONLSink(log_file)])
@@ -388,15 +601,19 @@ class TrainingManager:
         """Train one module over `dataset` (a train-fold PoseDataset).
         Returns {"params": the RNNBlock, "history", "checkpointer"}. 90/10
         train/val split as the reference (data.py:153). `resume_from`
-        restarts from a `train_state.pt`; one is written every 5 epochs
-        and after the last. `init_params` is a JAX-layout numpy pytree."""
+        restarts from a `train_state.pt` (rank 0's, on every rank); one is
+        written every 5 epochs and after the last. `init_params` is a
+        JAX-layout numpy pytree."""
         h = self.hypers
         seed = h.seed if seed is None else seed
         init_gen, gen = self._generators(seed)
         start_epoch = 0
-        if resume_from is not None:
-            state, ckpt_module, start_epoch = restore_training_state(
-                resume_from, h.lr, self.device)
+        restored = (self._restore(resume_from) if resume_from is not None
+                    else None)
+        if resume_from is not None and restored is None:
+            raise FileNotFoundError(f"no training state at {resume_from}")
+        if restored is not None:
+            state, ckpt_module, start_epoch = restored
             if ckpt_module != module_name:
                 raise ValueError(f"checkpoint is for {ckpt_module}, not "
                                  f"{module_name}")
@@ -406,9 +623,11 @@ class TrainingManager:
         else:
             state = init_train_state(module_name, init_gen, h.lr,
                                      self.device)
+        self._share_params([state.params])
         train_step = make_train_step(module_name, body_model,
-                                     backend=self.backend)
-        eval_step = make_eval_step(module_name, body_model)
+                                     backend=self.backend, mesh=self.mesh,
+                                     dp_impl=self.dp_impl)
+        eval_step = make_eval_step(module_name, body_model, mesh=self.mesh)
         val_idx, train_idx, rng_np = _train_val_split(len(dataset), seed,
                                                       val_fraction)
         W = C.datasets.window_length
@@ -428,7 +647,7 @@ class TrainingManager:
                 with BatchPrefetcher(batches_from(train_idx, rng_np)) as pf:
                     for batch in pf:
                         state, loss = train_step(
-                            state, to_device(batch, self.device), gen)
+                            state, self._device_batch(batch), gen)
                         losses.append(loss)
                         step_i += 1
                         if self.fast_dev_run and step_i >= 2:
@@ -437,12 +656,14 @@ class TrainingManager:
                 val_losses = []
                 for batch in batches_from(val_idx, None):
                     val_losses.append(eval_step(
-                        state.params, to_device(batch, self.device), gen))
+                        state.params, self._device_batch(batch), gen))
                     if self.fast_dev_run:
                         break
                 val_loss = _mean(val_losses) if val_losses else train_loss
                 history["train_loss"].append(train_loss)
                 history["val_loss"].append(val_loss)
+                if not self.writer:
+                    continue
                 if np.isfinite(val_loss) and ckpt.should_save(val_loss):
                     ckpt.save(state.params, epoch, val_loss)
                 if epoch % 5 == 4 or epoch == epochs - 1:
@@ -472,7 +693,8 @@ class TrainingManager:
         `resume=True` restores each module's `train_state.pt` under
         `checkpoint_path/<module>/`, and only from a consistent set: every
         module present at the same epoch; otherwise training restarts
-        fresh. `init_params` ({module: JAX-layout numpy pytree}) warm
+        fresh. Under data parallelism rank 0's files decide, and every
+        rank restores from their bytes. `init_params` ({module: JAX-layout numpy pytree}) warm
         starts the named modules with fresh optimizers.
         """
         h = self.hypers
@@ -486,9 +708,9 @@ class TrainingManager:
             epochs_found = []
             for n in module_names:
                 p = ckpts[n].dir / STATE_FILE
-                if p.exists():
-                    st, mod, nxt = restore_training_state(p, h.lr,
-                                                          self.device)
+                restored = self._restore(p)
+                if restored is not None:
+                    st, mod, nxt = restored
                     if mod != n:
                         raise ValueError(f"{p} is for {mod}, not {n}")
                     states[n] = st
@@ -497,7 +719,7 @@ class TrainingManager:
                     and len(set(epochs_found)) == 1):
                 start_epoch = epochs_found[0]
             else:
-                if epochs_found:
+                if epochs_found and self.writer:
                     print(json.dumps({
                         "resume": "inconsistent train_state snapshots "
                                   f"(epochs {sorted(set(epochs_found))}); "
@@ -511,9 +733,13 @@ class TrainingManager:
                 else:
                     states[n] = init_train_state(n, init_gen, h.lr,
                                                  self.device)
+        self._share_params([states[n].params for n in module_names])
         train_step = make_multi_train_step(body_model, backend=self.backend,
-                                           module_names=module_names)
-        eval_step = make_multi_eval_step(body_model, module_names)
+                                           module_names=module_names,
+                                           mesh=self.mesh,
+                                           dp_impl=self.dp_impl)
+        eval_step = make_multi_eval_step(body_model, module_names,
+                                         mesh=self.mesh)
         val_idx, train_idx, rng_np = _train_val_split(len(dataset), seed,
                                                       val_fraction)
         W = C.datasets.window_length
@@ -532,7 +758,7 @@ class TrainingManager:
                 with BatchPrefetcher(batches_from(train_idx, rng_np)) as pf:
                     for step_i, batch in enumerate(pf):
                         states, batch_losses = train_step(
-                            states, to_device(batch, self.device), gen)
+                            states, self._device_batch(batch), gen)
                         for m in module_names:
                             losses[m].append(batch_losses[m])
                         if self.fast_dev_run and step_i >= 1:
@@ -542,7 +768,7 @@ class TrainingManager:
                 for batch in batches_from(val_idx, None):
                     vl = eval_step({m: states[m].params
                                     for m in module_names},
-                                   to_device(batch, self.device), gen)
+                                   self._device_batch(batch), gen)
                     for m in module_names:
                         val_acc[m].append(vl[m])
                     if self.fast_dev_run:
@@ -553,6 +779,8 @@ class TrainingManager:
                                 else train_losses[m])
                     history[m]["train_loss"].append(train_losses[m])
                     history[m]["val_loss"].append(val_loss)
+                    if not self.writer:
+                        continue
                     if np.isfinite(val_loss) and ckpts[m].should_save(
                             val_loss):
                         ckpts[m].save(states[m].params, epoch, val_loss)

@@ -43,6 +43,7 @@ from mobileposer_tpu_torch.kinematics import rotation as R
 from mobileposer_tpu_torch.models import MobilePoserNet
 from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
 from mobileposer_tpu_torch.nn.torch_convert import save_torch_checkpoint
+from mobileposer_tpu_torch.parallel import make_mesh
 
 _FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                         "demo_checkpoint_f16.npz")
@@ -290,8 +291,13 @@ def test_evaluate_pose_out_of_slice_options_raise(nets, weights):
                          verbose=False) == {}
     with pytest.raises(ValueError, match="batch_sequences"):
         evaluate_pose(net, params, [], bf16=True, batch_sequences=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_pose(net, params, [], online=True, mesh=object())
+    # data-parallel evaluation is ported (tests/test_torch_parallel_serve.py
+    # holds it to the JAX package's), batched as in the JAX package
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert evaluate_pose(net, params, [], online=True, mesh=mesh,
+                         verbose=False) == {}
+    with pytest.raises(ValueError, match="batch_sequences"):
+        evaluate_pose(net, params, [], mesh=mesh, batch_sequences=False)
 
 
 def test_cli_evaluate_runs_on_cpu(eval_files, bodies, monkeypatch, capsys,
@@ -328,7 +334,9 @@ def test_cli_evaluate_data_parallel_on_one_device(eval_files, bodies,
                                                   small_bucket):
     """`--data-parallel` with one device evaluates as the JAX CLI does
     there (no mesh): the same tables as the run without it. Over more
-    than one CUDA device it still raises."""
+    than one CUDA device it builds the mesh of every card
+    (tests/test_torch_parallel_serve.py runs the CLI over a mesh of CPU
+    entries)."""
     monkeypatch.setenv("MP_PROCESSED", str(eval_files[0].parent))
     shutil.copy(eval_files[0], eval_files[0].parent / "synthetic.pt")
     monkeypatch.setattr(ParametricModel, "from_file_or_synthetic",
@@ -341,7 +349,6 @@ def test_cli_evaluate_data_parallel_on_one_device(eval_files, bodies,
         assert res["offline"].shape == (8, 2)
     assert tables[0] == tables[1] and "SIP Error" in tables[0]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    monkeypatch.setattr(eval_cli, "resolve_device",
-                        lambda d: torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match="queue A item 16"):
-        eval_cli.main(args[:4] + ["--data-parallel"])
+    assert eval_cli.data_parallel_mesh(torch.device("cpu")) is None
+    assert eval_cli.data_parallel_mesh(torch.device("cuda", 0)).devices == (
+        torch.device("cuda", 0), torch.device("cuda", 1))

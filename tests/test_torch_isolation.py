@@ -66,6 +66,10 @@ def test_importing_the_port_loads_no_jax():
             "import mobileposer_tpu_torch.models.fused\n"
             "import mobileposer_tpu_torch.ops.quant\n"
             "import mobileposer_tpu_torch.train\n"
+            "import mobileposer_tpu_torch.parallel\n"
+            "import mobileposer_tpu_torch.parallel.distributed\n"
+            "from mobileposer_tpu_torch.cli.train import rank_main\n"
+            "from mobileposer_tpu_torch.cli.finetune import rank_main\n"
             f"bad = {sorted(FORBIDDEN)!r}\n"
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in bad))\n")
@@ -78,6 +82,8 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     from mobileposer_tpu_torch import bench
     from mobileposer_tpu_torch.cli import live_demo
+    from mobileposer_tpu_torch.cli import train as train_cli
+    from mobileposer_tpu_torch.parallel import make_mesh
     from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
     from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
 
@@ -87,7 +93,8 @@ def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
                  lambda: params_from_jax(load_npz(fixture)), bench.run,
                  lambda: live_demo.main(["--model", str(fixture)]),
                  lambda: bench.run(int8=True),
-                 lambda: bench.run_forward(backend="fused")):
+                 lambda: bench.run_forward(backend="fused"), make_mesh,
+                 lambda: train_cli.main(["--fast-dev-run"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     for int8 in (False, True):

@@ -39,6 +39,7 @@ from mobileposer_tpu_torch.native import ServingUDP, parse_packet
 from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
 from mobileposer_tpu_torch.nn.torch_convert import save_torch_checkpoint
 from mobileposer_tpu_torch.ops.quant import quantize_params_int8
+from mobileposer_tpu_torch.parallel import make_mesh
 from mobileposer_tpu_torch.stream import (REPLY_STRUCT, REPLY_STRUCT_F16,
                                           REQUEST_STRUCT, Pacer, PoseClient,
                                           PoseServer)
@@ -687,8 +688,16 @@ def test_options_the_port_does_not_serve_raise(net, params):
         _server(net, params, quantize="fp4")
     with pytest.raises(ValueError, match="fetch_workers"):
         _server(net, params, fetch_workers=0)
-    with pytest.raises(NotImplementedError, match="queue A item 16"):
-        _server(net, params, mesh=object())
+    # a mesh is served (tests/test_torch_parallel_serve.py holds the sharded
+    # server to the unsharded one); its slots must divide over it
+    mesh = make_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="divide"):
+        _server(net, params, max_streams=5, mesh=mesh)
+    srv = _server(net, params, max_streams=4, mesh=mesh)
+    try:
+        assert srv.stats()["shards"] == 2 and len(srv.states) == 2
+    finally:
+        srv.close()
     # bf16 params are served (tests/test_torch_bf16.py); float16 is not a
     # dtype the port runs
     f16 = init_all_modules(torch.Generator().manual_seed(0),
@@ -721,8 +730,8 @@ def test_cli_serve_runs_on_cpu(flags, capsys):
 
 
 def test_cli_serve_out_of_slice_options_raise(monkeypatch, tmp_path):
-    """--data-parallel over more than one CUDA device raises naming its
-    ROADMAP row; a .pth (the reference's checkpoint) serves the weights
+    """--data-parallel over more than one CUDA device builds the mesh of
+    every card and refuses streams that do not divide over it; a .pth (the reference's checkpoint) serves the weights
     it holds; `--int8 --bf16` serves: the server takes the bf16 cast and
     quantizes it (int8 on bf16 params)."""
     base = ["--model", _FIXTURE, "--port", "0", "--duration", "0.1",
@@ -750,11 +759,12 @@ def test_cli_serve_out_of_slice_options_raise(monkeypatch, tmp_path):
     assert built[-1] == (torch.float32, torch.float32)
     # --data-parallel with one device serves on it, as the JAX CLI does
     assert serve_cli.main(base + ["--data-parallel"])["frames_served"] == 0
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    monkeypatch.setattr(serve_cli, "resolve_device",
-                        lambda d: torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match="queue A item 16"):
-        serve_cli.main(base + ["--data-parallel"])
+    monkeypatch.setattr(serve_cli, "data_parallel_mesh",
+                        lambda d: make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(SystemExit, match="must divide over 2 devices"):
+        serve_cli.main(base + ["--data-parallel", "--max-streams", "5"])
+    stats = serve_cli.main(base + ["--data-parallel", "--max-streams", "4"])
+    assert stats["shards"] == 2 and stats["frames_served"] == 0
 
 
 def test_cli_serve_needs_a_device_when_no_gpu(monkeypatch):

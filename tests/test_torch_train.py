@@ -41,6 +41,7 @@ from mobileposer_tpu_torch.models.modules import init_all_modules
 from mobileposer_tpu_torch.nn.convert import (params_from_jax, params_to_jax,
                                               rnn_block_from_jax,
                                               rnn_block_to_jax)
+from mobileposer_tpu_torch.parallel import make_mesh
 from mobileposer_tpu_torch.train import trainer
 from mobileposer_tpu_torch.utils.metrics import make_sinks
 
@@ -402,9 +403,17 @@ def test_cli_train_and_combine_run_on_cpu(trained, tmp_path, monkeypatch):
     np.testing.assert_array_equal(
         sd["pose.pose.linear1.weight"].numpy(),
         load_from_npz(str(out))["poser"]["linear1"]["w"].T)
-    for kw in ({"mesh": object()}, {"dp_impl": "shard_map"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer.TrainingManager(device="cpu", **kw)
+    # data-parallel training is ported (tests/test_torch_parallel_train.py
+    # runs it in two processes): a one-entry mesh trains on its device, a
+    # larger mesh needs a process group of as many ranks, and an unknown
+    # rule is refused
+    mgr = trainer.TrainingManager(mesh=make_mesh(devices=["cpu"]),
+                                  dp_impl="shard_map")
+    assert mgr.device == torch.device("cpu") and mgr.world == 1
+    with pytest.raises(RuntimeError, match="process group"):
+        trainer.TrainingManager(mesh=make_mesh(devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="dp_impl"):
+        trainer.TrainingManager(device="cpu", dp_impl="pmap")
     # bf16 residuals are ported: the manager takes them, an unknown
     # backend is refused
     mgr = trainer.TrainingManager(device="cpu", backend="auto_train_bf16res")
