@@ -3,9 +3,10 @@
 single-window and serving paths on one CUDA card, in float32, W8A8,
 bfloat16 and W8A8 on bfloat16 params, training on bf16 residuals, the
 offline recipe (raw-data processing, finetune, example, overfit), the
-live runtime (sensor ingest, calibration, `LivePoser`, `cli.live_demo`)
-and data parallelism (sharded evaluation and serving, two-rank
-training).
+live runtime (sensor ingest, calibration, `LivePoser`, `cli.live_demo`),
+data parallelism (sharded evaluation and serving, two-rank training) and
+the rest of the library (`SequenceLoader`, `RNNWithInit`, the physics
+layer, the offline viewers and `cli.render`).
 
     python3 chip_smoke.py
 
@@ -185,7 +186,7 @@ then runs these phases, each printing JSON lines:
                phase 4's gates), the loaded step launching the variant's
                kernels as often as the eager step (6 bi + 2 uni a frame,
                none in carry mode); the offline program, float32 and
-               int8, on C3's 64 x 512 group against the eager
+               int8, on a 64 x 128 ragged group against the eager
                `forward_offline_batched` (6 + 2 masked launches); export +
                save, load and first-step seconds, the steady step loaded
                against eager in turns, the weight archives' sizes (int8
@@ -262,6 +263,23 @@ then runs these phases, each printing JSON lines:
                14 launches of each training kernel per rank, each rank's
                step, all-reduce and peak memory; with more than one card
                the same over every card, the training over NCCL;
+  4l. library — the rest of the library on the trained fixture's weights
+               and at full width: `SequenceLoader.run_offline` over 1,800
+               frames (6 #1 + 2 #2 launches) and `run_online` over 240
+               (that per frame), card against the CPU port (SLICE_TOL);
+               `RNNWithInit` (velocity's LSTM config, n_init = 72) at
+               B = 256, T = 125: the forward on #2 and, with sorted random
+               lengths, on #3 against the plain versions (KERNEL_TOL), #8's
+               dh0 / dc0 at its layer 0 against the plain version, one
+               'auto_train' step (#7, #8) against the CPU port's gradients
+               (STEP_GRAD_RTOL, the init MLP's included), each one's ms;
+               `DynamicsModel` at 8 seeded states card against CPU (ID, h,
+               M 1e-4, kinematics 1e-5, FD 5e-3, relative), ID == M qdd + h
+               on the card, each call's ms and device launches;
+               `PhysicsOptimizer(dynamics=)` over the 240 online frames card
+               against CPU; `SMPLViewer.view` of the online motion, then
+               `cli.render --gif` in a process of its own on the card
+               (frames, GIF; `load_bundle_joints` card against CPU 1e-5);
   5. rate    — exact-path streamed frames/s (`mobileposer_tpu_torch.bench`)
                at 256 streams (scan; there also on bf16 params, beside the
                float32 rate) and 8 streams (unfolded), then one traced call
@@ -480,6 +498,16 @@ LIVE_BUDGET_MS = 1000.0 / 30
 # The full-length kernels' times at T=45, H=256, B=256 recorded in
 # PERF.md section 6 for slice 1's one-block kernel, printed beside this
 # run's.
+# Phase 4l, the rest of the library: SequenceLoader over
+# LIB_OFFLINE_FRAMES offline and the first LIB_ONLINE_FRAMES online;
+# RNNWithInit at C4's batch and window; DynamicsModel at LIB_DYN_STATES
+# seeded states; cli.render every LIB_RENDER_STRIDE-th frame.
+LIB_OFFLINE_FRAMES = 1800
+LIB_ONLINE_FRAMES = 240
+LIB_RWI_BATCH = 256
+LIB_RWI_WINDOW = 125
+LIB_DYN_STATES = 8
+LIB_RENDER_STRIDE = 10
 PERF_MD_MS = {"bilstm_scan_f32": 1.307, "lstm_scan_f32": 1.311}
 # The int8 kernels' times by (name, H, B) recorded in PERF.md for slice
 # 4's one-block kernels (T = 45 full-length, T = 512 and 1024 masked),
@@ -574,6 +602,10 @@ BF16_SLICE_TOL = 0.05
 BUNDLE_TOL = 1e-5
 BUNDLE_FRAMES = 10
 BUNDLE_TIMED_STEPS = 20
+# The offline bundles' group: 64 rows of a 128-frame bucket (C3's 64 x
+# 512 until phase 4l was added: the export unrolls the fusion loop per
+# frame, and each 512-frame export took 36 to 83 s of the script's limit).
+BUNDLE_OFFLINE_GROUP = (64, 128)
 BUNDLE_VARIANTS = (("exact", 256, "float32", None, BUNDLE_TOL),
                    ("exact", 256, "float32", "int8", INT8_SLICE_TOL),
                    ("exact", 256, "bfloat16", None, BF16_SLICE_TOL),
@@ -3441,7 +3473,7 @@ def phase_bundle(torch, lstm_cuda):
     to the eager step's and to the expected counts of the variant's own
     entries; export + save, load and first-step seconds, and the steady
     step in ms, loaded against eager in turns (CUDA events); then the
-    offline program, float32 and int8, on C3's 64 x 512 ragged group
+    offline program, float32 and int8, on a BUNDLE_OFFLINE_GROUP ragged group
     against the eager `forward_offline_batched`; the archive sizes.
     Returns {kernel: launches in the loaded runs}."""
     import numpy as np
@@ -3534,9 +3566,9 @@ def phase_bundle(torch, lstm_cuda):
                     f"bundle {name}: launches {moved}, eager "
                     f"{runs['eager'][1]}, expected {expect}")
 
-        # the offline program on C3's group, float32 and int8
-        _, net, params, imu, lengths, _ = bench._offline_setup(64, 512, 0,
-                                                               "cuda")
+        # the offline program on a ragged group, float32 and int8
+        _, net, params, imu, lengths, _ = bench._offline_setup(
+            *BUNDLE_OFFLINE_GROUP, 0, "cuda")
         B, T = imu.shape[:2]
         for quantize in (None, "int8"):
             name = f"offline_float32_{quantize or 'float'}"
@@ -4714,6 +4746,576 @@ def phase_parallel(torch, lstm_cuda, train_cuda, smi, ptxas):
     return recs, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4l: the rest of the library — SequenceLoader, RNNWithInit,
+# DynamicsModel / PhysicsOptimizer, SMPLViewer and cli.render
+# ---------------------------------------------------------------------------
+
+_LIB_CPU_LOADER = """
+import sys, time
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from mobileposer_tpu_torch import config as C
+from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+from mobileposer_tpu_torch.models import MobilePoserNet
+from mobileposer_tpu_torch.models.utils import load_model
+from mobileposer_tpu_torch.nn.convert import params_from_jax
+from mobileposer_tpu_torch.viz import SequenceLoader
+imu_path, out, model, n_online = sys.argv[1:5]
+imu = np.load(imu_path)
+body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
+loader = SequenceLoader(MobilePoserNet(body, device="cpu"),
+                        params_from_jax(load_model(model), device="cpu"),
+                        device="cpu")
+t0 = time.perf_counter()
+off = loader.run_offline(imu)
+t1 = time.perf_counter()
+on = loader.run_online(imu[:int(n_online)])
+np.savez(out, *off, *on, seconds=[t1 - t0, time.perf_counter() - t1])
+"""
+
+
+def _library_sequences(torch, lstm_cuda, body, tree, tmp: Path):
+    """(a) The trained fixture through `SequenceLoader` on the card:
+    `run_offline` over LIB_OFFLINE_FRAMES frames (one call: 6 #1 + 2 #2
+    launches at (T, 1, H)) and `run_online` over LIB_ONLINE_FRAMES (6 + 2
+    a frame). The CPU port's runs, the reference, go in a process of their
+    own started first. Returns (offline outputs, online outputs, the two
+    runs' launches, `check(smi)`: joins that process and holds the card
+    to it at SLICE_TOL)."""
+    import numpy as np
+    from mobileposer_tpu_torch.models import MobilePoserNet
+    from mobileposer_tpu_torch.nn.convert import params_from_jax
+    from mobileposer_tpu_torch.viz import SequenceLoader
+
+    imu = (np.random.RandomState(19).randn(LIB_OFFLINE_FRAMES, 60)
+           * 0.1).astype(np.float32)
+    np.save(tmp / "imu.npy", imu)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _LIB_CPU_LOADER, str(tmp / "imu.npy"),
+         str(tmp / "cpu.npz"), str(FIXTURE), str(LIB_ONLINE_FRAMES)],
+        cwd=tmp, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    loader = SequenceLoader(MobilePoserNet(body, device="cuda"),
+                            params_from_jax(tree, device="cuda"),
+                            device="cuda")
+    outs, launches, secs = {}, {}, {}
+    for mode, run, n in (("offline", loader.run_offline, LIB_OFFLINE_FRAMES),
+                         ("online", loader.run_online, LIB_ONLINE_FRAMES)):
+        lstm_cuda.reset_launches()
+        t0 = time.perf_counter()
+        outs[mode] = run(imu[:n])
+        secs[mode] = time.perf_counter() - t0
+        launches[mode] = {k: v for k, v in lstm_cuda.launches.items() if v}
+
+    def check(smi):
+        log, _ = proc.communicate(timeout=600)
+        require(proc.returncode == 0,
+                f"the CPU SequenceLoader exited {proc.returncode}: "
+                f"{log[-2000:]}")
+        with np.load(tmp / "cpu.npz") as z:
+            cpu = [z[f"arr_{i}"] for i in range(6)]
+            cpu_secs = z["seconds"]
+        expect = {"offline": {"bilstm_scan_f32": 6, "lstm_scan_f32": 2},
+                  "online": {"bilstm_scan_f32": 6 * LIB_ONLINE_FRAMES,
+                             "lstm_scan_f32": 2 * LIB_ONLINE_FRAMES}}
+        for i, (mode, names, want) in enumerate((
+                ("offline", ("pose", "joints", "tran", "contact"), cpu[:4]),
+                ("online", ("pose", "tran"), cpu[4:]))):
+            got = outs[mode]
+            errs = {k: float(np.abs(g - w).max())
+                    for k, g, w in zip(names, got, want)}
+            finite = all(bool(np.isfinite(g).all()) for g in got)
+            emit({"phase": "library_sequence_loader", "mode": mode,
+                  "frames": int(got[0].shape[0]), "max_abs_err": errs,
+                  "tol": SLICE_TOL, "finite": finite,
+                  "launches": launches[mode], "expected": expect[mode],
+                  "card_seconds": secs[mode], "cpu_seconds": cpu_secs[i],
+                  "nvidia_smi": smi})
+            require(finite and all(e <= SLICE_TOL for e in errs.values()),
+                    f"SequenceLoader.run_{mode} card vs CPU: {errs} (tol "
+                    f"{SLICE_TOL}), finite {finite}")
+            require(launches[mode] == expect[mode],
+                    f"SequenceLoader.run_{mode} launches {launches[mode]}, "
+                    f"expected {expect[mode]}")
+
+    total = {}
+    for part in launches.values():
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return outs["offline"], outs["online"], total, check
+
+
+def library_kernel_records(torch, lstm_cuda, lengths) -> None:
+    """#2 and #3 (unidirectional) at `RNNWithInit`'s layer shape
+    (LIB_RWI_WINDOW, LIB_RWI_BATCH, 256), #3 with its sorted `lengths`,
+    against their plain versions with kernel, plain and cuDNN times and
+    the bound (not counted: the counters are reset before each main-path
+    run)."""
+    import numpy as np
+    from mobileposer_tpu_torch.nn.lstm import length_mask
+    T, B, H = LIB_RWI_WINDOW, LIB_RWI_BATCH, 256
+    for name in ("lstm_scan_f32", "lstm_scan_masked_f32"):
+        kern, plain, args = _scan_case(torch, lstm_cuda,
+                                       np.random.RandomState(T + B), False,
+                                       T, B, H)
+        valid = None
+        if name == "lstm_scan_masked_f32":
+            kern, plain = (lstm_cuda.lstm_layer_masked,
+                           lstm_cuda.lstm_layer_masked_plain)
+            args = (*args, length_mask(torch.from_numpy(lengths).cuda(), T))
+            valid = int(lengths.sum())
+        err, finite = _scan_vs_plain(torch, kern, plain, args)
+        with torch.no_grad():
+            kernel_ms = time_ms(lambda: kern(*args), 20)
+            plain_ms = time_ms(lambda: plain(*args), 2, warmup=1)
+        library_ms, _ = _lstm_library_ms(
+            torch, H, B, T, False, torch.float32,
+            lengths if valid is not None else None)
+        bound_ms, bound_by, flops, nbytes = layer_bound(1, T, B, H, valid)
+        rec = {"phase": "library_kernel", "name": name, "T": T, "B": B,
+               "H": H, "lengths": "sorted random" if valid else None,
+               "max_abs_err": err, "tol": KERNEL_TOL, "finite": finite,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "torch.nn.LSTM 1 layer (cuDNN, TF32 off; includes "
+                          "its input projection; packed when masked)",
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+        emit(rec)
+        require(finite and err <= KERNEL_TOL,
+                f"{name} at RNNWithInit's shape {(T, B, H)}: max abs err "
+                f"{err} (tol {KERNEL_TOL}), finite {finite}")
+
+
+def _rnn_with_init_plain(torch, lstm_cuda, mod, cfg, x, init, lengths):
+    """`rnn_with_init_apply` of a unidirectional `RNNWithInit`, every layer
+    on the plain version of its scan kernel (#2, or #3 with lengths), on
+    the tensors' device."""
+    from mobileposer_tpu_torch.nn.lstm import length_mask
+    from mobileposer_tpu_torch.nn.rnn_with_init import initial_state
+    h0, c0 = initial_state(mod, cfg, init)
+    xs = torch.relu(mod.rnn.linear1(x)).transpose(0, 1)          # [T, B, H]
+    hs, cs = [], []
+    for li, layer in enumerate(mod.rnn.lstm):
+        p = layer["fwd"]
+        x_proj = torch.matmul(xs, p.w_ih) + (p.b_ih + p.b_hh)
+        if lengths is None:
+            xs, (h, c) = lstm_cuda.lstm_layer_plain(x_proj, p.w_hh, h0[li],
+                                                    c0[li])
+        else:
+            xs, (h, c) = lstm_cuda.lstm_layer_masked_plain(
+                x_proj, p.w_hh, h0[li], c0[li],
+                length_mask(lengths, xs.shape[0]))
+        hs.append(h)
+        cs.append(c)
+    return mod.rnn.linear2(xs.transpose(0, 1)), (torch.stack(hs),
+                                                 torch.stack(cs))
+
+
+def _library_rnn_with_init(torch, lstm_cuda, train_cuda, smi):
+    """(b) `RNNWithInit` at full width (velocity's LSTMConfig(132, 72, 256,
+    n_layers=2, unidirectional), n_init = 72) at B = 256, T = 125: the
+    forward without lengths (#2) and with sorted random lengths (#3)
+    against the same function on the kernels' plain versions on the card
+    (KERNEL_TOL); #8's dh0 and dc0 at layer 0's real inputs against the
+    plain version; one 'auto_train' step (#7, #8) against the CPU port's
+    gradients (STEP_GRAD_RTOL, each tensor relative to its largest entry;
+    the init MLP's gradients flow through #8's dh0 and dc0). Returns the
+    main-path launches (the two forwards and the step)."""
+    import numpy as np
+    from mobileposer_tpu_torch.nn import (LSTMConfig, RNNWithInitConfig,
+                                          init_rnn_with_init,
+                                          rnn_with_init_apply)
+    from mobileposer_tpu_torch.nn.lstm import (draw_dropout_keep, length_mask,
+                                               rnn_apply)
+    from mobileposer_tpu_torch.nn.rnn_with_init import initial_state
+
+    cfg = RNNWithInitConfig(LSTMConfig(132, 72, 256, n_layers=2,
+                                       bidirectional=False), n_init=72)
+    B, T, H = LIB_RWI_BATCH, LIB_RWI_WINDOW, cfg.rnn.n_hidden
+    mods = {d: init_rnn_with_init(torch.Generator().manual_seed(19), cfg,
+                                  device=d) for d in ("cuda", "cpu")}
+    rng = np.random.RandomState(23)
+    host = {"x": (rng.randn(B, T, 132) * 0.5).astype(np.float32),
+            "init": (rng.randn(B, 72) * 0.3).astype(np.float32),
+            "lengths": np.sort(rng.randint(T // 4, T + 1, B))[::-1].copy(),
+            "wy": rng.randn(B, T, 72).astype(np.float32),
+            "wh": rng.randn(2, B, H).astype(np.float32),
+            "wc": rng.randn(2, B, H).astype(np.float32)}
+    host["lengths"][0] = T
+    keep = draw_dropout_keep(cfg.rnn, (B, T, H),
+                             torch.Generator().manual_seed(29))
+    dev = {d: {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+           for d in ("cuda", "cpu")}
+    card, mod = dev["cuda"], mods["cuda"]
+
+    def counts(*mods_):
+        return {k: v for m in mods_ for k, v in m.launches.items() if v}
+
+    library_kernel_records(torch, lstm_cuda, host["lengths"])
+    launches = {}
+    # the forward, without and with lengths, against the plain versions
+    for ragged in (False, True):
+        lengths = card["lengths"] if ragged else None
+        with torch.no_grad():
+            lstm_cuda.reset_launches()
+            y, (h, c) = rnn_with_init_apply(mod, cfg, card["x"], card["init"],
+                                            lengths)
+            got_launches = counts(lstm_cuda)
+            py, (ph, pc) = _rnn_with_init_plain(torch, lstm_cuda, mod, cfg,
+                                                card["x"], card["init"],
+                                                lengths)
+            ms = time_ms(lambda: rnn_with_init_apply(
+                mod, cfg, card["x"], card["init"], lengths), 10)
+            plain_ms = time_ms(lambda: _rnn_with_init_plain(
+                torch, lstm_cuda, mod, cfg, card["x"], card["init"],
+                lengths), 2, warmup=1)
+        name = "lstm_scan_masked_f32" if ragged else "lstm_scan_f32"
+        err = max(float((g - w).abs().max())
+                  for g, w in ((y, py), (h, ph), (c, pc)))
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, h, c))
+        rec = {"phase": "library_rnn_with_init", "pass": "forward",
+               "lengths": "sorted random" if ragged else None,
+               "B": B, "T": T, "H": H, "kernel": name,
+               "max_abs_err_vs_plain": err, "tol": KERNEL_TOL,
+               "finite": finite, "launches": got_launches, "ms": ms,
+               "plain_ms": plain_ms, "nvidia_smi": smi}
+        emit(rec)
+        require(finite and err <= KERNEL_TOL,
+                f"RNNWithInit forward ({name}) vs plain: {err} (tol "
+                f"{KERNEL_TOL}), finite {finite}")
+        require(got_launches == {name: 2},
+                f"RNNWithInit forward launches {got_launches}")
+        for k, v in got_launches.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # #8's dh0 and dc0 at layer 0's real inputs (the init MLP's state),
+    # against the plain version on the card
+    with torch.no_grad():
+        h0, c0 = initial_state(mod, cfg, card["init"])
+        p = mod.rnn.lstm[0]["fwd"]
+        xs = torch.relu(mod.rnn.linear1(card["x"])).transpose(0, 1)
+        x_proj = (torch.matmul(xs, p.w_ih) + (p.b_ih + p.b_hh)).contiguous()
+        mask = length_mask(card["lengths"], T)
+        h0, c0 = h0[0].contiguous(), c0[0].contiguous()
+        ys, acts, hseq, cseq, _, _ = train_cuda.lstm_train_fwd(
+            x_proj, p.w_hh, h0, c0, mask)
+        g = torch.Generator(device="cuda").manual_seed(31)
+        dy, dh_T, dc_T = (torch.randn(s, generator=g, device="cuda")
+                          for s in ((T, B, H), (B, H), (B, H)))
+        args = (dy, dh_T, dc_T, acts, cseq,
+                torch.cat([h0[None], hseq[:-1]]),
+                torch.cat([c0[None], cseq[:-1]]), p.w_hh, mask)
+        got = train_cuda.lstm_train_bwd(*args)
+        want = train_cuda.lstm_train_bwd_plain(*args)
+    errs = {k: float((a - b).abs().max()) / (float(b.abs().max())
+                                             if k == "dw_hh" else 1.0)
+            for k, a, b in zip(("dx_proj", "dw_hh", "dh0", "dc0"), got,
+                               want)}
+    emit({"phase": "library_rnn_with_init", "pass": "bwd_dh0_dc0",
+          "B": B, "T": T, "H": H, "errors": errs,
+          "tol": {"dx_proj": TRAIN_TOL, "dh0": TRAIN_TOL, "dc0": TRAIN_TOL,
+                  "dw_hh (relative)": DW_REL_TOL},
+          "dh0_max_abs": float(want[2].abs().max()),
+          "dc0_max_abs": float(want[3].abs().max())})
+    require(all(errs[k] <= TRAIN_TOL for k in ("dx_proj", "dh0", "dc0"))
+            and errs["dw_hh"] <= DW_REL_TOL,
+            f"#8 at RNNWithInit's layer 0 vs plain: {errs}")
+
+    # one 'auto_train' step, card against the CPU port. The init MLP is
+    # piecewise linear: a pre-activation within rounding of 0 may take
+    # the other ReLU branch on the CPU (cuBLAS and the CPU's GEMM round
+    # differently), and its unit's gradient rows then differ in full. So
+    # the CPU reference runs the same function on the card's branch (its
+    # ReLU masks); every unit whose branch differs is reported and must
+    # lie within RELU_KINK of 0.
+    with torch.no_grad():
+        masks, kinks = [], {}
+        z = {d: dev[d]["init"] for d in ("cuda", "cpu")}
+        for lin in ("init1", "init2"):
+            z = {d: getattr(mods[d], lin)(z[d]) for d in z}
+            m = z["cuda"] > 0
+            flip = m.cpu() != (z["cpu"] > 0)
+            kinks[lin] = {"flipped": int(flip.sum()),
+                          "max_abs_pre_activation": float(
+                              z["cpu"][flip].abs().max()) if flip.any()
+                          else 0.0}
+            masks.append(m)
+            z = {d: torch.where(m.to(d), z[d], z[d].new_zeros(()))
+                 for d in z}
+
+    def loss_on(d, branch):
+        m, t = mods[d], dev[d]
+        if branch is None:
+            y, (h, c) = rnn_with_init_apply(m, cfg, t["x"], t["init"],
+                                            t["lengths"], train=True,
+                                            dropout_keep=keep.to(d))
+        else:
+            a = t["init"]
+            for lin, mk in zip((m.init1, m.init2), branch):
+                a = lin(a) * mk.to(d)
+            state = m.init3(a).reshape(B, 2, cfg.rnn.n_layers, H)
+            y, (h, c) = rnn_apply(m.rnn, cfg.rnn, t["x"], t["lengths"],
+                                  (state[:, 0].transpose(0, 1),
+                                   state[:, 1].transpose(0, 1)),
+                                  backend="auto_train", train=True,
+                                  dropout_keep=keep.to(d))
+        return ((y * t["wy"]).mean() + (h * t["wh"]).mean()
+                + (c * t["wc"]).mean())
+
+    grads, losses = {}, {}
+    for d in ("cuda", "cpu"):
+        m = mods[d]
+        m.requires_grad_(True)
+        names, params = zip(*m.named_parameters())
+        train_cuda.reset_launches()
+        loss = loss_on(d, None if d == "cuda" else masks)
+        grads[d] = dict(zip(names, torch.autograd.grad(loss, params)))
+        losses[d] = float(loss.detach())
+        if d == "cuda":
+            step_launches = counts(train_cuda)
+            step_ms = time_ms(lambda: torch.autograd.grad(
+                loss_on(d, None), params), 5)
+        m.requires_grad_(False)
+    grad_err = {n: float((grads["cuda"][n].cpu() - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for n, g in grads["cpu"].items()}
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    expect = {"lstm_train_fwd_f32": 2, "lstm_train_bwd_f32": 2,
+              "lstm_train_dw_f32": 2}
+    emit({"phase": "library_rnn_with_init", "pass": "auto_train_step",
+          "B": B, "T": T, "H": H, "loss_rel_err": loss_err,
+          "grad_rel_err": grad_err, "tol": STEP_GRAD_RTOL,
+          "relu_branches_differing": kinks, "relu_kink_tol": RELU_KINK,
+          "init_mlp_grad_max_abs": {
+              n: float(grads["cpu"][n].abs().max())
+              for n in grads["cpu"] if n.startswith("init")},
+          "launches": step_launches, "expected": expect, "ms": step_ms,
+          "nvidia_smi": smi})
+    require(all(k["max_abs_pre_activation"] <= RELU_KINK
+                for k in kinks.values()),
+            f"an init-MLP ReLU took another branch on the card away from "
+            f"0: {kinks}")
+    require(loss_err <= STEP_LOSS_RTOL
+            and all(e <= STEP_GRAD_RTOL for e in grad_err.values()),
+            f"RNNWithInit train step card vs CPU: loss {loss_err}, "
+            f"gradients {grad_err}")
+    require(all(float(grads["cpu"][n].abs().max()) > 0
+                for n in grads["cpu"] if n.startswith("init")),
+            "the init MLP received no gradient")
+    require(step_launches == expect,
+            f"RNNWithInit train step launches {step_launches}")
+    for k, v in step_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+# Phase 4l's RNNWithInit step: an init-MLP pre-activation whose ReLU branch
+# differs between the card and the CPU must be within this of 0: float32
+# rounding of these pre-activations (of order 0.1) is far below it, a
+# fault in the card's forward far above.
+RELU_KINK = 1e-5
+# DynamicsModel outputs held card against CPU at each of LIB_DYN_STATES
+# seeded states, relative to the output's largest magnitude: inverse
+# dynamics, h and M at 1e-4 (float32 sums in another order: cuBLAS,
+# reductions), the kinematic quantities at 1e-5, forward dynamics at 5e-3
+# (a float32 Cholesky solve of an ill-conditioned M, cond(M) 7e4 to 1e5
+# at tests/test_torch_physics.py's states on the small synthetic body:
+# cuSOLVER's and LAPACK's factors differ by rounding, which the solve
+# scales by up to cond(M) * 6e-8; that test argues the same bound against
+# the JAX package).
+DYN_ID_TOL = 1e-4
+DYN_KIN_TOL = 1e-5
+DYN_FD_TOL = 5e-3
+LIB_DYN_FUNCS = {
+    "inverse_dynamics": (lambda m, q, v, a, t: m.inverse_dynamics(q, v, a),
+                         DYN_ID_TOL),
+    "calc_h": (lambda m, q, v, a, t: m.calc_h(q, v), DYN_ID_TOL),
+    "calc_M": (lambda m, q, v, a, t: m.calc_M(q), DYN_ID_TOL),
+    "forward_dynamics": (lambda m, q, v, a, t: m.forward_dynamics(q, v, t),
+                         DYN_FD_TOL),
+    "calc_point_Jacobian": (
+        lambda m, q, v, a, t: m.calc_point_Jacobian(q, 20, (0.05, 0, 0)),
+        DYN_KIN_TOL),
+    "calc_body_Jacobian": (lambda m, q, v, a, t: m.calc_body_Jacobian(q, 15),
+                           DYN_KIN_TOL),
+    "calc_space_Jacobian": (lambda m, q, v, a, t: m.calc_space_Jacobian(q, 11),
+                            DYN_KIN_TOL),
+    "center_of_mass": (
+        lambda m, q, v, a, t:
+        m.calc_center_of_mass_position_velocity_acceleration(q, v, a),
+        DYN_KIN_TOL),
+    "calc_zero_moment_point": (
+        lambda m, q, v, a, t: m.calc_zero_moment_point(q, v, a),
+        DYN_KIN_TOL),
+}
+# PhysicsOptimizer card against CPU over the online frames: its smoothing
+# state contracts (weight 0.2 on the previous pose), so per-frame float32
+# differences (QR, FK, the ZMP) stay ~1e-6 and do not grow with the frame
+# count; 1e-4 on pose and tran leaves two orders of margin.
+PHYS_TOL = 1e-4
+
+
+def _library_dynamics(torch, body, contact, pose, tran, smi):
+    """(c) `DynamicsModel` on the card against the CPU port at
+    LIB_DYN_STATES seeded states (each output relative to its largest
+    magnitude), ID == M qdd + h on the card, each call's ms and its
+    device launches (one traced call); then `PhysicsOptimizer(dynamics=)`
+    over the online frames, card against CPU (PHYS_TOL), its ms a frame."""
+    import numpy as np
+    from mobileposer_tpu_torch import bench
+    from mobileposer_tpu_torch.physics import DynamicsModel, PhysicsOptimizer
+    from mobileposer_tpu_torch.physics.dynamics import DOF
+
+    models = {d: DynamicsModel(body, device=d) for d in ("cuda", "cpu")}
+
+    def state(seed):
+        r = np.random.RandomState(seed)
+        q = np.concatenate([r.randn(3) * 0.2, r.randn(72) * 0.4])
+        return [torch.from_numpy(x.astype(np.float32)).cuda()
+                for x in (q, r.randn(DOF) * 0.8, r.randn(DOF) * 0.8,
+                          r.randn(DOF) * 5)]
+
+    def flat(out):
+        return [t for o in (out if isinstance(out, tuple) else (out,))
+                for t in (o if isinstance(o, tuple) else (o,))]
+
+    states = [state(s) for s in range(LIB_DYN_STATES)]
+    for name, (fn, tol) in LIB_DYN_FUNCS.items():
+        err = 0.0
+        for st in states:
+            got = flat(fn(models["cuda"], *st))
+            want = flat(fn(models["cpu"], *[x.cpu() for x in st]))
+            for g, w in zip(got, want):
+                w = torch.as_tensor(w)
+                err = max(err, float((g.cpu() - w).abs().max())
+                          / max(float(w.abs().max()), 1e-6))
+        ms = time_ms(lambda: fn(models["cuda"], *states[0]), 20)
+        traced = bench._traced(lambda: fn(models["cuda"], *states[0]),
+                               "cuda")
+        n_launch = sum(g["launches"] for g in traced["groups"].values())
+        emit({"phase": "library_dynamics", "call": name,
+              "states": LIB_DYN_STATES, "max_rel_err": err, "tol": tol,
+              "ms": ms, "device_launches": n_launch,
+              "device_busy_share": traced["device_busy_share"],
+              "nvidia_smi": smi})
+        require(err <= tol, f"DynamicsModel.{name} card vs CPU: {err} "
+                            f"relative (tol {tol})")
+    m = models["cuda"]
+    id_err = 0.0
+    for q, qd, qdd, _ in states:
+        tau = m.inverse_dynamics(q, qd, qdd).double()
+        want = m.calc_M(q).double() @ qdd.double() + m.calc_h(q, qd).double()
+        id_err = max(id_err, float((tau - want).abs().max()
+                                   / want.abs().max()))
+    emit({"phase": "library_dynamics", "call": "ID == M qdd + h (card)",
+          "max_rel_err": id_err, "tol": DYN_ID_TOL})
+    require(id_err <= DYN_ID_TOL, f"on the card ID != M qdd + h: {id_err}")
+
+    outs, frame_ms = {}, {}
+    for d in ("cuda", "cpu"):
+        opt = PhysicsOptimizer(body, contact_threshold=0.5,
+                               dynamics=models[d])
+        st, res = opt.reset_states(), []
+        t0 = time.perf_counter()
+        for p, c, t in zip(pose, contact, tran):
+            (po, to), st = opt.optimize_frame(p, None, c, None, st, t)
+            res.append((po, to))
+        res = [torch.stack(x).cpu() for x in zip(*res)]
+        frame_ms[d] = (time.perf_counter() - t0) * 1e3 / len(pose)
+        outs[d] = res
+    errs = {k: float((g - w).abs().max()) for k, g, w in zip(
+        ("pose", "tran"), outs["cuda"], outs["cpu"])}
+    emit({"phase": "library_physics_optimizer", "frames": len(pose),
+          "max_abs_err": errs, "tol": PHYS_TOL,
+          "card_ms_per_frame": frame_ms["cuda"],
+          "cpu_ms_per_frame": frame_ms["cpu"], "nvidia_smi": smi})
+    require(all(e <= PHYS_TOL for e in errs.values()),
+            f"PhysicsOptimizer card vs CPU: {errs} (tol {PHYS_TOL})")
+
+
+def _library_render(torch, body, online, offline):
+    """(d) `SMPLViewer.view` of (a)'s online motion (the offline one as
+    its ground truth), then `python -m mobileposer_tpu_torch.cli.render`
+    on the bundle in a process of its own, on the card: the frames and
+    the GIF; `load_bundle_joints` on the card against the CPU (1e-5)."""
+    import shutil
+    import numpy as np
+    from mobileposer_tpu_torch.viz import SMPLViewer
+    from mobileposer_tpu_torch.viz.render import load_bundle_joints
+
+    n = LIB_ONLINE_FRAMES
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        bundle = SMPLViewer(body, tmp / "view").view(
+            online[0], online[1], pose_t=offline[0][:n],
+            tran_t=offline[2][:n], name="online")
+        joints = {d: load_bundle_joints(str(bundle), body, device=d)[1:]
+                  for d in ("cuda", "cpu")}
+        err = max(float(np.abs(g - w).max()) for g, w in zip(
+            joints["cuda"], joints["cpu"]))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT)] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mobileposer_tpu_torch.cli.render",
+             str(bundle), "--out", str(tmp / "render"), "--stride",
+             str(LIB_RENDER_STRIDE), "--gif"], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        pngs = sorted((tmp / "render").glob("frame_*.png"))
+        gif = tmp / "render" / "motion.gif"
+        want = -(-n // LIB_RENDER_STRIDE)
+        emit({"phase": "library_render", "bundle_keys": sorted(
+            np.load(bundle).files), "joints_card_vs_cpu": err, "tol": 1e-5,
+              "returncode": out.returncode, "seconds": secs,
+              "pngs": len(pngs), "expected_pngs": want,
+              "gif_bytes": gif.stat().st_size if gif.exists() else 0,
+              "output_tail": (out.stdout + out.stderr).splitlines()[-3:]})
+        require(err <= 1e-5, f"load_bundle_joints card vs CPU: {err}")
+        require(out.returncode == 0 and len(pngs) == want and gif.exists(),
+                f"cli.render exited {out.returncode} with {len(pngs)} "
+                f"frames: {(out.stdout + out.stderr)[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_library(torch, lstm_cuda, train_cuda, smi):
+    """Phase 4l: the rest of the library on the card. (a) SequenceLoader
+    on the trained fixture, (b) RNNWithInit at full width through #2, #3,
+    #7 and #8, (c) DynamicsModel and PhysicsOptimizer, (d) SMPLViewer and
+    cli.render. Returns the main-path launches of (a) and (b)."""
+    import shutil
+    from mobileposer_tpu_torch import config as C
+    from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
+    from mobileposer_tpu_torch.models.utils import load_model
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp())
+    try:
+        body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
+        offline, online, launches, check = _library_sequences(
+            torch, lstm_cuda, body, load_model(str(FIXTURE)), tmp)
+        for k, v in _library_rnn_with_init(torch, lstm_cuda, train_cuda,
+                                           smi).items():
+            launches[k] = launches.get(k, 0) + v
+        n = LIB_ONLINE_FRAMES
+        _library_dynamics(torch, body,
+                          torch.from_numpy(offline[3][:n]).cuda(),
+                          torch.from_numpy(online[0]).cuda(),
+                          torch.from_numpy(online[1]).cuda(), smi)
+        _library_render(torch, body, online, offline)
+        check(smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "library_seconds", "seconds": time.perf_counter() - t0})
+    return launches
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4918,6 +5520,15 @@ def main() -> int:
                  "lstm_train_dw_f32"):
         require(parallel_launches.get(name, 0) > 0,
                 f"{name} was never launched on the sharded paths")
+    # 4l. the rest of the library: SequenceLoader, RNNWithInit, the
+    # physics layer, SMPLViewer and cli.render (their runs: the library
+    # counters)
+    library_launches = phase_library(torch, lstm_cuda, train_cuda, smi)
+    for name in ("bilstm_scan_f32", "lstm_scan_f32", "lstm_scan_masked_f32",
+                 "lstm_train_fwd_f32", "lstm_train_bwd_f32",
+                 "lstm_train_dw_f32"):
+        require(library_launches.get(name, 0) > 0,
+                f"{name} was never launched on the library's paths")
 
     # 5. exact-path streamed frames/s (tracing off), then one traced call;
     # at 256 streams (C1's shape) the same on bf16 params beside it
@@ -5068,6 +5679,7 @@ def main() -> int:
             "recipe_launches": recipe_launches.get(name, 0),
             "live_launches": live_launches.get(name, 0),
             "parallel_launches": parallel_launches.get(name, 0),
+            "library_launches": library_launches.get(name, 0),
             "shape": {"T": T, "B": B, "H": main["H"]}})
         shard = next((r for r in shard_recs if r["name"] == name
                       and r["H"] == 256), None)

@@ -56,6 +56,10 @@ class Paths:
                          str(self.root_dir / "smpl/basicmodel_m.pkl"))
 
     @property
+    def weights_file(self) -> Path:
+        return self.root_dir / "checkpoints/weights.npz"
+
+    @property
     def raw_amass(self) -> Path:
         return _env_path("MP_RAW_AMASS", str(self.root_dir / "data/raw/AMASS"))
 
@@ -107,6 +111,10 @@ class ModelConfig:
         return 12 * self.n_joints     # 60 = (3 accel + 9 orientation) * 5
 
     @property
+    def n_pose_output(self) -> int:
+        return self.n_output_joints * 6
+
+    @property
     def total_frames(self) -> int:
         return self.past_frames + self.future_frames
 
@@ -133,6 +141,16 @@ class Amass:
     """AMASS dataset constants (reference: config.py:57-83)."""
     acc_scale: float = 30.0
     vel_scale: float = 2.0
+    pred_joints_set: Tuple[int, ...] = tuple(range(24))
+    joint_sets: Tuple[int, ...] = (18, 19, 1, 2, 15, 0)
+
+    @property
+    def combos(self) -> Dict[str, Tuple[int, ...]]:
+        return COMBOS
+
+    @property
+    def ignored_joints(self) -> Tuple[int, ...]:
+        return tuple(sorted(set(self.pred_joints_set) - set(self.joint_sets)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,13 +185,22 @@ class Datasets:
 class JointSet:
     """Joint subsets (reference: config.py:129-142)."""
     gravity_velocity: float = -0.018
+    full: Tuple[int, ...] = tuple(range(24))
     reduced: Tuple[int, ...] = (0, 1, 2, 3, 4, 5, 6, 9, 12, 13, 14, 15, 16,
                                 17, 18, 19)
     ignored: Tuple[int, ...] = (0, 7, 8, 10, 11, 20, 21, 22, 23)
 
     @property
+    def n_full(self) -> int:
+        return len(self.full)
+
+    @property
     def n_reduced(self) -> int:
         return len(self.reduced)
+
+    @property
+    def n_ignored(self) -> int:
+        return len(self.ignored)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,4 +7,5 @@ from mobileposer_tpu_torch.data.dataset import (  # noqa: F401
     EvalSequence,
     PoseDataset,
     load_processed_file,
+    make_combo_imu,
 )

@@ -247,6 +247,18 @@ def _mask_and_flatten(acc: np.ndarray, ori: np.ndarray,
     return np.concatenate([a.reshape(T, -1), o.reshape(T, -1)], axis=1)
 
 
+def make_combo_imu(acc: torch.Tensor, ori: torch.Tensor,
+                   combo_mask: torch.Tensor) -> torch.Tensor:
+    """The combo masking on tensors, for pipelines on the device
+    (dataset.py:273-283 of the JAX package): acc [.., 5, 3], ori
+    [.., 5, 3, 3], combo_mask [5] (or [.., 5]) -> [.., 60]."""
+    a = acc * combo_mask[..., :, None]
+    o = ori * combo_mask[..., :, None, None]
+    lead = acc.shape[:-2]
+    return torch.cat([a.reshape(lead + (15,)), o.reshape(lead + (45,))],
+                     dim=-1)
+
+
 class EvalSequence:
     """Whole-sequence eval view: (imu60 for a combo, local pose, joints,
     tran)."""

@@ -15,6 +15,7 @@ built with `use_pose_blendshape=True`.
 
 from __future__ import annotations
 
+import enum
 import os
 import pickle
 from typing import Optional, Tuple
@@ -33,6 +34,38 @@ SMPL_PARENTS: Tuple[int, ...] = (
 
 NUM_JOINTS = 24
 NUM_VERTICES = 6890  # reference: constants.py:33
+
+
+class SMPLJoint(enum.IntEnum):
+    """Named SMPL joint indices (reference: articulate/armature.py:35-64).
+    L/R prefixes are left/right; aliases share an index, as in the
+    reference's armature (SPINE is the root there too)."""
+    ROOT = 0
+    PELVIS = 0
+    SPINE = 0
+    LHIP = 1
+    RHIP = 2
+    SPINE1 = 3
+    LKNEE = 4
+    RKNEE = 5
+    SPINE2 = 6
+    LANKLE = 7
+    RANKLE = 8
+    SPINE3 = 9
+    LFOOT = 10
+    RFOOT = 11
+    NECK = 12
+    LCLAVICLE = 13
+    RCLAVICLE = 14
+    HEAD = 15
+    LSHOULDER = 16
+    RSHOULDER = 17
+    LELBOW = 18
+    RELBOW = 19
+    LWRIST = 20
+    RWRIST = 21
+    LHAND = 22
+    RHAND = 23
 
 
 class _ChumpyShim:
@@ -245,6 +278,37 @@ class ParametricModel:
                                 dtype=dtype))
         return cache[device, dtype]
 
+    # -- tree wrappers (smpl.py:278-310 of the JAX package) -----------------
+    def bone_vector_to_joint_position(self, bone_vec):
+        return S.bone_vector_to_joint_position(bone_vec, self.parent)
+
+    def joint_position_to_bone_vector(self, joint_pos):
+        return S.joint_position_to_bone_vector(joint_pos, self.parent)
+
+    def forward_kinematics_R(self, R_local):
+        return S.forward_kinematics_R(R_local, self.parent)
+
+    def inverse_kinematics_R(self, R_global):
+        return S.inverse_kinematics_R(R_global, self.parent)
+
+    def forward_kinematics_T(self, T_local):
+        return S.forward_kinematics_T(T_local, self.parent)
+
+    def inverse_kinematics_T(self, T_global):
+        return S.inverse_kinematics_T(T_global, self.parent)
+
+    def joint_positions_from_global(self, R_global):
+        """Joint positions from global rotations (position-only FK), on
+        the zero-pose bone vectors, computed once per body."""
+        if "_bone_vec_np" not in self.__dict__:
+            j = self._J - self._J[:1]
+            par = np.array([0 if p < 0 else p for p in self.parent])
+            bone = j - j[par]
+            bone[0] = j[0]
+            self._bone_vec_np = bone.astype(np.float32)
+        return S.joint_positions_from_global(R_global, self._bone_vec_np,
+                                             self.parent)
+
     @f32_matmuls
     def forward_kinematics(self, pose: torch.Tensor,
                            shape: Optional[torch.Tensor] = None,
@@ -301,6 +365,16 @@ class ParametricModel:
         return pose_global, add_tran(joint_global), add_tran(vertex_global)
 
     # -- host-side export (reference: model.py:41-75) ----------------------
+    def save_obj_mesh(self, vertex_position, file_name="a.obj"):
+        """Write one mesh [V, 3] (a tensor or an array) with the body's
+        faces as a Wavefront OBJ."""
+        verts = torch.as_tensor(vertex_position).detach().cpu().numpy()
+        with open(file_name, "w") as fp:
+            for v in verts:
+                fp.write("v %f %f %f\n" % (v[0], v[1], v[2]))
+            for f in self.face + 1:
+                fp.write("f %d %d %d\n" % (f[0], f[1], f[2]))
+
     @staticmethod
     def save_unity_motion(pose=None, tran=None, output_dir="saved_motions/"):
         """Write `pose.txt` (one frame a line: the local rotations [T, 24,

@@ -17,5 +17,7 @@ from mobileposer_tpu_torch.models.net import (  # noqa: F401
     forward,
     joint_positions_from_r6d_soa,
     prob_to_weight,
+    reduced_global_to_full,
     reduced_global_to_full_soa,
+    reduced_r6d_to_global,
 )

@@ -19,6 +19,11 @@ path and offline inference (reference `mobileposer/models/net.py:101-219`):
   * `forward_carry_batched`, `forward_carry_sequence_batched`
                                         — carry-mode streaming
                                           (`models/streaming.py`)
+  * `reduced_r6d_to_global`, `reduced_global_to_full`
+                                        — the pose assembly in the
+                                          array-of-structures layout, the
+                                          reference for the streaming
+                                          layout's `reduced_global_to_full_soa`
 
 The four RNN blocks run their LSTM layers through the CUDA kernels of
 `ops/lstm_cuda.py` on the card (plain versions on the CPU). Linears,
@@ -96,6 +101,45 @@ _IGNORED_MASK = np.zeros((24, 1, 1), np.float32)
 _IGNORED_MASK[list(C.joint_set.ignored)] = 1.0
 _ROOT_MASK = np.zeros((24, 1, 1), np.float32)
 _ROOT_MASK[0] = 1.0
+
+
+def reduced_r6d_to_global(reduced_r6d: torch.Tensor,
+                          effective: bool = False) -> torch.Tensor:
+    """16-joint r6d [N, 96] -> the 24 joints' GLOBAL rotations
+    [N, 24, 3, 3], gather-assembled (net.py:80 of the JAX package).
+
+    effective=False: the identity at the joints not in the reduced set
+    (the raw assembly fed into IK). effective=True: each such joint takes
+    its nearest reduced ancestor's rotation, its actual global rotation
+    after the IK -> identity-at-ignored -> FK round trip.
+    """
+    n = reduced_r6d.shape[0]
+    rot = R.r6d_to_rotation_matrix(reduced_r6d).reshape(n, -1, 3, 3)
+    if effective:
+        return rot.index_select(1, torch.as_tensor(
+            _EFFECTIVE_GATHER_MAP, device=rot.device))
+    eye = torch.eye(3, dtype=rot.dtype, device=rot.device).expand(n, 1, 3, 3)
+    padded = torch.cat([rot, eye], dim=1)                    # [n, 17, 3, 3]
+    return padded.index_select(1, torch.as_tensor(_GATHER_MAP,
+                                                  device=rot.device))
+
+
+def reduced_global_to_full(reduced_r6d: torch.Tensor,
+                           body_model: ParametricModel) -> torch.Tensor:
+    """16-joint global r6d [N, 96] -> the 24 joints' local rotations
+    [N, 24, 3, 3] in the array-of-structures layout (net.py:100 of
+    the JAX package; reference net.py:93-99): r6d -> global rotations
+    (identity elsewhere) -> IK to local -> identity at the ignored joints
+    -> the root keeps its global rotation. `reduced_global_to_full_soa`
+    computes the same in the streaming layout."""
+    global_pose = reduced_r6d_to_global(reduced_r6d)
+    local_pose = body_model.inverse_kinematics_R(global_pose)
+    dev = local_pose.device
+    eye = torch.eye(3, dtype=local_pose.dtype, device=dev)
+    local_pose = torch.where(torch.as_tensor(_IGNORED_MASK > 0, device=dev),
+                             eye, local_pose)
+    return torch.where(torch.as_tensor(_ROOT_MASK > 0, device=dev),
+                       global_pose[:, 0:1], local_pose)
 
 
 def _soa_parent_map(body_model: ParametricModel) -> np.ndarray:

@@ -1,10 +1,10 @@
 """Weights between the JAX package's `.npz` layout and the port's modules.
 
 Counterpart of `mobileposer_tpu/nn/torch_convert.py` (`load_from_npz`,
-`export_to_npz`) and `mobileposer_tpu/utils/io.py` (`loadz_typed`,
-`savez_typed`): an own copy of each that reads and writes the same `.npz`
-archives, `__dtypes__` manifest included, and needs neither JAX nor the
-JAX package. Either package loads the other's checkpoints.
+`export_to_npz`): an own copy of each that reads and writes the same `.npz`
+archives, through the port's `utils.io.savez_typed` / `loadz_typed`
+(`__dtypes__` manifest included), and needs neither JAX nor the JAX
+package. Either package loads the other's checkpoints.
 
 The JAX pytree layout is kept: LSTM weights are input-major
 (w_ih [D, 4H], w_hh [H, 4H]; `nn/lstm.py:53-63` there), which is also the
@@ -12,17 +12,15 @@ layout the CUDA kernels read. Only the linears move to torch's
 `nn.Linear` layout (weight [out, in]), a transpose.
 
 bfloat16 leaves ride in the archives as uint16 bit patterns under a
-"bfloat16" manifest entry, as `savez_typed` writes them. numpy has no
-bfloat16 of its own (the JAX package's comes from ml_dtypes, which the
-port does not need), so in the port's pytrees a bf16 leaf is a CPU
-`torch.bfloat16` tensor; both directions move the bits unrounded.
+"bfloat16" manifest entry (`utils/io.py`); in the port's pytrees a bf16
+leaf is a CPU `torch.bfloat16` tensor, and both directions move the bits
+unrounded.
 `cast_params` is the counterpart of the JAX package's
 `nn.torch_convert.cast_params`.
 """
 
 from __future__ import annotations
 
-import json
 import numpy as np
 import torch
 from torch import nn
@@ -31,7 +29,11 @@ from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS
 from mobileposer_tpu_torch.nn.lstm import (  # noqa: F401 (cast_params)
     LSTMConfig, LSTMDirectionInt8, RNNBlock, cast_params, check_dtype)
+from mobileposer_tpu_torch.nn.rnn_with_init import (RNNWithInit,
+                                                    RNNWithInitConfig)
 from mobileposer_tpu_torch.ops.quant import is_quantized
+from mobileposer_tpu_torch.utils.io import (bf16_bits, bf16_from_bits,
+                                            loadz_typed, savez_typed)
 
 # the keys of one direction of one layer: float, and W8A8
 # (`ops.quant.quantize_lstm_direction`)
@@ -39,47 +41,11 @@ _FLOAT_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
 _INT8_KEYS = ("w_ih", "w_ih_scale", "w_hh", "w_hh_scale", "b")
 
 
-def _bf16_bits(a):
-    """The uint16 bit patterns of a bfloat16 leaf (a torch.bfloat16
-    tensor, or a numpy array of ml_dtypes' bfloat16 as the JAX package
-    hands them out), else None."""
-    if isinstance(a, torch.Tensor):
-        if a.dtype != torch.bfloat16:
-            return None
-        return a.detach().cpu().contiguous().view(torch.int16).numpy().view(
-            np.uint16)
-    if str(getattr(a, "dtype", "")) == "bfloat16":
-        return np.ascontiguousarray(a).view(np.uint16)
-    return None
-
-
-def _bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
-    """A CPU torch.bfloat16 tensor holding (a copy of) these uint16 bit
-    patterns."""
-    return torch.from_numpy(np.array(bits, np.uint16).view(np.int16)).view(
-        torch.bfloat16)
-
-
-def _loadz_typed(path) -> dict:
-    """Flat {key: array} from an archive written by the JAX package's
-    `savez_typed`; archives without a `__dtypes__` manifest load as plain
-    `np.load` dicts. bfloat16 leaves come back as torch.bfloat16 tensors
-    of their stored bits."""
-    # allow_pickle stays False: model archives must never execute pickle
-    # payloads on load
-    with np.load(path) as z:
-        if "__dtypes__" not in z.files:
-            return {k: z[k] for k in z.files}
-        dtypes = json.loads(str(z["__dtypes__"]))
-        return {key: _bf16_from_bits(z[key]) if dt == "bfloat16" else z[key]
-                for key, dt in dtypes.items()}
-
-
 def load_npz(path) -> dict:
     """Nested params pytree (dicts of numpy arrays; list indices restored
     as lists) from a JAX-package `.npz`, as `load_from_npz` returns it."""
     root: dict = {}
-    for key, val in _loadz_typed(path).items():
+    for key, val in loadz_typed(path).items():
         parts = key.split("/")
         node = root
         for p in parts[:-1]:
@@ -102,7 +68,7 @@ def export_npz(tree: dict, path) -> None:
     `.npz` with the `__dtypes__` manifest, as the JAX package's
     `export_to_npz` + `savez_typed` write it: keys are '/'-joined paths,
     list indices as digits; bfloat16 leaves as their uint16 bits."""
-    flat, dtypes = {}, {}
+    flat = {}
 
     def walk(node, key):
         if isinstance(node, dict):
@@ -112,13 +78,10 @@ def export_npz(tree: dict, path) -> None:
             for i, v in enumerate(node):
                 walk(v, f"{key}/{i}")
         else:
-            bits = _bf16_bits(node)
-            flat[key] = np.asarray(node) if bits is None else bits
-            dtypes[key] = ("bfloat16" if bits is not None
-                           else str(flat[key].dtype))
+            flat[key] = node
 
     walk(tree, "")
-    np.savez(path, __dtypes__=json.dumps(dtypes), **flat)
+    savez_typed(path, flat)
 
 
 def rnn_block_to_jax(block: RNNBlock) -> dict:
@@ -151,9 +114,9 @@ def params_to_jax(modules) -> dict:
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
-    bits = _bf16_bits(src)
+    bits = bf16_bits(src)
     if bits is not None:            # widened to float32, exactly
-        src = _bf16_from_bits(bits)
+        src = bf16_from_bits(bits)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: expected shape {tuple(dst.shape)}, "
                              f"got {tuple(src.shape)}")
@@ -181,11 +144,7 @@ def rnn_block_from_jax(tree: dict, cfg: LSTMConfig, device) -> RNNBlock:
     # a private generator: the placeholder draws leave the global RNG alone
     block = RNNBlock(cfg, device=device, generator=torch.Generator())
     for lin in ("linear1", "linear2"):
-        mod = getattr(block, lin)
-        w = tree[lin]["w"]
-        _copy(mod.weight, w.t() if isinstance(w, torch.Tensor)
-              else np.asarray(w).T, f"{lin}/w")
-        _copy(mod.bias, tree[lin]["b"], f"{lin}/b")
+        _linear_from_jax(getattr(block, lin), tree[lin], lin)
     if len(tree["lstm"]) != cfg.n_layers:
         raise ValueError(f"expected {cfg.n_layers} LSTM layers, got "
                          f"{len(tree['lstm'])}")
@@ -211,6 +170,29 @@ def rnn_block_from_jax(tree: dict, cfg: LSTMConfig, device) -> RNNBlock:
             for k in _FLOAT_KEYS:
                 _copy(getattr(mod, k), dirs[dname][k], f"{where}/{k}")
     return block
+
+
+def _linear_from_jax(mod: nn.Linear, tree: dict, name: str) -> None:
+    """Copy a JAX linear ({"w" [in, out], "b" [out]}) into an
+    `nn.Linear` (weight [out, in])."""
+    w = tree["w"]
+    _copy(mod.weight, w.t() if isinstance(w, torch.Tensor)
+          else np.asarray(w).T, f"{name}/w")
+    _copy(mod.bias, tree["b"], f"{name}/b")
+
+
+def rnn_with_init_from_jax(tree: dict, cfg: RNNWithInitConfig,
+                           device=None) -> RNNWithInit:
+    """The JAX package's `init_rnn_with_init` pytree ({"rnn", "init1",
+    "init2", "init3"}) -> an `RNNWithInit` on `device` (the CUDA card
+    unless given), every array carried over as float32."""
+    device = resolve_device(device)
+    # a private generator: the placeholder draws leave the global RNG alone
+    mod = RNNWithInit(cfg, device=device, generator=torch.Generator())
+    mod.rnn = rnn_block_from_jax(tree["rnn"], cfg.rnn, device)
+    for name in ("init1", "init2", "init3"):
+        _linear_from_jax(getattr(mod, name), tree[name], name)
+    return mod
 
 
 def params_from_jax(tree: dict, device=None,

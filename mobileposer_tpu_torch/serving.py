@@ -62,11 +62,11 @@ from mobileposer_tpu_torch.models.net import (MobilePoserNet, OnlineState,
                                               _soa_constants)
 from mobileposer_tpu_torch.models.streaming import (BiCarry, CarryState,
                                                     JointsCarry)
-from mobileposer_tpu_torch.nn.convert import (_bf16_bits, _loadz_typed,
-                                              export_npz, load_npz,
+from mobileposer_tpu_torch.nn.convert import (export_npz, load_npz,
                                               params_from_jax, params_to_jax)
 from mobileposer_tpu_torch.nn.lstm import check_dtype, check_lengths
 from mobileposer_tpu_torch.ops import lstm_cuda  # noqa: F401 (the ops)
+from mobileposer_tpu_torch.utils.io import bf16_bits, loadz_typed
 
 _STEP_FILE = "step.pt2"
 _WEIGHTS_FILE = "weights.npz"
@@ -220,7 +220,7 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _load_state_npz(path, mode: str, device):
-    flat = _loadz_typed(path)
+    flat = loadz_typed(path)
     leaves = [_tensor(flat[f"leaf_{i}"], device) for i in range(len(flat))]
     return pytree.tree_unflatten(leaves, _state_treedef(mode))
 
@@ -240,7 +240,7 @@ def _params_from_tree(tree: dict, device) -> nn.ModuleDict:
                   for dirs, layer in zip(t["lstm"], block.lstm)
                   for d, arrays in dirs.items() for k, arr in arrays.items()]
         for src, mod, attr in pairs:
-            if _bf16_bits(src) is None:
+            if bf16_bits(src) is None:
                 continue
             if attr in mod._parameters:
                 mod._parameters[attr].data = mod._parameters[attr].data.to(

@@ -68,6 +68,11 @@ def test_importing_the_port_loads_no_jax():
             "import mobileposer_tpu_torch.train\n"
             "import mobileposer_tpu_torch.parallel\n"
             "import mobileposer_tpu_torch.parallel.distributed\n"
+            "import mobileposer_tpu_torch.physics\n"
+            "import mobileposer_tpu_torch.utils\n"
+            "import mobileposer_tpu_torch.kinematics\n"
+            "import mobileposer_tpu_torch.cli.render\n"
+            "import mobileposer_tpu_torch.nn.rnn_with_init\n"
             "from mobileposer_tpu_torch.cli.train import rank_main\n"
             "from mobileposer_tpu_torch.cli.finetune import rank_main\n"
             f"bad = {sorted(FORBIDDEN)!r}\n"
@@ -105,6 +110,42 @@ def test_entry_points_need_a_device_when_no_gpu(monkeypatch):
     net = MobilePoserNet(device="cpu")
     st = net.init_online_state_batched(2)
     assert st.vel_h.device.type == "cpu" and st.vel_h.shape == (2, 2, 256)
+
+
+def test_library_entry_points_need_a_device_when_no_gpu(monkeypatch,
+                                                        tmp_path):
+    """The offline viewers, `cli.render`, `SequenceLoader`, the physics
+    layer and `RNNWithInit` resolve their device like every entry point:
+    the card, or RuntimeError without one unless a device is named."""
+    import numpy as np
+    from mobileposer_tpu_torch.cli import render as render_cli
+    from mobileposer_tpu_torch.kinematics import ParametricModel
+    from mobileposer_tpu_torch.models import MobilePoserNet
+    from mobileposer_tpu_torch.nn import (LSTMConfig, RNNWithInitConfig,
+                                          init_rnn_with_init)
+    from mobileposer_tpu_torch.physics import DynamicsModel, PhysicsOptimizer
+    from mobileposer_tpu_torch.viz import (MotionDump, SMPLViewer,
+                                           SequenceLoader, render_motion)
+
+    body = ParametricModel.synthetic(num_vertices=48)
+    net = MobilePoserNet(body, device="cpu")
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), (2, 24, 3, 3))
+    bundle = SMPLViewer(body, tmp_path, device="cpu").view(
+        eye, np.zeros((2, 3), np.float32), name="b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = RNNWithInitConfig(LSTMConfig(6, 4, 8), 5)
+    for call in (lambda: render_cli.main([str(bundle)]),
+                 lambda: SequenceLoader(net, None),
+                 lambda: DynamicsModel(body),
+                 lambda: PhysicsOptimizer(body),
+                 lambda: MotionDump(body, tmp_path),
+                 lambda: SMPLViewer(body, tmp_path),
+                 lambda: render_motion(bundle, tmp_path / "r", body=body),
+                 lambda: init_rnn_with_init(None, cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert DynamicsModel(body, device="cpu").device.type == "cpu"
+    assert SequenceLoader(net, None, device="cpu").net is net
 
 
 def test_bench_turns_needs_a_card(monkeypatch, tmp_path):
