@@ -334,14 +334,17 @@ FIXTURE = ROOT / "tests" / "fixtures" / "demo_checkpoint_f16.npz"
 # rounding carried through 45 steps.
 KERNEL_TOL = 1e-5
 # Phase 4e: PoseServer with SERVE_STREAMS PoseClients in lockstep for
-# SERVE_TICKS ticks (past the 45-frame window warm-up), in each variant;
-# the paced runs' warm-up and measured window, in seconds.
+# SERVE_TICKS ticks (15 past the 45-frame window warm-up), in each
+# variant, held to the direct step on the card and on the CPU port (whose
+# steps run in processes of their own, `CpuServing`); the paced runs at
+# SERVE_STREAMS (and 256): their warm-up and measured window, in seconds
+# (3 s windows until phase 4m needed the time).
 SERVE_STREAMS = 64
 SERVE_TICKS = 60
 SERVE_VARIANTS = (("exact", None), ("exact", "int8"), ("carry", None),
                   ("carry", "int8"))
 SERVE_WARMUP_S = 0.5
-SERVE_SECONDS = 3.0
+SERVE_SECONDS = 1.5
 
 # Max abs error of the slice on the card against the CPU port (plain
 # versions): the same rounding differences through 8 LSTM layers, the
@@ -412,8 +415,10 @@ STEP_GRAD_RTOL = 1e-4
 STEP_BF16RES_GRAD_RTOL = 2.0 ** -7 + STEP_GRAD_RTOL
 STEP_PARAM_ATOL = 1e-6
 # Phase 4b's sequence lengths: bucket 512 holds two ragged sequences,
-# 560 frames takes a 1024 bucket of its own.
-EVAL_LENGTHS = (300, 420, 560)
+# 520 frames takes a 1024 bucket of its own ((300, 420, 560) until phase
+# 4m needed the time: the CPU port's evaluations, carry mode on the card
+# and phase 4k's sharded evaluation take time in proportion).
+EVAL_LENGTHS = (150, 210, 520)
 # Phase 4i: raw-format fixtures at the sizes of the public datasets, each
 # made with numpy from a seed. AMASS: (sequences, frames, mocap Hz) of one
 # dataset folder, the 100 Hz sequence skipped by the processor; DIP-IMU:
@@ -439,7 +444,8 @@ OVERFIT_STEPS = 30
 # offline over the whole sequence, online over its first
 # EXAMPLE_ONLINE_CPU_FRAMES frames (the CPU's plain scans take ~50 ms a
 # frame, so all 1,794 would take ~90 s; the online path is causal, so the
-# card's first frames are those of a run this long), both at SLICE_TOL.
+# card's first frames are those of a run this long; 240 until the script
+# needed the time for phase 4m), both at SLICE_TOL.
 # Not on the finetuned weights the recipe's example runs on: two steps
 # from a random init leave the poser's r6d outputs ~0.01 long and near
 # parallel, and the Gram-Schmidt decode divides by those lengths, so
@@ -449,7 +455,7 @@ OVERFIT_STEPS = 30
 # scan kernels are also held to their plain versions at the example's
 # offline shapes, B = 1 and T = the sequence; online it runs
 # `forward_online`, the live step, whose shapes phase 4j holds and times.
-EXAMPLE_ONLINE_CPU_FRAMES = 240
+EXAMPLE_ONLINE_CPU_FRAMES = 120
 # Phase 4k, data parallelism: the card split into PARALLEL_SHARDS shards
 # (a mesh naming cuda:0 that many times; with more than one card, every
 # card as well). Sharded tables and float32 replies are held to one
@@ -588,6 +594,18 @@ INT8_DELTA_BOUND = {0: 0.5, 3: 0.5, 6: 0.2}
 # forgets it: 2 ulps over T = 45 and 512 steps.
 BF16_STEP_ULPS = 1
 BF16_ULPS = 2
+# Phase 3i: the wbf16 backward's float32 outputs against the plain
+# version, relative L2 over each. Both take the same products; the order
+# of the float32 sums differs, and a last bit now and then flips a dgate's
+# bf16 rounding for the dh product, which the scan carries on: a flip moves
+# single entries as far as leaving the rounding out does, so no max-norm
+# bound can tell the two apart, while over a whole output the flips stay
+# far below the rounding's own share. On the CPU at phase 3c's shapes a
+# float64 dh product in place of the float32 one (another order) moved
+# dx_proj, dh0 and dc0 by at most 2.2e-5, 6.8e-5 and 2.0e-5; leaving the
+# dgates rounding out (the f32 entry on the widened w_hh, which must fail
+# these bounds) moved them by 2.1e-4, 1.07e-3 and 2.1e-4 or more.
+WBF16_REL_L2 = {"dx_proj": 1e-4, "dh0": 4e-4, "dc0": 1e-4}
 # Phase 4f: the bf16 slice on the card against the CPU port (both bf16,
 # the kernels against their plain versions at a flip per layer at most),
 # on every output, all of magnitude ~1: the JAX package's own bf16 bound
@@ -599,6 +617,11 @@ BF16_SLICE_TOL = 0.05
 # float32 gate is a kernel's (KERNEL_TOL), int8 and bf16 take phase 4's
 # gates. BUNDLE_FRAMES frames a streaming variant, each timed over
 # BUNDLE_TIMED_STEPS steps a turn.
+# Phase 5's streamed frames per call and chained trials (the cells C1,
+# C2, C5, C7, C8 are timed at 100 frames and 5 trials by `bench_turns`;
+# so here too until phase 4m needed the time).
+RATE_FRAMES = 50
+RATE_TRIALS = 3
 BUNDLE_TOL = 1e-5
 BUNDLE_FRAMES = 10
 BUNDLE_TIMED_STEPS = 20
@@ -691,7 +714,32 @@ TPU_KERNELS = [
      "lstm_train_bwd_bf16res"),
     ("_bwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:202",
      "lstm_train_dw_bf16res"),
+    # the training kernels on bf16 params (their I/O dtype is x_proj's
+    # and dy's, lstm_train_pallas.py:63-64, :188-190): bf16 I/O, and the
+    # backward of float32 I/O beside bf16 w_hh (a float32 batch promoted
+    # over bf16 weights, whose forward is the f32 entry's on the widened
+    # w_hh), each with float32 or bf16 residuals; the dW entries above
+    # serve them
+    *((tpu, f"mobileposer_tpu/ops/lstm_train_pallas.py:{line}",
+       f"lstm_train_{kind}_{suffix}")
+      for suffix in ("bf16", "bf16_bf16res")
+      for tpu, line, kind in (("_fwd_call", 90, "fwd"),
+                              ("_bwd_call", 202, "bwd"))),
+    *(("_bwd_call", "mobileposer_tpu/ops/lstm_train_pallas.py:202",
+       f"lstm_train_bwd_{suffix}") for suffix in ("wbf16", "wbf16_bf16res")),
 ]
+
+# the command time each phase takes: the span from one mark to the next,
+# labelled by the later one
+MARKS = []
+
+
+def mark(label: str) -> None:
+    MARKS.append((label, time.perf_counter()))
+    if len(MARKS) > 1:
+        emit({"phase": "mark", "label": label,
+              "seconds": MARKS[-1][1] - MARKS[-2][1],
+              "since_start": MARKS[-1][1] - MARKS[0][1]})
 
 
 def emit(obj) -> None:
@@ -744,11 +792,11 @@ def layer_bound(n_dir: int, T: int, B: int, H: int, valid_steps=None,
             elem_bytes * floats)
 
 
-def ptxas_by_function(source: str, needle: str, bf16: bool = False):
+def ptxas_by_function(source: str, needle: str, bf16=False):
     """The ptxas report (registers, stack, spills) of each function of
     `source`'s build whose mangled name holds `needle`, of the float32
-    instantiations or, with `bf16`, of the bf16-I/O ones: {name:
-    [lines]}."""
+    instantiations or, with `bf16`, of the bf16-I/O ones (with None, of
+    all): {name: [lines]}."""
     from mobileposer_tpu_torch.ops import _build
     log = _build.library_path(source).with_suffix(".log").read_text()
     out, fn = {}, None
@@ -756,7 +804,8 @@ def ptxas_by_function(source: str, needle: str, bf16: bool = False):
         for key in ("Compiling entry function '", "Function properties for "):
             if key in ln:
                 fn = ln.split(key, 1)[1].split("'", 1)[0].strip()
-        if (fn and needle in fn and ("bfloat16" in fn) == bf16
+        if (fn and needle in fn
+                and (bf16 is None or ("bfloat16" in fn) == bf16)
                 and ("registers" in ln or "spill" in ln)):
             out.setdefault(fn, []).append(ln.strip())
     return out
@@ -1202,41 +1251,52 @@ def phase_int8_kernels(torch, lstm_cuda):
 
 
 def train_bounds(T: int, B: int, H: int, valid_steps: int,
-                 res_bytes: int = 4):
+                 res_bytes: int = 4, io_bytes: int = 4, w_bytes: int = 4):
     """Least time (ms) the card needs for kernel #7, for kernel #8 with its
     dW reduction, for the dW reduction alone and for #8's scan alone, on
     one layer-direction: each input read once, each output written once,
-    the products of this run's valid steps at the float32 rate (masked
-    steps need no product, but every residual and gradient row is
-    written). The residuals (acts, hseq and cseq written by #7; acts,
-    c_new, h_prev and c_prev read by #8) take `res_bytes` bytes a value,
-    4 for float32 and 2 for the bf16res entries; everything else is
-    float32. "dw_all_rows" is the dW reduction over all T*B rows, which
-    the kernel and torch.matmul both compute. Returns {"fwd", "bwd", "dw",
-    "dw_all_rows", "scan"}, each (bound_ms, bound_by, flops, bytes)."""
+    the products of this run's valid steps at the peak rate of their
+    operands' type (masked steps need no product, but every residual and
+    gradient row is written). The residuals (acts, hseq and cseq written
+    by #7; acts, c_new, h_prev and c_prev read by #8) take `res_bytes`
+    bytes a value, 4 for float32 and 2 for bf16; x_proj, h0, c0, the mask,
+    ys, h_T, c_T, dy, dh_T, dc_T, dx_proj, dh0 and dc0 take `io_bytes`,
+    w_hh and dw_hh `w_bytes`. The recurrent product of #7 multiplies h
+    rounded to the I/O type by w_hh, at the bf16 tensor cores' rate when
+    both are bf16; #8's dh product multiplies dgates rounded to w_hh's
+    type by w_hh (the bf16 rate for bf16 w_hh); dW sums float32 products
+    (h_prev widened, the float32 dgates). "dw_all_rows" is the dW
+    reduction over all T*B rows, which the kernel and torch.matmul both
+    compute. Returns {"fwd", "bwd", "dw", "dw_all_rows", "scan"}, each
+    (bound_ms, bound_by, flops, bytes)."""
     H4 = 4 * H
     seq, hc = T * B * H, B * H
-    fwd_flops = 2.0 * valid_steps * H * H4
-    # (float32 values, residual values) each moves
-    fwd_vals = (valid_steps * H4 + H * H4 + 2 * hc + T * B  # x_proj, w, h0c0, mask
-                + seq + 2 * hc,                            # ys, h_T c_T
-                2 * seq + T * B * H4)                      # hseq cseq, acts
-    bwd_flops = 2 * fwd_flops                              # dh recurrence + dW
-    bwd_vals = (seq + 2 * hc + H * H4 + T * B              # dy, dh_T dc_T, w_hh, mask
-                + T * B * H4 + H * H4 + 2 * hc,            # dx_proj, dw_hh, dh0 dc0
-                T * B * H4 + 3 * seq)                      # acts, c/h_prev/c_prev
-    dw_vals = (T * B * H4 + H * H4, seq)                   # dgates, dw_hh; h_prev
-    scan_vals = (bwd_vals[0] - H * H4,                     # no dw_hh
-                 bwd_vals[1] - seq)                        # no h_prev
+    prod = 2.0 * valid_steps * H * H4
+    fwd_rate = float_peak(max(io_bytes, w_bytes))
+    dh_rate = float_peak(w_bytes)
+    # (I/O values, w_hh values, residual values) each moves
+    fwd_vals = (valid_steps * H4 + 2 * hc + T * B       # x_proj, h0c0, mask
+                + seq + 2 * hc,                         # ys, h_T c_T
+                H * H4,                                 # w_hh
+                2 * seq + T * B * H4)                   # hseq cseq, acts
+    bwd_vals = (seq + 2 * hc + T * B                    # dy, dh_T dc_T, mask
+                + T * B * H4 + 2 * hc,                  # dx_proj, dh0 dc0
+                2 * H * H4,                             # w_hh, dw_hh
+                T * B * H4 + 3 * seq)                   # acts, c/h_prev/c_prev
+    dw_vals = (0, H * H4, seq)                          # dw_hh; h_prev
+    scan_vals = (bwd_vals[0], H * H4, bwd_vals[2] - seq)
     out = {}
-    for name, flops, (floats, res) in (
-            ("fwd", fwd_flops, fwd_vals), ("bwd", bwd_flops, bwd_vals),
-            ("dw", fwd_flops, dw_vals),
-            ("dw_all_rows", 2.0 * T * B * H * H4, dw_vals),
-            ("scan", fwd_flops, scan_vals)):
-        nbytes = 4 * floats + res_bytes * res
+    for name, t_ops, flops, (ios, ws, res), extra in (
+            ("fwd", prod / fwd_rate, prod, fwd_vals, 0),
+            ("bwd", prod / dh_rate + prod / F32_FLOPS_PER_S, 2 * prod,
+             bwd_vals, 0),
+            ("dw", prod / F32_FLOPS_PER_S, prod, dw_vals, 4 * T * B * H4),
+            ("dw_all_rows", 2.0 * T * B * H * H4 / F32_FLOPS_PER_S,
+             2.0 * T * B * H * H4, dw_vals, 4 * T * B * H4),
+            ("scan", prod / dh_rate, prod, scan_vals, 0)):
+        # the dW reduction alone reads the float32 dgates
+        nbytes = io_bytes * ios + w_bytes * ws + res_bytes * res + extra
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / F32_FLOPS_PER_S
         out[name] = (1e3 * max(t_bytes, t_ops),
                      "operations" if t_ops >= t_bytes else "bytes", flops,
                      nbytes)
@@ -1400,24 +1460,55 @@ def phase_train_kernels(torch, train_cuda, ptxas,
     return results
 
 
-def train_stack_spill(bf16: bool) -> dict:
-    """The ptxas report of `lstm_train.cu`'s f32 (or, with `bf16`, its
-    bf16res) kernel instantiations: {"fwd<R>", "bwd<R>" or "dw<MI>":
-    [stack frame, spill stores, spill loads] in bytes}. The shared f32
+def train_stack_spill() -> dict:
+    """The ptxas report of every kernel instantiation of `lstm_train.cu`,
+    by its type arguments as c++filt prints them, (Res, IO, W) for the
+    scans (the forward's W is its IO) and (Res,) for dW: {types: {"fwd<R>",
+    "bwd<R>" or "dw<MI>": [stack frame, spill stores, spill loads] in
+    bytes}}. The shared f32
     body has a stack frame and spills at #7's R >= 12 and at #8's scan's
-    R = 18, as it had before the bf16res entries (PR 13's chip runs); a
-    bf16res instantiation, the same body with other loads and stores, is
-    held to its f32 twin's numbers."""
+    R = 18, as it had before the bf16res entries; any
+    other instantiation, the same body with other loads and stores (and
+    for bf16 I/O a float32 h kept in a register), is held to its f32
+    twin's numbers (`spill_beyond`)."""
     import re
+    import shutil
+    funcs = ptxas_by_function("lstm_train.cu", "lstm_train_", bf16=None)
+    names = list(funcs)
+    filt = shutil.which("c++filt") or shutil.which("cu++filt") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cu++filt")
+    plain = subprocess.run([filt], input="\n".join(names), text=True,
+                           capture_output=True, check=True,
+                           timeout=60).stdout.splitlines()
     out = {}
-    for fn, lines in ptxas_by_function("lstm_train.cu", "lstm_train_",
-                                       bf16=bf16).items():
-        m = re.search(r"lstm_train_(fwd|bwd|dw)_kernelILi(\d+)E", fn)
-        line = next((ln for ln in lines if "spill" in ln), None)
+    for name, dem in zip(names, plain):
+        m = re.search(r"lstm_train_(fwd|bwd|dw)_kernel<(\d+), ([^>]*)>", dem)
+        line = next((ln for ln in funcs[name] if "spill" in ln), None)
         if m and line:
-            out[f"{m.group(1)}<{m.group(2)}>"] = [
+            types = tuple(t.strip() for t in m.group(3).split(","))
+            if m.group(1) == "fwd":     # w_hh in the I/O type
+                types += types[-1:]
+            out.setdefault(types, {})[f"{m.group(1)}<{m.group(2)}>"] = [
                 int(x) for x in re.findall(r"(\d+) bytes", line)]
     return out
+
+
+F32_T, BF16_T = "float", "__nv_bfloat16"
+
+
+def spill_of(spills: dict, res: str, io: str = F32_T, w: str = F32_T):
+    """One instantiation family's report from `train_stack_spill`: the
+    scans on (res, io, w) and the dW reduction on res."""
+    return {**spills.get((res, io, w), {}), **spills.get((res,), {})}
+
+
+def spill_beyond(got: dict, twin: dict) -> dict:
+    """The entries of `got` with more stack or spills than the same
+    kernel in `twin` (any at all for a dW kernel)."""
+    return {k: v for k, v in got.items()
+            if any(a > b for a, b in zip(v, twin.get(k, [0, 0, 0])))
+            or (k.startswith("dw") and any(v))}
 
 
 def phase_train_bf16res_kernels(torch, train_cuda):
@@ -1437,8 +1528,9 @@ def phase_train_bf16res_kernels(torch, train_cuda):
     import numpy as np
     bf16 = torch.bfloat16
     results, failures = [], []
-    f32_spill = train_stack_spill(bf16=False)
-    bf16_spill = train_stack_spill(bf16=True)
+    spills = train_stack_spill()
+    f32_spill = spill_of(spills, F32_T)
+    bf16_spill = spill_of(spills, BF16_T)
     added = {k: v for k, v in bf16_spill.items()
              if v != f32_spill.get(k) or (k.startswith("dw") and any(v))}
     emit({"phase": "train_bf16res_ptxas", "instantiations": len(bf16_spill),
@@ -1608,6 +1700,236 @@ def phase_train_bf16res_kernels(torch, train_cuda):
             failures.append(f"{tag}: dw_hh rel err {dw_rel} > {DW_REL_TOL}")
         if not dw_repeatable:
             failures.append(f"{tag}: dw_hh differs between two runs")
+    require(not failures, "; ".join(failures))
+    return results
+
+
+def phase_train_bf16_kernels(torch, train_cuda):
+    """Phase 3i: the training kernels' entries for bf16 params at phase
+    3c's shapes, inputs and seeds (TF32 off), each residual dtype: the
+    bf16-I/O entries (`*_bf16`, x_proj, w_hh, the state, the mask, dy and
+    every output but the residuals in bf16) and the wbf16 backward (w_hh
+    bf16, the rest float32, on the residuals of the f32 forward on the
+    widened w_hh, which is the float32 input's forward on bf16 params).
+    Each against its plain version on the same inputs, the backward on the
+    kernel's own residuals: every bf16 output within BF16_ULPS bf16 ulps of
+    its largest magnitude (a product's h or dgates rounded to bf16 lands a
+    float32 last bit on the other side of a rounding boundary now and then,
+    as in phase 3f), the wbf16 backward's float32 outputs within
+    WBF16_REL_L2, which the same scan without the dgates rounding (the f32
+    entry on the widened w_hh) must fail, the masked ys exactly zero. Every
+    instantiation's ptxas stack and spills no more than its f32 twin's,
+    and its residency equal to the f32 one's. Times beside the f32 entry's
+    at the same shape in this run, the plain versions' and cuDNN's
+    (`torch.nn.LSTM`, training mode, in bf16 for the bf16 entries, float32
+    for the wbf16 ones), bounds with the entries' own bytes and rates
+    (`train_bounds`)."""
+    import numpy as np
+    bf16, f32 = torch.bfloat16, torch.float32
+    results, failures = [], []
+    spills = train_stack_spill()
+    f32_spill = spill_of(spills, F32_T)
+    beyond = {}
+    for res in (F32_T, BF16_T):
+        twin = spill_of(spills, res)
+        # the bf16-I/O forward and backward scans, and the wbf16 backward
+        for io, w, n in ((BF16_T, BF16_T, 20), (F32_T, BF16_T, 10)):
+            fam = {k: v for k, v in spill_of(spills, res, io, w).items()
+                   if not k.startswith("dw")}
+            key = f"{res},{io},{w}"
+            if len(fam) != n:
+                failures.append(f"{key}: {len(fam)} scan instantiations")
+            more = spill_beyond(fam, twin)
+            if more:
+                beyond[key] = more
+    emit({"phase": "train_bf16_ptxas", "families": len(spills),
+          "stack_spill_bytes_f32": {k: v for k, v in f32_spill.items()
+                                    if any(v)},
+          "stack_spill_bytes": {",".join(t): {k: v for k, v in fam.items()
+                                              if any(v)}
+                                for t, fam in spills.items()},
+          "beyond_f32_twin": beyond})
+    if beyond:
+        failures.append(f"instantiations with a stack frame or spills "
+                        f"their f32 twins lack: {beyond}")
+
+    def rel_l2(got, want):
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm())
+
+    for H, B in ((256, 256), (64, 256), (256, 37), (160, 37)):
+        T = 125
+        rng = np.random.RandomState(7 + H + B)  # phase 3c's inputs
+
+        def t(*shape, scale=1.0):
+            return torch.from_numpy(
+                (rng.randn(*shape) * scale).astype(np.float32)).cuda()
+
+        bound = 1.0 / math.sqrt(H)
+        x_proj = t(T, B, 4 * H)
+        w32 = torch.from_numpy(rng.uniform(-bound, bound, (H, 4 * H))
+                               .astype(np.float32)).cuda()
+        w16 = w32.to(bf16)
+        h0, c0 = t(B, H, scale=0.5), t(B, H, scale=0.5)
+        lengths = rng.randint(1, T, size=B)
+        lengths[0], lengths[1] = 0, T
+        mask = (torch.arange(T)[:, None] < torch.from_numpy(lengths)[None, :]
+                ).float().cuda()
+        dy, dh_t, dc_t = t(T, B, H), t(B, H), t(B, H)
+        # cuDNN yardsticks, float32 and bf16, training mode
+        lib_ms = {}
+        for dt in (f32, bf16):
+            lstm = torch.nn.LSTM(H, H, num_layers=1).cuda().to(dt).train()
+            x_lib = t(T, B, H).to(dt).requires_grad_(True)
+            hc_lib = (t(1, B, H, scale=0.5).to(dt),
+                      t(1, B, H, scale=0.5).to(dt))
+            y_lib, _ = lstm(x_lib, hc_lib)
+            g_lib = torch.randn_like(y_lib)
+            lib_ms[dt] = {
+                "fwd": time_ms(lambda: lstm(x_lib, hc_lib), 10),
+                "bwd": time_ms(lambda: torch.autograd.grad(
+                    y_lib, [x_lib, *lstm.parameters()], g_lib,
+                    retain_graph=True), 10)}
+        for rdt in (f32, bf16):
+            # the f32 entry at this shape, for the times
+            ref = train_cuda.lstm_train_fwd(x_proj, w32, h0, c0, mask, rdt)
+            f32_ms = {
+                "fwd": time_ms(lambda: train_cuda.lstm_train_fwd(
+                    x_proj, w32, h0, c0, mask, rdt), 10),
+                "bwd": time_ms(lambda: train_cuda.lstm_train_bwd(
+                    dy, dh_t, dc_t, ref[1], ref[3],
+                    torch.cat([h0.to(rdt)[None], ref[2][:-1]]),
+                    torch.cat([c0.to(rdt)[None], ref[3][:-1]]), w32, mask,
+                    rdt), 10)}
+            for io in (bf16, f32):
+                suffix = train_cuda.SCAN_ENTRY[(io, bf16, rdt)]
+                fwd_args = (x_proj.to(io), w16, h0.to(io), c0.to(io),
+                            mask.to(io))
+                # under float32 I/O the f32 entry on the widened w_hh
+                got = train_cuda.lstm_train_fwd(*fwd_args, rdt)
+                torch.cuda.synchronize()
+                want = train_cuda.lstm_train_fwd_plain(*fwd_args, rdt)
+                names = ("ys", "acts", "hseq", "cseq", "h_T", "c_T")
+                fwd_ulps = {n: ulps_apart([g], [w])
+                            for n, g, w in zip(names, got, want)}
+                fwd_abs = {n: float((g.float() - w.float()).abs().max())
+                           for n, g, w in zip(names, got, want)}
+                masked_nonzero = int((got[0][mask == 0] != 0).sum())
+                _, acts, hseq, cseq, _, _ = got
+                h_prev = torch.cat([fwd_args[2].to(rdt)[None], hseq[:-1]])
+                c_prev = torch.cat([fwd_args[3].to(rdt)[None], cseq[:-1]])
+                bwd_args = (dy.to(io), dh_t.to(io), dc_t.to(io), acts, cseq,
+                            h_prev, c_prev, w16, mask.to(io))
+                gb = train_cuda.lstm_train_bwd(*bwd_args, residual_dtype=rdt)
+                torch.cuda.synchronize()
+                wb = train_cuda.lstm_train_bwd_plain(*bwd_args)
+                bnames = ("dx_proj", "dw_hh", "dh0", "dc0")
+                bwd_ulps = {n: ulps_apart([g], [w])
+                            for n, g, w in zip(bnames, gb, wb)}
+                bwd_abs = {n: float((g.float() - w.float()).abs().max())
+                           for n, g, w in zip(bnames, gb, wb)}
+                # float32 outputs: the kernel, and the scan without the
+                # dgates rounding, against the plain version
+                bwd_rel = unrounded_rel = None
+                if io == f32:
+                    unrounded = train_cuda.lstm_train_bwd(
+                        *bwd_args[:7], w16.float(), bwd_args[8],
+                        residual_dtype=rdt)
+                    bwd_rel = {n: rel_l2(g, w) for n, g, w in
+                               zip(bnames, gb, wb) if n in WBF16_REL_L2}
+                    unrounded_rel = {n: rel_l2(g, w) for n, g, w in
+                                     zip(bnames, unrounded, wb)
+                                     if n in WBF16_REL_L2}
+                finite = all(bool(torch.isfinite(g.float()).all())
+                             for g in (*got, *gb))
+                dtypes_ok = (got[0].dtype == gb[0].dtype == io
+                             and got[1].dtype == rdt
+                             and gb[1].dtype == bf16)
+                residency = {
+                    "f32": train_cuda.max_active_clusters(H, 0),
+                    suffix: train_cuda.max_active_clusters(H, 0, rdt, io,
+                                                           bf16)}
+                ms = {"fwd": time_ms(lambda: train_cuda.lstm_train_fwd(
+                          *fwd_args, rdt), 10),
+                      "bwd": time_ms(lambda: train_cuda.lstm_train_bwd(
+                          *bwd_args, residual_dtype=rdt), 10),
+                      "scan": time_ms(lambda: train_cuda._bwd_scan(
+                          *bwd_args[:5], c_prev, w16, bwd_args[8]), 10)}
+                plain_ms = {
+                    "fwd": time_ms(lambda: train_cuda.lstm_train_fwd_plain(
+                        *fwd_args, rdt), 1, warmup=1),
+                    "bwd": time_ms(lambda: train_cuda.lstm_train_bwd_plain(
+                        *bwd_args), 1, warmup=1)}
+                io_bytes = 2 if io == bf16 else 4
+                bounds = train_bounds(T, B, H, int(lengths.sum()),
+                                      res_bytes=2 if rdt == bf16 else 4,
+                                      io_bytes=io_bytes, w_bytes=2)
+                common = {"T": T, "B": B, "H": H,
+                          "lengths_min_max_sum": [int(lengths.min()),
+                                                  int(lengths.max()),
+                                                  int(lengths.sum())],
+                          "residency": residency, "ulps_tol": BF16_ULPS}
+                lib_dt = bf16 if io == bf16 else f32
+                lib_name = (f"torch.nn.LSTM 1 layer, training mode, full "
+                            f"length (cuDNN, {str(lib_dt)[6:]}, TF32 off, its "
+                            f"input projection included), ")
+                entries = [("bwd", bwd_ulps, bwd_abs,
+                            {"includes": "the scan, the dW kernel on the "
+                                         "float32 dgates, the slab sum",
+                             "scan_ms": ms["scan"],
+                             "scan_bound_ms": bounds["scan"][0],
+                             "scan_bound_by": bounds["scan"][1],
+                             "float32_rel_l2": bwd_rel,
+                             "float32_rel_l2_tol": WBF16_REL_L2
+                             if io == f32 else None,
+                             "without_dgates_rounding_rel_l2":
+                                 unrounded_rel})]
+                if io == bf16:
+                    entries.insert(0, ("fwd", fwd_ulps, fwd_abs,
+                                       {"masked_steps_nonzero":
+                                        masked_nonzero}))
+                for key, ulps, err, extra in entries:
+                    b_ms, b_by, flops, nbytes = bounds[key]
+                    rec = {"phase": "train_bf16_kernel",
+                           "name": f"lstm_train_{key}_{suffix}", **common,
+                           "max_err_ulps": ulps, "max_abs_err": err,
+                           **extra, "kernel_ms": ms[key],
+                           "f32_entry_ms": f32_ms[key],
+                           "over_f32_entry": ms[key] / f32_ms[key],
+                           "plain_ms": plain_ms[key],
+                           "library_ms": lib_ms[lib_dt][key],
+                           "library": lib_name + (
+                               "forward" if key == "fwd"
+                               else "backward (autograd.grad)"),
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "flops": flops, "bytes": nbytes,
+                           "pct_of_bound": 100.0 * b_ms / ms[key]}
+                    emit(rec)
+                    results.append(rec)
+                tag = f"{suffix} H={H} B={B}"
+                if not finite:
+                    failures.append(f"{tag}: non-finite output")
+                if not dtypes_ok:
+                    failures.append(f"{tag}: output dtypes")
+                if masked_nonzero:
+                    failures.append(f"{tag}: {masked_nonzero} masked ys "
+                                    "not zero")
+                if io == bf16 and max(fwd_ulps.values()) > BF16_ULPS:
+                    failures.append(f"{tag}: forward {fwd_ulps} ulps")
+                if bwd_ulps["dw_hh"] > BF16_ULPS or (
+                        io == bf16 and max(bwd_ulps.values()) > BF16_ULPS):
+                    failures.append(f"{tag}: backward {bwd_ulps} ulps")
+                if io == f32:
+                    for n, tol in WBF16_REL_L2.items():
+                        if bwd_rel[n] > tol:
+                            failures.append(f"{tag}: {n} relative L2 "
+                                            f"{bwd_rel[n]} > {tol}")
+                        if unrounded_rel[n] <= tol:
+                            failures.append(
+                                f"{tag}: {n} without the dgates rounding "
+                                f"{unrounded_rel[n]} within {tol}")
+                if residency[suffix] != residency["f32"]:
+                    failures.append(f"{tag}: residency {residency}")
     require(not failures, "; ".join(failures))
     return results
 
@@ -2535,13 +2857,15 @@ def phase_eval(torch, lstm_cuda, cpu_evals, int8: bool = False,
     return offline, online, card
 
 
-def _card_vs_cpu_step(torch, body, batch, backend, init=None):
+def _card_vs_cpu_step(torch, body, batch, backend, init=None, dtype=None,
+                      batch_dtype=None):
     """One concurrent train step on `backend` on the CPU port and on the
-    card from identical params (the same seeded init on each device, or
-    with `init` the modules it names warm-started from its JAX-layout
-    trees at the finetune lr), batch and draws (one CPU generator seeded
-    alike for both runs): {device: (losses, gradients, updated params,
-    seconds)}."""
+    card from identical params (the same seeded init on each device, in
+    `dtype` when given, or with `init` the modules it names warm-started
+    from its JAX-layout trees at the finetune lr), batch (its floating
+    tensors cast to `batch_dtype` when given) and draws (one CPU generator
+    seeded alike for both runs): {device: (losses, gradients, updated
+    params, seconds, the optimizer's moments (mu, nu) per parameter)}."""
     from mobileposer_tpu_torch import config as C
     from mobileposer_tpu_torch.train.trainer import (
         MODULE_NAMES, _state_from_tree, init_train_state,
@@ -2555,19 +2879,27 @@ def _card_vs_cpu_step(torch, body, batch, backend, init=None):
                                           dev) for n in names}
         else:
             states = {n: init_train_state(
-                n, torch.Generator().manual_seed(3), C.train_hypers.lr, dev)
-                for n in names}
+                n, torch.Generator().manual_seed(3), C.train_hypers.lr, dev,
+                **({"dtype": dtype} if dtype else {})) for n in names}
+        b = to_device(batch, dev)
+        if batch_dtype is not None:
+            b = {k: v.to(batch_dtype) if v.is_floating_point() else v
+                 for k, v in b.items()}
         t0 = time.perf_counter()
-        states, losses = step(states, to_device(batch, dev),
-                              torch.Generator().manual_seed(4))
+        states, losses = step(states, b, torch.Generator().manual_seed(4))
         if dev == "cuda":
             torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        params = {n: list(states[n].params.parameters()) for n in names}
         outs[dev] = (
             {n: float(v) for n, v in losses.items()},
-            {n: [p.grad.detach().cpu() for p in states[n].params.parameters()]
-             for n in names},
-            {n: [p.detach().cpu() for p in states[n].params.parameters()]
-             for n in names}, time.perf_counter() - t0)
+            {n: [p.grad.detach().cpu() for p in ps]
+             for n, ps in params.items()},
+            {n: [p.detach().cpu() for p in ps] for n, ps in params.items()},
+            seconds,
+            {n: [tuple(st[k].cpu() for k in ("mu", "nu") if k in st)
+                 for st in (states[n].opt.state[p] for p in ps)]
+             for n, ps in params.items()})
     return outs
 
 
@@ -2698,9 +3030,9 @@ def phase_train(torch, lstm_cuda, train_cuda):
     steps = 2
     expect_train = dict.fromkeys(train_cuda.launches, 0)
     expect_train16 = dict(expect_train)
-    for k in expect_train:
-        (expect_train if k.endswith("f32") else expect_train16)[k] = (
-            n_layer_dirs * steps)
+    for k in ("fwd", "bwd", "dw"):
+        expect_train[f"lstm_train_{k}_f32"] = n_layer_dirs * steps
+        expect_train16[f"lstm_train_{k}_bf16res"] = n_layer_dirs * steps
     # one validation batch on the inference route: the masked kernels,
     # 6 bidirectional layers and 2 velocity layers
     expect_infer = dict.fromkeys(lstm_cuda.launches, 0)
@@ -3086,38 +3418,117 @@ def _serve_tick_parts(torch, net, params, smi, streams, mode):
     return rec
 
 
-def phase_serving(torch, lstm_cuda, smi):
+def serving_frames(seed: int):
+    """The lockstep runs' frames [SERVE_TICKS, SERVE_STREAMS, 60]."""
+    import numpy as np
+    return (np.random.RandomState(seed).randn(SERVE_TICKS, SERVE_STREAMS, 60)
+            * 0.1).astype(np.float32)
+
+
+def serving_steps(torch, device: str, mode: str, quantize, slots):
+    """The direct serving step of phase 4e's variant (mode, quantize) on
+    `device`, the streams of `serving_frames(9)` in `slots`: its replies
+    and step outputs (`_serve_direct`), and with int8 the step outputs on
+    the trained fixture too (`trained_<output>`), as float32 arrays."""
+    from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
+    from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
+    from mobileposer_tpu_torch.ops.quant import quantize_params_int8
+    net = MobilePoserNet(device=device)
+    params = init_all_modules(torch.Generator().manual_seed(0),
+                              device=device)
+    frames = serving_frames(9)
+    p = quantize_params_int8(params) if quantize else params
+    replies, steps = _serve_direct(torch, net, p, mode, frames, slots)
+    out = {"replies": replies, **steps}
+    if quantize:
+        p = quantize_params_int8(params_from_jax(load_npz(FIXTURE),
+                                                 device=device))
+        out.update({f"trained_{k}": v for k, v in _serve_direct(
+            torch, net, p, mode, frames, slots)[1].items()})
+    return out
+
+
+_CPU_SERVE = """
+import os, sys, time
+os.nice(19)
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import chip_smoke
+t0 = time.perf_counter()
+out = chip_smoke.serving_steps(torch, "cpu", sys.argv[2], sys.argv[3] or None,
+                               list(range(chip_smoke.SERVE_STREAMS)))
+np.savez(sys.argv[4], seconds=time.perf_counter() - t0, **out)
+"""
+
+
+class CpuServing:
+    """The CPU port's direct serving steps that phase 4e holds the card's
+    to (`serving_steps`, stream s in slot s), one process per variant with
+    one torch thread each, started at the lowest priority right after the
+    build so that they run on the cores the card's phases leave idle: in
+    the script's own process they took ~130 s of phase 4e. `result` waits
+    for one; `close` stops any still running and removes their files."""
+
+    def __init__(self):
+        self.dir = tempfile.TemporaryDirectory()
+        env = {**os.environ, "OMP_NUM_THREADS": "1"}
+        self.procs = {}
+        for mode, quantize in SERVE_VARIANTS:
+            out = Path(self.dir.name) / f"{mode}_{quantize or 'f32'}"
+            with open(out.with_suffix(".log"), "w") as log:
+                self.procs[(mode, quantize)] = (subprocess.Popen(
+                    [sys.executable, "-c", _CPU_SERVE, str(ROOT), mode,
+                     quantize or "", str(out.with_suffix(".npz"))],
+                    env=env, stdout=subprocess.DEVNULL, stderr=log), out)
+
+    def result(self, mode: str, quantize) -> dict:
+        import numpy as np
+        proc, out = self.procs[(mode, quantize)]
+        proc.wait(timeout=900)
+        require(proc.returncode == 0, f"CPU serving {mode} {quantize} "
+                f"failed:\n{out.with_suffix('.log').read_text()[-3000:]}")
+        with np.load(out.with_suffix(".npz")) as f:
+            return {k: f[k] for k in f.files}
+
+    def close(self) -> None:
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.dir.cleanup()
+
+
+def phase_serving(torch, lstm_cuda, smi, cpu_serving):
     """`PoseServer` on the card over loopback UDP with the full model
     (random weights from seed 0): SERVE_STREAMS `PoseClient`s in lockstep
     for SERVE_TICKS ticks in four variants (exact and carry, float32 and
     int8), each synchronous and pipelined. Replies must equal the direct
     step on the card exactly, pipelined must equal synchronous exactly,
-    the card must match the CPU port within the slice's gates, and the
-    exact ticks must launch the layer kernels at their per-tick counts
-    (carry: no LSTM kernel); the int8 pose is held to the CPU on the
-    trained fixture (see below). Then the paced rates, and `cli.serve` on
-    the card. Returns the launch counts of the exact float32 and int8
-    runs."""
+    the card must match the CPU port (`cpu_serving`, a `CpuServing`)
+    within the slice's gates, and the exact ticks must launch the layer
+    kernels at their per-tick counts (carry: no LSTM kernel); the int8
+    pose is held to the CPU on the trained fixture (see below). Then the
+    paced rates, and `cli.serve` on the card. Returns the launch counts of
+    the exact float32 and int8 runs."""
     import numpy as np
     from mobileposer_tpu_torch.cli import serve as serve_cli
     from mobileposer_tpu_torch.models import MobilePoserNet, init_all_modules
-    from mobileposer_tpu_torch.nn.convert import load_npz, params_from_jax
-    from mobileposer_tpu_torch.ops.quant import quantize_params_int8
     from mobileposer_tpu_torch.stream import PoseClient, PoseServer
 
-    nets = {d: MobilePoserNet(device=d) for d in ("cuda", "cpu")}
-    params = {d: init_all_modules(torch.Generator().manual_seed(0),
-                                  device=d) for d in nets}
+    net = MobilePoserNet(device="cuda")
+    params = init_all_modules(torch.Generator().manual_seed(0),
+                              device="cuda")
     S, T = SERVE_STREAMS, SERVE_TICKS
-    frames = (np.random.RandomState(9).randn(T, S, 60) * 0.1).astype(
-        np.float32)
+    frames = serving_frames(9)
     serving_launches = {}
     for mode, quantize in SERVE_VARIANTS:
         suffix = "int8" if quantize else "f32"
         tol = INT8_SLICE_TOL if quantize else SLICE_TOL
         replies = {}
         for pipelined in (False, True):
-            srv = PoseServer(nets["cuda"], params["cuda"], host="127.0.0.1",
+            srv = PoseServer(net, params, host="127.0.0.1",
                              port=0, max_streams=S, mode=mode,
                              quantize=quantize, pipelined=pipelined)
             clients = [PoseClient(stream_id=1000 + s, port=srv.port,
@@ -3155,20 +3566,19 @@ def phase_serving(torch, lstm_cuda, smi):
             require(stats["native_udp"], "the server has no native UDP")
             require(bool(np.isfinite(replies[pipelined]).all()),
                     "non-finite replies")
-        # the direct step on the card, and the CPU port: the replies
+        # the direct step on the card, and the CPU port's: the replies
         # equal the card's step bit for bit, and the card's step is held
         # to the CPU's on the step's own outputs, as phase 4 holds them
         # (an axis-angle reply passes through the log map, whose axis is
-        # ill-conditioned near pi)
-        direct, steps = {}, {}
-        for d in ("cuda", "cpu"):
-            p = quantize_params_int8(params[d]) if quantize else params[d]
-            direct[d], steps[d] = _serve_direct(torch, nets[d], p, mode,
-                                                frames, slots)
-        vs_step = float(abs(replies[False] - direct["cuda"]).max())
+        # ill-conditioned near pi). The CPU fed stream s in slot s, the
+        # card the server's slots: a row's arithmetic is the same in any
+        # slot but for float32 rounding.
+        card = serving_steps(torch, "cuda", mode, quantize, slots)
+        cpu = cpu_serving.result(mode, quantize)
+        outputs = ("pose", "joints", "root", "contact")
+        vs_step = float(abs(replies[False] - card["replies"]).max())
         vs_sync = float(abs(replies[True] - replies[False]).max())
-        vs_cpu = {k: float(abs(steps["cuda"][k] - steps["cpu"][k]).max())
-                  for k in steps["cpu"]}
+        vs_cpu = {k: float(abs(card[k] - cpu[k]).max()) for k in outputs}
         gated = dict(vs_cpu)
         trained = None
         if quantize:
@@ -3180,15 +3590,9 @@ def phase_serving(torch, lstm_cuda, smi):
             # INT8_SLICE_TOL was argued for (phase 4); the random-weight
             # pose difference is reported beside it.
             gated.pop("pose")
-            tree = load_npz(FIXTURE)
-            trained = {}
-            for d in ("cuda", "cpu"):
-                p = quantize_params_int8(params_from_jax(tree, device=d))
-                trained[d] = _serve_direct(torch, nets[d], p, mode, frames,
-                                           slots)[1]
-            trained = {k: float(abs(trained["cuda"][k]
-                                    - trained["cpu"][k]).max())
-                       for k in trained["cpu"]}
+            trained = {k: float(abs(card[f"trained_{k}"]
+                                    - cpu[f"trained_{k}"]).max())
+                       for k in outputs}
             gated.update({f"trained_{k}": v for k, v in trained.items()})
         emit({"phase": "serving", "mode": mode, "int8": quantize == "int8",
               "streams": S, "ticks": T,
@@ -3198,7 +3602,8 @@ def phase_serving(torch, lstm_cuda, smi):
               "card_vs_cpu_trained_fixture_max_abs": trained,
               "gated": sorted(gated), "tol": tol,
               "reply_vs_cpu_reply_max_abs": float(
-                  abs(replies[False] - direct["cpu"]).max())})
+                  abs(replies[False] - cpu["replies"]).max()),
+              "cpu_seconds": float(cpu["seconds"])})
         require(vs_step == 0.0, f"serving {mode} int8={quantize}: replies "
                                 f"differ from the direct step by {vs_step}")
         require(vs_sync == 0.0, f"serving {mode} int8={quantize}: "
@@ -3207,21 +3612,24 @@ def phase_serving(torch, lstm_cuda, smi):
                 f"serving {mode} int8={quantize}: card vs CPU {gated} > "
                 f"{tol}")
 
+    mark("4e lockstep")
     # where a tick's host time goes, exact and carry float32
     for mode in ("exact", "carry"):
-        emit(_serve_tick_parts(torch, nets["cuda"], params["cuda"], smi, S,
-                               mode))
+        emit(_serve_tick_parts(torch, net, params, smi, SERVE_STREAMS, mode))
+    mark("4e tick parts")
 
     # paced rates: every variant at SERVE_STREAMS pipelined, exact float32
     # synchronous too; the exact path at 256 streams, float32 and int8
-    runs = [(S, m, q, True) for m, q in SERVE_VARIANTS]
-    runs += [(S, "exact", None, False), (256, "exact", None, True),
+    runs = [(SERVE_STREAMS, m, q, True) for m, q in SERVE_VARIANTS]
+    runs += [(SERVE_STREAMS, "exact", None, False),
+             (256, "exact", None, True),
              (256, "exact", "int8", True)]
     for streams, mode, quantize, pipelined in runs:
-        rec = _serve_paced(torch, nets["cuda"], params["cuda"], smi,
-                           streams, mode, quantize, pipelined)
+        rec = _serve_paced(torch, net, params, smi, streams, mode, quantize,
+                           pipelined)
         emit(rec)
         require(rec["replies_received"] > 0, "no reply in the paced run")
+    mark("4e paced")
 
     # the serving CLI on the card, default device
     for flags in ([], ["--carry", "--int8", "--wire", "f16"]):
@@ -3231,6 +3639,7 @@ def phase_serving(torch, lstm_cuda, smi):
         emit({"phase": "serve_cli", "flags": flags, "stats": stats})
         require(stats["device"].startswith("cuda"),
                 f"cli.serve ran on {stats['device']}")
+    mark("4e cli")
     return serving_launches
 
 
@@ -3384,8 +3793,7 @@ def phase_bf16_serving(torch, lstm_cuda, smi, quantize=None):
     # what the server steps on: it quantizes the cast it is given
     stepped = quantize_params_int8(params) if int8 else params
     S, T = SERVE_STREAMS, SERVE_TICKS
-    frames = (np.random.RandomState(12).randn(T, S, 60) * 0.1).astype(
-        np.float32)
+    frames = serving_frames(12)
     serving_launches = {}
     for mode in ("exact", "carry"):
         replies = {}
@@ -3436,7 +3844,8 @@ def phase_bf16_serving(torch, lstm_cuda, smi, quantize=None):
         require(vs_sync == 0.0, f"bf16 serving {mode}: pipelined differs "
                                 f"from sync by {vs_sync}")
     for mode in ("exact", "carry"):
-        rec = _serve_paced(torch, net, params, smi, S, mode, quantize, True)
+        rec = _serve_paced(torch, net, params, smi, SERVE_STREAMS, mode,
+                           quantize, True)
         rec["bf16"] = True
         emit(rec)
         require(rec["replies_received"] > 0, "no reply in the bf16 paced "
@@ -4220,7 +4629,6 @@ def phase_live(torch, lstm_cuda):
     from mobileposer_tpu_torch.stream import (
         IMUSet, LivePoser, compute_device_calibration, compute_smpl2imu)
 
-    t_phase = time.perf_counter()
     rng = np.random.RandomState(17)
     mount = rng.randn(5, 4)
     mount /= np.linalg.norm(mount, axis=1, keepdims=True)
@@ -4377,7 +4785,6 @@ def phase_live(torch, lstm_cuda):
           "replayer_output_tail": side["replayer"].splitlines()[-3:]})
     require(native, "the frontend process did not run the native ingest: "
                     f"{side['frontend'][-1000:]}")
-    emit({"phase": "live_seconds", "seconds": time.perf_counter() - t_phase})
     return recs, loop_launches
 
 
@@ -4724,25 +5131,29 @@ def phase_parallel(torch, lstm_cuda, train_cuda, smi, ptxas):
     evaluation, serving and two-rank training, each against one device.
     Returns (the per-shard kernel records, the main-path launches of the
     sharded runs)."""
-    t0 = time.perf_counter()
     recs = phase_kernels(torch, lstm_cuda, cases=[
         ("bilstm_scan_f32", 256, 256 // PARALLEL_SHARDS),
         ("bilstm_scan_f32", 64, 256 // PARALLEL_SHARDS),
         ("lstm_scan_f32", 256, 256 // PARALLEL_SHARDS)])
     recs += phase_train_kernels(torch, train_cuda, ptxas,
                                 shapes=((256, 128), (64, 128)))
+    mark("4k kernels")
     meshes = _parallel_meshes(torch)
-    launches = {}
-    eval_launches = _parallel_eval(torch, lstm_cuda, meshes, smi)
-    _parallel_eval_rate(torch, meshes, smi)
-    for part in (eval_launches,
-                 _parallel_serving(torch, lstm_cuda, meshes, smi),
-                 _parallel_train(torch, train_cuda, smi)):
-        for k, v in part.items():
-            launches[k] = launches.get(k, 0) + v
-    emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t0,
+    emit({"phase": "parallel_meshes",
           "meshes": {k: [str(d) for d in m.devices]
                      for k, m in meshes.items()}})
+    launches = {}
+    eval_launches = _parallel_eval(torch, lstm_cuda, meshes, smi)
+    mark("4k eval")
+    _parallel_eval_rate(torch, meshes, smi)
+    mark("4k eval rate")
+    serving = _parallel_serving(torch, lstm_cuda, meshes, smi)
+    mark("4k serving")
+    for out in (eval_launches, serving,
+                _parallel_train(torch, train_cuda, smi)):
+        for k, v in out.items():
+            launches[k] = launches.get(k, 0) + v
+    mark("4k train")
     return recs, launches
 
 
@@ -5295,7 +5706,6 @@ def phase_library(torch, lstm_cuda, train_cuda, smi):
     from mobileposer_tpu_torch.kinematics.smpl import ParametricModel
     from mobileposer_tpu_torch.models.utils import load_model
 
-    t0 = time.perf_counter()
     tmp = Path(tempfile.mkdtemp())
     try:
         body = ParametricModel.from_file_or_synthetic(C.paths.smpl_file)
@@ -5313,8 +5723,326 @@ def phase_library(torch, lstm_cuda, train_cuda, smi):
         check(smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    emit({"phase": "library_seconds", "seconds": time.perf_counter() - t0})
     return launches
+
+# Phase 4m: a train step on bf16 params against the f32 step on the same
+# weights widened. The float32 batch makes the forward the f32 one on
+# those weights but for the bias sum b_ih + b_hh, rounded to bf16, and the
+# float32 sums' order; the losses were 9.1e-6 apart relatively (NVIDIA
+# H100 80GB HBM3, 700 W): held at 1e-4.
+BF16_STEP_LOSS_RTOL = 1e-4
+# The same step at STEP_BATCH on the card against the CPU port on the
+# same bf16 weights, batch and draws: losses within STEP_LOSS_RTOL;
+# gradients (bf16: float32 sums cast once) within STEP_BF16_GRAD_ULPS bf16
+# ulps of each tensor's largest magnitude, the bound the CPU tests hold
+# the port's gradients to against the JAX package's; the moments mu =
+# (1 - b1) g within one ulp more, nu = (1 - b2) g^2 (twice g's relative
+# error) within twice that and one more. The updated params where the
+# CPU gradient exceeds 2 STEP_BF16_GRAD_ULPS ulps of its tensor's largest
+# (so both devices move them the same way): one Adam step from fresh
+# moments moves an entry by lr * u, u = +-1 up to the bf16 roundings of
+# its few operations (2^-9 each, under 2^-5 in all on either device), so
+# the two agree within one bf16 ulp of the param plus lr * 2^-5; any
+# other entry, which may move the other way, within 2 lr (1 + 2^-5) plus
+# one ulp.
+STEP_BF16_GRAD_ULPS = 4
+# The compiled (inductor) loss and backward of one module on bf16 params
+# against eager: inductor fuses the elementwise ops around the kernels and
+# may round a float32 value differently in its last bits; the loss within
+# a relative 1e-5, each gradient (bf16) within COMPILED_GRAD_ULPS bf16 ulps
+# of its largest magnitude (a last bit of dy can flip the bf16 rounding of
+# a dgate for the dh product, which the scan carries on).
+COMPILED_LOSS_RTOL = 1e-5
+COMPILED_GRAD_ULPS = 2
+
+
+def _bf16_step_errors(torch, outs, lr):
+    """Card against CPU in a bf16-param `_card_vs_cpu_step` result: the
+    losses relative; the gradients, mu and nu in bf16 ulps of each CPU
+    tensor's largest magnitude (the worst tensor of each); and the updated
+    params' differences over their bounds (STEP_BF16_GRAD_ULPS's note), the
+    worst ratio of the determined entries and of the others."""
+    card, cpu = outs["cuda"], outs["cpu"]
+    loss = {n: abs(card[0][n] - c) / abs(c) for n, c in cpu[0].items()}
+    errs = dict.fromkeys(("grad_ulps", "mu_ulps", "nu_ulps",
+                          "param_determined", "param_others"), 0.0)
+    for n, grads in cpu[1].items():
+        for i, gc in enumerate(grads):
+            (mg, vg), (mc, vc) = card[4][n][i], cpu[4][n][i]
+            for k, g, c in (("grad_ulps", card[1][n][i], gc),
+                            ("mu_ulps", mg, mc), ("nu_ulps", vg, vc)):
+                errs[k] = max(errs[k], ulps_apart([g], [c]))
+            pc, pg = cpu[2][n][i].float(), card[2][n][i].float()
+            d = (pg - pc).abs()
+            # one bf16 ulp of the larger of the two
+            ulp = torch.ldexp(torch.ones_like(pc), torch.frexp(
+                torch.maximum(pc.abs(), pg.abs())).exponent - 8)
+            big = gc.float().abs() > 2 * STEP_BF16_GRAD_ULPS * bf16_ulp(gc)
+            for k, sel, allow in (
+                    ("param_determined", big, lr * 2 ** -5),
+                    ("param_others", ~big, 2 * lr * (1 + 2 ** -5))):
+                if bool(sel.any()):
+                    errs[k] = max(errs[k],
+                                  float((d / (ulp + allow))[sel].max()))
+    return loss, errs
+
+
+def phase_bf16_train(torch, lstm_cuda, train_cuda, multicell_cuda):
+    """Phase 4m: training on bf16 params at full width and C4's batch (B =
+    256 x 125). One concurrent step of the four modules on
+    `init_all_modules(dtype=torch.bfloat16)` (the seed's float32 weights
+    cast) under both residual dtypes, on C4's float32 batch (the f32
+    forward on the widened w_hh and the wbf16 backward: JAX promotes the
+    batch over bf16 weights) and on the batch cast to bf16 (joints, whose
+    input is the IMU alone, on the bf16-I/O entries; the other modules
+    concatenate the float32 noise, which promotes their input); each
+    against the f32 step on the weights widened (losses within
+    BF16_STEP_LOSS_RTOL on the float32 batch) and on the original float32
+    weights (loss gaps), with finite losses, every parameter and moment
+    still bf16 and the launches of the f32 step (10 #7, 10 #8 scans, 10
+    dW per step). Then the same four variants at STEP_BATCH against the
+    CPU port on the same weights, batch and draws: losses, gradients,
+    moments and updated params (STEP_BF16_GRAD_ULPS). Then each variant's
+    step time and peak memory beside C4's and C9's (`bench.run_train`);
+    the compiled (inductor) loss and backward of footcontact against
+    eager with the same #7 / #8 launches; and `forward(backend='fused')`
+    exported with the weights as inputs against the eager forward at
+    0.0 with 2 multicell + 2 bilstm launches. Returns the launch counts
+    of the bf16-param runs (the new entries' main-path runs)."""
+    import numpy as np
+    from mobileposer_tpu_torch import bench, serving
+    from mobileposer_tpu_torch import config as C
+    from mobileposer_tpu_torch.kinematics import ParametricModel
+    from mobileposer_tpu_torch.models import MobilePoserNet, forward
+    from mobileposer_tpu_torch.models import modules as M
+    from mobileposer_tpu_torch.nn.convert import cast_params
+    from mobileposer_tpu_torch.train.trainer import (
+        MODULE_NAMES, TrainState, make_multi_train_step, make_optimizer,
+        to_device)
+    bf16, f32 = torch.bfloat16, torch.float32
+    body = ParametricModel.synthetic()
+    batch = to_device(bench.train_batch(256, 125, 0), "cuda")
+    batch16 = {k: v.to(bf16) if v.is_floating_point() else v
+               for k, v in batch.items()}
+    p32 = M.init_all_modules(torch.Generator().manual_seed(0), "cuda")
+    p16 = cast_params(p32, bf16)
+    widened = cast_params(p16, f32)
+    lr = C.train_hypers.lr
+
+    def states_of(params):
+        params = cast_params(params, params["joints"].linear1.weight.dtype)
+        return {n: TrainState(params[n].requires_grad_(True),
+                              make_optimizer(n, lr, params[n]))
+                for n in MODULE_NAMES}
+
+    def run(params, b, backend):
+        step = make_multi_train_step(body, backend=backend)
+        states = states_of(params)
+        train_cuda.reset_launches()
+        states, losses = step(states, b,
+                              torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        return states, {n: float(v) for n, v in losses.items()}, {
+            k: n for k, n in train_cuda.launches.items() if n}
+
+    n_dirs = sum((2 if cfg.bidirectional else 1) * cfg.n_layers
+                 for cfg in M.MODULE_CONFIGS.values())
+    joints_dirs = 2 * M.MODULE_CONFIGS["joints"].n_layers
+    main_launches, failures = {}, []
+    for backend, res in (("auto_train", ""), ("auto_train_bf16res",
+                                              "_bf16res")):
+        dw = "lstm_train_dw_" + ("bf16res" if res else "f32")
+        fwd32 = "lstm_train_fwd_" + ("bf16res" if res else "f32")
+        _, want, _ = run(widened, batch, backend)
+        _, orig, _ = run(p32, batch, backend)
+        for b, tag in ((batch, "f32_batch"), (batch16, "bf16_batch")):
+            states, losses, launches = run(p16, b, backend)
+            if tag == "f32_batch":
+                expect = {fwd32: n_dirs,
+                          f"lstm_train_bwd_wbf16{res}": n_dirs, dw: n_dirs}
+            else:
+                rest = n_dirs - joints_dirs
+                expect = {f"lstm_train_fwd_bf16{res}": joints_dirs,
+                          f"lstm_train_bwd_bf16{res}": joints_dirs,
+                          fwd32: rest,
+                          f"lstm_train_bwd_wbf16{res}": rest, dw: n_dirs}
+            # each new entry's main-path run: the float32 batch for the
+            # wbf16 backward, the bf16 one for the bf16-I/O entries
+            new = ({f"lstm_train_bwd_wbf16{res}"} if tag == "f32_batch"
+                   else {f"lstm_train_{k}_bf16{res}" for k in ("fwd", "bwd")})
+            main_launches.update({k: launches.get(k, 0) for k in new})
+            gap = {n: abs(losses[n] - want[n]) / abs(want[n])
+                   for n in MODULE_NAMES}
+            gap_orig = {n: abs(losses[n] - orig[n]) / abs(orig[n])
+                        for n in MODULE_NAMES}
+            dtypes = {str(p.dtype) for n in MODULE_NAMES
+                      for p in states[n].params.parameters()}
+            moments = {str(v.dtype) for n in MODULE_NAMES
+                       for st in states[n].opt.state.values()
+                       for k, v in st.items() if k in ("mu", "nu")}
+            emit({"phase": "bf16_train_step", "backend": backend,
+                  "batch": tag, "losses": losses,
+                  "f32_losses_on_widened": want, "f32_losses": orig,
+                  "loss_rel_gap_vs_widened": gap,
+                  "loss_rel_gap_vs_f32": gap_orig,
+                  "largest_gap_vs_f32": max(gap_orig.values()),
+                  "rtol": BF16_STEP_LOSS_RTOL, "launches": launches,
+                  "expected_launches": expect, "param_dtypes": sorted(dtypes),
+                  "moment_dtypes": sorted(moments)})
+            tag = f"{backend} {tag}"
+            if not all(math.isfinite(v) for v in losses.values()):
+                failures.append(f"{tag}: losses {losses}")
+            if launches != expect:
+                failures.append(f"{tag}: launches {launches}, expected "
+                                f"{expect}")
+            if tag.endswith("f32_batch") and max(gap.values()) \
+                    > BF16_STEP_LOSS_RTOL:
+                failures.append(f"{tag}: losses {gap} from the f32 step")
+            if dtypes != {"torch.bfloat16"} or moments != {"torch.bfloat16"}:
+                failures.append(f"{tag}: dtypes {dtypes}, {moments}")
+    mark("4m step")
+
+    # the same steps at STEP_BATCH, card against the CPU port
+    small = bench.train_batch(STEP_BATCH, 125, 0)
+    bounds = {"grad_ulps": STEP_BF16_GRAD_ULPS,
+              "mu_ulps": STEP_BF16_GRAD_ULPS + 1,
+              "nu_ulps": 2 * STEP_BF16_GRAD_ULPS + 1,
+              "param_determined": 1.0, "param_others": 1.0}
+    for backend in ("auto_train", "auto_train_bf16res"):
+        for batch_dtype, tag in ((None, "f32_batch"), (bf16, "bf16_batch")):
+            outs = _card_vs_cpu_step(torch, body, small, backend, dtype=bf16,
+                                     batch_dtype=batch_dtype)
+            loss_rel, errs = _bf16_step_errors(torch, outs, lr)
+            emit({"phase": "bf16_train_step_vs_cpu", "backend": backend,
+                  "batch": tag, "step_batch": STEP_BATCH,
+                  "loss_rel_err": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+                  "errors": errs, "bounds": bounds,
+                  "step_seconds": {d: outs[d][3] for d in outs}})
+            tag = f"{backend} {tag} vs CPU"
+            if max(loss_rel.values()) > STEP_LOSS_RTOL:
+                failures.append(f"{tag}: losses {loss_rel}")
+            over = {k: v for k, v in errs.items() if v > bounds[k]}
+            if over:
+                failures.append(f"{tag}: {over} beyond {bounds}")
+    mark("4m step vs CPU")
+
+    # step time and peak memory, C4 and C9 beside, in turns
+    rates = {}
+    for params16, res16 in ((False, False), (False, True), (True, False),
+                            (True, True)):
+        rec = bench.run_train(batch=256, window=125, bf16_residuals=res16,
+                              bf16_params=params16)
+        rates[rec["metric"]] = rec
+        emit({"phase": "bf16_train_rate", **rec})
+    c4 = rates["training_frames_per_sec"]
+    for k, rec in rates.items():
+        if rec["bf16_params"]:
+            emit({"phase": "bf16_train_rate_vs_c4", "metric": k,
+                  "step_ms": rec["step_ms"], "c4_step_ms": c4["step_ms"],
+                  "c9_step_ms": rates["training_bf16res_frames_per_sec"][
+                      "step_ms"],
+                  "peak_memory_bytes": rec["peak_memory_bytes"],
+                  "c4_peak_memory_bytes": c4["peak_memory_bytes"],
+                  "c9_peak_memory_bytes": rates[
+                      "training_bf16res_frames_per_sec"]["peak_memory_bytes"],
+                  "over_c4": rec["value"] / c4["value"]})
+            per_step = {n: v for n, v in rec[
+                "train_kernel_launches_per_step"].items() if v}
+            if sorted(per_step.values()) != [n_dirs] * 3:
+                failures.append(f"{k}: launches a step {per_step}")
+
+    # the compiled (inductor) loss and backward of one module, eager beside
+    name = "footcontact"
+    cfg = M.MODULE_CONFIGS[name]
+    dirs = cfg.n_layers * (2 if cfg.bidirectional else 1)
+    block = cast_params(p16[name], bf16).requires_grad_(True)
+    draws = M.draw(name, batch, torch.Generator(device="cuda").manual_seed(2))
+
+    def loss_fn(block, batch, draws):
+        return M.LOSSES[name](block, batch, draws, train=True,
+                              backend="auto_train")
+
+    compiled = torch.compile(loss_fn, fullgraph=True)
+    runs = {}
+    for label, fn in (("eager", loss_fn), ("compile", compiled),
+                      ("compiled", compiled)):
+        block.zero_grad(set_to_none=True)
+        train_cuda.reset_launches()
+        t0 = time.perf_counter()
+        loss = fn(block, batch, draws)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[label] = (float(loss), [p.grad.clone() for p in
+                                     block.parameters()],
+                       {k: n for k, n in train_cuda.launches.items() if n},
+                       time.perf_counter() - t0)
+    (l_e, g_e, n_e, _), (l_c, g_c, n_c, t_c) = runs["eager"], runs["compiled"]
+    loss_rel = abs(l_c - l_e) / abs(l_e)
+    grad_ulps = max(ulps_apart([a], [b]) for a, b in zip(g_c, g_e))
+    expect = {"lstm_train_fwd_f32": dirs, "lstm_train_bwd_wbf16": dirs,
+              "lstm_train_dw_f32": dirs}
+    emit({"phase": "bf16_train_compiled", "module": name,
+          "backend": "inductor", "loss_rel_err": loss_rel,
+          "loss_rtol": COMPILED_LOSS_RTOL, "grad_max_ulps": grad_ulps,
+          "grad_ulps_tol": COMPILED_GRAD_ULPS, "eager_launches": n_e,
+          "compiled_launches": n_c,
+          "compile_seconds": runs["compile"][3], "compiled_seconds": t_c,
+          "eager_seconds": runs["eager"][3]})
+    if loss_rel > COMPILED_LOSS_RTOL or grad_ulps > COMPILED_GRAD_ULPS:
+        failures.append(f"compiled {name}: loss {loss_rel}, gradients "
+                        f"{grad_ulps} ulps")
+    if not (n_e == n_c == expect):
+        failures.append(f"compiled {name}: launches eager {n_e}, compiled "
+                        f"{n_c}, expected {expect}")
+
+    # forward(backend='fused') exported, the weights as inputs
+    net = MobilePoserNet(body, device="cuda")
+    imu = torch.from_numpy((np.random.RandomState(3).randn(256, 45, 60)
+                            * 0.1).astype(np.float32)).cuda()
+
+    def fn(modules, imu):
+        return forward(modules, imu, net.body_model, backend="fused")
+
+    def counts():
+        return {k: n for k, n in {**lstm_cuda.launches,
+                                  **multicell_cuda.launches}.items() if n}
+
+    t0 = time.perf_counter()
+    prog = serving._export(net, p32, fn, (imu,), f32)
+    export_s = time.perf_counter() - t0
+    nodes = {}
+    for n in prog.graph.nodes:
+        if n.op == "call_function" and str(n.target).startswith(
+                "mobileposer_tpu_torch."):
+            nodes[str(n.target)] = nodes.get(str(n.target), 0) + 1
+    outs = {}
+    with torch.no_grad():
+        for label, call in (("eager", lambda: fn(p32, imu)),
+                            ("exported", lambda: prog.module()(
+                                serving._weights(p32), imu))):
+            lstm_cuda.reset_launches()
+            multicell_cuda.reset_launches()
+            out = call()
+            torch.cuda.synchronize()
+            outs[label] = (torch.utils._pytree.tree_leaves(out), counts())
+    err = max(float((a - b).abs().max())
+              for a, b in zip(outs["exported"][0], outs["eager"][0]))
+    expect = {"multicell_scan_f32": 2, "bilstm_scan_f32": 2}
+    emit({"phase": "fused_export", "B": 256, "T": 45,
+          "export_seconds": export_s, "graph_ops": nodes,
+          "max_abs_err_vs_eager": err, "eager_launches": outs["eager"][1],
+          "exported_launches": outs["exported"][1]})
+    if err != 0.0:
+        failures.append(f"exported fused forward {err} from eager")
+    if nodes != {"mobileposer_tpu_torch.multicell_lstm.default": 2,
+                 "mobileposer_tpu_torch.bilstm_layer.default": 2}:
+        failures.append(f"exported fused forward graph ops {nodes}")
+    if not (outs["eager"][1] == outs["exported"][1] == expect):
+        failures.append(f"fused launches eager {outs['eager'][1]}, "
+                        f"exported {outs['exported'][1]}")
+    require(not failures, "; ".join(failures))
+    return main_launches
+
 
 def main() -> int:
     import torch
@@ -5331,6 +6059,7 @@ def main() -> int:
     from mobileposer_tpu_torch.ops import _build, lstm_cuda, multicell_cuda
     from mobileposer_tpu_torch.ops import lstm_train_cuda as train_cuda
 
+    mark("start")
     # 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5364,27 +6093,45 @@ def main() -> int:
                       if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+    # the CPU port's serving steps, the references of phase 4e, in
+    # processes of their own from here on; stopped whichever way the
+    # script ends
+    cpu_serving = CpuServing()
+    atexit.register(cpu_serving.close)
+    mark("2 build")
 
     # 3. each kernel against its plain version
     kernel_recs = phase_kernels(torch, lstm_cuda)
+    mark("3")
     # 3b. each masked kernel against its plain version
     kernel_recs += phase_masked_kernels(torch, lstm_cuda)
+    mark("3b")
     # 3c. the training kernels against their plain versions
     train_recs = phase_train_kernels(torch, train_cuda,
                                      ptxas["lstm_train.cu"])
+    mark("3c")
     # 3h. the bf16res entries of #7 and #8 against the f32 entries and
     # their plain versions
     train_recs += phase_train_bf16res_kernels(torch, train_cuda)
+    mark("3h")
+    # 3i. the entries of #7 and #8 for bf16 params (bf16 I/O, and float32
+    # I/O beside bf16 w_hh) against their plain versions
+    train_recs += phase_train_bf16_kernels(torch, train_cuda)
+    mark("3i")
     # 3d. the int8 kernels against their plain versions
     kernel_recs += phase_int8_kernels(torch, lstm_cuda)
+    mark("3d")
     # 3e. the multicell kernel against its plain version
     kernel_recs += phase_multicell(torch, multicell_cuda, lstm_cuda)
+    mark("3e")
     # 3f. the bf16-I/O entries of #1, #2, #3 and #9 against their plain
     # versions
     kernel_recs += phase_bf16_kernels(torch, lstm_cuda, multicell_cuda)
+    mark("3f")
     # 3g. the bf16-I/O entries of #4, #5 and #6 against their plain
     # versions
     kernel_recs += phase_int8_bf16_kernels(torch, lstm_cuda)
+    mark("3g")
 
     # the CPU port's evaluations, the references of phases 4b, 4f and 4g,
     # in processes of their own while the card runs phases 4 to 4d; they
@@ -5397,6 +6144,7 @@ def main() -> int:
     multicell_cuda.reset_launches()
     stream_launches = phase_slice(torch, lstm_cuda)
     stream_int8_launches = phase_slice(torch, lstm_cuda, int8=True)
+    mark("4")
     # 4b. the evaluation entry point, float32 then --int8 (their offline
     # runs: the masked counters)
     offline_launches, online_launches, card_f32 = phase_eval(
@@ -5419,22 +6167,27 @@ def main() -> int:
             require(abs(v) < INT8_DELTA_BOUND[row],
                     f"{k} int8 - float32 row {row}: {v} beyond "
                     f"{INT8_DELTA_BOUND[row]}")
+    mark("4b")
     # 4c. the training entry point, float32 then bf16 residuals (their
     # runs: the training counters)
     train_launches, train16_launches = phase_train(torch, lstm_cuda,
                                                    train_cuda)
+    mark("4c")
     # the multicell kernel is `forward(backend='fused')`'s alone
     require(multicell_cuda.launches["multicell_scan_f32"] == 0,
             "the streaming, evaluation or training path launched the "
             "multicell kernel")
     # 4d. the fused single-window forward (its run: the multicell counter)
     fused_launches = phase_fused(torch, lstm_cuda, multicell_cuda)
+    mark("4d")
     # every CPU evaluation done before the paced serving runs, which the
     # host's load would slow
     cpu_evals.wait()
+    mark("4e wait for the CPU evaluations")
     # 4e. the serving entry point (its runs: the full-length counters of
     # the exact float32 and int8 servers)
-    serving_launches = phase_serving(torch, lstm_cuda, smi)
+    serving_launches = phase_serving(torch, lstm_cuda, smi, cpu_serving)
+    cpu_serving.close()
     serving_by_kernel = {
         name: serving_launches["int8" if "int8" in name else "f32"][name]
         for name in ("bilstm_scan_f32", "lstm_scan_f32", "bilstm_scan_int8",
@@ -5453,6 +6206,7 @@ def main() -> int:
         serving_by_kernel[name] = bf16_serving[name]
         require(bf16_serving[name] > 0,
                 f"{name} was never launched by the bf16 server")
+    mark("4f")
     # 4g. int8 on bf16 params: streaming exact and carry (the exact runs:
     # the full-length int8 bf16 counters), `cli.evaluate --int8 --bf16`
     # (its offline run: the masked int8 bf16 counters), serving
@@ -5467,19 +6221,19 @@ def main() -> int:
         serving_by_kernel[name] = int8_bf16_serving[name]
         require(int8_bf16_serving[name] > 0,
                 f"{name} was never launched by the int8 bf16 server")
+    mark("4g")
     # 4h. the AOT serving bundle: exported, saved, loaded and run (its
     # loaded runs: the bundle counters)
-    t0 = time.perf_counter()
     bundle_launches = phase_bundle(torch, lstm_cuda)
-    emit({"phase": "bundle_seconds", "seconds": time.perf_counter() - t0})
+    mark("4h")
     # 4i. the offline recipe: raw-data processing, finetune, example,
     # overfit (their runs: the recipe counters)
-    t0 = time.perf_counter()
     recipe_launches = phase_recipe(torch, lstm_cuda, train_cuda)
-    emit({"phase": "recipe_seconds", "seconds": time.perf_counter() - t0})
+    mark("4i")
     # 4j. the live runtime: the step card against CPU, the loopback loop,
     # the live demo CLI (its loop runs: the live counters)
     live_recs, live_launches = phase_live(torch, lstm_cuda)
+    mark("4j")
     kernel_recs += live_recs
     main_launches = {
         **{k: n for k, n in stream_launches.items() if k.endswith("f32")
@@ -5491,8 +6245,8 @@ def main() -> int:
         **{k: n for k, n in offline_int8_launches.items()
            if k.endswith("int8") and "masked" in k},
         **{k: n for k, n in train_launches.items() if k.endswith("f32")},
-        **{k: n for k, n in train16_launches.items()
-           if k.endswith("bf16res")},
+        **{f"lstm_train_{k}_bf16res": train16_launches[
+            f"lstm_train_{k}_bf16res"] for k in ("fwd", "bwd", "dw")},
         "multicell_scan_f32": fused_launches["multicell_scan_f32"],
         **{k: bf16_stream_launches[k] for k in ("bilstm_scan_bf16",
                                                 "lstm_scan_bf16")},
@@ -5529,56 +6283,75 @@ def main() -> int:
                  "lstm_train_dw_f32"):
         require(library_launches.get(name, 0) > 0,
                 f"{name} was never launched on the library's paths")
+    mark("4l")
+    # 4m. training on bf16 params: the concurrent step on the new entries
+    # (their runs: the bf16-param counters), its time and memory beside
+    # C4's and C9's, a compiled module's loss and backward, the exported
+    # fused forward
+    bf16_train_launches = phase_bf16_train(torch, lstm_cuda, train_cuda,
+                                           multicell_cuda)
+    for name in (*(f"lstm_train_{k}_{s}" for k in ("fwd", "bwd")
+                   for s in ("bf16", "bf16_bf16res")),
+                 "lstm_train_bwd_wbf16", "lstm_train_bwd_wbf16_bf16res"):
+        require(bf16_train_launches.get(name, 0) > 0,
+                f"{name} was never launched on its main path")
+        main_launches[name] = bf16_train_launches[name]
+    mark("4m")
 
     # 5. exact-path streamed frames/s (tracing off), then one traced call;
     # at 256 streams (C1's shape) the same on bf16 params beside it
     for streams in (256, 8):
-        rec = bench.run(n_streams=streams, n_frames=100)
+        rec = bench.run(n_streams=streams, n_frames=RATE_FRAMES,
+                        trials=RATE_TRIALS)
         emit({"phase": "rate", **rec})
         require(rec["pct_of_f32_peak"] < 100.0,
                 "implied FLOP/s above the card's peak: the harness is wrong")
-        trace = bench.breakdown(n_streams=streams, n_frames=100)
+        trace = bench.breakdown(n_streams=streams, n_frames=RATE_FRAMES)
         emit({"phase": "breakdown", **trace})
         require(trace["device_busy_seconds"] > 0,
                 "the traced call shows no device time")
         if streams == 256:
-            rec16 = bench.run(n_streams=256, n_frames=100, bf16=True)
+            rec16 = bench.run(n_streams=256, n_frames=RATE_FRAMES, bf16=True,
+                              trials=RATE_TRIALS)
             emit({"phase": "rate", **rec16,
                   "f32_value_same_run": rec["value"],
                   "bf16_over_f32": rec16["value"] / rec["value"]})
             require(rec16["pct_of_f32_peak"] < 100.0,
                     "implied FLOP/s above the card's peak: the harness is "
                     "wrong")
-            trace = bench.breakdown(n_streams=256, n_frames=100, bf16=True)
+            trace = bench.breakdown(n_streams=256, n_frames=RATE_FRAMES,
+                                    bf16=True)
             emit({"phase": "breakdown", **trace})
             require(any(g.endswith("bf16") for g in trace["groups"]),
                     "the traced bf16 call shows no bf16 kernel")
     # the same on W8A8 params at 256 streams (the JAX bench's exact_int8)
-    rec = bench.run(n_streams=256, n_frames=100, mode="scan", int8=True)
+    rec = bench.run(n_streams=256, n_frames=RATE_FRAMES, mode="scan",
+                    int8=True, trials=RATE_TRIALS)
     emit({"phase": "rate", **rec})
     require(rec["pct_of_f32_peak"] < 100.0,
             "implied FLOP/s above the card's peak: the harness is wrong")
-    trace = bench.breakdown(n_streams=256, n_frames=100, mode="scan",
+    trace = bench.breakdown(n_streams=256, n_frames=RATE_FRAMES, mode="scan",
                             int8=True)
     emit({"phase": "breakdown", **trace})
     require(any("int8" in g for g in trace["groups"]),
             "the traced int8 call shows no int8 kernel")
     # int8 on bf16 params (the JAX bench's exact_int8 leg as written)
     # beside C5 (int8 on float32 params) and C7 (bf16)
-    rec8 = bench.run(n_streams=256, n_frames=100, mode="scan", int8=True,
-                     bf16=True)
+    rec8 = bench.run(n_streams=256, n_frames=RATE_FRAMES, mode="scan",
+                     int8=True, bf16=True, trials=RATE_TRIALS)
     emit({"phase": "rate", **rec8, "int8_f32_value_same_run": rec["value"],
           "bf16_value_same_run": rec16["value"],
           "over_int8_f32": rec8["value"] / rec["value"],
           "over_bf16": rec8["value"] / rec16["value"]})
     require(rec8["pct_of_f32_peak"] < 100.0,
             "implied FLOP/s above the card's peak: the harness is wrong")
-    trace = bench.breakdown(n_streams=256, n_frames=100, mode="scan",
+    trace = bench.breakdown(n_streams=256, n_frames=RATE_FRAMES, mode="scan",
                             int8=True, bf16=True)
     emit({"phase": "breakdown", **trace})
     require(any("int8" in g and g.endswith("bf16") for g in trace["groups"]),
             "the traced int8 bf16 call shows no int8 bf16 kernel")
 
+    mark("5")
     # 5b. offline-evaluation frames/s of one 64 x 512 ragged group
     rec = bench.run_offline(batch=64, bucket=512)
     emit({"phase": "offline_rate", **rec})
@@ -5589,6 +6362,7 @@ def main() -> int:
     require(trace["device_busy_seconds"] > 0,
             "the traced offline call shows no device time")
 
+    mark("5b")
     # 5c. training frames/s of the concurrent step at B=256, T=125, then
     # one traced step
     rec = bench.run_train(batch=256, window=125)
@@ -5623,6 +6397,7 @@ def main() -> int:
             and all(g.endswith("bf16res") for g in train_groups),
             f"the traced bf16res step's training kernels: {train_groups}")
 
+    mark("5c")
     # 5d. single-window forwards/s at B=256, T=45, 'fused' and 'auto' in
     # turns, then one traced call of each
     for backend in ("fused", "auto", "auto", "fused"):
@@ -5640,6 +6415,11 @@ def main() -> int:
         require(has_multicell == (backend == "fused"),
                 f"the traced {backend!r} forward: multicell group "
                 f"{sorted(trace['groups'])}")
+
+    mark("5d")
+    emit({"phase": "phase_seconds",
+          "seconds": {b[0]: b[1] - a[1] for a, b in zip(MARKS, MARKS[1:])},
+          "total_seconds": MARKS[-1][1] - MARKS[0][1]})
 
     # 6. kernels line: each kernel's main-path shape (streaming: T=45,
     # H=256, B=256; evaluation: T=512, H=256, B=64; training: T=125,
@@ -5691,13 +6471,7 @@ def main() -> int:
     emit({"kernels": ported,
           "online_eval_launches": online_launches,
           "online_eval_int8_launches": online_int8_launches,
-          "not_ported": [],
-          "variants_not_ported": [{
-              "variant": "bf16 I/O of _fwd_call and _bwd_call (training "
-                         "on bf16 params)",
-              "replaces": "mobileposer_tpu/ops/lstm_train_pallas.py:90, "
-                          ":202",
-              "row": "ROADMAP.md queue B.4"}]})
+          "not_ported": [], "variants_not_ported": []})
 
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

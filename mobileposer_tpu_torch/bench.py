@@ -39,7 +39,10 @@ checksum; its rate is training frames/s, B x T valid frames per step over
 the step time, and it records the step's peak device memory.
 `run_train(..., bf16_residuals=True)` times the same step with the
 residuals stored in bf16 (backend 'auto_train_bf16res', the kernels'
-`*_bf16res` entries), the counterpart of `cli.train --bf16-residuals`.
+`*_bf16res` entries), the counterpart of `cli.train --bf16-residuals`;
+`run_train(..., bf16_params=True)` on bf16 params (the float32 batch
+promoted as JAX promotes it: the f32 forward on the widened w_hh and
+the backward's `*_wbf16` entries, the optimizers' bf16 step).
 
 `run_train_dp` is one rank of the data-parallel concurrent step (run
 under `parallel.spawn`, one process per rank): from the seed's states,
@@ -74,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import time
 
 import numpy as np
@@ -297,11 +301,12 @@ def run_offline(batch: int = 64, bucket: int = 512, seed: int = 0,
 
 
 def _train_setup(batch: int, window: int, seed: int, device,
-                 bf16_residuals: bool = False):
-    """Four fresh train states, the concurrent step (on backend
-    'auto_train', or 'auto_train_bf16res' with `bf16_residuals`), one
-    full-length batch on the card (numpy draws from the seed: IMU, joint,
-    pose and velocity targets, contacts) and the draws' generator."""
+                 bf16_residuals: bool = False, bf16_params: bool = False):
+    """Four fresh train states (bf16 params with `bf16_params`), the
+    concurrent step (on backend 'auto_train', or 'auto_train_bf16res' with
+    `bf16_residuals`), one full-length batch on the card (numpy draws from
+    the seed: IMU, joint, pose and velocity targets, contacts) and the
+    draws' generator."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("the bench times a CUDA device; a CPU run is not "
@@ -309,7 +314,8 @@ def _train_setup(batch: int, window: int, seed: int, device,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     init = torch.Generator().manual_seed(seed)
-    states = {n: init_train_state(n, init, C.train_hypers.lr, device)
+    dtype = torch.bfloat16 if bf16_params else torch.float32
+    states = {n: init_train_state(n, init, C.train_hypers.lr, device, dtype)
               for n in MODULE_NAMES}
     step = make_multi_train_step(
         ParametricModel.synthetic(),
@@ -443,16 +449,18 @@ def run_train_dp(rank: int, device, out_dir: str, batch: int = 256,
 
 def run_train(batch: int = 256, window: int = 125, seed: int = 0,
               reps: int = 3, trials: int = 3, device=None,
-              bf16_residuals: bool = False) -> dict:
+              bf16_residuals: bool = False,
+              bf16_params: bool = False) -> dict:
     """Measure training frames/s of the concurrent four-module step (its
-    residuals in bf16 with `bf16_residuals`); returns the JSON record.
+    residuals in bf16 with `bf16_residuals`, on bf16 params with
+    `bf16_params`); returns the JSON record.
     `trials` chained regions of `reps` steps, the states threaded from
     step to step and every step's four losses folded into the checksum;
     the record's value is the median rate. `peak_memory_bytes` is
     `torch.cuda.max_memory_allocated` over one step (the states, the batch
     and everything the step allocates), after a reset."""
     device, states, step, b, gen = _train_setup(batch, window, seed, device,
-                                                bf16_residuals)
+                                                bf16_residuals, bf16_params)
 
     def call(st):
         st, losses = step(st, b, gen)
@@ -471,13 +479,15 @@ def run_train(batch: int = 256, window: int = 125, seed: int = 0,
     # forward + backward of every matmul: ~3x the forward FLOPs per frame
     flops = 3.0 * model_flops_per_frame()
     return {
-        "metric": ("training_bf16res_frames_per_sec" if bf16_residuals
-                   else "training_frames_per_sec"),
+        "metric": ("training_"
+                   + "bf16params_" * bf16_params
+                   + "bf16res_" * bf16_residuals + "frames_per_sec"),
         "value": fps,
         "unit": "frames/s",
         "batch": batch,
         "window": window,
         "bf16_residuals": bf16_residuals,
+        "bf16_params": bf16_params,
         "step_ms": 1e3 * batch * window / fps,
         "peak_memory_bytes": peak,
         "reps": reps,
@@ -575,20 +585,31 @@ def breakdown_forward(batch: int = 256, window: int = 45,
     return {"batch": batch, "window": window, "backend": backend, **rec}
 
 
+def _train_entry_suffix(low: str) -> str:
+    """The entry suffix of a training kernel's instantiation, from its
+    template arguments <R, Res[, IO[, W]]> (`lstm_train_cuda.SCAN_ENTRY`):
+    '' for float32 throughout, 'bf16res', 'bf16', 'wbf16', ..."""
+    m = re.search(r"_kernel<\d+((?:,\s*\w+)*)>", low)
+    types = [t.strip() for t in m.group(1).split(",")[1:]] if m else []
+    res, io, w = (["bfloat16" in t for t in types] + [False] * 3)[:3]
+    base = "bf16" if io else "wbf16" if w else ""
+    return "_".join(x for x in (base, "bf16res" * res) if x)
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     if "bfloat16" in low and "_scan_" in low:  # a bf16-I/O entry's kernel
         return _kernel_group(low.replace("bfloat16", "")) + " bf16"
-    if "bfloat16" in low and "lstm_train_" in low:  # a bf16res entry's
-        return _kernel_group(low.replace("bfloat16", "")) + " bf16res"
+    if "lstm_train_" in low:
+        suffix = _train_entry_suffix(low)
+        group = ("#7 lstm_train_fwd" if "lstm_train_fwd_kernel" in low
+                 else "#8 lstm_train_bwd scan"
+                 if "lstm_train_bwd_kernel" in low
+                 else "#8 lstm_train_dw reduction")
+        return f"{group} (ops/csrc/lstm_train.cu)" + (
+            f" {suffix}" if suffix else "")
     if "multicell_scan_kernel" in low:
         return "#9 multicell_scan (ops/csrc/multicell_scan.cu)"
-    if "lstm_train_fwd_kernel" in low:
-        return "#7 lstm_train_fwd (ops/csrc/lstm_train.cu)"
-    if "lstm_train_bwd_kernel" in low:
-        return "#8 lstm_train_bwd scan (ops/csrc/lstm_train.cu)"
-    if "lstm_train_dw_kernel" in low:
-        return "#8 lstm_train_dw reduction (ops/csrc/lstm_train.cu)"
     if "lstm_scan_masked_int8_kernel" in low:
         return "lstm_scan int8 masked (ops/csrc/lstm_scan_int8.cu)"
     if "lstm_scan_int8_kernel" in low:

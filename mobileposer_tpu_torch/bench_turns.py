@@ -26,8 +26,9 @@ and the dW reduction), `int8` (phase 3d, the W8A8 scans at the
 streaming and evaluation shapes), `multicell` (phase 3e, the multicell
 scan at B = 256 and 8), `bf16` (phase 3f, the bf16-I/O entries of the
 float scans), `int8_bf16` (phase 3g, the bf16-I/O entries of the W8A8
-scans) and `train_bf16res` (phase 3h, the bf16-residual entries of the
-training kernels; each skipped in a tree without it), and a cell is one
+scans), `train_bf16res` (phase 3h, the bf16-residual entries of the
+training kernels) and `train_bf16` (phase 3i, their entries for bf16
+params; each skipped in a tree without it), and a cell is one
 kernel at one shape: its time in ms, with the yardstick's (cuDNN, or
 torch.matmul for dW; for an int8 kernel, which has none, the float
 kernel's at the same shape, and for a bf16 int8 kernel also the float32
@@ -95,9 +96,10 @@ for name, fn, kw in {cells!r}:
 
 # the same for the kernels (--kernels): phases 3 ('full'), 3b ('masked'),
 # 3c ('train'), 3d ('int8'), 3e ('multicell'), 3f ('bf16'), 3g
-# ('int8_bf16') and 3h ('train_bf16res') of the tree's chip_smoke.py
+# ('int8_bf16'), 3h ('train_bf16res') and 3i ('train_bf16') of the tree's
+# chip_smoke.py
 KERNEL_PHASES = ("full", "masked", "train", "int8", "multicell", "bf16",
-                 "int8_bf16", "train_bf16res")
+                 "int8_bf16", "train_bf16res", "train_bf16")
 _KERNEL_TURN = """
 import json, sys
 sys.path.insert(0, {tree!r})
@@ -131,11 +133,12 @@ for phase in {phases!r}:
             continue
         lstm_cuda.build()
         recs += chip_smoke.phase_int8_bf16_kernels(torch, lstm_cuda)
-    elif phase == "train_bf16res":
-        if not hasattr(chip_smoke, "phase_train_bf16res_kernels"):
+    elif phase in ("train_bf16res", "train_bf16"):
+        fn = getattr(chip_smoke, f"phase_{{phase}}_kernels", None)
+        if fn is None:
             continue
         train_cuda.build()
-        recs += chip_smoke.phase_train_bf16res_kernels(torch, train_cuda)
+        recs += fn(torch, train_cuda)
     else:
         lstm_cuda.build()
         fn = {{"full": chip_smoke.phase_kernels,

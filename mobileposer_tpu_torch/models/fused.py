@@ -14,7 +14,8 @@ same order of summation, and the projections are the same products, so
 the path gives the per-module path's numbers (pinned on the CPU against
 the JAX package, and against `backend='auto'` on the card by
 `chip_smoke.py`). Inference only: full-length windows, no dropout, float
-params.
+params. Under `torch.compile` or `torch.export` each launch goes through
+the kernel's custom op (`multicell_lstm_traced`), the same computation.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Tuple
 
 import torch
 
-from mobileposer_tpu_torch.ops.multicell_cuda import multicell_lstm
+from mobileposer_tpu_torch.ops.multicell_cuda import (multicell_lstm,
+                                                     multicell_lstm_traced)
 from mobileposer_tpu_torch.ops.quant import is_quantized
 
 # cell order within each row: poser-fwd, poser-bwd, fc-fwd, fc-bwd, velocity
@@ -63,6 +65,8 @@ def trio_apply(params, x132_tm: torch.Tensor,
             "params; use backend='auto'")
     T, B, _ = x132_tm.shape
     zeros = lambda h: x132_tm.new_zeros((B, h))  # noqa: E731
+    scan = (multicell_lstm_traced if torch.compiler.is_compiling()
+            else multicell_lstm)
     vel_h, vel_c = (t.contiguous() for t in vel_h0c0)
 
     hidden_p = torch.relu(pp.linear1(x132_tm))
@@ -79,7 +83,7 @@ def trio_apply(params, x132_tm: torch.Tensor,
     x_cat = _row_projections(row1_inputs, row1_layers)
     h0s = (zeros(256), zeros(256), zeros(64), zeros(64), vel_h[0])
     c0s = (zeros(256), zeros(256), zeros(64), zeros(64), vel_c[0])
-    ys, hts, cts = multicell_lstm(
+    ys, hts, cts = scan(
         x_cat, tuple(l.w_hh for l in row1_layers), h0s, c0s, _ROW_H)
     poser_l1 = torch.cat([ys[0], ys[1].flip(0)], dim=-1)         # [T,B,512]
     fc_l1 = torch.cat([ys[2], ys[3].flip(0)], dim=-1)            # [T,B,128]
@@ -96,7 +100,7 @@ def trio_apply(params, x132_tm: torch.Tensor,
     x_cat2 = _row_projections(row2_inputs, row2_layers)
     h0s2 = (zeros(256), zeros(256), zeros(64), zeros(64), vel_h[1])
     c0s2 = (zeros(256), zeros(256), zeros(64), zeros(64), vel_c[1])
-    ys2, hts2, cts2 = multicell_lstm(
+    ys2, hts2, cts2 = scan(
         x_cat2, tuple(l.w_hh for l in row2_layers), h0s2, c0s2, _ROW_H)
     poser_out = torch.cat([ys2[0], ys2[1].flip(0)], dim=-1)
     fc_out = torch.cat([ys2[2], ys2[3].flip(0)], dim=-1)

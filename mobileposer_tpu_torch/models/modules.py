@@ -61,14 +61,18 @@ T_WEIGHT = 1e-5  # temporal-loss weight (reference: joints.py:33, poser.py:36)
 
 
 def init_all_modules(generator: Optional[torch.Generator] = None,
-                     device=None) -> nn.ModuleDict:
+                     device=None,
+                     dtype: torch.dtype = torch.float32) -> nn.ModuleDict:
     """Random weights for the four modules on `device` (the CUDA card
-    unless given), drawn from `generator` so a seed fixes them. The JAX
-    package draws other numbers from the same seed: tests that compare
-    the two carry weights over with `nn.convert.params_from_jax`."""
+    unless given) in `dtype` (float32 or bfloat16, as the JAX
+    `init_all_modules(key, dtype)`), drawn from `generator` so a seed
+    fixes them. The JAX package draws other numbers from the same seed:
+    tests that compare the two carry weights over with
+    `nn.convert.params_from_jax`. The losses below train either: on bf16
+    params a float32 batch is promoted as JAX promotes it."""
     device = resolve_device(device)
     return nn.ModuleDict({name: RNNBlock(cfg, device=device,
-                                         generator=generator)
+                                         generator=generator, dtype=dtype)
                           for name, cfg in MODULE_CONFIGS.items()})
 
 

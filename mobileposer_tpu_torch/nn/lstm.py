@@ -20,14 +20,18 @@ w_ih selects them. Activations are float32, or bf16 on int8-on-bf16 params
 (the int8 quantization of a bf16 cast); the scan kernels' carry stays
 float32 in both.
 
-Dtypes: float32, or bfloat16 for inference (params cast with
-`nn.convert.cast_params`). In bf16 the layer scans and the multicell scan
-take bf16 I/O and keep their carry in float32, as the TPU kernels do
-(`_lstm_scan` below is their plain version); the carry-mode cell step
-(`lstm_cell_step`) runs wholly in bf16, as the JAX package's does, the
-int8 cell's gates too. Training takes float32 params; its residuals may
-be stored in bf16 ('auto_train_bf16res' below). Training on bf16 params
-is not ported (ROADMAP.md queue B.4).
+Dtypes: float32, or bfloat16 (params cast with `nn.convert.cast_params`,
+or drawn with `RNNBlock(..., dtype=torch.bfloat16)`). In bf16 the layer
+scans and the multicell scan take bf16 I/O and keep their carry in
+float32, as the TPU kernels do (`_lstm_scan` below is their plain
+version); the carry-mode cell step (`lstm_cell_step`) runs wholly in
+bf16, as the JAX package's does, the int8 cell's gates too. Training
+runs on float32 or bf16 params; its residuals may be stored in bf16
+('auto_train_bf16res' below). On bf16 params a float32 input is promoted
+as JAX promotes it (`linear`, `ops.lstm_cuda._project_timesteps`: the
+products in float32 on the widened weights), so the training kernels see
+a float32 x_proj beside bf16 w_hh, and a bf16 input keeps everything
+bf16 (`ops/lstm_train_cuda.py`, `SCAN_ENTRY`).
 
 Backends:
 
@@ -96,7 +100,7 @@ def check_backend(backend: str = "auto", allow_train: bool = True) -> None:
             "and 'auto_train_bf16res' (the training kernels))")
 
 
-#: the float dtypes the port runs: float32, and bfloat16 for inference
+#: the float dtypes the port runs
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -116,10 +120,10 @@ _SCALE_KEYS = ("w_ih_scale", "w_hh_scale")
 def cast_params(params: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of the port's modules (an `nn.ModuleDict` of `RNNBlock`s, or
     one block) with every float parameter and buffer cast to `dtype`
-    (float32, or bfloat16 for inference), as the JAX package's
-    `cast_params` casts every float leaf: int8 tensors are left alone,
-    and so are the int8 dequantization scales, which stay float32. The
-    input is left as it is. (`nn.convert` and `nn` export it too.)"""
+    (float32 or bfloat16), as the JAX package's `cast_params` casts every
+    float leaf: int8 tensors are left alone, and so are the int8
+    dequantization scales, which stay float32. The input is left as it
+    is. (`nn.convert` and `nn` export it too.)"""
     check_dtype(dtype)
     out = copy.deepcopy(params)
     for mod in out.modules():
@@ -248,6 +252,17 @@ def check_lengths(lengths, B: int, T: int, device) -> torch.Tensor:
     return lengths.to(device=device, dtype=torch.int64)
 
 
+def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`lin(x)`; when x's dtype is not the weights' (a float32 input on
+    bf16 params), promoted as JAX promotes `x @ w + b`: the product and
+    the sum in the wider dtype, on the widened weights."""
+    w = lin.weight
+    if x.dtype == w.dtype:
+        return lin(x)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return nn.functional.linear(x.to(dt), w.to(dt), lin.bias.to(dt))
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -303,12 +318,14 @@ class RNNBlock(nn.Module):
     `device`: the CUDA card unless given.
 
     Weights are drawn like torch's defaults, U(-1/sqrt(fan), 1/sqrt(fan)),
-    from `generator` (a CPU `torch.Generator`) so a seed fixes them; load
-    trained weights with `nn.convert.params_from_jax`.
+    from `generator` (a CPU `torch.Generator`) so a seed fixes them, then
+    cast to `dtype` (float32 or bfloat16, as the JAX `init_rnn(key, cfg,
+    dtype)`); load trained weights with `nn.convert.params_from_jax`.
     """
 
     def __init__(self, cfg: LSTMConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -326,6 +343,8 @@ class RNNBlock(nn.Module):
                 for d in (["fwd", "bwd"] if cfg.bidirectional else ["fwd"])}))
         self.requires_grad_(False)
         self._init_uniform(generator)
+        check_dtype(dtype)
+        self.to(dtype)
 
     def _init_uniform(self, generator: Optional[torch.Generator]) -> None:
         def fill(p: torch.Tensor, fan: int) -> None:
@@ -361,11 +380,6 @@ def _needs_grad(layers, x: torch.Tensor) -> bool:
 
 _INT8_TRAIN_ERROR = ("int8-quantized params are inference-only (rounding "
                      "has no gradient); use float params for training")
-_BF16_TRAIN_ERROR = ("bf16 params are inference-only here: the training "
-                     "kernels #7 and #8 take float32 inputs (their bf16-I/O "
-                     "variant is ROADMAP.md queue B.4); train in float32, "
-                     "with backend='auto_train_bf16res' for bf16 "
-                     "residuals")
 
 
 def _quantized(layers) -> bool:
@@ -408,8 +422,6 @@ def lstm_forward(layers, x: torch.Tensor,
     if backend in TRAIN_BACKENDS:
         if _quantized(layers):
             raise ValueError(_INT8_TRAIN_ERROR + " backends")
-        if x.dtype != torch.float32:
-            raise NotImplementedError(_BF16_TRAIN_ERROR)
         from mobileposer_tpu_torch.ops.lstm_train_cuda import \
             lstm_forward_train
         # the '*_bf16res' backends store bf16 residuals, as the JAX
@@ -458,7 +470,7 @@ def rnn_apply(params: RNNBlock, cfg: LSTMConfig, x: torch.Tensor,
     if train and _quantized(params.lstm):
         # caught here whatever the backend, before any work is done
         raise ValueError(_INT8_TRAIN_ERROR)
-    hidden = torch.relu(params.linear1(x))
+    hidden = torch.relu(linear(params.linear1, x))
     if train and cfg.dropout > 0.0:
         if dropout_keep is None:
             raise ValueError("train=True requires dropout_keep")
@@ -468,7 +480,7 @@ def rnn_apply(params: RNNBlock, cfg: LSTMConfig, x: torch.Tensor,
     y, hc = lstm_forward(params.lstm, hidden, lengths, h0c0,
                          bidirectional=cfg.bidirectional, backend=backend,
                          time_major=time_major)
-    return params.linear2(y), hc
+    return linear(params.linear2, y), hc
 
 
 def rnn_zero_state(cfg: LSTMConfig, batch: int, dtype=torch.float32,

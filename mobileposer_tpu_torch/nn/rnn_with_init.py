@@ -23,8 +23,8 @@ from torch import nn
 
 from mobileposer_tpu_torch.device import resolve_device
 from mobileposer_tpu_torch.nn.lstm import (
-    LSTMConfig, RNNBlock, TRAIN_BACKENDS, check_backend, draw_dropout_keep,
-    rnn_apply)
+    LSTMConfig, RNNBlock, TRAIN_BACKENDS, check_backend, check_dtype,
+    draw_dropout_keep, linear, rnn_apply)
 
 
 class RNNWithInitConfig(NamedTuple):
@@ -43,11 +43,14 @@ class RNNWithInit(nn.Module):
     (reference: rnn.py:86-91), on `device` (the CUDA card unless given).
     Parameters do not require gradients until the caller turns them on,
     as in `RNNBlock`; weights are drawn like torch's defaults from
-    `generator`."""
+    `generator`, then cast to `dtype` (float32 or bfloat16; trained on
+    bf16 params under 'auto_train', as the JAX package trains them)."""
 
     def __init__(self, cfg: RNNWithInitConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_dtype(dtype)
         device = resolve_device(device)
         self.cfg = cfg
         self.rnn = RNNBlock(cfg.rnn, device=device, generator=generator)
@@ -65,6 +68,7 @@ class RNNWithInit(nn.Module):
                     u = torch.rand(p.shape, generator=generator)
                     p.copy_(u * (2 * bound) - bound)
         self.requires_grad_(False)
+        self.to(dtype)
 
     def forward(self, x, init_vec, lengths=None, train: bool = False,
                 dropout_keep=None, generator=None,
@@ -75,10 +79,11 @@ class RNNWithInit(nn.Module):
 
 
 def init_rnn_with_init(generator: Optional[torch.Generator],
-                       cfg: RNNWithInitConfig, device=None) -> RNNWithInit:
+                       cfg: RNNWithInitConfig, device=None,
+                       dtype: torch.dtype = torch.float32) -> RNNWithInit:
     """A fresh `RNNWithInit` drawn from `generator` (a CPU
-    `torch.Generator`; the JAX function takes a key)."""
-    return RNNWithInit(cfg, device=device, generator=generator)
+    `torch.Generator`; the JAX function takes a key) in `dtype`."""
+    return RNNWithInit(cfg, device=device, generator=generator, dtype=dtype)
 
 
 def initial_state(params: RNNWithInit, cfg: RNNWithInitConfig,
@@ -86,9 +91,9 @@ def initial_state(params: RNNWithInit, cfg: RNNWithInitConfig,
     """The init MLP's (h0, c0), each [n_layers * n_dir, B, H] in the
     stacking `lstm_forward` takes (layer 0 fwd, layer 0 bwd, ...)."""
     B = init_vec.shape[0]
-    h = torch.relu(params.init1(init_vec))
-    h = torch.relu(params.init2(h))
-    state = params.init3(h)                                  # [B, n_state]
+    h = torch.relu(linear(params.init1, init_vec))
+    h = torch.relu(linear(params.init2, h))
+    state = linear(params.init3, h)                          # [B, n_state]
     n_dir = 2 if cfg.rnn.bidirectional else 1
     hc = state.reshape(B, 2, cfg.rnn.n_layers * n_dir, cfg.rnn.n_hidden)
     return hc[:, 0].transpose(0, 1), hc[:, 1].transpose(0, 1)

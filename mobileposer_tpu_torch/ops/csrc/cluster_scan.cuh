@@ -6,10 +6,11 @@
 // part of w_hh (the float slice w_hh[:, those columns] in shared memory,
 // or the int8 columns in registers) for all T steps. Each source's design
 // note says how its kernels use it. Tensors in global memory are float32
-// or, for the bf16-I/O instantiations of the float and the int8 bodies,
-// bfloat16: every value read is widened to float32 (`to_f32`, exact),
-// everything held in shared memory and registers is float32, and every
-// value written is rounded to the I/O type (`from_f32`, nearest even).
+// or, for the bf16-I/O instantiations of the float and the int8 bodies
+// and of the training kernels, bfloat16: every value read is widened to
+// float32 (`to_f32`, exact), everything held in shared memory and
+// registers is float32, and every value written is rounded to the I/O
+// type (`from_f32`, nearest even).
 
 #pragma once
 
@@ -39,6 +40,12 @@ __device__ __forceinline__ IO from_f32(float v) {
     return v;
   else
     return __float2bfloat16_rn(v);
+}
+
+// v as IO holds it, widened back to float32
+template <class IO>
+__device__ __forceinline__ float round_io(float v) {
+  return to_f32(from_f32<IO>(v));
 }
 
 __device__ __forceinline__ float sigmoid(float x) {

@@ -1,5 +1,5 @@
-// LSTM layer scans for TRAINING on Hopper (sm_90a), float32, with the
-// residuals in float32 or bf16.
+// LSTM layer scans for TRAINING on Hopper (sm_90a), float32 or bf16 I/O
+// (float32 arithmetic), with the residuals in float32 or bf16.
 //
 // Replaces the two TPU kernels of mobileposer_tpu/ops/lstm_train_pallas.py:
 //   lstm_train_fwd_f32  <- _fwd_call (_fwd_kernel): one layer-direction
@@ -26,6 +26,34 @@
 // Widening is exact, so a bf16res entry gives the f32 entry's bits on the
 // widened residuals. The scans' shared memory, the w_hh slice included,
 // stays float32: their geometry and residency are the f32 entries'.
+//
+// Training on bf16 params runs the same two scans on the I/O type IO
+// (the forward reads w_hh in it too) and the backward on w_hh's type W,
+// as the TPU kernels take them (lstm_train_pallas.py:50-87, :136-199;
+// each residual type as above):
+//   lstm_train_{fwd,bwd}_bf16[_bf16res]  IO = W = bf16: a bf16 input to
+//       the layer (x_proj = x @ w_ih + b in bf16);
+//   lstm_train_bwd_wbf16[_bf16res]       IO = float32, W = bf16: a
+//       float32 input on bf16 params, which JAX promotes (x_proj, ys,
+//       the carry and the gradients float32, w_hh bf16). Its forward
+//       rounds nothing, so it is the f32 (bf16res) entry on w_hh
+//       widened by the wrapper; only the backward depends on W, through
+//       the dgates rounding.
+// Every value read is widened (exact); the carry (h, c), the gates, the
+// sums and (dh, dc) stay float32, as in the f32 entries. The forward
+// rounds h to IO once, when it pushes it to the h buffers the products
+// read (`dot(h.astype(x.dtype), w_hh)`, :63-64): with bf16 I/O each cell
+// item keeps its float32 h in a register for the masked blend, for hseq
+// and for h_T, and rounds ys, h_T and c_T to bf16 as it stores them. The
+// backward rounds dgates to W before the dh product (`dgates.astype(
+// w_hh.dtype)`, :188-190) and writes dx_proj, dh0 and dc0 in IO; dw_hh
+// sums the UNROUNDED float32 dgates (:184-186), so the bf16-I/O entries
+// also write them, float32, to `dgates`, which the dW entries read as
+// they read the f32 entry's dx_proj (the wbf16 entry's dx_proj is that
+// float32 buffer). A product of two bf16 values is exact in float32, so
+// the products are the TPU kernels' and only the order of the float32
+// sums is this kernel's, the f32 entries' order: on bf16-exact inputs
+// with the roundings left out an entry gives the f32 entry's bits.
 //
 // Contract (the Pallas kernels'): x_proj [T, B, 4H] already holds
 // x @ w_ih + b_ih + b_hh; w_hh is [H, 4H] row-major (input-major, the JAX
@@ -165,20 +193,79 @@ constexpr size_t bwd_smem_bytes(int H) {
 // #7 forward
 // ---------------------------------------------------------------------------
 
-template <int R, class Res>
+// One gate column's x_proj for a thread's RT rows of one step, kept in IO
+// until the products start (widening a value right after its load would
+// make the step wait for the load).
+template <int RT, class IO>
+struct XRows {
+  IO v[RT];
+  // rows b_first .. of the step at `x` (x_proj + step row * 4H + column);
+  // zeros past B, and everywhere unless `on`
+  __device__ __forceinline__ void load(const IO* __restrict__ x, bool on,
+                                       int b_first, int B, size_t H4) {
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      v[i] = (on && b_first + i < B) ? __ldg(x + (b_first + i) * H4)
+                                     : from_f32<IO>(0.0f);
+  }
+  __device__ __forceinline__ float get(int i) const { return to_f32(v[i]); }
+};
+
+// The products of the bf16-I/O forward: the f32 body's loop (the same
+// sums), as a function of its own; inlined in place, the same loop made the
+// bf16 instantiation at 32 rows spill more than the f32 one (ptxas -v on
+// an H100 build; see kFetch).
+template <int RT>
+__device__ __forceinline__ void fwd_products(float (&acc)[RT], const float* hb,
+                                             const float* w_s,
+                                             const int (&w_off)[8],
+                                             int k_begin, int kspan, int H) {
+  for (int k = k_begin; k < k_begin + kspan; k += 8) {
+    float w[8];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) w[kk] = w_s[(k + kk) * kCols + w_off[kk]];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(hb + i * H + k);
+      const float4 e = *reinterpret_cast<const float4*>(hb + i * H + k + 4);
+      acc[i] = fmaf(a.x, w[0], acc[i]);
+      acc[i] = fmaf(a.y, w[1], acc[i]);
+      acc[i] = fmaf(a.z, w[2], acc[i]);
+      acc[i] = fmaf(a.w, w[3], acc[i]);
+      acc[i] = fmaf(e.x, w[4], acc[i]);
+      acc[i] = fmaf(e.y, w[5], acc[i]);
+      acc[i] = fmaf(e.z, w[6], acc[i]);
+      acc[i] = fmaf(e.w, w[7], acc[i]);
+    }
+  }
+}
+
+template <int R, class Res, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_train_fwd_kernel(const float* __restrict__ x_proj,
-                      const float* __restrict__ w_hh,
-                      const float* __restrict__ h0,
-                      const float* __restrict__ c0,
-                      const float* __restrict__ mask,
-                      float* __restrict__ ys, Res* __restrict__ acts,
+lstm_train_fwd_kernel(const IO* __restrict__ x_proj,
+                      const IO* __restrict__ w_hh,
+                      const IO* __restrict__ h0,
+                      const IO* __restrict__ c0,
+                      const IO* __restrict__ mask,
+                      IO* __restrict__ ys, Res* __restrict__ acts,
                       Res* __restrict__ hseq, Res* __restrict__ cseq,
-                      float* __restrict__ h_t, float* __restrict__ c_t,
+                      IO* __restrict__ h_t, IO* __restrict__ c_t,
                       int T, int B, int H) {
   using S = Shape<R>;
   constexpr int RT = S::kRowsPerThread;
   constexpr int CPT = S::kCellsPerThread;
+  // bf16 I/O: the h buffers hold h rounded to bf16, each cell item its
+  // float32 h (h_own)
+  constexpr bool kRoundH = !std::is_same_v<IO, float>;
+  // Where a step's x_proj is fetched: the f32 body fetches the next step's
+  // before the products, in flight during them (0); the bf16 one, whose
+  // h_own also stays live through the products, fetches it after them, in
+  // flight during the cell update and the barrier while its registers are
+  // free during the products (1), and at 12 rows each step's own at the
+  // step's start (2): at these places and only there no instantiation
+  // spills more than the f32 body's at its rows (H100, sm_90a, ptxas -v;
+  // chip_smoke.py phase 3i gates it).
+  constexpr int kFetch = !kRoundH ? 0 : R == 12 ? 2 : 1;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = H / kUnits;
   const int cta = static_cast<int>(cluster.block_rank());
@@ -208,75 +295,92 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
   load_w_slice(w_hh, w_s, H, cta);
   for (int idx = tid; idx < R * H; idx += kThreads) {
     const int b = b0 + idx / H;
-    h_s[idx] = b < B ? h0[static_cast<size_t>(b) * H + idx % H] : 0.0f;
+    h_s[idx] = b < B ? to_f32(h0[static_cast<size_t>(b) * H + idx % H])
+                     : 0.0f;
   }
-  float c[CPT], m_next[CPT];
+  // the next step's mask stays in IO until it is used (as x_proj does,
+  // XRows)
+  float c[CPT], h_own[kRoundH ? CPT : 1];
+  IO m_next[CPT];
 #pragma unroll
   for (int p = 0; p < CPT; ++p) {
     const int item = tid + p * kThreads;
     const int b = b0 + item / kUnits;
     const bool ok = item < R * kUnits && b < B;
-    c[p] = ok ? c0[static_cast<size_t>(b) * H + unit0 + item % kUnits] : 0.0f;
-    m_next[p] = ok ? __ldg(mask + b) : 0.0f;
+    c[p] = ok ? to_f32(c0[static_cast<size_t>(b) * H + unit0
+                          + item % kUnits])
+              : 0.0f;
+    m_next[p] = ok ? __ldg(mask + b) : from_f32<IO>(0.0f);
+    if constexpr (kRoundH)
+      h_own[p] = ok ? to_f32(h0[static_cast<size_t>(b) * H + unit0
+                                + item % kUnits])
+                    : 0.0f;
   }
   // x_proj of step 0, read by the ks == 0 threads (they start the sum)
-  float xp[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int b = b0 + r_begin + i;
-    xp[i] = (ks == 0 && b < B) ? __ldg(x_proj + b * H4 + gcol) : 0.0f;
-  }
+  XRows<RT, IO> xp;
+  if constexpr (kFetch != 2)
+    xp.load(x_proj + gcol, ks == 0, b0 + r_begin, B, H4);
   cluster.sync();  // every CTA started, w_s and h_s[0] loaded
 
   int cur = 0;
   for (int t = 0; t < T; ++t) {
     float acc[RT], m[CPT];
+    if constexpr (kFetch == 2)
+      xp.load(x_proj + static_cast<size_t>(t) * B * H4 + gcol, ks == 0,
+              b0 + r_begin, B, H4);
 #pragma unroll
-    for (int i = 0; i < RT; ++i) acc[i] = xp[i];
+    for (int i = 0; i < RT; ++i) acc[i] = xp.get(i);
 #pragma unroll
-    for (int p = 0; p < CPT; ++p) m[p] = m_next[p];
+    for (int p = 0; p < CPT; ++p) m[p] = to_f32(m_next[p]);
     if (t + 1 < T) {  // step t+1's residuals, in flight during the products
       const size_t row0 = static_cast<size_t>(t + 1) * B;
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int b = b0 + r_begin + i;
-        xp[i] = (ks == 0 && b < B) ? __ldg(x_proj + (row0 + b) * H4 + gcol)
-                                   : 0.0f;
-      }
+      if constexpr (kFetch == 0)
+        xp.load(x_proj + row0 * H4 + gcol, ks == 0, b0 + r_begin, B, H4);
 #pragma unroll
       for (int p = 0; p < CPT; ++p) {
         const int item = tid + p * kThreads;
         const int b = b0 + item / kUnits;
         m_next[p] = (item < R * kUnits && b < B) ? __ldg(mask + row0 + b)
-                                                 : 0.0f;
+                                                 : from_f32<IO>(0.0f);
       }
     }
 
     // partial gates += h_{t-1}[rows] @ w_slice[k range, col], eight k at
     // a time (k_begin is a multiple of 8, so k % 8 == kk)
     const float* hb = h_s + cur * R * H + r_begin * H;
-    for (int k = k_begin; k < k_begin + kspan; k += 8) {
-      float w[8];
+    if constexpr (kRoundH) {
+      fwd_products(acc, hb, w_s, w_off, k_begin, kspan, H);
+    } else {
+      for (int k = k_begin; k < k_begin + kspan; k += 8) {
+        float w[8];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) w[kk] = w_s[(k + kk) * kCols + w_off[kk]];
+        for (int kk = 0; kk < 8; ++kk)
+          w[kk] = w_s[(k + kk) * kCols + w_off[kk]];
 #pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(hb + i * H + k);
-        const float4 e = *reinterpret_cast<const float4*>(hb + i * H + k + 4);
-        acc[i] = fmaf(a.x, w[0], acc[i]);
-        acc[i] = fmaf(a.y, w[1], acc[i]);
-        acc[i] = fmaf(a.z, w[2], acc[i]);
-        acc[i] = fmaf(a.w, w[3], acc[i]);
-        acc[i] = fmaf(e.x, w[4], acc[i]);
-        acc[i] = fmaf(e.y, w[5], acc[i]);
-        acc[i] = fmaf(e.z, w[6], acc[i]);
-        acc[i] = fmaf(e.w, w[7], acc[i]);
+        for (int i = 0; i < RT; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(hb + i * H + k);
+          const float4 e =
+              *reinterpret_cast<const float4*>(hb + i * H + k + 4);
+          acc[i] = fmaf(a.x, w[0], acc[i]);
+          acc[i] = fmaf(a.y, w[1], acc[i]);
+          acc[i] = fmaf(a.z, w[2], acc[i]);
+          acc[i] = fmaf(a.w, w[3], acc[i]);
+          acc[i] = fmaf(e.x, w[4], acc[i]);
+          acc[i] = fmaf(e.y, w[5], acc[i]);
+          acc[i] = fmaf(e.z, w[6], acc[i]);
+          acc[i] = fmaf(e.w, w[7], acc[i]);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < RT; ++i)
       red[(ks * R + r_begin + i) * kCols + col] = acc[i];
     __syncthreads();  // every partial sum is in shared memory
+    if constexpr (kFetch == 1) {
+      if (t + 1 < T)
+        xp.load(x_proj + static_cast<size_t>(t + 1) * B * H4 + gcol,
+                ks == 0, b0 + r_begin, B, H4);
+    }
 
     const float* h_cur = h_s + cur * R * H;
     float* h_next = h_s + (cur ^ 1) * R * H;
@@ -302,7 +406,10 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
       const float c_new = f * c[p] + i * g;
       const float h_new = o * tanhf(c_new);
       c[p] = blend(m[p], c_new, c[p]);
-      const float h_keep = blend(m[p], h_new, h_cur[r * H + unit0 + u]);
+      const float h_keep = blend(m[p], h_new, kRoundH
+                                                  ? h_own[p]
+                                                  : h_cur[r * H + unit0 + u]);
+      if constexpr (kRoundH) h_own[p] = h_keep;
       if (b < B) {
         const size_t row = row0 + b;
         Res* a = acts + row * H4 + unit0 + u;
@@ -310,13 +417,15 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
         a[H] = from_f32<Res>(f);
         a[2 * H] = from_f32<Res>(g);
         a[3 * H] = from_f32<Res>(o);
-        ys[row * H + unit0 + u] = __fmul_rn(m[p], h_new);
+        ys[row * H + unit0 + u] = from_f32<IO>(__fmul_rn(m[p], h_new));
         hseq[row * H + unit0 + u] = from_f32<Res>(h_keep);
         cseq[row * H + unit0 + u] = from_f32<Res>(c[p]);
       }
-      // the new h of this unit, into the next h buffer of every CTA
+      // the new h of this unit (rounded to IO: the products' operand),
+      // into the next h buffer of every CTA
       for (int q = 0; q < n_cta; ++q)
-        cluster.map_shared_rank(h_next, q)[r * H + unit0 + u] = h_keep;
+        cluster.map_shared_rank(h_next, q)[r * H + unit0 + u] =
+            round_io<IO>(h_keep);
     }
     // h_t is complete everywhere, and nobody reads h_{t-1} or the partial
     // sums any more
@@ -329,9 +438,9 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
     const int item = tid + p * kThreads;
     const int r = item / kUnits, u = item % kUnits, b = b0 + r;
     if (item < R * kUnits && b < B) {
-      h_t[static_cast<size_t>(b) * H + unit0 + u] =
-          h_s[cur * R * H + r * H + unit0 + u];
-      c_t[static_cast<size_t>(b) * H + unit0 + u] = c[p];
+      h_t[static_cast<size_t>(b) * H + unit0 + u] = from_f32<IO>(
+          kRoundH ? h_own[p] : h_s[cur * R * H + r * H + unit0 + u]);
+      c_t[static_cast<size_t>(b) * H + unit0 + u] = from_f32<IO>(c[p]);
     }
   }
 }
@@ -341,18 +450,18 @@ lstm_train_fwd_kernel(const float* __restrict__ x_proj,
 // ---------------------------------------------------------------------------
 
 // One (row, unit)'s residuals of one step: i, f, g, o, c_new, c_prev as
-// stored (Res: widened where they are used), dy, m.
-template <class Res>
+// stored (Res), dy and m as given (IO); each widened where it is used.
+template <class Res, class IO>
 struct Residuals {
   Res a[4], c_new, c_prev;
-  float dy, m;
+  IO dy, m;
 };
 
-template <class Res>
+template <class Res, class IO>
 __device__ __forceinline__ void load_residuals(
-    Residuals<Res>& v, const Res* __restrict__ acts,
+    Residuals<Res, IO>& v, const Res* __restrict__ acts,
     const Res* __restrict__ c_new_seq, const Res* __restrict__ c_prev_seq,
-    const float* __restrict__ dy, const float* __restrict__ mask, size_t row,
+    const IO* __restrict__ dy, const IO* __restrict__ mask, size_t row,
     int H, int unit) {
   const Res* a = acts + row * 4 * H + unit;
 #pragma unroll
@@ -363,22 +472,26 @@ __device__ __forceinline__ void load_residuals(
   v.m = __ldg(mask + row);
 }
 
-template <int R, class Res>
+// `dgates` [T, B, 4H] float32 receives the unrounded gate gradients
+// with bf16 I/O (for the dW reduction) and is not touched otherwise.
+template <int R, class Res, class IO, class W>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_train_bwd_kernel(const float* __restrict__ dy,
-                      const float* __restrict__ dh_T,
-                      const float* __restrict__ dc_T,
+lstm_train_bwd_kernel(const IO* __restrict__ dy,
+                      const IO* __restrict__ dh_T,
+                      const IO* __restrict__ dc_T,
                       const Res* __restrict__ acts,
                       const Res* __restrict__ c_new_seq,
                       const Res* __restrict__ c_prev_seq,
-                      const float* __restrict__ w_hh,
-                      const float* __restrict__ mask,
-                      float* __restrict__ dx_proj,
-                      float* __restrict__ dh0, float* __restrict__ dc0,
+                      const W* __restrict__ w_hh,
+                      const IO* __restrict__ mask,
+                      IO* __restrict__ dx_proj,
+                      float* __restrict__ dgates,
+                      IO* __restrict__ dh0, IO* __restrict__ dc0,
                       int T, int B, int H) {
   using S = Shape<R>;
   constexpr int CPT = S::kCellsPerThread;
   constexpr int RB = S::kRowsPerItem;
+  constexpr bool kBF16IO = !std::is_same_v<IO, float>;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_cta = H / kUnits;
   const int cta = static_cast<int>(cluster.block_rank());
@@ -394,14 +507,14 @@ lstm_train_bwd_kernel(const float* __restrict__ dy,
 
   load_w_slice(w_hh, w_s, H, cta);
   float dh[CPT], dc[CPT];
-  Residuals<Res> v[CPT];
+  Residuals<Res, IO> v[CPT];
 #pragma unroll
   for (int p = 0; p < CPT; ++p) {
     const int item = tid + p * kThreads;
     const int b = b0 + item / kUnits, unit = unit0 + item % kUnits;
     const bool ok = item < R * kUnits && b < B;
-    dh[p] = ok ? dh_T[static_cast<size_t>(b) * H + unit] : 0.0f;
-    dc[p] = ok ? dc_T[static_cast<size_t>(b) * H + unit] : 0.0f;
+    dh[p] = ok ? to_f32(dh_T[static_cast<size_t>(b) * H + unit]) : 0.0f;
+    dc[p] = ok ? to_f32(dc_T[static_cast<size_t>(b) * H + unit]) : 0.0f;
     if (ok)
       load_residuals(v[p], acts, c_new_seq, c_prev_seq, dy, mask,
                      static_cast<size_t>(T - 1) * B + b, H, unit);
@@ -424,11 +537,11 @@ lstm_train_bwd_kernel(const float* __restrict__ dy,
         dgr[0] = dgr[kUnits] = dgr[2 * kUnits] = dgr[3 * kUnits] = 0.0f;
         continue;
       }
-      const float m = v[p].m;
+      const float m = to_f32(v[p].m);
       const float i = to_f32(v[p].a[0]), f = to_f32(v[p].a[1]);
       const float g = to_f32(v[p].a[2]), o = to_f32(v[p].a[3]);
       const float tc = tanhf(to_f32(v[p].c_new));
-      const float dh_new = m * (dh[p] + v[p].dy);
+      const float dh_new = m * (dh[p] + to_f32(v[p].dy));
       const float dc_new = m * dc[p];
       const float d_o = dh_new * tc;
       const float dc_cur = dc_new + dh_new * o * (1.0f - tc * tc);
@@ -441,15 +554,24 @@ lstm_train_bwd_kernel(const float* __restrict__ dy,
       const float gf = df * f * (1.0f - f);
       const float gg = dg * (1.0f - g * g);
       const float go = d_o * o * (1.0f - o);
-      float* dx = dx_proj + (row0 + b) * H4 + unit0 + u;
-      dx[0] = gi;
-      dx[H] = gf;
-      dx[2 * H] = gg;
-      dx[3 * H] = go;
-      dgr[0] = gi;
-      dgr[kUnits] = gf;
-      dgr[2 * kUnits] = gg;
-      dgr[3 * kUnits] = go;
+      const size_t at = (row0 + b) * H4 + unit0 + u;
+      IO* dx = dx_proj + at;
+      dx[0] = from_f32<IO>(gi);
+      dx[H] = from_f32<IO>(gf);
+      dx[2 * H] = from_f32<IO>(gg);
+      dx[3 * H] = from_f32<IO>(go);
+      if constexpr (kBF16IO) {
+        float* dgt = dgates + at;
+        dgt[0] = gi;
+        dgt[H] = gf;
+        dgt[2 * H] = gg;
+        dgt[3 * H] = go;
+      }
+      // the dh product's operand: dgates rounded to w_hh's type
+      dgr[0] = round_io<W>(gi);
+      dgr[kUnits] = round_io<W>(gf);
+      dgr[2 * kUnits] = round_io<W>(gg);
+      dgr[3 * kUnits] = round_io<W>(go);
       if (t > 0)  // step t-1's residuals, in flight during the products
         load_residuals(v[p], acts, c_new_seq, c_prev_seq, dy, mask,
                        row0 - B + b, H, unit0 + u);
@@ -509,8 +631,8 @@ lstm_train_bwd_kernel(const float* __restrict__ dy,
     const int item = tid + p * kThreads;
     const int b = b0 + item / kUnits, unit = unit0 + item % kUnits;
     if (item < R * kUnits && b < B) {
-      dh0[static_cast<size_t>(b) * H + unit] = dh[p];
-      dc0[static_cast<size_t>(b) * H + unit] = dc[p];
+      dh0[static_cast<size_t>(b) * H + unit] = from_f32<IO>(dh[p]);
+      dc0[static_cast<size_t>(b) * H + unit] = from_f32<IO>(dc[p]);
     }
   }
 }
@@ -732,38 +854,42 @@ cudaError_t dw_slabs(const Res* h_prev, const float* dgates, float* slabs,
                           rows_per_slab, stream);
 }
 
-template <int R, class Res>
-cudaError_t fwd_rows(const float* x_proj, const float* w_hh, const float* h0,
-                     const float* c0, const float* mask, float* ys,
-                     Res* acts, Res* hseq, Res* cseq, float* h_t,
-                     float* c_t, int T, int B, int H, cudaStream_t stream) {
-  return launch_clusters(lstm_train_fwd_kernel<R, Res>, fwd_smem_bytes<R>(H),
-                         B, H, R, 1, stream, x_proj, w_hh, h0, c0, mask, ys,
-                         acts, hseq, cseq, h_t, c_t, T, B, H);
+template <int R, class Res, class IO>
+cudaError_t fwd_rows(const IO* x_proj, const IO* w_hh, const IO* h0,
+                     const IO* c0, const IO* mask, IO* ys, Res* acts,
+                     Res* hseq, Res* cseq, IO* h_t, IO* c_t, int T, int B,
+                     int H, cudaStream_t stream) {
+  return launch_clusters(lstm_train_fwd_kernel<R, Res, IO>,
+                         fwd_smem_bytes<R>(H), B, H, R, 1, stream, x_proj,
+                         w_hh, h0, c0, mask, ys, acts, hseq, cseq, h_t, c_t,
+                         T, B, H);
 }
 
-template <int R, class Res>
-cudaError_t bwd_rows(const float* dy, const float* dh_T, const float* dc_T,
+template <int R, class Res, class IO, class W>
+cudaError_t bwd_rows(const IO* dy, const IO* dh_T, const IO* dc_T,
                      const Res* acts, const Res* c_new_seq,
-                     const Res* c_prev_seq, const float* w_hh,
-                     const float* mask, float* dx_proj, float* dh0,
-                     float* dc0, int T, int B, int H, cudaStream_t stream) {
-  return launch_clusters(lstm_train_bwd_kernel<R, Res>, bwd_smem_bytes<R>(H),
-                         B, H, R, 1, stream, dy, dh_T, dc_T, acts, c_new_seq,
-                         c_prev_seq, w_hh, mask, dx_proj, dh0, dc0, T, B, H);
+                     const Res* c_prev_seq, const W* w_hh, const IO* mask,
+                     IO* dx_proj, float* dgates, IO* dh0, IO* dc0, int T,
+                     int B, int H, cudaStream_t stream) {
+  return launch_clusters(lstm_train_bwd_kernel<R, Res, IO, W>,
+                         bwd_smem_bytes<R>(H), B, H, R, 1, stream, dy, dh_T,
+                         dc_T, acts, c_new_seq, c_prev_seq, w_hh, mask,
+                         dx_proj, dgates, dh0, dc0, T, B, H);
 }
 
-template <int R, class Res>
+template <int R, class Res, class IO, class W>
 cudaError_t max_clusters_rows(int H, int* out) {
   int fwd = 0, bwd = 0;
-  cudaError_t err = max_clusters(lstm_train_fwd_kernel<R, Res>,
+  cudaError_t err = max_clusters(lstm_train_fwd_kernel<R, Res, IO>,
                                  fwd_smem_bytes<R>(H), H, &fwd);
   if (err != cudaSuccess) return err;
-  err = max_clusters(lstm_train_bwd_kernel<R, Res>, bwd_smem_bytes<R>(H), H,
-                     &bwd);
+  err = max_clusters(lstm_train_bwd_kernel<R, Res, IO, W>,
+                     bwd_smem_bytes<R>(H), H, &bwd);
   *out = fwd < bwd ? fwd : bwd;
   return err;
 }
+
+using bf16 = __nv_bfloat16;
 
 }  // namespace
 
@@ -786,71 +912,90 @@ cudaError_t max_clusters_rows(int H, int* out) {
 
 extern "C" {
 
-// The caller guarantees: float32 (the *_bf16res entries: acts, hseq,
-// cseq, c_new_seq, c_prev_seq and h_prev bf16), contiguous, T >= 1,
-// B >= 1, H a multiple of 32 in [32, 256], all pointers on the current
-// device. `rows` is the batch rows per cluster (the wrapper's
-// `_train_geometry`).
+// The caller guarantees: the types of each entry's signature, contiguous,
+// T >= 1, B >= 1, H a multiple of 32 in [32, 256], all pointers on the
+// current device. `rows` is the batch rows per cluster (the wrapper's
+// `_train_geometry`). Entries by suffix: f32 (everything float32),
+// bf16res (the residuals acts, hseq, cseq, c_new_seq, c_prev_seq and
+// h_prev bf16), bf16 (x_proj, w_hh, h0, c0, mask, ys, h_T, c_T, dy,
+// dh_T, dc_T, dx_proj, dh0 and dc0 bf16), wbf16 (the backward's w_hh
+// bf16), and the last two with _bf16res.
 
 #define FWD(R)                                                             \
   fwd_rows<R>(x_proj, w_hh, h0, c0, mask, ys, acts, hseq, cseq, h_t, c_t, \
               T, B, H, static_cast<cudaStream_t>(stream))
-#define BWD(R)                                                           \
-  bwd_rows<R>(dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq, w_hh, mask,   \
-              dx_proj, dh0, dc0, T, B, H, static_cast<cudaStream_t>(stream))
+#define FWD_ENTRY(NAME, IO, RES)                                             \
+  int NAME(const IO* x_proj, const IO* w_hh, const IO* h0, const IO* c0,     \
+           const IO* mask, IO* ys, RES* acts, RES* hseq, RES* cseq, IO* h_t, \
+           IO* c_t, int T, int B, int H, int rows, void* stream) {           \
+    LSTM_TRAIN_ROWS(rows, FWD)                                               \
+  }
 
-int lstm_train_fwd_f32(const float* x_proj, const float* w_hh,
-                       const float* h0, const float* c0, const float* mask,
-                       float* ys, float* acts, float* hseq, float* cseq,
-                       float* h_t, float* c_t, int T, int B, int H, int rows,
-                       void* stream) {
-  LSTM_TRAIN_ROWS(rows, FWD)
-}
+FWD_ENTRY(lstm_train_fwd_f32, float, float)
+FWD_ENTRY(lstm_train_fwd_bf16res, float, bf16)
+FWD_ENTRY(lstm_train_fwd_bf16, bf16, float)
+FWD_ENTRY(lstm_train_fwd_bf16_bf16res, bf16, bf16)
 
-int lstm_train_fwd_bf16res(const float* x_proj, const float* w_hh,
-                           const float* h0, const float* c0,
-                           const float* mask, float* ys, __nv_bfloat16* acts,
-                           __nv_bfloat16* hseq, __nv_bfloat16* cseq,
-                           float* h_t, float* c_t, int T, int B, int H,
-                           int rows, void* stream) {
-  LSTM_TRAIN_ROWS(rows, FWD)
-}
+// w_hh is [H, 4H], the forward's layout. The float32-I/O entries write
+// dx_proj (float32, the dW entries' dgates); the bf16-I/O ones dx_proj
+// in bf16 and the float32 dgates [T, B, 4H] besides.
+#define BWD(R)                                                            \
+  bwd_rows<R>(dy, dh_T, dc_T, acts, c_new_seq, c_prev_seq, w_hh, mask,    \
+              dx_proj, dgates, dh0, dc0, T, B, H,                         \
+              static_cast<cudaStream_t>(stream))
+#define BWD_ENTRY(NAME, IO, W, RES)                                        \
+  int NAME(const IO* dy, const IO* dh_T, const IO* dc_T, const RES* acts,  \
+           const RES* c_new_seq, const RES* c_prev_seq, const W* w_hh,     \
+           const IO* mask, IO* dx_proj, IO* dh0, IO* dc0, int T, int B,    \
+           int H, int rows, void* stream) {                                \
+    float* dgates = nullptr;                                               \
+    LSTM_TRAIN_ROWS(rows, BWD)                                             \
+  }
+#define BWD_BF16_ENTRY(NAME, RES)                                          \
+  int NAME(const bf16* dy, const bf16* dh_T, const bf16* dc_T,             \
+           const RES* acts, const RES* c_new_seq, const RES* c_prev_seq,   \
+           const bf16* w_hh, const bf16* mask, bf16* dx_proj,              \
+           float* dgates, bf16* dh0, bf16* dc0, int T, int B, int H,       \
+           int rows, void* stream) {                                       \
+    LSTM_TRAIN_ROWS(rows, BWD)                                             \
+  }
 
-// w_hh is [H, 4H], the forward's layout.
-int lstm_train_bwd_f32(const float* dy, const float* dh_T, const float* dc_T,
-                       const float* acts, const float* c_new_seq,
-                       const float* c_prev_seq, const float* w_hh,
-                       const float* mask, float* dx_proj, float* dh0,
-                       float* dc0, int T, int B, int H, int rows,
-                       void* stream) {
-  LSTM_TRAIN_ROWS(rows, BWD)
-}
-
-int lstm_train_bwd_bf16res(const float* dy, const float* dh_T,
-                           const float* dc_T, const __nv_bfloat16* acts,
-                           const __nv_bfloat16* c_new_seq,
-                           const __nv_bfloat16* c_prev_seq,
-                           const float* w_hh, const float* mask,
-                           float* dx_proj, float* dh0, float* dc0, int T,
-                           int B, int H, int rows, void* stream) {
-  LSTM_TRAIN_ROWS(rows, BWD)
-}
+BWD_ENTRY(lstm_train_bwd_f32, float, float, float)
+BWD_ENTRY(lstm_train_bwd_bf16res, float, float, bf16)
+BWD_BF16_ENTRY(lstm_train_bwd_bf16, float)
+BWD_BF16_ENTRY(lstm_train_bwd_bf16_bf16res, bf16)
+BWD_ENTRY(lstm_train_bwd_wbf16, float, bf16, float)
+BWD_ENTRY(lstm_train_bwd_wbf16_bf16res, float, bf16, bf16)
 
 #undef FWD
+#undef FWD_ENTRY
 #undef BWD
+#undef BWD_ENTRY
+#undef BWD_BF16_ENTRY
 
 // The clusters of #7 and of #8's scan at (H, rows) that the current device
-// holds at once (the fewer of the two), into *out; of the bf16res
-// instantiations for the second entry.
-int lstm_train_max_clusters(int H, int rows, int* out) {
-#define MAXC(R) max_clusters_rows<R, float>(H, out)
-  LSTM_TRAIN_ROWS(rows, MAXC)
-#undef MAXC
-}
-
-int lstm_train_max_clusters_bf16res(int H, int rows, int* out) {
-#define MAXC(R) max_clusters_rows<R, __nv_bfloat16>(H, out)
-  LSTM_TRAIN_ROWS(rows, MAXC)
+// holds at once (the fewer of the two), into *out, of the instantiation
+// on I/O type bf16 if `io_bf16` (else float32), the backward's w_hh bf16
+// if `w_bf16` (the forward's is in the I/O type) and residuals bf16 if
+// `res_bf16`; bf16 I/O takes bf16 w_hh.
+int lstm_train_max_clusters(int H, int rows, int io_bf16, int w_bf16,
+                            int res_bf16, int* out) {
+#define MAXC(R) max_clusters_rows<R, Res, IO, W>(H, out)
+#define MAXC_TYPES(RES_T, IO_T, W_T) \
+  {                                  \
+    using Res = RES_T;               \
+    using IO = IO_T;                 \
+    using W = W_T;                   \
+    LSTM_TRAIN_ROWS(rows, MAXC)      \
+  }
+  if (io_bf16 && !w_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (io_bf16 && res_bf16) MAXC_TYPES(bf16, bf16, bf16)
+  if (io_bf16) MAXC_TYPES(float, bf16, bf16)
+  if (w_bf16 && res_bf16) MAXC_TYPES(bf16, float, bf16)
+  if (w_bf16) MAXC_TYPES(float, float, bf16)
+  if (res_bf16) MAXC_TYPES(bf16, float, float)
+  MAXC_TYPES(float, float, float)
+#undef MAXC_TYPES
 #undef MAXC
 }
 
@@ -864,7 +1009,7 @@ int lstm_train_dw_f32(const float* h_prev, const float* dgates, float* slabs,
                                    static_cast<cudaStream_t>(stream)));
 }
 
-int lstm_train_dw_bf16res(const __nv_bfloat16* h_prev, const float* dgates,
+int lstm_train_dw_bf16res(const bf16* h_prev, const float* dgates,
                           float* slabs, int N, int H, int n_slabs,
                           int rows_per_slab, void* stream) {
   return static_cast<int>(dw_slabs(h_prev, dgates, slabs, N, H, n_slabs,

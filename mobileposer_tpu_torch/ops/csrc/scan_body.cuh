@@ -31,12 +31,6 @@
 
 namespace {
 
-// v as IO holds it, widened back to float32
-template <class IO>
-__device__ __forceinline__ float round_io(float v) {
-  return to_f32(from_f32<IO>(v));
-}
-
 template <class IO>
 struct Dir {
   const IO* x_proj;  // [T, B, xs]: the direction's 4H columns first

@@ -767,10 +767,17 @@ def _project_timesteps(xs: torch.Tensor, p) -> torch.Tensor:
     dtype (bf16 params give a bf16 x_proj, as in the JAX package); or W8A8
     for an int8 direction, `int8_matmul` plus the pre-summed bias in
     float32, rounded once to the activations' dtype (a bf16 x_proj on bf16
-    activations)."""
+    activations). A float32 input on bf16 weights (training on bf16
+    params) is promoted as JAX promotes `x @ w_ih + b`: the product in
+    float32 on the widened weights, the bias sum in bf16, added in
+    float32."""
     if is_quantized(p):
         return (int8_matmul(xs, p.w_ih, p.w_ih_scale) + p.b).to(xs.dtype)
-    return torch.matmul(xs, p.w_ih) + (p.b_ih + p.b_hh)
+    w = p.w_ih
+    if xs.dtype != w.dtype:
+        dt = torch.promote_types(xs.dtype, w.dtype)
+        xs, w = xs.to(dt), w.to(dt)
+    return torch.matmul(xs, w) + (p.b_ih + p.b_hh)
 
 
 def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,

@@ -20,6 +20,12 @@ contiguity and raises on anything else. On a CPU tensor it runs the plain PyTorc
 beside it (`multicell_lstm_plain`, one `nn.lstm._lstm_scan` loop per cell
 over its feature slice); on a CUDA tensor it launches the kernel or
 raises. Every launch adds one to `launches`.
+
+The wrapper is also a `torch.library` custom op
+(`mobileposer_tpu_torch::multicell_lstm`) with a fake implementation, so
+that `torch.compile` and `torch.export` see a launch as one node; eager
+code calls the wrapper, and `models/fused.py` takes the op only while
+tracing (`multicell_lstm_traced`).
 """
 
 from __future__ import annotations
@@ -271,3 +277,39 @@ def multicell_lstm(x_proj: torch.Tensor, w_hhs: Sequence[torch.Tensor],
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
     launches[name] += 1
     return tuple(ys), tuple(h_ts), tuple(c_ts)
+
+
+# ---------------------------------------------------------------------------
+# The wrapper as a torch.library custom op (see `ops/lstm_cuda.py`): it
+# calls `multicell_lstm`, so it launches the kernel on CUDA tensors and
+# runs the plain version on CPU tensors; its outputs are flat, the cells'
+# ys, then their h_T, then their c_T, in x_proj's dtype.
+# ---------------------------------------------------------------------------
+
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("mobileposer_tpu_torch::multicell_lstm",
+                         mutates_args=())
+def multicell_lstm_op(x_proj: Tensor, w_hhs: list[Tensor], h0s: list[Tensor],
+                      c0s: list[Tensor],
+                      hidden_sizes: list[int]) -> list[Tensor]:
+    """`multicell_lstm` (kernel #9) as an op: [ys..., h_T..., c_T...]."""
+    ys, h_ts, c_ts = multicell_lstm(x_proj, w_hhs, h0s, c0s, hidden_sizes)
+    return [*ys, *h_ts, *c_ts]
+
+
+@multicell_lstm_op.register_fake
+def _(x_proj, w_hhs, h0s, c0s, hidden_sizes):
+    T, B, _ = x_proj.shape
+    return ([x_proj.new_empty((T, B, H)) for H in hidden_sizes]
+            + [x_proj.new_empty((B, H)) for H in hidden_sizes]
+            + [x_proj.new_empty((B, H)) for H in hidden_sizes])
+
+
+def multicell_lstm_traced(x_proj, w_hhs, h0s, c0s, hidden_sizes):
+    """`multicell_lstm` through its op, the same return layout."""
+    n = len(hidden_sizes)
+    out = multicell_lstm_op(x_proj, list(w_hhs), list(h0s), list(c0s),
+                            [int(h) for h in hidden_sizes])
+    return tuple(out[:n]), tuple(out[n:2 * n]), tuple(out[2 * n:])

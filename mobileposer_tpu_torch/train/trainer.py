@@ -85,21 +85,75 @@ class TrainState:
     step: int = 0
 
 
+class OptaxAdam(torch.optim.Optimizer):
+    """optax's `adam(lr)` / `adamw(lr)` (`scale_by_adam`, then for AdamW
+    `add_decayed_weights`, then `scale_by_learning_rate`, then
+    `apply_updates`) step for step in the params' own dtype, for bf16
+    params: the moments in the params' dtype (`mu_dtype=None`), every
+    operation rounded to it, and every Python constant (1 - b1, b1,
+    1 - b2, b2, eps, the weight decay, -lr) rounded to it first, as JAX
+    rounds a weak-typed scalar; the bias corrections 1 - b**count in
+    float32, then rounded. torch's Adam and AdamW on bf16 params compute
+    in float32 with the constants unrounded and scale before the square
+    root, which moved parameters by ~120 bf16 ulps of their magnitude
+    from jitted optax's within three steps (on the CPU); this order gives
+    optax's bits (`tests/test_torch_train_bf16.py`)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        consts = {}   # the constants in each params' dtype, one copy each
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["step"] += 1
+                key = (p.dtype, p.device, st["step"], id(group))
+                if key not in consts:
+                    n, one = st["step"], np.float32(1)
+                    consts[key] = torch.tensor(
+                        [1 - b1, b1, 1 - b2, b2, one - np.float32(b1) ** n,
+                         one - np.float32(b2) ** n, group["eps"],
+                         group["weight_decay"], -group["lr"]],
+                        dtype=p.dtype).to(p.device).unbind()
+                c1, d1, c2, d2, bc1, bc2, eps, wd, neg_lr = consts[key]
+                g, mu, nu = p.grad, st["mu"], st["nu"]
+                mu.copy_(c1 * g + d1 * mu)
+                nu.copy_(c2 * (g * g) + d2 * nu)
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                if group["weight_decay"]:
+                    u = u + wd * p
+                p.copy_(p + neg_lr * u)
+
+
 def make_optimizer(module_name: str, lr: float,
                    params: nn.Module) -> torch.optim.Optimizer:
     """AdamW for joints (reference: joints.py:114), Adam for the rest, at
     optax's defaults: betas (0.9, 0.999), eps 1e-8, and for AdamW a weight
     decay of 1e-4 (optax's default; torch's is 1e-2). One parameter group,
     so AdamW decays every parameter, biases included, as optax does.
-    Refuses W8A8-quantized modules, whose int8 weights no optimizer can
-    update."""
+    float32 params take torch's Adam / AdamW, bf16 params `OptaxAdam`
+    (optax's order and roundings in bf16). Refuses W8A8-quantized
+    modules, whose int8 weights no optimizer can update."""
     if any(isinstance(m, LSTMDirectionInt8) for m in params.modules()):
         raise ValueError("int8-quantized params are inference-only "
                          "(rounding has no gradient); train float params")
     kw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    decay = {"weight_decay": 1e-4} if module_name == "joints" else {}
+    if any(p.dtype == torch.bfloat16 for p in params.parameters()):
+        return OptaxAdam(params.parameters(), **kw, **decay)
     if module_name == "joints":
-        return torch.optim.AdamW(params.parameters(), weight_decay=1e-4,
-                                 **kw)
+        return torch.optim.AdamW(params.parameters(), **decay, **kw)
     return torch.optim.Adam(params.parameters(), **kw)
 
 
@@ -124,11 +178,13 @@ def loss_fn_for(module_name: str, body_model=None,
 
 
 def init_train_state(module_name: str, generator: torch.Generator,
-                     lr: float, device=None) -> TrainState:
-    """Fresh weights drawn from `generator` (a CPU generator), with
-    gradients on, and a fresh optimizer."""
+                     lr: float, device=None,
+                     dtype: torch.dtype = torch.float32) -> TrainState:
+    """Fresh weights drawn from `generator` (a CPU generator) in `dtype`
+    (float32, or bf16 params), with gradients on, and a fresh optimizer
+    (`make_optimizer`)."""
     params = RNNBlock(M.MODULE_CONFIGS[module_name], device=device,
-                      generator=generator).requires_grad_(True)
+                      generator=generator, dtype=dtype).requires_grad_(True)
     return TrainState(params, make_optimizer(module_name, lr, params))
 
 

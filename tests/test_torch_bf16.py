@@ -33,6 +33,7 @@ JAX CLI's bf16 tables, and what stays unported raising with its ROADMAP
 row.
 """
 
+import copy
 import math
 import os
 import threading
@@ -526,9 +527,12 @@ def test_evaluate_pose_bf16_runs_the_masked_bf16_path(cli_env, nets,
 def test_unported_bf16_paths_raise_with_their_rows(weights, nets):
     """int8 on bf16 params runs (quantizing a bf16 cast, the forward and
     the carry step on a quantized tree cast to bf16, the int8 kernels'
-    plain versions with bf16 I/O), in bf16; training on bf16 params still
-    raises, under either training backend, naming ROADMAP queue B.4 (the
-    training kernels' bf16-I/O variant)."""
+    plain versions with bf16 I/O), in bf16; so does training on bf16
+    params, under either training backend (the training kernels' bf16
+    entries, their plain versions here): on a full-length bf16 input its
+    output equals the bf16 inference path's at 0.0 (a mask of ones blends
+    nothing away: m*h_new + 0*h is h_new), and every parameter gets a
+    finite bf16 gradient. No bf16 path is left unported."""
     _, tree16, params, p32 = weights
     _, net = nets
     q = quantize_params_int8(params)
@@ -548,8 +552,16 @@ def test_unported_bf16_paths_raise_with_their_rows(weights, nets):
         x[0, :, :64], x[0, :, :64])
     assert ys.dtype == h_t.dtype == c_t.dtype == BF16
     block = params["velocity"]
-    with pytest.raises(NotImplementedError, match="B.4"):
-        block(torch.zeros(1, 3, 132, dtype=BF16), backend="auto_train")
-    with pytest.raises(NotImplementedError, match="B.4"):
-        block(torch.zeros(1, 3, 132, dtype=BF16),
-              backend="auto_train_bf16res")
+    x = torch.from_numpy(np.random.RandomState(4).randn(1, 3, 132).astype(
+        np.float32)).to(BF16)
+    with torch.no_grad():
+        want, _ = block(x)
+    block = copy.deepcopy(block).requires_grad_(True)
+    for backend in ("auto_train", "auto_train_bf16res"):
+        y, _ = block(x, backend=backend)
+        assert y.dtype == BF16 and torch.equal(y.detach(), want), backend
+        y.float().sum().backward()
+        for name, p in block.named_parameters():
+            assert p.grad.dtype == BF16, (backend, name)
+            assert bool(torch.isfinite(p.grad).all()), (backend, name)
+        block.zero_grad(set_to_none=True)

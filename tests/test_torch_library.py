@@ -183,15 +183,76 @@ def test_inference_backend_refuses_a_gradient(case):
                             torch.tensor(case["init"]))
 
 
-def test_bf16_params_refuse_training(case):
-    mod = cast_params(case["mod"], torch.bfloat16)
-    x = torch.tensor(case["x"]).bfloat16()
-    init = torch.tensor(case["init"]).bfloat16()
-    with pytest.raises(NotImplementedError, match="B.4"):
-        rnn_with_init_apply(mod, case["cfg"], x, init,
-                            backend="auto_train")
+def test_bf16_params_refuse_training(case, monkeypatch):
+    """Training on bf16 params runs: `RNNWithInit` cast to bf16 on a bf16
+    input and init vector under 'auto_train' (the training kernels' bf16
+    entries, their plain versions here; the init MLP's gradient comes
+    through #8's bf16 dh0 and dc0), with lengths, against the JAX
+    `rnn_with_init_apply` on the same bf16 params, its LSTM sent for the
+    length of the test to `lstm_forward_train_pallas(interpret=True)`
+    (the JAX function names no backend, so it would take its XLA scan):
+    y, h_T, c_T (bf16) and every parameter's gradient (bf16) within
+    GRAD_ULPS bf16 ulps of the JAX ones' largest magnitude (<= 2
+    measured, on init2.weight and the bias sums). bf16 inference still
+    runs."""
+    from mobileposer_tpu.nn import lstm as jax_lstm
+    from mobileposer_tpu.ops.lstm_train_pallas import \
+        lstm_forward_train_pallas
+
+    def routed(params_layers, x, lengths=None, h0c0=None,
+               bidirectional=True, backend="xla", time_major=False):
+        return lstm_forward_train_pallas(
+            params_layers, x, lengths, h0c0, bidirectional=bidirectional,
+            interpret=True, time_major=time_major)
+    monkeypatch.setattr(jax_lstm, "lstm_forward", routed)
+    GRAD_ULPS = 4
+    bf16 = torch.bfloat16
+    jcfg, cfg = case["jcfg"], case["cfg"]
+    j16 = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16),
+                                 case["jparams"])
+    x16, init16 = (jnp.asarray(case[k]).astype(jnp.bfloat16)
+                   for k in ("x", "init"))
+    rng = np.random.RandomState(5)
+    wy = rng.randn(B, T, 4).astype(np.float32)
+    n_stack = 2 * (2 if cfg.rnn.bidirectional else 1)
+    wh, wc = rng.randn(2, n_stack, B, 8).astype(np.float32)
+
+    def jax_loss(p):
+        y, (h, c) = jax_apply(p, jcfg, x16, init16, jnp.asarray(LENGTHS))
+        f32 = jnp.float32
+        return (jnp.sum(y.astype(f32) * wy) + jnp.sum(h.astype(f32) * wh)
+                + jnp.sum(c.astype(f32) * wc)), (y, h, c)
+    (_, outs), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(j16)
+
+    def ulps(got, want):
+        want = np.asarray(want, np.float32)
+        ulp = 2.0 ** (np.floor(np.log2(max(np.abs(want).max(), 1e-30))) - 7)
+        return float(np.abs(got.float().detach().numpy() - want).max()) / ulp
+
+    mod = cast_params(case["mod"], bf16).requires_grad_(True)
+    y, (h, c) = rnn_with_init_apply(
+        mod, cfg, torch.tensor(case["x"]).to(bf16),
+        torch.tensor(case["init"]).to(bf16), torch.tensor(LENGTHS),
+        backend="auto_train")
+    for name, got, want in zip(("y", "h_T", "c_T"), (y, h, c), outs):
+        assert got.dtype == bf16 and ulps(got, want) <= GRAD_ULPS, name
+    loss = ((y.float() * torch.tensor(wy)).sum()
+            + (h.float() * torch.tensor(wh)).sum()
+            + (c.float() * torch.tensor(wc)).sum())
+    names, params = zip(*mod.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    for name, g in zip(names, grads):
+        path, transpose = _jax_path(name)
+        want = jgrads
+        for k in path:
+            want = want[k]
+        want = np.asarray(want, np.float32)
+        assert g.dtype == bf16
+        assert ulps(g.t() if transpose else g, want) <= GRAD_ULPS, name
+    assert float(grads[names.index("init1.weight")].abs().max()) > 0
     with torch.no_grad():      # bf16 inference runs
-        y, _ = rnn_with_init_apply(mod, case["cfg"], x, init)
+        y, _ = rnn_with_init_apply(mod, cfg, torch.tensor(case["x"]).to(bf16),
+                                   torch.tensor(case["init"]).to(bf16))
     assert y.dtype == torch.bfloat16
 
 

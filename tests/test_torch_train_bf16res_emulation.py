@@ -236,7 +236,8 @@ def test_wrappers_launch_the_bf16res_entries(monkeypatch):
 
 def test_wrappers_refuse_mixed_residual_dtypes():
     """The four residuals share one dtype, float32 or bf16, and it is the
-    one asked for; everything else stays float32."""
+    one asked for; dy, dh_T, dc_T and the mask share the I/O dtype, and
+    bf16 I/O takes bf16 w_hh."""
     T, B, H = 2, 3, 32
     x_proj, w_hh, h0, c0, mask, dy, dh_t, dc_t = _inputs(
         np.random.RandomState(1), T, B, H)
@@ -252,11 +253,16 @@ def test_wrappers_refuse_mixed_residual_dtypes():
             train_cuda.lstm_train_bwd(*mixed, residual_dtype=BF16)
     with pytest.raises(ValueError, match="acts"):
         train_cuda.lstm_train_bwd(*args)            # float32 asked for
-    for i, name in ((0, "dy"), (7, "w_hh")):
-        bad = list(args)
-        bad[i] = bad[i].to(BF16)
-        with pytest.raises(ValueError, match=name):
-            train_cuda.lstm_train_bwd(*bad, residual_dtype=BF16)
+    bad = list(args)
+    bad[0] = bad[0].to(BF16)
+    with pytest.raises(ValueError, match="dy"):
+        train_cuda.lstm_train_bwd(*bad, residual_dtype=BF16)
+    # bf16 I/O takes bf16 w_hh (a bf16 w_hh beside float32 I/O is the
+    # wbf16 entries' case: bf16 params, a float32 input)
+    bad = [a.to(BF16) if i in (0, 1, 2, 8) else a for i, a in
+           enumerate(args)]
+    with pytest.raises(ValueError, match="w_hh"):
+        train_cuda.lstm_train_bwd(*bad, residual_dtype=BF16)
     with pytest.raises(ValueError, match="residual_dtype"):
         train_cuda.lstm_train_fwd(x_proj, w_hh, h0, c0, mask,
                                   residual_dtype=torch.float16)

@@ -262,12 +262,13 @@ def test_training_wrappers_check_their_inputs():
     with pytest.raises(ValueError, match="acts"):
         train_cuda.lstm_train_bwd(dy, h0, c0, acts[..., :-1].contiguous(),
                                   cseq, hseq, cseq, w_hh, mask)
-    assert train_cuda.launches == {"lstm_train_fwd_f32": 0,
-                                   "lstm_train_bwd_f32": 0,
-                                   "lstm_train_dw_f32": 0,
-                                   "lstm_train_fwd_bf16res": 0,
-                                   "lstm_train_bwd_bf16res": 0,
-                                   "lstm_train_dw_bf16res": 0}
+    # every entry's counter, none launched (CPU tensors run the plain
+    # versions)
+    assert set(train_cuda.launches) == {
+        f"lstm_train_fwd_{s}" for s in train_cuda.FWD_ENTRY.values()} | {
+        f"lstm_train_bwd_{s}" for s in train_cuda.SCAN_ENTRY.values()} | {
+        "lstm_train_dw_f32", "lstm_train_dw_bf16res"}
+    assert set(train_cuda.launches.values()) == {0}
     # the dW reduction's slabs depend on the shapes only
     assert train_cuda._dw_slabs(125 * 256, 256) == (16, 2000)
     assert train_cuda._dw_slabs(125 * 256, 64) == (125, 256)
@@ -313,10 +314,11 @@ def test_backward_scan_takes_w_hh_as_the_forward_does(monkeypatch):
         train_cuda, "train_geometry",
         lambda b, h, dev: train_cuda._train_geometry(b, h, 16))
     dy = torch.zeros(T, B, H)
-    dx, dh0, dc0 = train_cuda._bwd_scan(dy, h0, c0, acts, cseq, cseq, w_hh,
-                                        mask)
+    dx, dh0, dc0, dgates = train_cuda._bwd_scan(dy, h0, c0, acts, cseq, cseq,
+                                                w_hh, mask)
     (name, args), = calls
     assert name == "lstm_train_bwd_f32"
     assert args[6] is w_hh
     assert args[-4:] == (T, B, H, train_cuda._train_geometry(B, H, 16).rows)
     assert (dx.shape, dh0.shape, dc0.shape) == ((T, B, 4 * H), (B, H), (B, H))
+    assert dgates is dx      # float32 I/O: the dW reduction reads dx_proj
