@@ -68,6 +68,7 @@ from mobileposer_tpu_torch.models.modules import MODULE_CONFIGS, module_apply
 from mobileposer_tpu_torch.nn.lstm import (check_backend, check_dtype,
                                            check_lengths, rnn_zero_state)
 from mobileposer_tpu_torch.precision import f32_matmuls
+from mobileposer_tpu_torch.utils.profiling import span
 
 GRAVITY_VELOCITY = (0.0, C.joint_set.gravity_velocity, 0.0)
 PROB_THRESHOLD = (0.5, 0.9)           # reference: net.py:53
@@ -205,25 +206,26 @@ def reduced_global_to_full_soa(reduced_r6d: torch.Tensor,
     and are cast back to the input's dtype, as the JAX package does under
     bf16 streaming.
     """
-    N = reduced_r6d.shape[0]
-    k = _soa_constants(body_model, reduced_r6d.device, reduced_r6d.dtype)
-    x = reduced_r6d.reshape(N, -1, 6).permute(1, 2, 0)          # [16, 6, N]
-    rot = _r6d_to_rot_soa(x)                                     # [16,3,3,N]
-    padded = torch.cat([rot, k.eye.expand(1, 3, 3, N)], dim=0)   # [17,3,3,N]
-    glob = padded.index_select(0, k.gather)                      # [24,3,3,N]
+    with span("mp.decode_ik"):
+        N = reduced_r6d.shape[0]
+        k = _soa_constants(body_model, reduced_r6d.device, reduced_r6d.dtype)
+        x = reduced_r6d.reshape(N, -1, 6).permute(1, 2, 0)      # [16, 6, N]
+        rot = _r6d_to_rot_soa(x)                                 # [16,3,3,N]
+        padded = torch.cat([rot, k.eye.expand(1, 3, 3, N)], 0)   # [17,3,3,N]
+        glob = padded.index_select(0, k.gather)                  # [24,3,3,N]
 
-    # IK: local[j] = glob[parent[j]]^T @ glob[j] — three elementwise FMAs
-    par = glob.index_select(0, k.parent)
-    if glob.dtype == torch.float32:
-        local = sum(par[:, i, :, None] * glob[:, i, None, :]
-                    for i in range(3))
-    else:  # bf16: the products summed in float32, then cast back
-        par32, glob32 = par.float(), glob.float()
-        local = sum(par32[:, i, :, None] * glob32[:, i, None, :]
-                    for i in range(3)).to(glob.dtype)
-    local = torch.where(k.ignored, k.eye, local)
-    local = torch.where(k.root, glob[0:1], local)
-    return local.permute(3, 0, 1, 2)                             # [N,24,3,3]
+        # IK: local[j] = glob[parent[j]]^T @ glob[j] — three elementwise FMAs
+        par = glob.index_select(0, k.parent)
+        if glob.dtype == torch.float32:
+            local = sum(par[:, i, :, None] * glob[:, i, None, :]
+                        for i in range(3))
+        else:  # bf16: the products summed in float32, then cast back
+            par32, glob32 = par.float(), glob.float()
+            local = sum(par32[:, i, :, None] * glob32[:, i, None, :]
+                        for i in range(3)).to(glob.dtype)
+        local = torch.where(k.ignored, k.eye, local)
+        local = torch.where(k.root, glob[0:1], local)
+        return local.permute(3, 0, 1, 2)                         # [N,24,3,3]
 
 
 def _position_basis(body_model: ParametricModel):
@@ -589,28 +591,32 @@ class MobilePoserNet:
         joints [S,24,3], contact [S,2] logits, vel_emit [S,72].
         Returns (velocity [S,3], v_y [S], lfoot [S,3], rfoot [S,3]).
         """
-        lfoot, rfoot = joints[:, 10], joints[:, 11]
-        contact_vel = torch.where((contact[:, 0] > contact[:, 1])[:, None],
-                                  last_lfoot - lfoot,
-                                  last_rfoot - rfoot) + self._gravity
-        root_vel = vel_emit.reshape(-1, 24, 3)[:, 0] / VEL_SCALE_PER_FRAME
-        cmax = contact.max(dim=1).values
-        weight = prob_to_weight(
-            torch.sigmoid(cmax) if self.online_sigmoid else cmax)[:, None]
-        velocity = R.lerp(root_vel, contact_vel, weight)
+        with span("mp.fusion"):
+            lfoot, rfoot = joints[:, 10], joints[:, 11]
+            contact_vel = torch.where(
+                (contact[:, 0] > contact[:, 1])[:, None],
+                last_lfoot - lfoot, last_rfoot - rfoot) + self._gravity
+            root_vel = (vel_emit.reshape(-1, 24, 3)[:, 0]
+                        / VEL_SCALE_PER_FRAME)
+            cmax = contact.max(dim=1).values
+            weight = prob_to_weight(
+                torch.sigmoid(cmax) if self.online_sigmoid else cmax)[:, None]
+            velocity = R.lerp(root_vel, contact_vel, weight)
 
-        current_foot_y = current_root_y + torch.minimum(lfoot[:, 1],
-                                                        rfoot[:, 1])
-        v_y = torch.where(current_foot_y + velocity[:, 1] <= self.floor_y,
-                          self.floor_y - current_foot_y, velocity[:, 1])
-        velocity = torch.cat(
-            [velocity[:, :1], v_y[:, None], velocity[:, 2:]], dim=1)
-        # velocity and v_y are float32 already (the float32 state promotes
-        # them); bf16 joints give bf16 feet, cast to the float32 anchors
-        if lfoot.dtype != last_lfoot.dtype:
-            lfoot = lfoot.to(last_lfoot.dtype)
-            rfoot = rfoot.to(last_rfoot.dtype)
-        return velocity, v_y, lfoot, rfoot
+            current_foot_y = current_root_y + torch.minimum(lfoot[:, 1],
+                                                            rfoot[:, 1])
+            v_y = torch.where(
+                current_foot_y + velocity[:, 1] <= self.floor_y,
+                self.floor_y - current_foot_y, velocity[:, 1])
+            velocity = torch.cat(
+                [velocity[:, :1], v_y[:, None], velocity[:, 2:]], dim=1)
+            # velocity and v_y are float32 already (the float32 state
+            # promotes them); bf16 joints give bf16 feet, cast to the
+            # float32 anchors
+            if lfoot.dtype != last_lfoot.dtype:
+                lfoot = lfoot.to(last_lfoot.dtype)
+                rfoot = rfoot.to(last_rfoot.dtype)
+            return velocity, v_y, lfoot, rfoot
 
     def forward_online_batched(self, params, state: OnlineState,
                                frames: torch.Tensor):

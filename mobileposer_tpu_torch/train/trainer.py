@@ -69,6 +69,7 @@ from mobileposer_tpu_torch.parallel import distributed as D
 from mobileposer_tpu_torch.parallel.mesh import Mesh, pad_batch_to_multiple
 from mobileposer_tpu_torch.utils.metrics import (JSONLSink, MultiSink,
                                                  make_sinks)
+from mobileposer_tpu_torch.utils.profiling import span
 
 MODULE_NAMES = ("poser", "joints", "footcontact", "velocity")
 
@@ -214,8 +215,9 @@ def _apply_updates(states: Dict[str, TrainState],
     made before `optimizer.step()`: the flags of all modules are fetched
     together, which costs one host sync per train step."""
     names = list(losses)
-    flags = torch.stack([_all_finite(losses[n], states[n].params)
-                         for n in names]).tolist()
+    with span("mp.train.finite_flags"):
+        flags = torch.stack([_all_finite(losses[n], states[n].params)
+                             for n in names]).tolist()
     for n, ok in zip(names, flags):
         if ok:
             states[n].opt.step()
@@ -382,16 +384,18 @@ def make_multi_train_step(body_model=None, backend: str = "auto_train",
 
     def step(states: Dict[str, TrainState], batch: dict,
              generator: torch.Generator):
-        for n in module_names:
-            states[n].opt.zero_grad(set_to_none=True)
-        losses = _rank_losses(loss_fns, {n: states[n].params
-                                         for n in module_names},
-                              batch, generator, dp, dp_impl, True)
-        sum(losses.values()).backward()
-        if dp is not None:
-            losses = all_reduce_step(
-                losses, {n: states[n].params for n in module_names}, dp[1],
-                mean=dp_impl == "shard_map")
+        with span("mp.train.forward"):
+            for n in module_names:
+                states[n].opt.zero_grad(set_to_none=True)
+            losses = _rank_losses(loss_fns, {n: states[n].params
+                                             for n in module_names},
+                                  batch, generator, dp, dp_impl, True)
+        with span("mp.train.backward"):
+            sum(losses.values()).backward()
+            if dp is not None:
+                losses = all_reduce_step(
+                    losses, {n: states[n].params for n in module_names},
+                    dp[1], mean=dp_impl == "shard_map")
         _apply_updates(states, losses)
         return states, {n: v.detach() for n, v in losses.items()}
 

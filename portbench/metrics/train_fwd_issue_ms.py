@@ -1,0 +1,9 @@
+"""Host ms per train step inside the port's `mp.train.forward` span
+(`zero_grad`, the draws and the four losses): the median over the traced
+steps."""
+
+from portbench import spans
+
+
+def read(rec):
+    return spans.host_ms(rec, "train", spans.named("mp.train.forward"))
