@@ -15,7 +15,7 @@ then runs these phases, each printing JSON lines:
 
   1. card    — `nvidia-smi` name and power limit, torch and CUDA versions;
                TF32 is turned off for the whole run;
-  2. build   — nvcc time for the four sources, built in parallel
+  2. build   — nvcc time for the five sources, built in parallel
                (set-up, not kernel time), and ptxas usage;
   3. kernel  — each full-length kernel against its plain PyTorch version
                at the streaming shapes (f32, nonzero h0/c0), and at B = 1
@@ -101,6 +101,14 @@ then runs these phases, each printing JSON lines:
                twin, none in dW; residency equal to the f32 one's; times
                beside the f32 entries', plain, cuDNN training mode and
                `torch.matmul` times, the bound with 2-byte residuals;
+  3j. optax adam — `OptaxAdam`'s kernel (`optax_adam.cu`) on the four
+               modules' full-width bf16 params, three steps from zero
+               moments (joints with AdamW's decay): p, mu and nu bit for bit
+               the plain chain's on the same CUDA tensors, one launch a
+               module step; device ms of a step (4 launches), of each
+               module's launch and of the plain chain, queued behind a
+               sleep so that the events read the device, the host ms of
+               a step's issue, and the bound at 14 bytes an element;
   4. slice   — the trained fixture weights through
                `forward_online_sequence_batched` on the card in 'scan'
                and 'unfolded' modes, each continued from its final state,
@@ -303,8 +311,9 @@ then runs these phases, each printing JSON lines:
   6. kernels — one line with every ported kernel's numbers (with
                `parallel_launches`, phase 4k's count, and for #1, #2, #7
                and #8 `per_shard`, their numbers at the per-shard shape);
-               no TPU kernel is left to port, one dtype variant is (the
-               bf16 I/O of #7 and #8, ROADMAP.md queue B.4).
+               no TPU kernel or dtype variant is left to port; last the
+               port's own `optax_adam_bf16` (phase 3j's numbers, phase
+               4m's launches a step), which replaces no TPU kernel.
 
 Any failure raises and exits non-zero before the last line, which is
 `{"ok": true, "device": {...}}` only when every phase passed. The script
@@ -1932,6 +1941,169 @@ def phase_train_bf16_kernels(torch, train_cuda):
                     failures.append(f"{tag}: residency {residency}")
     require(not failures, "; ".join(failures))
     return results
+
+
+# Phase 3j: optax's Adam step on bf16 params (`optax_adam.cu`), steps held
+# to the plain chain on the same CUDA tensors, and calls timed
+OPTAX_STEPS = 3
+OPTAX_TIMED_CALLS = 20
+# bytes a step moves per element: p, mu and nu read and written, g read
+OPTAX_BYTES_PER_ELEMENT = 14
+# the card's highest clock, cycles/s: a `torch.cuda._sleep` of
+# cycles / this many seconds lasts at least that long
+SLEEP_CYCLES_PER_S = 2e9
+
+
+def queued_ms(fn, n: int, warmup: int = 2) -> float:
+    """Mean device ms per call of `fn` over n calls issued while the card
+    still runs a sleep kernel (three times the calls' measured issue time),
+    so that CUDA events read their kernels back to back and not the host's
+    issue; raises if the sleep ended before the last call was issued."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    issue_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3 * issue_s * SLEEP_CYCLES_PER_S))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    require(not start.query(), f"queued_ms: the sleep ended before {n} "
+                               f"calls were issued")
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def phase_optax_adam(torch, optax_adam_cuda):
+    """Phase 3j: `OptaxAdam`'s kernel (`optax_adam.cu`, one launch a
+    module step) on the four modules' full-width bf16 params
+    (`init_all_modules(dtype=bf16)`, `make_optimizer`'s constants: joints
+    with AdamW's decay) from zero moments, OPTAX_STEPS steps of seeded bf16
+    gradients spread over four decades: every step's p, mu and nu bit for
+    bit those of the plain chain (`optax_adam_plain`) on a copy of the
+    same CUDA tensors and the same gradients, one launch a module step.
+    Then the device ms of a step of all four modules (4 launches), of each
+    module's launch and of the plain chain (1,268 launches, summed over
+    the modules, each the median of three), each timed with its calls
+    queued behind a sleep (`queued_ms`), and the host ms of one step's
+    issue, fused and chain; the bound is the bytes a step moves
+    (OPTAX_BYTES_PER_ELEMENT) at the card's HBM rate. Returns the record
+    for the kernels line."""
+    import numpy as np
+    from mobileposer_tpu_torch import config as C
+    from mobileposer_tpu_torch.models import modules as M
+    from mobileposer_tpu_torch.train.trainer import (MODULE_NAMES,
+                                                     make_optimizer)
+    bf16 = torch.bfloat16
+    lr = C.train_hypers.lr
+    params = M.init_all_modules(torch.Generator().manual_seed(0), "cuda",
+                                dtype=bf16)
+    rng = np.random.RandomState(31)
+    mods = {}
+    for n in MODULE_NAMES:
+        group = make_optimizer(n, lr, params[n]).param_groups[0]
+        ps = [p.detach() for p in params[n].parameters()]
+        mods[n] = {
+            "group": group, "decay": bool(group["weight_decay"]),
+            "fused": [ps, [torch.zeros_like(p) for p in ps],
+                      [torch.zeros_like(p) for p in ps]],
+            "plain": [[p.clone() for p in ps],
+                      [torch.zeros_like(p) for p in ps],
+                      [torch.zeros_like(p) for p in ps]]}
+
+    def consts(m, k):
+        g = m["group"]
+        return optax_adam_cuda.constants(*g["betas"], g["eps"],
+                                         g["weight_decay"], g["lr"], k, bf16)
+
+    differ = dict.fromkeys(MODULE_NAMES, 0)
+    optax_adam_cuda.reset_launches()
+    for k in range(1, OPTAX_STEPS + 1):
+        for n, m in mods.items():
+            grads = [torch.from_numpy((rng.randn(*p.shape) * 10.0
+                                       ** rng.uniform(-4, 0, p.shape)).astype(
+                np.float32)).to("cuda", bf16) for p in m["fused"][0]]
+            m["grads"] = grads
+            c = consts(m, k)
+            optax_adam_cuda.optax_adam(m["fused"][0], grads, *m["fused"][1:],
+                                       c, m["decay"])
+            optax_adam_cuda.optax_adam_plain(m["plain"][0], grads,
+                                             *m["plain"][1:], c, m["decay"])
+        torch.cuda.synchronize()
+        for n, m in mods.items():
+            for a_list, b_list in zip(m["fused"], m["plain"]):
+                for a, b in zip(a_list, b_list):
+                    differ[n] += int((a.view(torch.int16)
+                                      != b.view(torch.int16)).sum())
+    launched = optax_adam_cuda.launches["optax_adam_bf16"]
+    elements = {n: sum(p.numel() for p in m["fused"][0])
+                for n, m in mods.items()}
+    tensors = {n: len(m["fused"][0]) for n, m in mods.items()}
+    total = sum(elements.values())
+
+    def fused_step(names=MODULE_NAMES):
+        for n in names:
+            m = mods[n]
+            optax_adam_cuda.optax_adam(m["fused"][0], m["grads"],
+                                       *m["fused"][1:], m["c"], m["decay"])
+
+    def chain_step(names=MODULE_NAMES, key="c"):
+        for n in names:
+            m = mods[n]
+            optax_adam_cuda.optax_adam_plain(m["plain"][0], m["grads"],
+                                             *m["plain"][1:], m[key],
+                                             m["decay"])
+
+    for m in mods.values():
+        m["c"] = consts(m, OPTAX_STEPS + 1)
+        m["c_card"] = m["c"].cuda()
+    kernel_ms = queued_ms(fused_step, OPTAX_TIMED_CALLS)
+    per_module_ms = {n: queued_ms(lambda n=n: fused_step((n,)),
+                                  OPTAX_TIMED_CALLS) for n in MODULE_NAMES}
+    # the chain's kernels one module at a time (a module's up to 380
+    # launches stay within the launch queue) with its constants already on
+    # the card: the copy the chain makes of them otherwise waits for the
+    # stream, sleep included
+    plain_per_module_ms = {n: sorted(
+        queued_ms(lambda n=n: chain_step((n,), "c_card"), 1)
+        for _ in range(3))[1] for n in MODULE_NAMES}
+    plain_ms = sum(plain_per_module_ms.values())
+    host_ms = {}
+    for label, fn in (("fused", fused_step), ("chain", chain_step)):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        host_ms[label] = float(np.median(times))
+    torch.cuda.synchronize()
+    nbytes = OPTAX_BYTES_PER_ELEMENT * total
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    rec = {"name": "optax_adam_bf16", "tensors": tensors,
+           "elements": elements, "steps": OPTAX_STEPS,
+           "differing_elements": differ,
+           "launches": launched, "expected_launches": OPTAX_STEPS * len(mods),
+           "kernel_ms": kernel_ms, "per_module_kernel_ms": per_module_ms,
+           "per_module_sum_ms": sum(per_module_ms.values()),
+           "plain_ms": plain_ms, "plain_per_module_ms": plain_per_module_ms,
+           "host_ms": host_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes", "bytes": nbytes,
+           "pct_of_bound": 100.0 * bound_ms / kernel_ms}
+    emit({"phase": "optax_adam", **rec})
+    require(not any(differ.values()),
+            f"optax_adam_bf16 differs from the plain chain: {differ}")
+    require(launched == OPTAX_STEPS * len(mods),
+            f"optax_adam_bf16 launched {launched} times in {OPTAX_STEPS} "
+            f"steps of {len(mods)} modules")
+    return rec
 
 
 def multicell_bound(T: int, B: int, hidden_sizes, elem_bytes: int = 4):
@@ -5787,7 +5959,8 @@ def _bf16_step_errors(torch, outs, lr):
     return loss, errs
 
 
-def phase_bf16_train(torch, lstm_cuda, train_cuda, multicell_cuda):
+def phase_bf16_train(torch, lstm_cuda, train_cuda, multicell_cuda,
+                     optax_adam_cuda):
     """Phase 4m: training on bf16 params at full width and C4's batch (B =
     256 x 125). One concurrent step of the four modules on
     `init_all_modules(dtype=torch.bfloat16)` (the seed's float32 weights
@@ -5799,8 +5972,9 @@ def phase_bf16_train(torch, lstm_cuda, train_cuda, multicell_cuda):
     against the f32 step on the weights widened (losses within
     BF16_STEP_LOSS_RTOL on the float32 batch) and on the original float32
     weights (loss gaps), with finite losses, every parameter and moment
-    still bf16 and the launches of the f32 step (10 #7, 10 #8 scans, 10
-    dW per step). Then the same four variants at STEP_BATCH against the
+    still bf16, the launches of the f32 step (10 #7, 10 #8 scans, 10
+    dW per step) and one `OptaxAdam` launch a module (none on float32
+    params, which take torch's Adam). Then the same four variants at STEP_BATCH against the
     CPU port on the same weights, batch and draws: losses, gradients,
     moments and updated params (STEP_BF16_GRAD_ULPS). Then each variant's
     step time and peak memory beside C4's and C9's (`bench.run_train`);
@@ -5808,7 +5982,8 @@ def phase_bf16_train(torch, lstm_cuda, train_cuda, multicell_cuda):
     eager with the same #7 / #8 launches; and `forward(backend='fused')`
     exported with the weights as inputs against the eager forward at
     0.0 with 2 multicell + 2 bilstm launches. Returns the launch counts
-    of the bf16-param runs (the new entries' main-path runs)."""
+    of the bf16-param runs (the new entries' main-path runs), with
+    `optax_adam_bf16`'s a step."""
     import numpy as np
     from mobileposer_tpu_torch import bench, serving
     from mobileposer_tpu_torch import config as C
@@ -5839,9 +6014,17 @@ def phase_bf16_train(torch, lstm_cuda, train_cuda, multicell_cuda):
         step = make_multi_train_step(body, backend=backend)
         states = states_of(params)
         train_cuda.reset_launches()
+        optax_adam_cuda.reset_launches()
         states, losses = step(states, b,
                               torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
+        opt = optax_adam_cuda.launches["optax_adam_bf16"]
+        want = len(MODULE_NAMES) if params is p16 else 0
+        if opt != want:
+            failures.append(f"{backend}: {opt} optax_adam_bf16 launches in "
+                            f"a step, expected {want}")
+        main_launches["optax_adam_bf16"] = max(
+            opt, main_launches.get("optax_adam_bf16", 0))
         return states, {n: float(v) for n, v in losses.items()}, {
             k: n for k, n in train_cuda.launches.items() if n}
 
@@ -6056,7 +6239,8 @@ def main() -> int:
             == ROOT, "mobileposer_tpu_torch was not imported from this "
                      "checkout")
     from mobileposer_tpu_torch import bench
-    from mobileposer_tpu_torch.ops import _build, lstm_cuda, multicell_cuda
+    from mobileposer_tpu_torch.ops import (_build, lstm_cuda, multicell_cuda,
+                                           optax_adam_cuda)
     from mobileposer_tpu_torch.ops import lstm_train_cuda as train_cuda
 
     mark("start")
@@ -6079,13 +6263,14 @@ def main() -> int:
     # started together
     t0 = time.perf_counter()
     sources = ("lstm_scan.cu", "lstm_scan_int8.cu", "lstm_train.cu",
-               "multicell_scan.cu")
+               "multicell_scan.cu", "optax_adam.cu")
     with ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(_build.build, src) for src in sources]:
             fut.result()
     lstm_cuda.build()
     train_cuda.build()
     multicell_cuda.build()
+    optax_adam_cuda.build()
     ptxas = {}
     for src in sources:
         log = _build.library_path(src).with_suffix(".log")
@@ -6118,6 +6303,9 @@ def main() -> int:
     # I/O beside bf16 w_hh) against their plain versions
     train_recs += phase_train_bf16_kernels(torch, train_cuda)
     mark("3i")
+    # 3j. `OptaxAdam`'s kernel against the plain chain on the same tensors
+    optax_rec = phase_optax_adam(torch, optax_adam_cuda)
+    mark("3j")
     # 3d. the int8 kernels against their plain versions
     kernel_recs += phase_int8_kernels(torch, lstm_cuda)
     mark("3d")
@@ -6289,13 +6477,14 @@ def main() -> int:
     # C4's and C9's, a compiled module's loss and backward, the exported
     # fused forward
     bf16_train_launches = phase_bf16_train(torch, lstm_cuda, train_cuda,
-                                           multicell_cuda)
+                                           multicell_cuda, optax_adam_cuda)
     for name in (*(f"lstm_train_{k}_{s}" for k in ("fwd", "bwd")
                    for s in ("bf16", "bf16_bf16res")),
                  "lstm_train_bwd_wbf16", "lstm_train_bwd_wbf16_bf16res"):
         require(bf16_train_launches.get(name, 0) > 0,
                 f"{name} was never launched on its main path")
         main_launches[name] = bf16_train_launches[name]
+    optax_launches = bf16_train_launches["optax_adam_bf16"]
     mark("4m")
 
     # 5. exact-path streamed frames/s (tracing off), then one traced call;
@@ -6468,6 +6657,22 @@ def main() -> int:
                 k: shard[k] for k in ("T", "B", "H", "max_abs_err",
                                       "kernel_ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by")}
+    # the port's own kernel, beside no TPU kernel: `OptaxAdam`'s step (the
+    # JAX package's is optax's update, which XLA fuses in the jitted step);
+    # its launches a step of phase 4m's concurrent step, its numbers phase
+    # 3j's at the four modules' shapes
+    ported.append({
+        "name": "optax_adam_bf16", "route": "cuda",
+        "source": "mobileposer_tpu_torch/ops/csrc/optax_adam.cu",
+        "replaces": None, "launches": optax_launches,
+        "max_abs_err": 0.0,     # phase 3j: bit for bit the plain chain
+        "ms": optax_rec["kernel_ms"], "plain_ms": optax_rec["plain_ms"],
+        "bound_ms": optax_rec["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "per_module_kernels_ms": optax_rec["per_module_kernel_ms"],
+        "host_ms": optax_rec["host_ms"],
+        "shape": {"tensors": sum(optax_rec["tensors"].values()),
+                  "elements": sum(optax_rec["elements"].values())}})
     emit({"kernels": ported,
           "online_eval_launches": online_launches,
           "online_eval_int8_launches": online_int8_launches,

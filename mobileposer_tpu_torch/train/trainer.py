@@ -65,6 +65,7 @@ from mobileposer_tpu_torch.nn.convert import (export_npz, load_npz,
                                               rnn_block_to_jax)
 from mobileposer_tpu_torch.nn.lstm import (TRAIN_BACKENDS, LSTMDirectionInt8,
                                            RNNBlock, check_backend)
+from mobileposer_tpu_torch.ops import optax_adam_cuda
 from mobileposer_tpu_torch.parallel import distributed as D
 from mobileposer_tpu_torch.parallel.mesh import Mesh, pad_batch_to_multiple
 from mobileposer_tpu_torch.utils.metrics import (JSONLSink, MultiSink,
@@ -98,7 +99,15 @@ class OptaxAdam(torch.optim.Optimizer):
     in float32 with the constants unrounded and scale before the square
     root, which moved parameters by ~120 bf16 ulps of their magnitude
     from jitted optax's within three steps (on the CPU); this order gives
-    optax's bits (`tests/test_torch_train_bf16.py`)."""
+    optax's bits (`tests/test_torch_train_bf16.py`).
+
+    A step updates every tensor with a gradient (one without is skipped)
+    through `ops.optax_adam_cuda.optax_adam`, once per group and step
+    count: on CPU tensors the plain chain of torch ops, one tensor after
+    another; on CUDA tensors one launch of the fused kernel
+    (`ops/csrc/optax_adam.cu`, the same bits) for all of them, which takes
+    bf16 tensors only and raises on anything else. The state per tensor
+    is `step`, `mu` and `nu`."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0):
@@ -107,9 +116,8 @@ class OptaxAdam(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
-        consts = {}   # the constants in each params' dtype, one copy each
+        updates = {}   # (dtype, device, step, group) -> the group, its tensors
         for group in self.param_groups:
-            b1, b2 = group["betas"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
@@ -120,21 +128,16 @@ class OptaxAdam(torch.optim.Optimizer):
                     st["nu"] = torch.zeros_like(p)
                 st["step"] += 1
                 key = (p.dtype, p.device, st["step"], id(group))
-                if key not in consts:
-                    n, one = st["step"], np.float32(1)
-                    consts[key] = torch.tensor(
-                        [1 - b1, b1, 1 - b2, b2, one - np.float32(b1) ** n,
-                         one - np.float32(b2) ** n, group["eps"],
-                         group["weight_decay"], -group["lr"]],
-                        dtype=p.dtype).to(p.device).unbind()
-                c1, d1, c2, d2, bc1, bc2, eps, wd, neg_lr = consts[key]
-                g, mu, nu = p.grad, st["mu"], st["nu"]
-                mu.copy_(c1 * g + d1 * mu)
-                nu.copy_(c2 * (g * g) + d2 * nu)
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                if group["weight_decay"]:
-                    u = u + wd * p
-                p.copy_(p + neg_lr * u)
+                updates.setdefault(key, (group, []))[1].append(p)
+        for (dtype, _, count, _), (group, ps) in updates.items():
+            b1, b2 = group["betas"]
+            consts = optax_adam_cuda.constants(
+                b1, b2, group["eps"], group["weight_decay"], group["lr"],
+                count, dtype)
+            optax_adam_cuda.optax_adam(
+                ps, [p.grad for p in ps], [self.state[p]["mu"] for p in ps],
+                [self.state[p]["nu"] for p in ps], consts,
+                bool(group["weight_decay"]))
 
 
 def make_optimizer(module_name: str, lr: float,
@@ -287,8 +290,10 @@ def all_reduce_step(losses: Dict[str, torch.Tensor], modules: Dict[str, nn.Modul
                     world: int, mean: bool) -> Dict[str, torch.Tensor]:
     """The losses and every gradient summed across the ranks ('gspmd':
     the parts of the whole batch's loss) or averaged ('shard_map'), in
-    one collective on one flat buffer; the gradients are written back.
-    Returns the reduced losses."""
+    one collective on one flat buffer; the gradients are written back,
+    each in its param's dtype (the buffer is float32 beside the losses; a
+    bf16 param's gradient is rounded back to bf16 after the sum, as one
+    device gives it to `OptaxAdam`). Returns the reduced losses."""
     names = list(losses)
     params = [p for n in names for p in modules[n].parameters()
               if p.grad is not None]
@@ -299,7 +304,7 @@ def all_reduce_step(losses: Dict[str, torch.Tensor], modules: Dict[str, nn.Modul
         flat /= world
     offset = 0
     for p in params:
-        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
         offset += p.numel()
     return {n: flat[offset + i] for i, n in enumerate(names)}
 

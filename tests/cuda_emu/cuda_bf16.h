@@ -2,7 +2,7 @@
 // ops/csrc/ use (see cuda_runtime.h beside this file): __nv_bfloat16 as
 // its raw 16 bits, __float2bfloat16_rn rounding to nearest even on the
 // bits as the card (and torch, and XLA) round, __bfloat162float widening
-// exactly; __nv_bfloat162 a pair of them.
+// exactly, __bfloat16_as_ushort its bits; __nv_bfloat162 a pair of them.
 #pragma once
 #include <cstdint>
 #include <cstring>
@@ -29,6 +29,8 @@ inline float __bfloat162float(__nv_bfloat16 h) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
 
 inline __nv_bfloat162 __halves2bfloat162(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return {lo, hi};

@@ -31,7 +31,8 @@ struct dim3 {
 };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) int2 { int x, y; };
-inline thread_local dim3 threadIdx, blockIdx;
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 #define __global__
 #define __device__
 #define __host__
@@ -45,6 +46,7 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
 // round to nearest, ties to even (the default rounding mode)
 inline int __float2int_rn(float x) { return static_cast<int>(std::nearbyint(x)); }
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
@@ -173,6 +175,7 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, F* kernel, Args&&.
           th.emplace_back([&, r, t] {
             emu_cluster = &c; emu_rank = r;
             threadIdx = dim3(t); blockIdx = dim3(cl * n + r, y);
+            gridDim = cfg->gridDim;
             kernel(args...);
           });
       for (auto& x : th) x.join();
@@ -192,7 +195,7 @@ void emu_launch(dim3 grid, unsigned nt, size_t smem, F* kernel, Args... args) {
         for (unsigned t = 0; t < nt; ++t)
           th.emplace_back([&, t] {
             emu_cluster = &c; emu_rank = 0;
-            threadIdx = dim3(t); blockIdx = dim3(x, y, z);
+            threadIdx = dim3(t); blockIdx = dim3(x, y, z); gridDim = grid;
             kernel(args...);
           });
         for (auto& q : th) q.join();

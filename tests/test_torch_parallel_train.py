@@ -7,6 +7,10 @@ MASTER_PORT, RANK, WORLD_SIZE), and run
     must equal the one-process step on the whole batch (loss rtol 1e-5,
     gradients within 1e-5 of their largest magnitude), 'shard_map' must
     report the mean of the ranks' own losses, whose draws differ;
+  * the same step under each rule on bf16 params (`OptaxAdam` on the
+    gradients rounded back to bf16 after the float32 sum), held to jitted
+    optax on the reduced gradients and ('gspmd') to the one-process bf16
+    step on the whole batch;
   * `make_shard_map_train_step` on one module;
   * `TrainingManager(mesh=...)` `fast_dev_run`, `train_all` and
     `train_module`, where only rank 0 writes, and `train_all(resume=True)`
@@ -43,6 +47,10 @@ WORLD = 2
 LENGTHS = [24, 17, 24, 9]
 T = 24
 STEP_SEED = 3
+LR = 1e-3
+# bf16 gradients of the data-parallel step against one process's, in bf16
+# ulps of each tensor's largest magnitude (test_bf16_step_over_the_group)
+DP_GRAD_ULPS = 4
 
 
 def _batch(rng, lengths=LENGTHS):
@@ -56,14 +64,21 @@ def _batch(rng, lengths=LENGTHS):
             "lengths": np.asarray(lengths, np.int32)}
 
 
-def _states():
+def _states(dtype=torch.float32):
     gen = torch.Generator().manual_seed(0)
-    return {n: trainer.init_train_state(n, gen, 1e-3, "cpu")
+    return {n: trainer.init_train_state(n, gen, LR, "cpu", dtype)
             for n in trainer.MODULE_NAMES}
 
 
 def _grads(states):
-    return np.concatenate([p.grad.reshape(-1).numpy()
+    """Every gradient, flat, in float32 (a bf16 one widened exactly)."""
+    return np.concatenate([p.grad.float().reshape(-1).numpy()
+                           for n in trainer.MODULE_NAMES
+                           for p in states[n].params.parameters()])
+
+
+def _params(states):
+    return np.concatenate([p.detach().float().reshape(-1).numpy()
                            for n in trainer.MODULE_NAMES
                            for p in states[n].params.parameters()])
 
@@ -98,6 +113,16 @@ def _worker(rank: int, out: Path) -> None:
                               torch.Generator().manual_seed(STEP_SEED))
         res[impl] = {n: float(v) for n, v in losses.items()}
         np.save(out / f"grads_{impl}_{rank}.npy", _grads(states))
+        # the same step on bf16 params (`OptaxAdam`)
+        states = _states(torch.bfloat16)
+        states, losses = step(states, local,
+                              torch.Generator().manual_seed(STEP_SEED))
+        res[f"bf16_{impl}"] = {n: float(v) for n, v in losses.items()}
+        res[f"bf16_{impl}_dtypes"] = sorted(
+            {str(t.dtype) for s in states.values()
+             for p in s.params.parameters() for t in (p, p.grad)})
+        np.save(out / f"grads_bf16_{impl}_{rank}.npy", _grads(states))
+        np.save(out / f"params_bf16_{impl}_{rank}.npy", _params(states))
     # this rank's own shard_map losses, on rows all equal to row 0: only
     # the folded draws differ between the ranks
     same = {k: np.repeat(v[:1], len(LENGTHS), axis=0)
@@ -241,6 +266,100 @@ def test_shard_map_step_is_the_mean_of_rank_losses_and_draws_differ(ranks):
     mean = np.mean([res[r]["one_module"][1] for r in range(WORLD)])
     for r in range(WORLD):
         np.testing.assert_allclose(res[r]["one_module"][0], mean, rtol=1e-6)
+
+
+def _optax_step(states):
+    """One jitted optax step (adamw(LR) for joints, adam(LR) for the
+    rest, as `make_optimizer` sets them) of each module's bf16 params from
+    their initial values, on the gradients `states` hold; flat, float32."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    out = []
+    for n in trainer.MODULE_NAMES:
+        ps = list(states[n].params.parameters())
+        params = [jnp.asarray(p.detach().float().numpy()).astype(
+            jnp.bfloat16) for p in ps]
+        grads = [jnp.asarray(p.grad.float().numpy()).astype(jnp.bfloat16)
+                 for p in ps]
+        opt = optax.adamw(LR) if n == "joints" else optax.adam(LR)
+
+        @jax.jit
+        def step(params, grads):
+            updates, _ = opt.update(grads, opt.init(params), params)
+            return optax.apply_updates(params, updates)
+
+        out += [np.asarray(q).astype(np.float32).reshape(-1)
+                for q in step(params, grads)]
+    return np.concatenate(out)
+
+
+def _ulps_of_own(got, want):
+    """Each difference in bf16 ulps of the entry's own magnitude (the rule
+    of tests/test_torch_train_bf16.py's optimizer test)."""
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    return np.abs(got - want) / ulp
+
+
+@pytest.mark.parametrize("impl", ["gspmd", "shard_map"])
+def test_bf16_step_over_the_group(ranks, impl):
+    """bf16 params over the group: `all_reduce_step` sums the ranks'
+    gradients in one float32 buffer and hands each back rounded to bf16,
+    which `OptaxAdam` steps. Every param and gradient bf16 and both ranks
+    equal bit for bit; the updated params within 1 bf16 ulp of their own
+    magnitude of jitted optax's step on the same reduced gradients (0
+    measured). 'gspmd' also against the one-process bf16 step on the whole
+    batch: losses rtol 1e-5; each gradient tensor within DP_GRAD_ULPS bf16
+    ulps of its largest magnitude (2 measured: each rank's part is rounded
+    to bf16 before the sum, the one process's whole sum once); and each
+    updated param within 1 bf16 ulp of the larger of the two plus an
+    allowance for the step: lr * 2**-5 where the one-process gradient
+    exceeds twice the gradients' bound (a step from zero moments moves a
+    param by lr times g / |g| up to rounding, whatever g's size), else
+    2 lr (1 + 2**-5), where a gradient near zero may take the other sign."""
+    res, out = ranks
+    grads = [np.load(out / f"grads_bf16_{impl}_{r}.npy")
+             for r in range(WORLD)]
+    params = [np.load(out / f"params_bf16_{impl}_{r}.npy")
+              for r in range(WORLD)]
+    for r in range(WORLD):
+        assert res[r][f"bf16_{impl}_dtypes"] == ["torch.bfloat16"]
+    np.testing.assert_array_equal(grads[0], grads[1])
+    np.testing.assert_array_equal(params[0], params[1])
+    states = _states(torch.bfloat16)
+    offset = 0
+    for n in trainer.MODULE_NAMES:
+        for p in states[n].params.parameters():
+            p.grad = torch.from_numpy(grads[0][offset:offset + p.numel()]
+                                      .reshape(p.shape)).to(torch.bfloat16)
+            offset += p.numel()
+    assert _ulps_of_own(params[0], _optax_step(states)).max() <= 1
+    if impl != "gspmd":
+        return
+    one = _states(torch.bfloat16)
+    step = trainer.make_multi_train_step(_body())
+    batch = trainer.to_device(_batch(np.random.RandomState(STEP_SEED)),
+                              "cpu")
+    one, losses = step(one, batch, torch.Generator().manual_seed(STEP_SEED))
+    for n in trainer.MODULE_NAMES:
+        np.testing.assert_allclose(res[0]["bf16_gspmd"][n], float(losses[n]),
+                                   rtol=1e-5, err_msg=n)
+    want_g, want_p = _grads(one), _params(one)
+    offset = 0
+    for n in trainer.MODULE_NAMES:
+        for i, p in enumerate(one[n].params.parameters()):
+            part = slice(offset, offset + p.numel())
+            offset += p.numel()
+            g, wg = grads[0][part], want_g[part]
+            ulp_g = 2.0 ** (np.floor(np.log2(np.abs(wg).max())) - 7)
+            assert np.abs(g - wg).max() <= DP_GRAD_ULPS * ulp_g, (n, i)
+            got, want = params[0][part], want_p[part]
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.maximum(
+                np.abs(got), np.abs(want)), 2.0 ** -126))) - 7)
+            allow = ulp + np.where(np.abs(wg) > 2 * DP_GRAD_ULPS * ulp_g,
+                                   LR * 2 ** -5, 2 * LR * (1 + 2 ** -5))
+            assert (np.abs(got - want) <= allow).all(), (n, i)
 
 
 def test_manager_and_cli_over_the_group_write_on_rank_0_only(ranks):

@@ -342,6 +342,27 @@ def test_optimizer_on_bf16_params_matches_optax(name):
     assert moments["mu"].dtype == moments["nu"].dtype == BF16
 
 
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_all_reduce_step_keeps_each_gradient_in_its_params_dtype(
+        dtype, monkeypatch):
+    """The data-parallel reduction sums in one float32 buffer beside the
+    losses and hands each gradient back in its param's dtype: a bf16
+    param's as bf16 (rounded after the sum), which `OptaxAdam`'s kernel
+    takes; a float32 param's as a view of the buffer, as before. One rank
+    (the collective a no-op) gives the gradients back unchanged."""
+    monkeypatch.setattr(torch.distributed, "all_reduce", lambda t: None)
+    module = torch.nn.Linear(5, 3).to(dtype)
+    grads = [torch.randn(p.shape).to(dtype) for p in module.parameters()]
+    for p, g in zip(module.parameters(), grads):
+        p.grad = g.clone()
+    loss = torch.tensor(1.5)
+    out = trainer.all_reduce_step({"m": loss}, {"m": module}, 1, False)
+    assert float(out["m"]) == 1.5
+    for p, g in zip(module.parameters(), grads):
+        assert p.grad.dtype == dtype and p.grad.is_contiguous()
+        assert torch.equal(p.grad, g)
+
+
 def test_init_all_modules_in_bf16():
     """`init_all_modules(dtype=bf16)` draws what the float32 call draws
     from the same seed and casts it (bit for bit `cast_params`), every
