@@ -24,7 +24,16 @@
 // x @ w_ih + b_ih + b_hh; w_hh is [H, 4H] row-major (input-major, the JAX
 // layout); gate order (i, f, g, o); the carry stays float32; the backward
 // direction consumes a pre-reversed x_proj and emits ys still reversed;
-// the final (h, c) is written after the last step. Masked variant, per
+// the final (h, c) is written after the last step. Fold entries
+// (*_fold_*, the full-length float route of lstm_forward_cuda; the same
+// kernel, lstm_scan_kernel, as the entries above): x_proj = x @ w_ih alone
+// and the bias b_ih + b_hh [4H] apart, added to each gate as x_proj is read
+// (rounded as the host's add rounds it, so the gates start from the same
+// bits); the backward direction reads x_proj_b in time order, its scan
+// stepping from frame T - 1 down to 0 and writing each h at its own frame;
+// both directions may write the two halves of one [T, B, 2H] buffer (ys
+// rows of 2H). No flip, bias add or concat is left between a layer's input
+// projections and the next layer's. Masked variant, per
 // step and row with m = mask[t, b]: h <- m*h_new + (1-m)*h and
 // c <- m*c_new + (1-m)*c (no branch, so a fractional mask blends as the
 // TPU kernel does), ys[t] = m*h_new (exactly zero at a masked step), and
@@ -146,12 +155,20 @@ __device__ __forceinline__ Group whole_cluster(int H, int R) {
                static_cast<int>(blockIdx.x / n_cta) * R};
 }
 
+// The full-length scan of direction blockIdx.y, in scan_body's kFold form:
+// with bias0 / bias1 (or null) added to x_proj as it is read, the second
+// direction stepping from the last frame down when `in_order`, ys rows of
+// ys_s elements.
 template <int RT, int C, class IO>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_scan_kernel(Dir<IO> d0, Dir<IO> d1, int T, int B, int H, int R) {
-  scan_body<RT, C, kGroups, false, false, IO>(
-      blockIdx.y == 0 ? d0 : d1, nullptr, T, B, H, R, whole_cluster(H, R),
-      4 * static_cast<size_t>(H));
+lstm_scan_kernel(Dir<IO> d0, Dir<IO> d1, const IO* __restrict__ bias0,
+                 const IO* __restrict__ bias1, int T, int B, int H, int R,
+                 int ys_s, int in_order) {
+  const bool second = blockIdx.y != 0;
+  scan_body<RT, C, kGroups, false, false, IO, true>(
+      second ? d1 : d0, nullptr, T, B, H, R, whole_cluster(H, R),
+      4 * static_cast<size_t>(H), second ? bias1 : bias0,
+      second && in_order != 0, static_cast<size_t>(ys_s));
 }
 
 template <int RT, int C, class IO>
@@ -163,12 +180,25 @@ lstm_scan_masked_kernel(Dir<IO> d0, Dir<IO> d1, const IO* __restrict__ mask,
       4 * static_cast<size_t>(H));
 }
 
+// The fold entries' contract (see the design note): the bias added as
+// x_proj is read, the second direction stepping from the last frame down
+// when `in_order`, ys rows of ys_s elements
+template <int RT, int C, class IO>
+cudaError_t fold_rows(const Dir<IO>& d0, const Dir<IO>& d1, const IO* bias0,
+                      const IO* bias1, int n_dir, int T, int B, int H, int R,
+                      int ys_s, int in_order, cudaStream_t stream) {
+  return launch_clusters(lstm_scan_kernel<RT, C, IO>,
+                         scan_smem_bytes(H, R, 2), B, H, R, n_dir, stream,
+                         d0, d1, bias0, bias1, T, B, H, R, ys_s, in_order);
+}
+
+// The Pallas kernels' contract: x_proj with the bias, a backward direction
+// pre-reversed, ys [T, B, H] per direction
 template <int RT, int C, class IO>
 cudaError_t scan_rows(const Dir<IO>& d0, const Dir<IO>& d1, int n_dir, int T,
                       int B, int H, int R, cudaStream_t stream) {
-  return launch_clusters(lstm_scan_kernel<RT, C, IO>,
-                         scan_smem_bytes(H, R, 2), B, H, R, n_dir, stream,
-                         d0, d1, T, B, H, R);
+  return fold_rows<RT, C, IO>(d0, d1, nullptr, nullptr, n_dir, T, B, H, R, H,
+                              0, stream);
 }
 
 template <int RT, int C, class IO>
@@ -252,6 +282,43 @@ int bilstm_scan_f32(const float* x_proj_f, const float* x_proj_b,
 #undef SCAN
 }
 
+// The fold entries (kernels #1 and #2 on the full-length float route of
+// lstm_forward_cuda): x_proj = x @ w_ih without the bias, bias = b_ih +
+// b_hh [4H], added in the scan. The bidirectional one reads x_proj_b in
+// time order (its scan steps from frame T - 1 down to 0) and writes both
+// directions into ys_f and ys_b, rows of ys_s elements: H for two
+// [T, B, H] tensors, 2H for the halves of one [T, B, 2H] buffer (ys_b =
+// ys_f + H).
+int lstm_scan_fold_f32(const float* x_proj, const float* w_hh,
+                       const float* bias, const float* h0, const float* c0,
+                       float* ys, float* h_t, float* c_t,
+                       int T, int B, int H, int rows, void* stream) {
+  const Dir<float> d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
+#define SCAN(RT, C)                                                  \
+  fold_rows<RT, C>(d, d, bias, bias, 1, T, B, H, rows, H, 1,         \
+                   static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int bilstm_scan_fold_f32(const float* x_proj_f, const float* x_proj_b,
+                         const float* w_hh_f, const float* w_hh_b,
+                         const float* bias_f, const float* bias_b,
+                         const float* h0_f, const float* c0_f,
+                         const float* h0_b, const float* c0_b,
+                         float* ys_f, float* ys_b,
+                         float* h_f, float* c_f, float* h_b, float* c_b,
+                         int T, int B, int H, int rows, int ys_s,
+                         void* stream) {
+  const Dir<float> f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const Dir<float> b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
+#define SCAN(RT, C)                                                  \
+  fold_rows<RT, C>(f, b, bias_f, bias_b, 2, T, B, H, rows, ys_s, 1,  \
+                   static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
 // The clusters of the full-length scan at (H, rows) that the current
 // device holds at once, into *out.
 int lstm_scan_max_clusters(int H, int rows, int* out) {
@@ -324,6 +391,36 @@ int bilstm_scan_bf16(const bf16* x_proj_f, const bf16* x_proj_b,
   const Dir<bf16> b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
 #define SCAN(RT, C) \
   scan_rows<RT, C>(f, b, 2, T, B, H, rows, static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int lstm_scan_fold_bf16(const bf16* x_proj, const bf16* w_hh,
+                        const bf16* bias, const bf16* h0, const bf16* c0,
+                        bf16* ys, bf16* h_t, bf16* c_t,
+                        int T, int B, int H, int rows, void* stream) {
+  const Dir<bf16> d{x_proj, w_hh, h0, c0, ys, h_t, c_t};
+#define SCAN(RT, C)                                                  \
+  fold_rows<RT, C>(d, d, bias, bias, 1, T, B, H, rows, H, 1,         \
+                   static_cast<cudaStream_t>(stream))
+  LSTM_SCAN_ROWS(rows, SCAN)
+#undef SCAN
+}
+
+int bilstm_scan_fold_bf16(const bf16* x_proj_f, const bf16* x_proj_b,
+                          const bf16* w_hh_f, const bf16* w_hh_b,
+                          const bf16* bias_f, const bf16* bias_b,
+                          const bf16* h0_f, const bf16* c0_f,
+                          const bf16* h0_b, const bf16* c0_b,
+                          bf16* ys_f, bf16* ys_b,
+                          bf16* h_f, bf16* c_f, bf16* h_b, bf16* c_b,
+                          int T, int B, int H, int rows, int ys_s,
+                          void* stream) {
+  const Dir<bf16> f{x_proj_f, w_hh_f, h0_f, c0_f, ys_f, h_f, c_f};
+  const Dir<bf16> b{x_proj_b, w_hh_b, h0_b, c0_b, ys_b, h_b, c_b};
+#define SCAN(RT, C)                                                  \
+  fold_rows<RT, C>(f, b, bias_f, bias_b, 2, T, B, H, rows, ys_s, 1,  \
+                   static_cast<cudaStream_t>(stream))
   LSTM_SCAN_ROWS(rows, SCAN)
 #undef SCAN
 }

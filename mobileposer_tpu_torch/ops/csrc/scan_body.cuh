@@ -4,7 +4,8 @@
 // batch rows of one LSTM direction over T steps, each CTA holding its
 // [H, 128] slice of w_hh in shared memory. lstm_scan.cu's design note says
 // how a step runs; multicell_scan.cu's how a cluster holds several groups.
-// One body keeps one summation order: each gate starts at x_proj and adds
+// One body keeps one summation order: each gate starts at x_proj (with
+// kFold's bias, x_proj + bias rounded as the host's add) and adds
 // h[k] * w[k][col] with fmaf for k = 0 .. H-1, and the cell update is
 // written out, so the multicell scan gives the layer scans' bits.
 //
@@ -93,12 +94,26 @@ __device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
 // parameters made bilstm_scan_f32 at B = 200 ~3% slower on an H100,
 // bench_turns.py), the multicell scan its cells' total width. IO is the
 // I/O type (see above), the mask's too.
+//   With kFold (the full-length layer scans), three more things come from
+// the caller. `bias` [4H] (b_ih + b_hh), or null: x_proj then holds it.
+// Each gate takes x_proj + bias as it goes to its slot, rounded to IO, so
+// the sum is the one the host's add rounds (a float32 add, or bf16 I/O's
+// float32 add rounded to bf16) and the fmaf chain then starts from the same
+// value: the bits of x_proj with the bias added on the host. `rev`: step t
+// reads x_proj and writes ys at frame T - 1 - t, so a backward direction
+// reads its input and writes its outputs in time order. `ys_s`: ys's row
+// stride in elements (H, or 2H where both directions of a layer write the
+// halves of one [T, B, 2H] buffer). Without kFold: no bias, steps in frame
+// order, ys rows of H.
 template <int RT, int C, int G, bool kMasked, bool kSingleH,
-          class IO = float>
+          class IO = float, bool kFold = false>
 __device__ __forceinline__ void scan_body(const Dir<IO> d,
                                           const IO* __restrict__ mask,
                                           int T, int B, int H, int R,
-                                          const Group at, size_t xs) {
+                                          const Group at, size_t xs,
+                                          const IO* __restrict__ bias = nullptr,
+                                          bool rev = false, size_t ys_s = 0) {
+  static_assert(!(kFold && kMasked), "the masked scans take no fold");
   constexpr int CPT = (G * RT * kUnits + kThreads - 1) / kThreads;
   constexpr int kWarpsPerGroup = 4 / C;  // warps covering the 128 columns
   static_assert(G * kWarpsPerGroup * 32 <= kThreads, "product warps");
@@ -133,6 +148,22 @@ __device__ __forceinline__ void scan_body(const Dir<IO> d,
   const int b0 = at.b0;
   const int unit0 = at.cta * kUnits;
   const int tid = threadIdx.x;
+  // kFold: the frame of step t, and ys's row stride
+  auto frame = [&](int t) { return kFold && rev ? T - 1 - t : t; };
+  const size_t ys_row = kFold ? ys_s : static_cast<size_t>(H);
+  // kFold with a bias: the four gates' bias of the thread's unit (item
+  // tid + p * kThreads is unit tid % 32 for every p), added as x_proj goes
+  // to the gate slots
+  const bool has_bias = kFold && bias != nullptr;
+  float bq[4] = {};
+  if (has_bias) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      bq[g] = to_f32(__ldg(bias + g * H + unit0 + tid % kUnits));
+  }
+  auto with_bias = [&](float x, int g) {
+    return has_bias ? round_io<IO>(x + bq[g]) : x;
+  };
 
   extern __shared__ float4 smem[];
   float* w_s = reinterpret_cast<float*>(smem);   // [H][kCols], swizzled
@@ -179,10 +210,12 @@ __device__ __forceinline__ void scan_body(const Dir<IO> d,
       hf[p] = ok ? to_f32(d.h0[static_cast<size_t>(b) * H + unit0 + u])
                  : 0.0f;
     if (item < R * kUnits) {
+      const size_t row = static_cast<size_t>(frame(0)) * B + b;
 #pragma unroll
       for (int g = 0; g < 4; ++g)
         gates[r * kCols + g * kUnits + u] =
-            ok ? to_f32(__ldg(d.x_proj + b * xs + g * H + unit0 + u))
+            ok ? with_bias(to_f32(__ldg(d.x_proj + row * xs + g * H + unit0
+                                        + u)), g)
                : 0.0f;
     }
     if constexpr (kMasked && !kLateMask)
@@ -193,7 +226,7 @@ __device__ __forceinline__ void scan_body(const Dir<IO> d,
   // step t+1's x_proj (and, masked, mask) for the cell items
   auto fetch_next = [&](int t) {
     if (t + 1 >= t_end) return;
-    const size_t row0 = static_cast<size_t>(t + 1) * B;
+    const size_t row0 = static_cast<size_t>(frame(t + 1)) * B;
 #pragma unroll
     for (int p = 0; p < CPT; ++p) {
       const int item = tid + p * kThreads;
@@ -293,7 +326,7 @@ __device__ __forceinline__ void scan_body(const Dir<IO> d,
       __syncthreads();  // every gate of the tile is in shared memory
 
     float* h_next = h_s + (kSingleH ? 0 : cur ^ 1) * R * H;
-    IO* yt = d.ys + static_cast<size_t>(t) * B * H;
+    IO* yt = d.ys + static_cast<size_t>(frame(t)) * B * ys_row;
 #pragma unroll
     for (int p = 0; p < CPT; ++p) {
       const int item = tid + p * kThreads;
@@ -329,7 +362,8 @@ __device__ __forceinline__ void scan_body(const Dir<IO> d,
       } else {
         c[p] = c_new;
       }
-      if (b < B) yt[static_cast<size_t>(b) * H + unit0 + u] = from_f32<IO>(y);
+      if (b < B)
+        yt[static_cast<size_t>(b) * ys_row + unit0 + u] = from_f32<IO>(y);
       // the new h of this unit as the products take it (bf16 I/O: rounded
       // to bf16), into the next h buffer of every CTA
       const float hx = round_io<IO>(h);
@@ -337,13 +371,14 @@ __device__ __forceinline__ void scan_body(const Dir<IO> d,
         cluster.map_shared_rank(h_next, at.rank0 + q)[r * H + unit0 + u] = hx;
       // the next step's x_proj into this (row, unit)'s gate slots
       if constexpr (kPackX) {
-        gr[0] = __low2float(xb[p][0]);
-        gr[kUnits] = __high2float(xb[p][0]);
-        gr[2 * kUnits] = __low2float(xb[p][1]);
-        gr[3 * kUnits] = __high2float(xb[p][1]);
+        gr[0] = with_bias(__low2float(xb[p][0]), 0);
+        gr[kUnits] = with_bias(__high2float(xb[p][0]), 1);
+        gr[2 * kUnits] = with_bias(__low2float(xb[p][1]), 2);
+        gr[3 * kUnits] = with_bias(__high2float(xb[p][1]), 3);
       } else {
 #pragma unroll
-        for (int gi = 0; gi < 4; ++gi) gr[gi * kUnits] = xn[p][gi];
+        for (int gi = 0; gi < 4; ++gi)
+          gr[gi * kUnits] = with_bias(xn[p][gi], gi);
       }
     }
     // h_t and x_proj[t+1] are in place everywhere, and nobody reads h_{t-1}

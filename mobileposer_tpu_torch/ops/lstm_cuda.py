@@ -8,7 +8,8 @@ kernels' bf16 variant, `csrc/scan_body.cuh`):
     (unidirectional full-length layer; the velocity module);
   * `bilstm_layer` -> `bilstm_scan_f32`/`_bf16`, ports `bilstm_layer_pallas`
     (both directions of a bidirectional layer in one launch; joints,
-    poser and footcontact);
+    poser and footcontact); given the biases, both wrappers launch the
+    same kernel through their fold entries (`*_scan_fold_*`);
   * `lstm_layer_masked` -> `lstm_scan_masked_f32` and `bilstm_layer_masked`
     -> `bilstm_scan_masked_f32` port `lstm_layer_masked_pallas` (a ragged
     batch with a [T, B] validity mask; one direction, or both directions
@@ -53,10 +54,14 @@ to `launches`.
 `lstm_forward_pallas` (and `nn/lstm.py` `lstm_forward` of the JAX package
 for ragged batches): input projections for all timesteps as one matmul
 per direction in the weights' dtype (`int8_matmul` for an int8 layer),
-the mask in the activations' dtype, the backward direction
-pre-reversed in time (per length, with `lengths`) and its outputs
-un-reversed after the kernel. The dtype of w_ih picks the float or the
-int8 kernels, layer by layer.
+the mask in the activations' dtype. A full-length float layer runs on
+the fold entries of `lstm_layer` / `bilstm_layer` (given the biases):
+the bias added in the scan, the backward direction read and written in
+time order, both directions' ys in one [T, B, 2H] buffer. The masked and
+int8 layers keep the Pallas kernels' contract: the bias in x_proj, the
+backward direction pre-reversed in time (per length, with `lengths`)
+and its outputs un-reversed after the kernel. The dtype of w_ih picks
+the float or the int8 kernels, layer by layer.
 
 The eight wrappers are also `torch.library` custom ops
 (`mobileposer_tpu_torch::lstm_layer`, ...; `OPS`) with fake
@@ -70,7 +75,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -79,10 +84,12 @@ from mobileposer_tpu_torch.nn.lstm import (_lstm_scan, _reverse_by_length,
 from mobileposer_tpu_torch.ops import _build
 from mobileposer_tpu_torch.ops.quant import int8_matmul, is_quantized
 
-#: launches per kernel since the last `reset_launches()`
+#: launches per kernel since the last `reset_launches()`, by entry
 launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
+            "lstm_scan_fold_f32": 0, "bilstm_scan_fold_f32": 0,
             "lstm_scan_masked_f32": 0, "bilstm_scan_masked_f32": 0,
             "lstm_scan_bf16": 0, "bilstm_scan_bf16": 0,
+            "lstm_scan_fold_bf16": 0, "bilstm_scan_fold_bf16": 0,
             "lstm_scan_masked_bf16": 0, "bilstm_scan_masked_bf16": 0,
             "lstm_scan_int8": 0, "bilstm_scan_int8": 0,
             "lstm_scan_masked_int8": 0, "bilstm_scan_masked_int8": 0,
@@ -90,21 +97,28 @@ launches = {"lstm_scan_f32": 0, "bilstm_scan_f32": 0,
             "lstm_scan_masked_int8_bf16": 0,
             "bilstm_scan_masked_int8_bf16": 0}
 
-#: {source: {entry: number of pointer arguments}}; every entry then takes
-#: T, B, H, the batch rows per cluster and the stream
+#: {source: {entry: (pointer arguments, int arguments)}}; the ints are
+#: T, B, H, the batch rows per cluster and, for the bidirectional fold
+#: entries, ys's row stride; the stream comes last
 _ENTRIES = {
-    "lstm_scan.cu": {"lstm_scan_f32": 7, "bilstm_scan_f32": 14,
-                     "lstm_scan_masked_f32": 8, "bilstm_scan_masked_f32": 15,
-                     "lstm_scan_bf16": 7, "bilstm_scan_bf16": 14,
-                     "lstm_scan_masked_bf16": 8,
-                     "bilstm_scan_masked_bf16": 15},
-    "lstm_scan_int8.cu": {"lstm_scan_int8": 8, "bilstm_scan_int8": 16,
-                          "lstm_scan_masked_int8": 9,
-                          "bilstm_scan_masked_int8": 17,
-                          "lstm_scan_int8_bf16": 8,
-                          "bilstm_scan_int8_bf16": 16,
-                          "lstm_scan_masked_int8_bf16": 9,
-                          "bilstm_scan_masked_int8_bf16": 17},
+    "lstm_scan.cu": {"lstm_scan_f32": (7, 4), "bilstm_scan_f32": (14, 4),
+                     "lstm_scan_masked_f32": (8, 4),
+                     "bilstm_scan_masked_f32": (15, 4),
+                     "lstm_scan_bf16": (7, 4), "bilstm_scan_bf16": (14, 4),
+                     "lstm_scan_masked_bf16": (8, 4),
+                     "bilstm_scan_masked_bf16": (15, 4),
+                     "lstm_scan_fold_f32": (8, 4),
+                     "bilstm_scan_fold_f32": (16, 5),
+                     "lstm_scan_fold_bf16": (8, 4),
+                     "bilstm_scan_fold_bf16": (16, 5)},
+    "lstm_scan_int8.cu": {"lstm_scan_int8": (8, 4),
+                          "bilstm_scan_int8": (16, 4),
+                          "lstm_scan_masked_int8": (9, 4),
+                          "bilstm_scan_masked_int8": (17, 4),
+                          "lstm_scan_int8_bf16": (8, 4),
+                          "bilstm_scan_int8_bf16": (16, 4),
+                          "lstm_scan_masked_int8_bf16": (9, 4),
+                          "bilstm_scan_masked_int8_bf16": (17, 4)},
 }
 #: the I/O dtypes of the float entries, by their names' suffix
 _IO_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -241,6 +255,12 @@ def scan_geometry(n_dir: int, B: int, H: int, device: torch.device,
     return _scan_geometry_on(n_dir, B, H, index, masked, int8)
 
 
+def entry_argtypes(n_ptr: int, n_int: int) -> list:
+    """The ctypes argument types of an entry of `_ENTRIES`."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return [P] * n_ptr + [I] * n_int + [P]
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
@@ -252,8 +272,8 @@ def _lib(source: str) -> ctypes.CDLL:
     entry."""
     lib = _build.load(source)
     P, I = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr in _ENTRIES[source].items():
-        getattr(lib, name).argtypes = [P] * n_ptr + [I] * 4 + [P]
+    for name, args in _ENTRIES[source].items():
+        getattr(lib, name).argtypes = entry_argtypes(*args)
         getattr(lib, name).restype = I
     for name in _MAX_CLUSTERS_ENTRIES[source]:
         getattr(lib, name).argtypes = [I, I, ctypes.POINTER(I)]
@@ -352,22 +372,28 @@ def _int8_entry(kind: str, x_proj: torch.Tensor) -> str:
     return f"{kind}_int8{_INT8_IO_SUFFIX[x_proj.dtype]}"
 
 
-def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
+def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int,
+            out=None):
     """Allocate the outputs in the I/O dtype (x_proj's), launch C entry
     `name` on the current stream and count the launch. The entry takes the
     input pointers, then ys per direction, then (h_T, c_T) per direction,
     then T, B, H, the rows per cluster of `scan_geometry` (the same for
-    both I/O dtypes) and the stream. Returns ([ys per direction],
+    both I/O dtypes), a bidirectional fold entry ys's row stride, and the
+    stream. With `out` (a bidirectional fold entry) the directions' ys are
+    the two halves of that [T, B, 2H] buffer, rows of 2H; else each is a
+    [T, B, H] tensor of its own. Returns ([ys per direction],
     [h_T, c_T per direction])."""
     dev, io = inputs[0].device, inputs[0].dtype
-    ints = (T, B, H, scan_geometry(n_dir, B, H, dev, "masked" in name,
-                                   "int8" in name).rows)
-    ys = [torch.empty((T, B, H), dtype=io, device=dev)
-          for _ in range(n_dir)]
+    source = next(src for src, entries in _ENTRIES.items() if name in entries)
+    ys = ([torch.empty((T, B, H), dtype=io, device=dev)
+           for _ in range(n_dir)] if out is None
+          else [out[..., :H], out[..., H:]])
     hc = [torch.empty((B, H), dtype=io, device=dev)
           for _ in range(2 * n_dir)]
-    lib = _lib(next(src for src, entries in _ENTRIES.items()
-                    if name in entries))
+    ints = (T, B, H, scan_geometry(n_dir, B, H, dev, "masked" in name,
+                                   "int8" in name).rows,
+            ys[0].stride(1))[:_ENTRIES[source][name][1]]
+    lib = _lib(source)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, name)(*(t.data_ptr() for t in [*inputs, *ys, *hc]),
@@ -383,23 +409,47 @@ def _launch(name: str, inputs, n_dir: int, T: int, B: int, H: int):
 # Kernel 2: unidirectional layer scan
 # ---------------------------------------------------------------------------
 
-def lstm_layer_plain(x_proj, w_hh, h0, c0):
-    """Plain version of `lstm_layer` (the `_lstm_scan` loop)."""
-    return _lstm_scan(x_proj, w_hh, h0, c0)
+def _check_bias(b, x_proj) -> None:
+    """A fold entry's bias: [4H] in x_proj's dtype, contiguous, beside it."""
+    H4 = x_proj.shape[-1]
+    if b.dtype != x_proj.dtype:
+        raise ValueError(f"the bias must be {str(x_proj.dtype)[6:]}, got "
+                         f"{b.dtype}")
+    if tuple(b.shape) != (H4,):
+        raise ValueError(f"the bias must be {(H4,)}, got {tuple(b.shape)}")
+    if b.device != x_proj.device:
+        raise ValueError(f"the bias is on {b.device}, x_proj on "
+                         f"{x_proj.device}")
+    if not b.is_contiguous():
+        raise ValueError("the bias must be contiguous")
+
+
+def lstm_layer_plain(x_proj, w_hh, h0, c0, b=None):
+    """Plain version of `lstm_layer` (the `_lstm_scan` loop), the bias
+    added on the host."""
+    return _lstm_scan(x_proj if b is None else x_proj + b, w_hh, h0, c0)
 
 
 def lstm_layer(x_proj: torch.Tensor, w_hh: torch.Tensor,
-               h0: torch.Tensor, c0: torch.Tensor):
+               h0: torch.Tensor, c0: torch.Tensor, b=None):
     """Full-length unidirectional LSTM layer scan.
 
-    x_proj [T, B, 4H] incl. both biases; w_hh [H, 4H]; h0/c0 [B, H].
+    x_proj [T, B, 4H] incl. both biases, or with `b` (b_ih + b_hh [4H],
+    the fold entry) without them: the scan adds b as it reads x_proj, with
+    the rounding of the host's add. w_hh [H, 4H]; h0/c0 [B, H].
     Returns (ys [T, B, H], (h_T, c_T)).
     """
     T, B, H = _check_layer(x_proj, w_hh, h0, c0)
+    if b is not None:
+        _check_bias(b, x_proj)
     if x_proj.device.type == "cpu":
-        return lstm_layer_plain(x_proj, w_hh, h0, c0)
-    (ys,), (h_t, c_t) = _launch(_entry("lstm_scan", x_proj),
-                                [x_proj, w_hh, h0, c0], 1, T, B, H)
+        return lstm_layer_plain(x_proj, w_hh, h0, c0, b)
+    if b is None:
+        (ys,), (h_t, c_t) = _launch(_entry("lstm_scan", x_proj),
+                                    [x_proj, w_hh, h0, c0], 1, T, B, H)
+    else:
+        (ys,), (h_t, c_t) = _launch(_entry("lstm_scan_fold", x_proj),
+                                    [x_proj, w_hh, b, h0, c0], 1, T, B, H)
     return ys, (h_t, c_t)
 
 
@@ -407,28 +457,70 @@ def lstm_layer(x_proj: torch.Tensor, w_hh: torch.Tensor,
 # Kernel 1: bidirectional layer scan
 # ---------------------------------------------------------------------------
 
-def bilstm_layer_plain(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b):
-    """Plain version of `bilstm_layer`: two `_lstm_scan` loops."""
-    ys_f, hc_f = _lstm_scan(x_proj_f, w_hh_f, h0f, c0f)
-    ys_b, hc_b = _lstm_scan(x_proj_b, w_hh_b, h0b, c0b)
+def bilstm_layer_plain(x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b,
+                       c0b, b_f=None, b_b=None, out=None):
+    """Plain version of `bilstm_layer`: two `_lstm_scan` loops; with the
+    biases, added on the host, the backward input flipped in time and its
+    outputs flipped back (into `out`'s halves when given)."""
+    if b_f is None:
+        ys_f, hc_f = _lstm_scan(x_proj_f, w_hh_f, h0f, c0f)
+        ys_b, hc_b = _lstm_scan(x_proj_b, w_hh_b, h0b, c0b)
+        return ys_f, ys_b, hc_f, hc_b
+    ys_f, hc_f = _lstm_scan(x_proj_f + b_f, w_hh_f, h0f, c0f)
+    ys_b, hc_b = _lstm_scan(torch.flip(x_proj_b + b_b, (0,)), w_hh_b, h0b,
+                            c0b)
+    ys_b = torch.flip(ys_b, (0,))
+    if out is not None:
+        H = ys_f.shape[-1]
+        out[..., :H].copy_(ys_f)
+        out[..., H:].copy_(ys_b)
+        ys_f, ys_b = out[..., :H], out[..., H:]
     return ys_f, ys_b, hc_f, hc_b
 
 
 def bilstm_layer(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
                  w_hh_f: torch.Tensor, w_hh_b: torch.Tensor,
-                 h0f, c0f, h0b, c0b):
+                 h0f, c0f, h0b, c0b, b_f=None, b_b=None, out=None):
     """Bidirectional LSTM layer scan, both directions in one launch.
 
-    x_proj_f / x_proj_b: [T, B, 4H] forward / pre-reversed backward input
-    projections. Returns (ys_f [T,B,H], ys_b [T,B,H] (still reversed),
-    (h_f, c_f), (h_b, c_b)).
+    Without the biases, the Pallas kernel's contract: x_proj_f / x_proj_b
+    [T, B, 4H] are the forward / pre-reversed backward input projections,
+    both biases included, and ys_b comes out still reversed.
+
+    With b_f and b_b (b_ih + b_hh [4H] per direction: the fold entry, the
+    full-length float route of `lstm_forward_cuda`), x_proj_f and x_proj_b
+    are x @ w_ih alone, both in time order: the scan adds each direction's
+    bias as it reads x_proj (rounded as the host's add rounds it), the
+    backward direction steps from frame T - 1 down to 0, and ys_b comes out
+    in time order. `out`, a [T, B, 2H] buffer, then takes ys_f and ys_b as
+    its two halves, which are returned as views of it.
+
+    Returns (ys_f [T,B,H], ys_b [T,B,H], (h_f, c_f), (h_b, c_b)).
     """
     args = (x_proj_f, x_proj_b, w_hh_f, w_hh_b, h0f, c0f, h0b, c0b)
     T, B, H = _check_bi(*args)
+    if (b_f is None) != (b_b is None):
+        raise ValueError("give both directions' biases or neither")
+    if b_f is None and out is not None:
+        raise ValueError("out takes the fold entry: give the biases")
+    if b_f is not None:
+        _check_bias(b_f, x_proj_f)
+        _check_bias(b_b, x_proj_b)
+    if out is not None:
+        if (tuple(out.shape) != (T, B, 2 * H) or out.dtype != x_proj_f.dtype
+                or out.device != x_proj_f.device or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous {(T, B, 2 * H)} "
+                             f"{x_proj_f.dtype} tensor beside x_proj")
     if x_proj_f.device.type == "cpu":
-        return bilstm_layer_plain(*args)
-    (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
-        _entry("bilstm_scan", x_proj_f), args, 2, T, B, H)
+        return bilstm_layer_plain(*args, b_f, b_b, out)
+    if b_f is None:
+        (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
+            _entry("bilstm_scan", x_proj_f), args, 2, T, B, H)
+    else:
+        (ys_f, ys_b), (h_f, c_f, h_b, c_b) = _launch(
+            _entry("bilstm_scan_fold", x_proj_f),
+            [x_proj_f, x_proj_b, w_hh_f, w_hh_b, b_f, b_b, h0f, c0f, h0b,
+             c0b], 2, T, B, H, out)
     return ys_f, ys_b, (h_f, c_f), (h_b, c_b)
 
 
@@ -608,7 +700,15 @@ def bilstm_layer_masked_int8(x_proj_f: torch.Tensor, x_proj_b: torch.Tensor,
 # are flat: ys per direction, then h_T and c_T per direction, all in
 # x_proj's dtype. Eager code calls the wrappers directly (no dispatcher on
 # the per-frame path); `lstm_forward_cuda` takes the ops only while
-# tracing.
+# tracing. The full-length float ops take the fold entries' biases as
+# optional inputs: a graph exported before they existed calls them without
+# and keeps the Pallas contract. An op's outputs are fresh tensors (none
+# may alias another or an input, so no op can return the halves of one
+# buffer or write into one it is given), and the bidirectional op keeps
+# its name and its six outputs, which the exported graphs hold: so an
+# exported fold layer writes its two ys apart and the graph concatenates
+# them (no flip), while the eager route writes one [T, B, 2H] buffer.
+# This is the one place where the two routes differ.
 # ---------------------------------------------------------------------------
 
 _OP_NAMESPACE = "mobileposer_tpu_torch"
@@ -622,22 +722,25 @@ def _fake_outputs(x_proj: Tensor, n_dir: int):
 
 
 @torch.library.custom_op(f"{_OP_NAMESPACE}::lstm_layer", mutates_args=())
-def lstm_layer_op(x_proj: Tensor, w_hh: Tensor, h0: Tensor,
-                  c0: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+def lstm_layer_op(x_proj: Tensor, w_hh: Tensor, h0: Tensor, c0: Tensor,
+                  b: Optional[Tensor] = None
+                  ) -> tuple[Tensor, Tensor, Tensor]:
     """`lstm_layer` (kernel #2) as an op: (ys, h_T, c_T)."""
-    ys, hc = lstm_layer(x_proj, w_hh, h0, c0)
+    ys, hc = lstm_layer(x_proj, w_hh, h0, c0, b)
     return ys, *hc
 
 
 @torch.library.custom_op(f"{_OP_NAMESPACE}::bilstm_layer", mutates_args=())
 def bilstm_layer_op(x_proj_f: Tensor, x_proj_b: Tensor, w_hh_f: Tensor,
                     w_hh_b: Tensor, h0f: Tensor, c0f: Tensor, h0b: Tensor,
-                    c0b: Tensor
+                    c0b: Tensor, b_f: Optional[Tensor] = None,
+                    b_b: Optional[Tensor] = None
                     ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """`bilstm_layer` (kernel #1) as an op: (ys_f, ys_b, h_f, c_f, h_b,
     c_b)."""
     ys_f, ys_b, hc_f, hc_b = bilstm_layer(x_proj_f, x_proj_b, w_hh_f,
-                                          w_hh_b, h0f, c0f, h0b, c0b)
+                                          w_hh_b, h0f, c0f, h0b, c0b, b_f,
+                                          b_b)
     return ys_f, ys_b, *hc_f, *hc_b
 
 
@@ -761,7 +864,8 @@ _OP_ROUTES = {
 # Multi-layer forward
 # ---------------------------------------------------------------------------
 
-def _project_timesteps(xs: torch.Tensor, p) -> torch.Tensor:
+def _project_timesteps(xs: torch.Tensor, p, bias: bool = True
+                       ) -> torch.Tensor:
     """Input projection over all timesteps (lstm_pallas.py:571-578): float,
     both biases summed first and added after the product, in the weights'
     dtype (bf16 params give a bf16 x_proj, as in the JAX package); or W8A8
@@ -770,14 +874,25 @@ def _project_timesteps(xs: torch.Tensor, p) -> torch.Tensor:
     activations). A float32 input on bf16 weights (training on bf16
     params) is promoted as JAX promotes `x @ w_ih + b`: the product in
     float32 on the widened weights, the bias sum in bf16, added in
-    float32."""
+    float32. `bias=False` (a float direction on the fold entries) leaves
+    the bias out: `_fold_bias` gives it to the scan."""
     if is_quantized(p):
         return (int8_matmul(xs, p.w_ih, p.w_ih_scale) + p.b).to(xs.dtype)
     w = p.w_ih
     if xs.dtype != w.dtype:
         dt = torch.promote_types(xs.dtype, w.dtype)
         xs, w = xs.to(dt), w.to(dt)
-    return torch.matmul(xs, w) + (p.b_ih + p.b_hh)
+    x_proj = torch.matmul(xs, w)
+    return x_proj + (p.b_ih + p.b_hh) if bias else x_proj
+
+
+def _fold_bias(p, io: torch.dtype) -> torch.Tensor:
+    """A float direction's b_ih + b_hh as the fold entries add it: summed
+    in the weights' dtype, as `_project_timesteps` sums it, and in x_proj's
+    dtype `io` (bf16 widened exactly beside a float32 x_proj, which the
+    promoted add does too)."""
+    b = p.b_ih + p.b_hh
+    return b if b.dtype == io else b.to(io)
 
 
 def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
@@ -785,18 +900,25 @@ def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
                       lengths=None):
     """Multi-layer (bi)LSTM on the layer kernels.
 
-    Full-length (`lengths=None`) it mirrors `lstm_forward_pallas`
-    (lstm_pallas.py:581-644): the full-length kernels, the backward input
-    flipped in time. With `lengths` (int64 [B] on x's device, checked by
-    `nn.lstm.lstm_forward`) it mirrors the masked route of the JAX
+    Full-length (`lengths=None`) it computes what `lstm_forward_pallas`
+    (lstm_pallas.py:581-644) computes, a float layer on the fold entries
+    of the full-length kernels: x @ w_ih per direction, the biases added
+    in the scan, the backward direction read and written in time order,
+    and (eager) both directions' ys written into one [T, B, 2H] buffer
+    that the next layer's products read as it is. A layer is then its
+    products, the bias sums and one scan launch, with no bias add, flip or
+    concat between them. With `lengths` (int64 [B] on x's device, checked
+    by `nn.lstm.lstm_forward`) it mirrors the masked route of the JAX
     `lstm_forward` (nn/lstm.py:326-371): every layer on the masked
     kernels, the backward input reversed per length and its outputs
     reversed back. A W8A8 layer (int8 w_ih) takes the int8 counterpart
     of each kernel: #4 and #6 full-length (the JAX package sends its
     unidirectional full-length layers to an XLA scan; #4 computes the
-    same), #5 masked. See `nn.lstm.lstm_forward` for the argument layout.
+    same), #5 masked, on those routes' terms (bias in x_proj, backward
+    input reversed). See `nn.lstm.lstm_forward` for the argument layout.
     Under `torch.export` (`torch.compiler.is_compiling()`) each layer
-    calls its wrapper's custom op instead, the same computation.
+    calls its wrapper's custom op instead, the same computation; a
+    bidirectional fold layer's ys then come apart and are concatenated.
     """
     if time_major:
         T, B, _ = x.shape
@@ -812,29 +934,42 @@ def lstm_forward_cuda(layers, x: torch.Tensor, h0c0=None,
         h0_all, c0_all = (t.contiguous() for t in h0c0)
 
     xs = x if time_major else x.transpose(0, 1)        # [T, B, D]
-    routes = _OP_ROUTES if torch.compiler.is_compiling() else _ROUTES
-    extra = () if lengths is None else (length_mask(lengths, T, x.dtype),)
+    eager = not torch.compiler.is_compiling()
+    routes = _ROUTES if eager else _OP_ROUTES
+    mask = () if lengths is None else (length_mask(lengths, T, x.dtype),)
     h_finals, c_finals = [], []
     for li, layer in enumerate(layers):
         int8 = is_quantized(layer["fwd"])
         bi_layer, uni_layer = routes[(lengths is not None, int8)]
+        fold = lengths is None and not int8
         if bidirectional:
             pf, pb = layer["fwd"], layer["bwd"]
-            x_proj_f = _project_timesteps(xs, pf).contiguous()
-            x_proj_b = _project_timesteps(_reverse_by_length(xs, lengths),
-                                          pb).contiguous()
+            x_proj_f = _project_timesteps(xs, pf, not fold).contiguous()
+            x_proj_b = _project_timesteps(
+                xs if fold else _reverse_by_length(xs, lengths), pb,
+                not fold).contiguous()
             scales = (pf.w_hh_scale, pb.w_hh_scale) if int8 else ()
+            extra, out = mask, None
+            if fold:
+                io = x_proj_f.dtype
+                extra = (_fold_bias(pf, io), _fold_bias(pb, io))
+                if eager:   # see the custom ops' note: apart there
+                    out = x_proj_f.new_empty((T, B, 2 * H))
+                    extra += (out,)
             s = li * 2
             ys_f, ys_b, (hf, cf), (hb, cb) = bi_layer(
                 x_proj_f, x_proj_b, pf.w_hh, pb.w_hh, *scales,
                 h0_all[s], c0_all[s], h0_all[s + 1], c0_all[s + 1], *extra)
-            xs = torch.cat([ys_f, _reverse_by_length(ys_b, lengths)], dim=-1)
+            xs = out if out is not None else torch.cat(
+                [ys_f, ys_b if fold else _reverse_by_length(ys_b, lengths)],
+                dim=-1)
             h_finals += [hf, hb]
             c_finals += [cf, cb]
         else:
             p = layer["fwd"]
-            x_proj = _project_timesteps(xs, p).contiguous()
+            x_proj = _project_timesteps(xs, p, not fold).contiguous()
             scales = (p.w_hh_scale,) if int8 else ()
+            extra = (_fold_bias(p, x_proj.dtype),) if fold else mask
             xs, (h_t, c_t) = uni_layer(x_proj, p.w_hh, *scales,
                                        h0_all[li], c0_all[li], *extra)
             h_finals.append(h_t)

@@ -202,8 +202,8 @@ def build_variant(name: str, kind: str = "float"):
     if kind == "multicell":
         lib.multicell_scan_f32.argtypes = [P] * 8 + [I] * 5 + [P]
     else:
-        for entry, n_ptr in lstm_cuda._ENTRIES[source].items():
-            getattr(lib, entry).argtypes = [P] * n_ptr + [I] * 4 + [P]
+        for entry, args in lstm_cuda._ENTRIES[source].items():
+            getattr(lib, entry).argtypes = lstm_cuda.entry_argtypes(*args)
     ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
              if "spill" in ln and not ln.strip().startswith("0 bytes")]
     return lib, ptxas
